@@ -1,0 +1,114 @@
+"""The weight bridge between the flax tree and the port's state_dict, and
+the port's initialisation."""
+
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from flax import traverse_util  # noqa: E402
+
+from flexdm_tpu.models import mfp as jax_mfp  # noqa: E402
+from flexdm_tpu.train.trainer import init_params as jax_init_params  # noqa: E402
+from flexdm_tpu_torch.convert import (  # noqa: E402
+    init_params,
+    load_jax_params,
+    load_weights,
+    params_from_jax,
+    params_to_jax,
+    save_weights,
+)
+from flexdm_tpu_torch.models.mfp import MFPModel  # noqa: E402
+from tests._torch_parity import numpy_batch  # noqa: E402
+
+
+def _port_model(schema, context=None, seed=0):
+    return init_params(MFPModel(schema, latent_dim=32, num_blocks=2,
+                                num_heads=4, context=context), seed)
+
+
+@pytest.mark.parametrize("dataset", ["crello", "rico"])
+@pytest.mark.parametrize("context", [None, "id"])
+def test_port_names_cover_the_jax_tree(request, dataset, context):
+    """Every leaf of the JAX MFPModel tree maps onto the port model (and
+    back) with the same shape; nothing is left over on either side."""
+    spec = request.getfixturevalue(f"{dataset}_spec")
+    jax_model = jax_mfp.MFPModel(spec.schema, latent_dim=32, num_blocks=2,
+                                 num_heads=4, context=context)
+    shapes = traverse_util.flatten_dict(jax_init_params(
+        jax_model, numpy_batch(spec, 2), 0, abstract=True), sep="/")
+    port_flat = params_to_jax(_port_model(spec.schema, context).state_dict())
+    assert set(port_flat) == set(shapes)
+    for name, value in shapes.items():
+        assert port_flat[name].shape == value.shape, name
+        assert port_flat[name].dtype == value.dtype, name
+    load_jax_params(_port_model(spec.schema, context), {
+        name: np.zeros(v.shape, v.dtype) for name, v in shapes.items()
+    })
+
+
+@pytest.mark.parametrize("dataset", ["crello", "rico"])
+def test_round_trip_is_bit_exact(request, dataset):
+    schema = request.getfixturevalue(f"{dataset}_spec").schema
+    flat = params_to_jax(_port_model(schema, "id").state_dict())
+    back = params_to_jax(params_from_jax(flat))
+    assert set(back) == set(flat)
+    for name, value in flat.items():
+        assert back[name].dtype == value.dtype
+        np.testing.assert_array_equal(back[name], value, err_msg=name)
+    model = load_jax_params(
+        MFPModel(schema, latent_dim=32, num_blocks=2, num_heads=4,
+                 context="id"), flat)
+    for name, value in params_to_jax(model.state_dict()).items():
+        np.testing.assert_array_equal(value, flat[name], err_msg=name)
+
+
+def test_unused_missing_and_foreign_leaves_raise(crello_spec):
+    schema = crello_spec.schema
+    flat = params_to_jax(_port_model(schema).state_dict())
+    extra = dict(flat, **{"params/encoder/input_nonsense": np.zeros(3)})
+    with pytest.raises(RuntimeError, match="input_nonsense"):
+        load_jax_params(_port_model(schema), extra)
+    missing = dict(flat)
+    del missing["params/decoder/decoder_type/bias"]
+    with pytest.raises(RuntimeError, match="decoder_type.bias"):
+        load_jax_params(_port_model(schema), missing)
+    with pytest.raises(KeyError):
+        params_from_jax({"batch_stats/encoder/x": np.zeros(3)})
+    with pytest.raises(ValueError, match="rank"):
+        params_from_jax({"params/a/kernel": np.zeros(3)})
+
+
+def test_init_params_follows_keras_defaults(crello_spec):
+    model = _port_model(crello_spec.schema, "id", seed=3)
+    for module in model.modules():
+        if isinstance(module, torch.nn.Linear):
+            fan_out, fan_in = module.weight.shape
+            limit = math.sqrt(6.0 / (fan_in + fan_out))
+            assert module.weight.abs().max() <= limit
+            assert module.weight.abs().max() > 0.5 * limit
+            assert torch.all(module.bias == 0)
+        elif isinstance(module, torch.nn.LayerNorm):
+            assert torch.all(module.weight == 1) and torch.all(module.bias == 0)
+    for name in ("input_type", "input_task", "input_image_embedding_special"):
+        table = getattr(model.encoder, name)
+        assert 0.03 < table.abs().max() <= 0.05, name
+    again = params_to_jax(_port_model(crello_spec.schema, "id", 3).state_dict())
+    other = params_to_jax(_port_model(crello_spec.schema, "id", 4).state_dict())
+    mine = params_to_jax(model.state_dict())
+    assert all(np.array_equal(mine[k], again[k]) for k in mine)
+    assert not np.array_equal(mine["params/encoder/input_type"],
+                              other["params/encoder/input_type"])
+
+
+def test_weight_file_round_trip(crello_spec, tmp_path):
+    model = _port_model(crello_spec.schema)
+    path = str(tmp_path / "best.torch.npz")
+    save_weights(path, model)
+    loaded = load_weights(path, MFPModel(crello_spec.schema, latent_dim=32,
+                                         num_blocks=2, num_heads=4))
+    for (name, a), b in zip(model.state_dict().items(),
+                            loaded.state_dict().values()):
+        assert torch.equal(a, b), name
