@@ -1,9 +1,11 @@
 """Job configuration and model construction.
 
-Counterpart of the model-facing fields of ``TrainConfig`` and of
-``build_model`` in ``flexdm_tpu/train/trainer.py``.  A job's ``args.json``
-(written by the JAX trainer) is read with :meth:`TrainConfig.from_args`;
-fields the port does not use (optimizer, schedule, mesh, ...) are ignored.
+Counterpart of ``TrainConfig`` and ``build_model`` in
+``flexdm_tpu/train/trainer.py``, for the fields the port has: the model,
+the task mix, the optimizer, the schedule and the device.  A job's
+``args.json`` (written by either trainer) is read with
+:meth:`TrainConfig.from_args`; fields the port does not have (mesh,
+resume, profiling, ...) are ignored there, and the CLI refuses them.
 """
 
 from __future__ import annotations
@@ -18,10 +20,11 @@ from .models.mfp import MFPModel
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The fields of a job's ``args.json`` that define its model."""
+    """A training job (the fields of its ``args.json``)."""
 
     dataset_name: str = "crello"
     data_dir: str = ""
+    job_dir: str = ""
     latent_dim: int = 256
     num_blocks: int = 4
     block_type: str = "deepsvg"
@@ -33,6 +36,17 @@ class TrainConfig:
     num_heads: int = 8
     dtype: Optional[str] = None
     use_elemwise_noise: bool = False
+    masking_method: str = "random"
+    l2: Optional[float] = 1e-2
+    batch_size: int = 256
+    num_epochs: int = 500
+    learning_rate: float = 1e-4
+    validation_freq: int = 10
+    seed: int = 0
+    device: str = "cuda"  # the torch device the job trains on
+
+    def to_json(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
 
     @classmethod
     def from_args(cls, args: Dict[str, Any]) -> "TrainConfig":

@@ -4,7 +4,10 @@
 // (launched by _flash_forward).  Same contract: for every (batch, head,
 // query row) it computes softmax(q k^T / sqrt(Dh) + bias) v with an online
 // softmax over key tiles (running max m, running sum l, accumulator acc in
-// f32) and writes O (B, H, S, Dh) and the row logsumexp (B, H, S).
+// f32) and writes O (B, H, S, Dh), the row logsumexp (B, H, S), and the
+// row max m and row sum l (B, H, S) that the backward kernels rebuild the
+// probabilities from (p = exp(s - m) / l; see flash_attention_bwd.cu for
+// why lse alone is not enough).
 //
 // Masking follows the plain reference (_attention_xla), not the padded TPU
 // path:
@@ -72,8 +75,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v,
                  const uint8_t* __restrict__ key_mask,
-                 float* __restrict__ o, float* __restrict__ lse, int H, int S,
-                 int causal, float scale) {
+                 float* __restrict__ o, float* __restrict__ lse,
+                 float* __restrict__ row_max, float* __restrict__ row_sum,
+                 int H, int S, int causal, float scale) {
   using T = TileShape<DH>;
   constexpr int BK = T::kBlockK;
   __shared__ float q_s[kBlockQ][DH];
@@ -185,30 +189,36 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < T::kDimsPerLane; ++e)
       orow[lane + 32 * e] = acc[rr][e] / l[rr];
-    if (lane == 0) lse[head + row] = m[rr] + logf(l[rr]);
+    if (lane == 0) {
+      lse[head + row] = m[rr] + logf(l[rr]);
+      row_max[head + row] = m[rr];
+      row_sum[head + row] = l[rr];
+    }
   }
 }
 
 template <int DH>
 void launch(const float* q, const float* k, const float* v,
-            const uint8_t* key_mask, float* o, float* lse, int B, int H,
-            int S, int causal, cudaStream_t stream) {
+            const uint8_t* key_mask, float* o, float* lse, float* row_max,
+            float* row_sum, int B, int H, int S, int causal,
+            cudaStream_t stream) {
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   flash_fwd_kernel<DH><<<grid, kThreads, 0, stream>>>(
-      q, k, v, key_mask, o, lse, H, S, causal, scale);
+      q, k, v, key_mask, o, lse, row_max, row_sum, H, S, causal, scale);
 }
 
 }  // namespace
 
 // q, k, v, o: (B, H, S, Dh) float32, contiguous.  key_mask: (B, S) bool
 // (one byte per key, nonzero = attend) or null for "all keys valid".
-// lse: (B, H, S) float32.  Returns the cudaError_t of the launch.
+// lse, row_max, row_sum: (B, H, S) float32.  Returns the cudaError_t of
+// the launch.
 extern "C" int flexdm_flash_attention_fwd(const void* q, const void* k,
                                           const void* v, const void* key_mask,
-                                          void* o, void* lse, int B, int H,
-                                          int S, int Dh, int causal,
-                                          void* stream) {
+                                          void* o, void* lse, void* row_max,
+                                          void* row_sum, int B, int H, int S,
+                                          int Dh, int causal, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* qf = static_cast<const float*>(q);
@@ -217,16 +227,18 @@ extern "C" int flexdm_flash_attention_fwd(const void* q, const void* k,
   const auto* mask = static_cast<const uint8_t*>(key_mask);
   auto* of = static_cast<float*>(o);
   auto* lf = static_cast<float*>(lse);
+  auto* mf = static_cast<float*>(row_max);
+  auto* sf = static_cast<float*>(row_sum);
   auto st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
     case 32:
-      launch<32>(qf, kf, vf, mask, of, lf, B, H, S, causal, st);
+      launch<32>(qf, kf, vf, mask, of, lf, mf, sf, B, H, S, causal, st);
       break;
     case 64:
-      launch<64>(qf, kf, vf, mask, of, lf, B, H, S, causal, st);
+      launch<64>(qf, kf, vf, mask, of, lf, mf, sf, B, H, S, causal, st);
       break;
     case 128:
-      launch<128>(qf, kf, vf, mask, of, lf, B, H, S, causal, st);
+      launch<128>(qf, kf, vf, mask, of, lf, mf, sf, B, H, S, causal, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,5 +1,9 @@
-"""The MFP model of the port: encoder, transformer blocks, decoder heads."""
+"""The MFP model of the port: encoder, transformer blocks, decoder heads,
+the task layer and the loss."""
 
-from .mfp import MFPModel, forward_eval
+from .mfp import MFPModel, TaskConfig, forward_eval, forward_train, make_task_config
 
-__all__ = ["MFPModel", "forward_eval"]
+__all__ = [
+    "MFPModel", "TaskConfig", "forward_eval", "forward_train",
+    "make_task_config",
+]

@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from flexdm_tpu.data.schema import MASK_VALUE, NULL_VALUE, Schema
@@ -73,7 +74,10 @@ class Encoder(nn.Module):
             inside = (x >= 0) & (x < t.shape[0])
             ids.append(torch.where(inside, x + offset, rows))
             offset += t.shape[0]
-        return table[torch.cat(ids, dim=-1)].sum(dim=2)
+        # F.embedding, not table[ids]: the backward of advanced indexing
+        # (index_put with accumulate) walks duplicate ids one by one, and a
+        # training batch repeats a few hundred rows ~10^5 times.
+        return F.embedding(torch.cat(ids, dim=-1), table).sum(dim=2)
 
     def _numerical(self, inputs) -> torch.Tensor:
         feats, rows = [], []

@@ -1,24 +1,37 @@
-"""The MFP model and its eval forward (PyTorch).
+"""The MFP model, its training forward and its eval forward (PyTorch).
 
 Counterpart of ``flexdm_tpu/models/mfp.py`` for ``seq_type='default'``:
-:class:`MFPModel` is Encoder -> Blocks -> Decoder, and :func:`forward_eval`
-applies externally supplied masks, runs the network once and merges ground
-truth back onto the unmasked fields.  MaskGIT decoding (``num_iter > 1``)
-is not in this port yet.
+
+* :class:`MFPModel` is Encoder -> Blocks -> Decoder;
+* :func:`forward_train` masks a batch per sampled task, runs the network
+  (with dropout when training) and scores it with ``compute_mfp_loss``;
+  every random number comes in through :class:`~.masking.TrainDraws`;
+* :func:`forward_eval` applies externally supplied masks, runs the network
+  once and merges ground truth back onto the unmasked fields.
+
+MaskGIT decoding (``num_iter > 1``), the rico pos-sort protocol and the
+baselines are not in this port yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from flexdm_tpu.data.schema import Schema
+from flexdm_tpu.data.schema import Schema, make_task_probs
 
 from .decoder import Decoder
 from .encoder import Encoder
-from .masking import merge_inputs_and_prediction, preprocess_for_test
+from .losses import compute_mfp_loss
+from .masking import (
+    TrainDraws,
+    merge_inputs_and_prediction,
+    preprocess_for_test,
+    preprocess_for_train,
+)
 from .transformer import Blocks
 
 Tensors = Dict[str, torch.Tensor]
@@ -41,9 +54,52 @@ class MFPModel(nn.Module):
         )
         self.decoder = Decoder(schema, latent_dim, context)
 
-    def forward(self, inputs: Tensors) -> Tensors:
+    def forward(self, inputs: Tensors,
+                generator: Optional[torch.Generator] = None) -> Tensors:
+        """Predictions per field; dropout draws from ``generator`` (none:
+        no dropout)."""
         seq, seq_mask = self.encoder(inputs)
-        return self.decoder(self.blocks(seq, seq_mask))
+        return self.decoder(self.blocks(seq, seq_mask, generator))
+
+
+@dataclasses.dataclass(frozen=True)
+class TaskConfig:
+    """Static per-run task configuration."""
+
+    task_probs: Tuple[float, ...]
+    sort_pos: bool
+    pos_task_id: int
+
+
+def make_task_config(schema: Schema, masking_method: str) -> TaskConfig:
+    return TaskConfig(
+        task_probs=tuple(make_task_probs(schema, masking_method)),
+        sort_pos=schema.sort_pos,
+        pos_task_id=schema.task_names.index("pos"),
+    )
+
+
+def forward_train(model: MFPModel, inputs: Tensors, draws: TrainDraws,
+                  task_config: TaskConfig, train: bool = True,
+                  sample_weight: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One training forward: mask per task, predict, score.  Returns
+    ``(loss, metrics)``.  ``train=False`` keeps the random task masking
+    (that is how the reference validates) but turns dropout off;
+    ``sample_weight`` (B,) zeroes batch-padding rows."""
+    schema = model.schema
+    sort_flag = None
+    if task_config.sort_pos:
+        sort_flag = draws.tasks == task_config.pos_task_id
+    targets, modified, masks = preprocess_for_train(
+        inputs, schema, draws.tasks, draws.uniforms, draws.element,
+        draws.values,
+    )
+    outputs = model(modified, draws.dropout if train else None)
+    return compute_mfp_loss(
+        schema, targets, outputs, masks, sort_flag=sort_flag,
+        sample_weight=sample_weight,
+    )
 
 
 @torch.no_grad()

@@ -7,6 +7,10 @@ self-attention with a fused QKV projection, the post-norm
 ``norm1``, ``mlp_0``, ``seq2seq_{i}``, ...) so the weight bridge in
 :mod:`flexdm_tpu_torch.convert` maps leaves one to one.
 
+Dropout sits where the JAX blocks put ``FastDropout`` (after attention and
+after the MLP) and draws from the ``generator`` passed down the stack; with
+no generator it is off (JAX ``deterministic=True``).
+
 LayerNorm epsilon is 1e-3 (keras), not PyTorch's 1e-5; the MLP is ``2 * D``
 wide with ReLU.  Cross-attention, the conditional input and the learned
 position embedding are used only by the baselines and by
@@ -22,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..ops.rng import FastDropout
 
 LAYER_NORM_EPS = 1e-3
 
@@ -77,7 +82,7 @@ class _BlockBase(nn.Module):
         self.norm2 = nn.LayerNorm(emb_size, eps=LAYER_NORM_EPS)
         self.mlp_0 = nn.Linear(emb_size, ff_dim)
         self.mlp_1 = nn.Linear(ff_dim, emb_size)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = FastDropout(dropout)
 
     def _mlp(self, x):
         return self.mlp_1(F.relu(self.mlp_0(x)))
@@ -86,17 +91,17 @@ class _BlockBase(nn.Module):
 class TransformerBlock(_BlockBase):
     """Post-norm block (flexdm_tpu/models/transformer.py:180-193)."""
 
-    def forward(self, x, key_mask=None):
-        x = self.norm1(x + self.dropout(self.attn(x, key_mask)))
-        return self.norm2(x + self.dropout(self._mlp(x)))
+    def forward(self, x, key_mask=None, generator=None):
+        x = self.norm1(x + self.dropout(self.attn(x, key_mask), generator))
+        return self.norm2(x + self.dropout(self._mlp(x), generator))
 
 
 class DeepSVGBlock(_BlockBase):
     """Pre-norm block, the default (transformer.py:196-210)."""
 
-    def forward(self, x, key_mask=None):
-        x = x + self.dropout(self.attn(self.norm1(x), key_mask))
-        return x + self.dropout(self._mlp(self.norm2(x)))
+    def forward(self, x, key_mask=None, generator=None):
+        x = x + self.dropout(self.attn(self.norm1(x), key_mask), generator)
+        return x + self.dropout(self._mlp(self.norm2(x)), generator)
 
 
 BLOCK_TYPES = {
@@ -119,7 +124,7 @@ class Blocks(nn.Module):
                 lookahead=lookahead,
             ))
 
-    def forward(self, seq, key_mask=None):
+    def forward(self, seq, key_mask=None, generator=None):
         for block in self.children():
-            seq = block(seq, key_mask)
+            seq = block(seq, key_mask, generator)
         return seq

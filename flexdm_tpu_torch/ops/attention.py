@@ -1,24 +1,39 @@
-"""Masked scaled-dot-product attention: plain PyTorch and a CUDA kernel.
+"""Masked scaled-dot-product attention: plain PyTorch and CUDA kernels.
 
 Counterpart of ``flexdm_tpu/ops/attention.py``.  The public function keeps
 the JAX layout: ``q, k, v`` are ``(B, H, S, Dh)`` and ``key_mask`` is a
 ``(B, S)`` bool (False keys get the finite additive bias ``-1e9``).
 
-* :func:`attention_reference` is the plain version of ``_attention_xla``.
+* :func:`attention_reference` is the plain version of ``_attention_xla``;
+  :func:`attention_reference_backward` is the plain version of the backward
+  kernels, written out as the formulas autograd computes.
 * :func:`flash_attention_forward` launches the hand-written Hopper kernel
   ``csrc/flash_attention_fwd.cu``, which replaces the TPU kernel
-  ``flexdm_tpu/ops/attention.py:_flash_fwd_kernel``.  The kernel note in the
-  source says what bounds it on the H100 (at the serving shape B=8, H=8,
-  S=50, Dh=32 it is a tiny, latency-bound launch) and what its design does
-  about it (16-row query tiles, so 256 blocks fill the 132 SMs instead of
-  64).
+  ``_flash_fwd_kernel``.  The kernel note in the source says what bounds it
+  on the H100 (at the serving shape B=8, H=8, S=50, Dh=32 it is a tiny,
+  latency-bound launch) and what its design does about it (16-row query
+  tiles, so 256 blocks fill the 132 SMs instead of 64).
+* :func:`flash_attention_backward` launches ``csrc/flash_attention_bwd.cu``:
+  a dq kernel (which also writes ``delta = rowsum(dO * O)``) and a dk/dv
+  kernel.  They replace the TPU kernels ``_flash_bwd_dq_kernel`` /
+  ``_flash_bwd_dkv_kernel`` and their S >= 4096 stream variants: they keep
+  only tiles in shared memory, so one kernel covers every S.
+* :class:`FlashAttention` wires the two into autograd (the JAX package's
+  ``jax.custom_vjp``); the key mask gets no gradient.
 * :func:`dot_product_attention` dispatches on the device of its inputs: a
-  CPU tensor takes the plain version, a CUDA tensor launches the kernel or
+  CPU tensor takes the plain version, a CUDA tensor launches the kernels or
   raises.  There is no fallback between the two.
 
+The backward rebuilds probabilities as ``exp(s - m) / l`` from the
+forward's row max and row sum, not from the logsumexp: in a fully masked
+row every score rounds to exactly ``-1e9`` in float32, so does the
+logsumexp, and ``exp(s - lse)`` would give 1 for every key where the
+softmax gives ``1/S``.  The port follows the plain path there; the TPU
+kernels do not.
+
 The TPU path's tile padding (``_pad_len``, ``_block_size``) and its
-XLA-vs-Pallas rule (``_prefer_pallas``) are not carried over: the kernel
-masks the ragged sequence end itself.
+XLA-vs-Pallas rule (``_prefer_pallas``) are not carried over: the kernels
+mask the ragged sequence end themselves.
 """
 
 from __future__ import annotations
@@ -34,11 +49,17 @@ import torch
 NEG_INF = -1e9
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 
-# Launches of the CUDA kernel made by flash_attention_forward.
+# Launches of each CUDA kernel: the forward, and the backward's dq (with
+# delta) and dk/dv kernels.
 KERNEL_LAUNCHES = 0
+BWD_DQ_LAUNCHES = 0
+BWD_DKV_LAUNCHES = 0
 _launches_lock = threading.Lock()
 
-_KERNEL_SOURCES = ("flash_attention_fwd.cu",)
+# (library name, sources) of each kernel library, built by ops/_build.py.
+FWD_LIBRARY = ("flexdm_attention", ("flash_attention_fwd.cu",))
+BWD_LIBRARY = ("flexdm_attention_bwd", ("flash_attention_bwd.cu",))
+LIBRARIES = (FWD_LIBRARY, BWD_LIBRARY)
 
 
 def key_bias(key_mask: Optional[torch.Tensor], b: int, s: int,
@@ -50,13 +71,17 @@ def key_bias(key_mask: Optional[torch.Tensor], b: int, s: int,
     return torch.where(key_mask, zero, torch.full_like(zero, NEG_INF))
 
 
+def _outside_causal_band(q):
+    """``(S, S)`` True where a key comes after its query row."""
+    s = q.shape[2]
+    return torch.ones((s, s), dtype=torch.bool, device=q.device).triu(1)
+
+
 def _scores(q, k, bias, causal):
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
     scores = scores + bias[:, None, None, :]
     if causal:
-        s = q.shape[2]
-        band = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~band, NEG_INF)
+        scores = scores.masked_fill(_outside_causal_band(q), NEG_INF)
     return scores
 
 
@@ -72,22 +97,61 @@ def attention_reference_lse(q, k, bias, causal: bool = False) -> torch.Tensor:
     return torch.logsumexp(_scores(q, k, bias, causal), dim=-1)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    """The bound C entry point (built with nvcc on first use)."""
+def attention_reference_backward(q, k, v, bias, o, do, causal: bool = False):
+    """Plain version of the backward kernels: ``(dq, dk, dv)`` for the
+    cotangent ``do`` of ``o = attention_reference(q, k, v, bias, causal)``.
+
+    ``delta = sum(dO * O)``, ``p = softmax``, ``ds = p (dO V^T - delta)``
+    (zero where the causal band replaced the score: that replacement passes
+    no gradient), ``dq = scale ds K``, ``dk = scale ds^T Q``,
+    ``dv = p^T dO``."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.softmax(_scores(q, k, bias, causal), -1)
+    delta = (do * o).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, v) - delta)
+    if causal:
+        ds = ds.masked_fill(_outside_causal_band(q), 0.0)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    return dq, dk, dv
+
+
+def _bind(name: str, sources, symbol: str, n_pointers: int):
+    """The C entry point ``symbol``: ``n_pointers`` pointers, then B, H, S,
+    Dh, causal, then the stream."""
     from . import _build
 
-    lib = _build.load_library("flexdm_attention", _KERNEL_SOURCES)
-    fn = lib.flexdm_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = getattr(_build.load_library(name, sources), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """The forward's bound C entry point (built with nvcc on first use)."""
+    return _bind(*FWD_LIBRARY, "flexdm_flash_attention_fwd", 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernels():
+    """The backward's bound C entry points ``(dq, dkv)``."""
+    return (_bind(*BWD_LIBRARY, "flexdm_flash_attention_bwd_dq", 10),
+            _bind(*BWD_LIBRARY, "flexdm_flash_attention_bwd_dkv", 10))
+
+
+def _launch(name: str, fn, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def _check_inputs(q, k, v, key_mask):
     if q.device.type != "cuda":
         raise ValueError(
-            f"flash_attention_forward needs CUDA tensors, got {q.device}"
+            f"the attention kernels need CUDA tensors, got {q.device}"
         )
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device or t.shape != q.shape or t.dtype != q.dtype:
@@ -118,6 +182,34 @@ def _check_inputs(q, k, v, key_mask):
             )
 
 
+def _forward(q, k, v, key_mask, causal):
+    """Launch the forward kernel: ``O``, and the row ``lse``, max ``m`` and
+    sum ``l`` (each ``(B, H, S)``)."""
+    global KERNEL_LAUNCHES
+    _check_inputs(q, k, v, key_mask)
+    fn = _kernel()
+    b, h, s, dh = q.shape
+    o = torch.empty_like(q)
+    lse, m, l = torch.empty((3, b, h, s), dtype=torch.float32, device=q.device)
+    _launch(
+        "flash_attention_fwd", fn,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(key_mask),
+        o.data_ptr(), lse.data_ptr(), m.data_ptr(), l.data_ptr(),
+        b, h, s, dh, int(causal), _stream(q),
+    )
+    with _launches_lock:
+        KERNEL_LAUNCHES += 1
+    return o, lse, m, l
+
+
+def _mask_ptr(key_mask):
+    return None if key_mask is None else key_mask.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def flash_attention_forward(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -127,23 +219,95 @@ def flash_attention_forward(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel; returns ``O (B, H, S, Dh)`` and
     ``lse (B, H, S)``.  Raises on anything the kernel does not take."""
-    global KERNEL_LAUNCHES
+    return _forward(q, k, v, key_mask, causal)[:2]
+
+
+def _check_backward_inputs(q, k, v, key_mask, o, m, l, do):
     _check_inputs(q, k, v, key_mask)
-    fn = _kernel()
+    for name, t in (("o", o), ("do", do)):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous tensor like q")
+    b, h, s, _ = q.shape
+    for name, t in (("m", m), ("l", l)):
+        if (tuple(t.shape) != (b, h, s) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({b}, {h}, {s}) "
+                             f"float32 on {q.device}")
+
+
+def _backward_dq(q, k, v, key_mask, o, m, l, do, causal=False):
+    """Launch the dq kernel; returns ``dq`` and ``delta = rowsum(dO * O)``
+    ``(B, H, S)``, which :func:`_backward_dkv` reads."""
+    global BWD_DQ_LAUNCHES
     b, h, s, dh = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if key_mask is None else key_mask.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), b, h, s, dh, int(causal), stream,
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _launch(
+        "flash_attention_bwd_dq", _bwd_kernels()[0],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(key_mask),
+        o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b, h, s, dh, int(causal), _stream(q),
     )
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
     with _launches_lock:
-        KERNEL_LAUNCHES += 1
-    return o, lse
+        BWD_DQ_LAUNCHES += 1
+    return dq, delta
+
+
+def _backward_dkv(q, k, v, key_mask, m, l, delta, do, causal=False):
+    """Launch the dk/dv kernel; returns ``(dk, dv)``."""
+    global BWD_DKV_LAUNCHES
+    b, h, s, dh = q.shape
+    dk, dv = torch.empty((2,) + tuple(q.shape), dtype=q.dtype,
+                         device=q.device)
+    _launch(
+        "flash_attention_bwd_dkv", _bwd_kernels()[1],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(key_mask),
+        do.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, h, s, dh, int(causal), _stream(q),
+    )
+    with _launches_lock:
+        BWD_DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def flash_attention_backward(q, k, v, key_mask, o, m, l, do, causal=False):
+    """Launch the backward kernels for the cotangent ``do`` of ``o``, with
+    the forward's row max ``m`` and row sum ``l``; returns ``(dq, dk, dv)``.
+    Raises on anything the kernels do not take."""
+    _check_backward_inputs(q, k, v, key_mask, o, m, l, do)
+    dq, delta = _backward_dq(q, k, v, key_mask, o, m, l, do, causal)
+    dk, dv = _backward_dkv(q, k, v, key_mask, m, l, delta, do, causal)
+    return dq, dk, dv
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    global KERNEL_LAUNCHES, BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
+    with _launches_lock:
+        KERNEL_LAUNCHES = BWD_DQ_LAUNCHES = BWD_DKV_LAUNCHES = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """The CUDA kernels as an autograd op: forward kernel, then the two
+    backward kernels; the key mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal):
+        o, _, m, l = _forward(q, k, v, key_mask, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, key_mask, o, m, l)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_mask, o, m, l = ctx.saved_tensors
+        # The cotangent arrives through o.transpose(1, 2).reshape(...): it
+        # is not contiguous.
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, key_mask, o, m, l, do.contiguous(), ctx.causal
+        )
+        return dq, dk, dv, None, None
 
 
 def dot_product_attention(
@@ -155,7 +319,7 @@ def dot_product_attention(
 ) -> torch.Tensor:
     """Masked scaled-dot-product attention, ``(B, H, S, Dh)`` in and out."""
     if q.device.type == "cuda":
-        return flash_attention_forward(q, k, v, key_mask, causal)[0]
+        return FlashAttention.apply(q, k, v, key_mask, causal)
     if q.device.type == "cpu":
         b, _, s, _ = q.shape
         bias = key_bias(key_mask, b, s, q.device, q.dtype)

@@ -1,0 +1,90 @@
+"""The optimizer of the reference's training dynamics (PyTorch).
+
+Counterpart of ``flexdm_tpu/train/optim.py``, which replicates keras
+``Adam(learning_rate, clipnorm=1.0)`` with L2 regularizers:
+
+* :func:`clip_by_per_leaf_norm` clips each gradient tensor to its own norm
+  (keras ``clipnorm``), not the global norm of ``clip_grad_norm_``;
+* :class:`KerasAdam` adds ``eps = 1e-7`` to the square root of the
+  UNcorrected second moment and scales by
+  ``alpha_t = sqrt(1 - b2^t) / (1 - b1^t)``; ``torch.optim.Adam`` adds eps
+  to the corrected one, which shifts parameters with tiny gradients;
+* :func:`l2_penalty` is ``sum(w^2)`` over every parameter but the
+  LayerNorm ones; it enters the loss, so it is clipped and adapted like
+  any other gradient.
+
+Updates are in place on the parameters and on the moment buffers.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+
+@torch.no_grad()
+def clip_by_per_leaf_norm(grads: Sequence[torch.Tensor],
+                          max_norm: float) -> None:
+    """Scale each gradient in place to a norm of at most ``max_norm``."""
+    norms = torch.stack(torch._foreach_norm(list(grads)))
+    scales = (max_norm / norms.clamp_min(1e-12)).clamp(max=1.0)
+    torch._foreach_mul_(list(grads), list(scales.unbind()))
+
+
+class KerasAdam:
+    """keras Adam over a fixed list of parameters.
+
+    ``step(grads)`` applies ``p -= lr * alpha_t * m / (sqrt(v) + eps)``.
+    The step counter lives on the host, so ``alpha_t`` is a Python number
+    (computed in float32, as the JAX package computes it) and a step
+    never waits for the device.
+    """
+
+    B1, B2, EPS = 0.9, 0.999, 1e-7
+
+    def __init__(self, params: Sequence[torch.Tensor],
+                 learning_rate: float = 1e-4):
+        self.params: List[torch.Tensor] = list(params)
+        self.learning_rate = learning_rate
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def alpha(self, count: int) -> float:
+        t = np.float32(count)
+        b1, b2 = np.float32(self.B1), np.float32(self.B2)
+        one = np.float32(1.0)
+        return float(np.sqrt(one - b2 ** t) / (one - b1 ** t))
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        self.count += 1
+        b1, b2 = self.B1, self.B2
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
+        denom = torch._foreach_sqrt(self.nu)
+        torch._foreach_add_(denom, self.EPS)
+        update = torch._foreach_div(self.mu, denom)
+        torch._foreach_mul_(update, self.alpha(self.count))
+        torch._foreach_mul_(update, -self.learning_rate)
+        torch._foreach_add_(self.params, update)
+
+
+def regularized(model: nn.Module) -> List[torch.Tensor]:
+    """The parameters the L2 penalty covers: all but LayerNorm's."""
+    return [
+        p for m in model.modules() if not isinstance(m, nn.LayerNorm)
+        for p in m.parameters(recurse=False)
+    ]
+
+
+def l2_penalty(model: nn.Module) -> torch.Tensor:
+    """``sum(w^2)`` over :func:`regularized`, as one reduction over the
+    concatenated parameters."""
+    flat = torch.cat([p.reshape(-1) for p in regularized(model)])
+    return flat.square().sum()

@@ -36,7 +36,7 @@ def to_jax(tree):
 
 
 def to_torch(tree, device="cpu"):
-    return {k: torch.from_numpy(np.asarray(v)).to(device)
+    return {k: torch.from_numpy(np.array(v)).to(device)
             for k, v in tree.items()}
 
 

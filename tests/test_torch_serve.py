@@ -252,7 +252,7 @@ class Block(importlib.abc.MetaPathFinder):
             raise ImportError(f"{name} is blocked")
 
 sys.meta_path.insert(0, Block())
-data_dir, job = sys.argv[1], sys.argv[2]
+data_dir, job, crello_dir = sys.argv[1:4]
 
 from flexdm_tpu.data import DatasetSpec
 from flexdm_tpu_torch.config import TrainConfig, build_model
@@ -271,16 +271,29 @@ engine = InferenceEngine(job, batch_size=2, device="cpu")
 docs = _jsonable(spec.unbatch(next(iter(spec.make_dataset("test", batch_size=2)))))
 out = engine.predict(docs, task="pos")
 assert len(out) == 2
+
+from flexdm_tpu_torch.cli import main
+
+trained = os.path.join(os.path.dirname(job), "trained")
+main(["--dataset_name", "crello", "--data_dir", crello_dir, "--job-dir", trained,
+      "--num_epochs", "1", "--batch_size", "16", "--latent_dim", "32",
+      "--num_blocks", "1", "--device", "cpu", "--log_level", "WARNING"])
+spec = DatasetSpec("crello", crello_dir, 2)
+docs = _jsonable(spec.unbatch(next(iter(spec.make_dataset("test", batch_size=2)))))
+engine = InferenceEngine(trained, batch_size=2, device="cpu")
+assert len(engine.predict(docs, task="pos")) == 2
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("OK", len(out))
 """
 
 
-def test_port_runs_with_jax_blocked(rico_dir, tmp_path):
+def test_port_runs_with_jax_blocked(rico_dir, crello_dir, tmp_path):
+    """Serving and a 1-epoch training run, with JAX unimportable."""
     env = {k: v for k, v in os.environ.items() if k != "FLEXDM_PLATFORM"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run(
-        [sys.executable, "-c", _NO_JAX, rico_dir, str(tmp_path / "job")],
+        [sys.executable, "-c", _NO_JAX, rico_dir, str(tmp_path / "job"),
+         crello_dir],
         capture_output=True, text=True, env=env, cwd=str(tmp_path),
         timeout=120,
     )
