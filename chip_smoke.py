@@ -12,11 +12,13 @@ Phases, each of which must pass (any failure exits non-zero):
 3. kernel: the flash-attention forward kernel against its plain PyTorch
    version on the card (O and lse within 2e-5 abs + 2e-5 rel, float32),
    then both timed with CUDA events;
-4. backward: the backward kernels (dq with delta, dk/dv) through autograd
-   against the plain backward and against autograd of the plain forward,
-   dq, dk and dv within 1e-4 abs + 1e-4 rel at every shape, S=4096 (the
-   regime of the TPU's stream kernels) included; then the kernels and the
-   plain autograd backward timed;
+4. backward: the backward kernels (dq with delta, dk/dv; split-TF32
+   tensor-core products) through autograd against the plain backward and
+   against autograd of the plain forward, dq, dk and dv within 1e-4 abs +
+   1e-4 rel at every shape, S=4096 (the regime of the TPU's stream
+   kernels) and the kernels' tile edges (S = 64, 65, 128, 129 at Dh 32,
+   64, 128) included, and a second call bitwise equal to the first; then
+   the kernels and the plain autograd backward timed;
 5. slice: the crello Ours-EXP job (D=256, 4 DeepSVG blocks, 8 heads,
    batch 8) with random weights from seed 0 on a synthetic data dir,
    served over HTTP through ``CoalescingEngine``; every answer is checked
@@ -403,6 +405,9 @@ def phase_backward(card):
         ((1, 2, 4096, 64), False, False),
         ((1, 2, 4096, 64), True, True),
     ]
+    # The kernels' tile edges (64 rows or keys; 32 Q/dO rows at Dh=128).
+    cases += [((2, 2, s, dh), causal, True) for s in (64, 65, 128, 129)
+              for dh in (32, 64, 128) for causal in (False, True)]
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
     for shape, causal, fully_masked in cases:
         b, h, s, dh = shape
@@ -415,8 +420,11 @@ def phase_backward(card):
             mask[-1] = False
         mask = mask.cuda()
         bias = attn.key_bias(mask, b, s, q.device)
-        got = torch.autograd.grad(
+        got, again = (torch.autograd.grad(
             attn.dot_product_attention(q, k, v, mask, causal), (q, k, v), do)
+            for _ in range(2))
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"two backward calls differ at {shape} causal={causal}")
         ref_o = attn.attention_reference(q, k, v, bias, causal)
         autograd = torch.autograd.grad(ref_o, (q, k, v), do)
         plain = attn.attention_reference_backward(
@@ -438,7 +446,7 @@ def phase_backward(card):
             f"{fully_masked}: max|d(dq, dk, dv)| vs plain "
             f"{errs[0]:.2e} {errs[2]:.2e} {errs[4]:.2e}, vs autograd "
             f"{errs[1]:.2e} {errs[3]:.2e} {errs[5]:.2e} (bound 1e-4 abs + "
-            f"1e-4 rel)")
+            f"1e-4 rel); a second call bitwise equal")
 
     timings = {}
     for shape in ((256, 8, 50, 32), (1, 2, 4096, 64)):

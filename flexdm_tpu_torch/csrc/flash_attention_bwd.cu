@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), float32.
+// Flash-attention backward for Hopper (sm_90a), float32 in and out, every
+// product on the tensor cores.
 //
 // Replaces the TPU kernels of flexdm_tpu/ops/attention.py:
 //   * _flash_bwd_dq_kernel and _flash_bwd_dq_stream_kernel -> the dq kernel
@@ -21,23 +22,84 @@
 //
 // p is rebuilt as exp(s - m) / l from the forward's row max m and row sum l,
 // NOT as exp(s - lse).  In a fully masked row every score is -1e9 + q.k,
-// which rounds to exactly -1e9 in float32 (the spacing of floats at 1e9 is
-// 64), so lse = m + log(l) also rounds to m and exp(s - lse) gives p = 1 for
-// every key, where the softmax gives 1/S.  The TPU kernels rebuild p from
-// lse and differ from their own plain path there; these follow the plain
-// path.  Masking is the forward's, bit for bit (same score expression and
-// summation order): finite -1e9 for masked keys, causal band replaced by
-// -1e9 on absolute positions, keys at index >= S excluded outright.
+// which rounds to exactly -1e9 in float32 for |q.k| < 32 (the spacing of
+// floats at 1e9 is 64), so lse = m + log(l) also rounds to m and
+// exp(s - lse) would give p = 1 for every key, where the softmax gives 1/S.
+// Here s rounds to -1e9 = m as well, the forward summed l = S, and
+// exp(0) / S = 1/S.  The TPU kernels rebuild p from lse and differ from
+// their own plain path there; these follow the plain path.  Masking is the
+// forward's: finite -1e9 for masked keys, causal band replaced by -1e9 on
+// absolute positions, keys at index >= S excluded outright.  The scores are
+// summed in another order than the forward's FMA loop (on the tensor
+// cores, below), so p is the forward's p to ~1e-6 relative, not bit for
+// bit.
 //
-// What bounds it on the H100.  At the training shape (B=256, H=8, S=50,
-// Dh=32) each (b, h) is a 50x50 problem: ~0.5 MFLOP and ~40 KB, so the
-// kernels are bound by latency and by shared-memory traffic, far from the
-// FP32 and memory rooflines.  The design keeps blocks many and small
-// (16-row q-tiles and 16-key k-tiles: 8192 blocks each at that shape) and
-// every shared-memory access conflict-free: rows whose elements are read
-// by consecutive lanes at a fixed column are padded to Dh+1 floats.  Plain
-// FMA pipes, no tensor cores, no atomics: every output element is written
-// by exactly one thread, so results are deterministic.
+// Arithmetic.  Every product (q k^T, dO v^T, ds k, ds^T q, p^T dO) is
+// mma.sync.m16n8k8 with TF32 operands and FP32 accumulators, with each
+// operand split as it enters registers: hi = tf32(a), lo = tf32(a - hi),
+// and a b ~ lo hi' + hi lo' + hi hi' (three MMAs per k-step, summed from
+// zero on the tensor core and added to the accumulator in FP32; see
+// mma3).  A single TF32 pass keeps ~3 decimal digits and misses the 1e-4
+// gate of the card checks by 10x (tests/test_torch_attention_backward.py
+// emulates both); the split's error is ~1e-6, that of an FP32 FMA loop.
+//
+// What bounded the previous design (FMA pipes, one output element per lane)
+// was shared memory: every FMA read both operands as separate 4-byte
+// shared loads, about two warp-wide LDS.32 per warp-wide FMA, and an SM
+// issues about one LDS.32 per clock against four FMAs, so the kernels ran
+// at about an eighth of the FP32 rate.  At (B, H, S, Dh) = (256, 8, 50, 32)
+// that is ~583 M FMAs (dq) -> ~36 M warp loads -> ~0.16 ms on 132 SMs at
+// 1.755 GHz (measured 0.1664 ms), and ~0.96 G FMAs (dk/dv, measured
+// 0.2028 ms); at (1, 2, 4096, 64) ~1.7 ms each (measured 1.47 and 1.85 ms).
+//
+// What bounds this one.  An m16n8k8 MMA does 1024 multiply-adds for two
+// 4-byte shared loads of its B fragment, so shared memory is no longer the
+// limit; the split costs four integer or FP32 instructions per operand
+// value and the k-step add four FADDs per three MMAs, about five
+// instructions beside every MMA.
+//   * (1, 2, 4096, 64): ~39 (dq) and ~52 (dkv) GFLOP of TF32 MMA with the
+//     split, on 128 blocks of 8 warps, one block per SM.  Issue bound: the
+//     split's instructions and the MMAs of two warps per SM sub-partition,
+//     ~110 TFLOP/s of MMA work, about a fifth of the TF32 peak.  Four
+//     parts (16 warps) measured no faster than two, so it is not latency.
+//   * (256, 8, 50, 32): ~4 (dq) and ~6 (dkv) GFLOP of MMA work and ~79 MB
+//     of traffic per kernel over 2048 blocks of 64 rows or keys; registers
+//     (125-143 per thread) allow 2 blocks per SM, so ~8 waves of short
+//     load -> compute -> store chains: bound by latency, at ~1 TB/s.
+//
+// Design.
+//   * Tiles: 64 query rows per dq block and 64 keys per dkv block, in 4
+//     groups of 16 rows or keys.  Each group has two warps (kParts): warp
+//     part 0 takes the first half of every tile of the other axis (32 of
+//     the 64 keys of a K/V tile, or of the rows of a Q/dO tile), part 1
+//     the second half, each keeping its partial dq (or dk, dv) in
+//     registers; at the end part 1's sums are added to part 0's through
+//     shared memory, in that order.  Every output element is written once
+//     by one thread: no atomics, deterministic.  Two parts doubled the
+//     warps per SM at S=4096 (one warp per sub-partition left the MMAs'
+//     latency exposed) and halved the score registers.  32-row tiles (256
+//     blocks at S=4096) measured 4% slower than 64 at S=4096 and ~30%
+//     slower at S=50.  Q/dO tiles (dkv) are 64 rows, 32 at Dh=128
+//     (registers).
+//   * p and ds go from the accumulator layout to the A operand without
+//     moving: a lane holds columns 2t and 2t+1 of each 8-column n-tile and
+//     uses them as k = t and k = t+4, and the B operand of that product is
+//     loaded with the same k order (rows 2t and 2t+1).  The sum over k is
+//     the same; no shared-memory round trip, no shuffles.
+//   * Shared tiles are row-major with rows padded to Dh+4 floats: a
+//     fragment load has lane (g = lane/4, t = lane%4) read row g, column t
+//     (bank 4g + t) or row 2t (+1), column g (bank 8t + g (+4)), both 32
+//     different banks, so every fragment load is conflict-free.  16-byte
+//     row alignment is kept for cp.async.
+//   * Loads: the block's own Q/dO (dq) or K/V (dkv) and each tile of the
+//     other axis go through 16-byte cp.async (row statistics through 4-byte
+//     cp.async: rows of (B, H, S) are not 16-byte aligned) into a two-stage
+//     ring, so tile i+1 loads while tile i computes; rows past S are
+//     zero-filled by the copy.  A launch whose loop has one tile gets one
+//     stage of shared memory.  Above 48 KB the block's dynamic shared
+//     memory is opted into (Dh >= 64, or two stages at Dh=32).
+//   * Causal dq stops at the block's last row: later keys are replaced for
+//     every row of the block, so their ds is exactly 0.
 
 #include <cuda_runtime.h>
 
@@ -45,43 +107,230 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+// A block has kGroups x kParts warps.  Warp w owns the rows (dq) or keys
+// (dkv) of group w % kGroups, 16 each, and takes part w / kGroups of every
+// tile of the other axis; the parts' partial sums are added at the end.
+constexpr int kGroups = 4;
+constexpr int kParts = 2;
+constexpr int kThreads = kGroups * kParts * 32;
+constexpr int kPad = 4;  // floats of padding per shared row
 constexpr float kMaskedScore = -1e9f;
 constexpr int kStaticSmemLimit = 48 * 1024;
 
-__device__ __forceinline__ float warp_sum(float x) {
+// ---------------------------------------------------------------------------
+// Asynchronous copies
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled where !real (src is not read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool real) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(real ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool real) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(real ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most one committed group of this thread is in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + ROWS) of a (S, DH) slice into a [ROWS][DH + kPad] tile;
+// rows >= S are zero-filled.
+template <int ROWS, int DH>
+__device__ __forceinline__ void load_rows(float* tile, const float* src,
+                                          int row0, int S, int tid) {
+  constexpr int kChunks = DH / 4;
+  static_assert(ROWS * kChunks % kThreads == 0, "tile not a whole number "
+                                                "of copies per thread");
 #pragma unroll
-  for (int offset = 16; offset > 0; offset >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, offset);
-  return x;
+  for (int n = 0; n < ROWS * kChunks / kThreads; ++n) {
+    const int i = tid + n * kThreads;
+    const int r = i / kChunks, c = i % kChunks * 4;
+    const bool real = row0 + r < S;
+    const float* from =
+        real ? src + static_cast<size_t>(row0 + r) * DH + c : src;
+    cp_async16(tile + r * (DH + kPad) + c, from, real);
+  }
+}
+
+// Entries [row0, row0 + ROWS) of a length-S vector; past S zero-filled.
+template <int ROWS>
+__device__ __forceinline__ void load_vec(float* dst, const float* src,
+                                         int row0, int S, int tid) {
+  for (int i = tid; i < ROWS; i += kThreads) {
+    const bool real = row0 + i < S;
+    cp_async4(dst + i, real ? src + row0 + i : src, real);
+  }
+}
+
+__device__ __forceinline__ float key_bias(const uint8_t* key_mask, int b,
+                                          int S, int key) {
+  const bool keep = key < S && (key_mask == nullptr ||
+                                key_mask[static_cast<size_t>(b) * S + key]);
+  return keep ? 0.f : kMaskedScore;
 }
 
 // ---------------------------------------------------------------------------
-// dq (and delta): one block per (batch, head, 16-row q-tile).  Each warp owns
-// 4 query rows.  The block stages its Q and dO rows once, then loops over
-// K/V tiles in shared memory.  Per row: scores and dO.v^T one key per lane
-// (K and V rows padded to Dh+1), then dq += ds.K one output column per lane.
+// Split-TF32 tensor-core products (mma.sync.m16n8k8).  Lane = 4 g + t.
+//   A (16 x 8): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+//   B (8 x 8):  b0 (k = t, n = g), b1 (k = t + 4, n = g)
+//   C (16 x 8): c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
 // ---------------------------------------------------------------------------
 
-constexpr int kDqRowsPerWarp = 4;
-constexpr int kDqBlockQ = kWarps * kDqRowsPerWarp;
+// An operand fragment as hi + lo, each TF32.  TF32 rounding is round to
+// nearest, ties away, on the low 13 bits of the float32 word (the rounding
+// of cvt.rna.tf32.f32): add half of the dropped range and let the tensor
+// core, which reads only the upper 19 bits, drop the rest (8-22% faster
+// than cvt.rna.tf32.f32 on the H100, which is not a full-rate
+// instruction).  hi is masked, so x - hi is exact.
+template <int N>
+struct Split {
+  uint32_t hi[N], lo[N];
+  __device__ __forceinline__ void set(int i, float x) {
+    hi[i] = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo[i] = __float_as_uint(x - __uint_as_float(hi[i])) + 0x1000u;
+  }
+};
+using FragA = Split<4>;
+using FragB = Split<2>;
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in three TF32 products, the small terms first.  The tensor
+// core's own float32 accumulation is not round-to-nearest (its error does
+// not average out), so the three products of the k-step are summed there
+// from zero and added to d with a round-to-nearest float32 add:
+// accumulating all k-steps on the tensor core measured 5x the error, and
+// in the training step turned the key-bias gradient (exactly 0 in exact
+// arithmetic: sum_j ds_ij = 0) into 2e-5 of noise against 4e-7 on the FMA
+// path.
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(c, a.lo, b.hi);
+  mma(c, a.hi, b.lo);
+  mma(c, a.hi, b.hi);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += c[e];
+}
+
+// A = tile[r0 .. r0+16)[c0 .. c0+8) of a row-major tile.
+template <int LD>
+__device__ __forceinline__ FragA load_a(const float* tile, int r0, int c0,
+                                        int g, int t) {
+  const float* p = tile + (r0 + g) * LD + c0 + t;
+  FragA f;
+  f.set(0, p[0]);
+  f.set(1, p[8 * LD]);
+  f.set(2, p[4]);
+  f.set(3, p[8 * LD + 4]);
+  return f;
+}
+
+// B = (tile[n0 .. n0+8)[k0 .. k0+8))^T: column n of B is row n0 + n.
+template <int LD>
+__device__ __forceinline__ FragB load_bt(const float* tile, int n0, int k0,
+                                         int g, int t) {
+  const float* p = tile + (n0 + g) * LD + k0 + t;
+  FragB f;
+  f.set(0, p[0]);
+  f.set(1, p[4]);
+  return f;
+}
+
+// B = tile[k0 .. k0+8)[n0 .. n0+8) in the k order of from_acc: a lane's
+// b0, b1 are rows k0 + 2t, k0 + 2t + 1.
+template <int LD>
+__device__ __forceinline__ FragB load_b_paired(const float* tile, int k0,
+                                               int n0, int g, int t) {
+  const float* p = tile + (k0 + 2 * t) * LD + n0 + g;
+  FragB f;
+  f.set(0, p[0]);
+  f.set(1, p[LD]);
+  return f;
+}
+
+// An accumulator n-tile (16 x 8) as the A operand of the next product: the
+// lane's columns 2t and 2t + 1 serve as k = t and k = t + 4.
+__device__ __forceinline__ FragA from_acc(const float (&c)[4]) {
+  FragA f;
+  f.set(0, c[0]);
+  f.set(1, c[2]);
+  f.set(2, c[1]);
+  f.set(3, c[3]);
+  return f;
+}
+
+// Adds the partial sums of a group's kParts warps into part 0, in part
+// order, through shared memory (buf: (kParts - 1) x kGroups x NT x 128
+// floats, free on entry; every thread of the block calls this).
+template <int NT>
+__device__ __forceinline__ void sum_parts(float (&acc)[NT][4], float* buf,
+                                          int group, int part, int lane) {
+  if (part > 0) {
+    float* dst = buf + ((part - 1) * kGroups + group) * NT * 128;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[(n * 4 + e) * 32 + lane] = acc[n][e];
+  }
+  __syncthreads();
+  if (part == 0) {
+    for (int p = 1; p < kParts; ++p) {
+      const float* src = buf + ((p - 1) * kGroups + group) * NT * 128;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += src[(n * 4 + e) * 32 + lane];
+    }
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// dq (and delta): one block per (batch, head, 64-row q-tile), 16 rows per
+// group.  Per 64-key K/V tile, each warp takes its part's 64 / kParts keys:
+// s = q k^T and dO v^T, p and ds in registers, then dq += ds k.
+// ---------------------------------------------------------------------------
 
 template <int DH>
-struct DqShape {
+struct DqTile {
   static_assert(DH % 32 == 0, "head dim must be a multiple of 32");
-  static constexpr int kBlockK = DH <= 64 ? 64 : 32;
-  static constexpr int kKeysPerLane = kBlockK / 32;
-  static constexpr int kDimsPerLane = DH / 32;
-  static constexpr int kStride = DH + 1;
-  static constexpr int kSmemFloats = 2 * kDqBlockQ * DH       // q, dO
-                                     + 2 * kBlockK * kStride  // k, v
-                                     + kBlockK                // key bias
-                                     + kWarps * kBlockK;      // ds per warp
+  static constexpr int kRows = 16 * kGroups;  // query rows per block
+  static constexpr int kKeys = 64;            // keys per K/V tile
+  static constexpr int kPartKeys = kKeys / kParts;
+  static constexpr int kLd = DH + kPad;
+  static constexpr int kOwnFloats = 2 * kRows * kLd;            // Q, dO
+  static constexpr int kStageFloats = 2 * kKeys * kLd + kKeys;  // K, V, bias
+  static_assert((kParts - 1) * kRows * DH <= kOwnFloats + kStageFloats,
+                "the parts' sums must fit in one stage's shared memory");
 };
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, DH == 32 ? 2 : 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const uint8_t* __restrict__ key_mask,
@@ -91,147 +340,167 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ row_sum,
                     float* __restrict__ delta, float* __restrict__ dq, int H,
                     int S, int causal, float scale) {
-  using T = DqShape<DH>;
-  constexpr int BK = T::kBlockK;
-  constexpr int R = kDqRowsPerWarp;
-  extern __shared__ float smem[];
-  float* q_s = smem;                       // [kDqBlockQ][DH]
-  float* do_s = q_s + kDqBlockQ * DH;      // [kDqBlockQ][DH]
-  float* k_s = do_s + kDqBlockQ * DH;      // [BK][DH + 1]
-  float* v_s = k_s + BK * T::kStride;      // [BK][DH + 1]
-  float* bias_s = v_s + BK * T::kStride;   // [BK]
-  float* ds_s = bias_s + BK;               // [kWarps][BK]
+  using T = DqTile<DH>;
+  constexpr int BK = T::kKeys;
+  constexpr int PK = T::kPartKeys;
+  constexpr int LD = T::kLd;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                  // [kRows][LD]
+  float* do_s = q_s + T::kRows * LD;  // [kRows][LD]
+  // Stage i & 1 of the ring: K [BK][LD], V [BK][LD], key bias [BK].
+  auto stage = [&](int i) {
+    return smem + T::kOwnFloats + (i & 1) * T::kStageFloats;
+  };
 
-  const int q0 = blockIdx.x * kDqBlockQ;
+  const int q0 = blockIdx.x * T::kRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const size_t head = (static_cast<size_t>(b) * H + h) * S;  // row of (b,h,0)
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
   const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int group = tid / 32 % kGroups;
+  const int part = tid / 32 / kGroups;
+  const int r0 = group * 16;  // the warp's first row in the block
+  const int c0 = part * PK;   // the warp's first key in each tile
 
-  for (int i = tid; i < kDqBlockQ * DH; i += kThreads) {
-    const int row = q0 + i / DH;
-    const size_t off = (head + row) * DH + i % DH;
-    q_s[i] = row < S ? q[off] : 0.f;
-    do_s[i] = row < S ? dout[off] : 0.f;
-  }
+  int n_tiles = (S + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + T::kRows, S) + BK - 1) / BK);
+  auto load_kv = [&](int i) {
+    load_rows<BK, DH>(stage(i), k + head * DH, i * BK, S, tid);
+    load_rows<BK, DH>(stage(i) + BK * LD, v + head * DH, i * BK, S, tid);
+  };
 
-  // Row statistics.  A row past S gets inv_l = 0, so its p and ds are 0.
-  float m[R], inv_l[R], dlt[R];
+  load_rows<T::kRows, DH>(q_s, q + head * DH, q0, S, tid);
+  load_rows<T::kRows, DH>(do_s, dout + head * DH, q0, S, tid);
+  load_kv(0);
+  cp_async_commit();
+  if (tid < BK) stage(0)[2 * BK * LD + tid] = key_bias(key_mask, b, S, tid);
+
+  // Row statistics of the lane's rows g and g + 8.  A row past S gets
+  // inv_l = 0, so its p and ds are 0.
+  float m[2], inv_l[2], dlt[2];
 #pragma unroll
-  for (int rr = 0; rr < R; ++rr) {
-    const int row = q0 + warp * R + rr;
-    float part = 0.f;
-    if (row < S) {
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + r0 + g + 8 * hh;
+    const bool real = row < S;
+    float part_sum = 0.f;
+    if (real) {
+      const float* o_row = o + (head + row) * DH;
+      const float* d_row = dout + (head + row) * DH;
 #pragma unroll
-      for (int e = 0; e < T::kDimsPerLane; ++e) {
-        const size_t off = (head + row) * DH + lane + 32 * e;
-        part = fmaf(dout[off], o[off], part);
+      for (int c = 4 * t; c < DH; c += 16) {
+        const float4 x = *reinterpret_cast<const float4*>(o_row + c);
+        const float4 y = *reinterpret_cast<const float4*>(d_row + c);
+        part_sum = fmaf(x.x, y.x, part_sum);
+        part_sum = fmaf(x.y, y.y, part_sum);
+        part_sum = fmaf(x.z, y.z, part_sum);
+        part_sum = fmaf(x.w, y.w, part_sum);
       }
     }
-    dlt[rr] = warp_sum(part);
-    m[rr] = row < S ? row_max[head + row] : 0.f;
-    inv_l[rr] = row < S ? 1.f / row_sum[head + row] : 0.f;
-    if (row < S && lane == 0) delta[head + row] = dlt[rr];
+    part_sum += __shfl_xor_sync(0xffffffffu, part_sum, 1);
+    part_sum += __shfl_xor_sync(0xffffffffu, part_sum, 2);
+    dlt[hh] = part_sum;
+    m[hh] = real ? row_max[head + row] : 0.f;
+    inv_l[hh] = real ? 1.f / row_sum[head + row] : 0.f;
+    if (real && t == 0 && part == 0) delta[head + row] = part_sum;
   }
 
-  float acc[R][T::kDimsPerLane];
-#pragma unroll
-  for (int rr = 0; rr < R; ++rr)
-#pragma unroll
-    for (int e = 0; e < T::kDimsPerLane; ++e) acc[rr][e] = 0.f;
-
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed (and q_s is staged)
-    for (int i = tid; i < BK * DH; i += kThreads) {
-      const int r = i / DH, c = i % DH;
-      const int key = k0 + r;
-      const bool real = key < S;
-      const size_t off = (head + key) * DH + c;
-      k_s[r * T::kStride + c] = real ? k[off] : 0.f;
-      v_s[r * T::kStride + c] = real ? v[off] : 0.f;
+  float acc[DH / 8][4] = {};  // the part's dq of rows r0 .. r0 + 16, unscaled
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = i * BK;
+    float next_bias = 0.f;
+    if (i + 1 < n_tiles) {
+      load_kv(i + 1);
+      if (tid < BK) next_bias = key_bias(key_mask, b, S, k0 + BK + tid);
     }
-    if (tid < BK) {
-      const int key = k0 + tid;
-      const bool keep = key < S && (key_mask == nullptr ||
-                                    key_mask[static_cast<size_t>(b) * S + key]);
-      bias_s[tid] = keep ? 0.f : kMaskedScore;
-    }
-    __syncthreads();
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();  // tile i (and Q, dO) landed for every thread
 
+    const float* k_s = stage(i);
+    const float* v_s = k_s + BK * LD;
+    const float* bias_s = v_s + BK * LD;
     const int n_keys = min(BK, S - k0);
+    if (q0 + r0 < S && c0 < n_keys) {
+      float sc[PK / 8][4] = {}, dp[PK / 8][4] = {};
 #pragma unroll
-    for (int rr = 0; rr < R; ++rr) {
-      const int r = warp * R + rr;
-      const int row = q0 + r;
+      for (int ks = 0; ks < DH / 8; ++ks) {
+        const FragA qa = load_a<LD>(q_s, r0, 8 * ks, g, t);
+        const FragA da = load_a<LD>(do_s, r0, 8 * ks, g, t);
 #pragma unroll
-      for (int t = 0; t < T::kKeysPerLane; ++t) {
-        const int j = lane + 32 * t;
-        const int key = k0 + j;
-        float dot = 0.f, dpv = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < DH; ++d) {
-          dot = fmaf(q_s[r * DH + d], k_s[j * T::kStride + d], dot);
-          dpv = fmaf(do_s[r * DH + d], v_s[j * T::kStride + d], dpv);
+        for (int j = 0; j < PK / 8; ++j) {
+          mma3(sc[j], qa, load_bt<LD>(k_s, c0 + 8 * j, 8 * ks, g, t));
+          mma3(dp[j], da, load_bt<LD>(v_s, c0 + 8 * j, 8 * ks, g, t));
         }
-        float ds = 0.f;
-        if (j < n_keys) {
-          const bool replaced = causal && key > row;
-          const float s = replaced ? kMaskedScore : dot * scale + bias_s[j];
-          const float p = expf(s - m[rr]) * inv_l[rr];
-          ds = replaced ? 0.f : p * (dpv - dlt[rr]);
-        }
-        ds_s[warp * BK + j] = ds;
       }
-      __syncwarp();
 #pragma unroll
-      for (int e = 0; e < T::kDimsPerLane; ++e) {
-        const int c = lane + 32 * e;
-        float a = acc[rr][e];
-        for (int j = 0; j < n_keys; ++j)
-          a = fmaf(ds_s[warp * BK + j], k_s[j * T::kStride + c], a);
-        acc[rr][e] = a;
+      for (int j = 0; j < PK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = c0 + 8 * j + 2 * t + (e & 1);
+          const int row = q0 + r0 + g + 8 * (e >> 1);
+          float ds = 0.f;
+          if (kj < n_keys) {
+            const bool replaced = causal && k0 + kj > row;
+            const float s =
+                replaced ? kMaskedScore : sc[j][e] * scale + bias_s[kj];
+            const float p = expf(s - m[e >> 1]) * inv_l[e >> 1];
+            ds = replaced ? 0.f : p * (dp[j][e] - dlt[e >> 1]);
+          }
+          sc[j][e] = ds;
+        }
       }
-      __syncwarp();  // ds_s is rewritten by the next row
+#pragma unroll
+      for (int j = 0; j < PK / 8; ++j) {
+        const FragA a = from_acc(sc[j]);
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n)
+          mma3(acc[n], a, load_b_paired<LD>(k_s, c0 + 8 * j, 8 * n, g, t));
+      }
     }
+    if (tid < BK && i + 1 < n_tiles)
+      stage(i + 1)[2 * BK * LD + tid] = next_bias;
+    __syncthreads();  // stage i is consumed before tile i + 2 overwrites it
   }
 
+  sum_parts(acc, smem, group, part, lane);
+  if (part > 0) return;
 #pragma unroll
-  for (int rr = 0; rr < R; ++rr) {
-    const int row = q0 + warp * R + rr;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + r0 + g + 8 * hh;
     if (row >= S) continue;
 #pragma unroll
-    for (int e = 0; e < T::kDimsPerLane; ++e)
-      dq[(head + row) * DH + lane + 32 * e] = acc[rr][e] * scale;
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<float2*>(dq + (head + row) * DH + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * hh] * scale, acc[n][2 * hh + 1] * scale);
   }
 }
 
 // ---------------------------------------------------------------------------
-// dk, dv: one block per (batch, head, 16-key k-tile).  Each warp owns 4 keys
-// and keeps their dk and dv rows in registers (one column per lane).  The
-// block loops over 32-row Q/dO tiles: per key, scores and dO.v^T one query
-// row per lane (Q and dO rows padded to Dh+1), then dv += p^T dO and
-// dk += ds^T Q one output column per lane.
+// dk, dv: one block per (batch, head, 64-key k-tile), 16 keys per group.
+// Per Q/dO tile, each warp takes its part's rows: s^T = k q^T and v dO^T,
+// p^T and ds^T in registers, then dv += p^T dO and dk += ds^T q.
 // ---------------------------------------------------------------------------
 
-constexpr int kDkvKeysPerWarp = 4;
-constexpr int kDkvBlockK = kWarps * kDkvKeysPerWarp;
-constexpr int kDkvBlockQ = 32;  // one query row per lane
-
 template <int DH>
-struct DkvShape {
+struct DkvTile {
   static_assert(DH % 32 == 0, "head dim must be a multiple of 32");
-  static constexpr int kDimsPerLane = DH / 32;
-  static constexpr int kStride = DH + 1;
-  static constexpr int kSmemFloats = 2 * kDkvBlockK * DH        // k, v
-                                     + 2 * kDkvBlockQ * kStride  // q, dO
-                                     + 3 * kDkvBlockQ            // m, 1/l, delta
-                                     + 2 * kWarps * kDkvBlockQ;  // p, ds
+  static constexpr int kKeys = 16 * kGroups;        // keys per block
+  static constexpr int kRows = DH <= 64 ? 64 : 32;  // rows per Q/dO tile
+  static constexpr int kPartRows = kRows / kParts;
+  static constexpr int kLd = DH + kPad;
+  static constexpr int kOwnFloats = 2 * kKeys * kLd;  // K, V
+  // Q, dO, and the rows' m, l, delta.
+  static constexpr int kStageFloats = 2 * kRows * kLd + 3 * kRows;
+  static_assert(kPartRows % 8 == 0, "a part is whole k-steps of rows");
+  static_assert((kParts - 1) * kKeys * DH <= kOwnFloats + kStageFloats,
+                "the parts' sums must fit in one stage's shared memory");
 };
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, DH == 32 ? 2 : 1)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const uint8_t* __restrict__ key_mask,
@@ -241,114 +510,135 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int H, int S, int causal,
                      float scale) {
-  using T = DkvShape<DH>;
-  constexpr int BQ = kDkvBlockQ;
-  constexpr int KPW = kDkvKeysPerWarp;
-  extern __shared__ float smem[];
-  float* k_s = smem;                        // [kDkvBlockK][DH]
-  float* v_s = k_s + kDkvBlockK * DH;       // [kDkvBlockK][DH]
-  float* q_s = v_s + kDkvBlockK * DH;       // [BQ][DH + 1]
-  float* do_s = q_s + BQ * T::kStride;      // [BQ][DH + 1]
-  float* m_s = do_s + BQ * T::kStride;      // [BQ]
-  float* inv_l_s = m_s + BQ;                // [BQ]
-  float* delta_s = inv_l_s + BQ;            // [BQ]
-  float* p_s = delta_s + BQ;                // [kWarps][BQ]
-  float* ds_s = p_s + kWarps * BQ;          // [kWarps][BQ]
+  using T = DkvTile<DH>;
+  constexpr int BQ = T::kRows;
+  constexpr int PR = T::kPartRows;
+  constexpr int LD = T::kLd;
+  extern __shared__ __align__(16) float smem[];
+  float* k_s = smem;                 // [kKeys][LD]
+  float* v_s = k_s + T::kKeys * LD;  // [kKeys][LD]
+  // Stage i & 1 of the ring: Q [BQ][LD], dO [BQ][LD], m, l, delta [BQ].
+  auto stage = [&](int i) {
+    return smem + T::kOwnFloats + (i & 1) * T::kStageFloats;
+  };
 
-  const int k0 = blockIdx.x * kDkvBlockK;
+  const int k0 = blockIdx.x * T::kKeys;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const size_t head = (static_cast<size_t>(b) * H + h) * S;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
   const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int group = tid / 32 % kGroups;
+  const int part = tid / 32 / kGroups;
+  const int kr0 = group * 16;  // the warp's first key in the block
+  const int c0 = part * PR;    // the warp's first row in each tile
 
-  for (int i = tid; i < kDkvBlockK * DH; i += kThreads) {
-    const int key = k0 + i / DH;
-    const size_t off = (head + key) * DH + i % DH;
-    k_s[i] = key < S ? k[off] : 0.f;
-    v_s[i] = key < S ? v[off] : 0.f;
+  const int n_tiles = (S + BQ - 1) / BQ;
+  auto load_q = [&](int i) {
+    float* st = stage(i);
+    load_rows<BQ, DH>(st, q + head * DH, i * BQ, S, tid);
+    load_rows<BQ, DH>(st + BQ * LD, dout + head * DH, i * BQ, S, tid);
+    load_vec<BQ>(st + 2 * BQ * LD, row_max + head, i * BQ, S, tid);
+    load_vec<BQ>(st + 2 * BQ * LD + BQ, row_sum + head, i * BQ, S, tid);
+    load_vec<BQ>(st + 2 * BQ * LD + 2 * BQ, delta + head, i * BQ, S, tid);
+  };
+
+  load_rows<T::kKeys, DH>(k_s, k + head * DH, k0, S, tid);
+  load_rows<T::kKeys, DH>(v_s, v + head * DH, k0, S, tid);
+  load_q(0);
+  cp_async_commit();
+
+  // The lane's keys g and g + 8.
+  bool kreal[2];
+  float kbias[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0 + kr0 + g + 8 * hh;
+    kreal[hh] = key < S;
+    kbias[hh] = key_bias(key_mask, b, S, key);
   }
 
-  bool real[KPW];
-  float kbias[KPW];
-  float acc_dk[KPW][T::kDimsPerLane], acc_dv[KPW][T::kDimsPerLane];
-#pragma unroll
-  for (int kk = 0; kk < KPW; ++kk) {
-    const int key = k0 + warp * KPW + kk;
-    real[kk] = key < S;
-    const bool keep = real[kk] &&
-        (key_mask == nullptr || key_mask[static_cast<size_t>(b) * S + key]);
-    kbias[kk] = keep ? 0.f : kMaskedScore;
-#pragma unroll
-    for (int e = 0; e < T::kDimsPerLane; ++e) {
-      acc_dk[kk][e] = 0.f;
-      acc_dv[kk][e] = 0.f;
-    }
-  }
+  // The part's dk (unscaled) and dv of keys kr0 .. kr0 + 16.
+  float acc_dk[DH / 8][4] = {}, acc_dv[DH / 8][4] = {};
+  for (int i = 0; i < n_tiles; ++i) {
+    const int i0 = i * BQ;
+    if (i + 1 < n_tiles) load_q(i + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();  // tile i (and K, V) landed for every thread
 
-  for (int i0 = 0; i0 < S; i0 += BQ) {
-    __syncthreads();  // the previous tile is consumed (and k_s is staged)
-    for (int i = tid; i < BQ * DH; i += kThreads) {
-      const int r = i / DH, c = i % DH;
-      const int row = i0 + r;
-      const size_t off = (head + row) * DH + c;
-      q_s[r * T::kStride + c] = row < S ? q[off] : 0.f;
-      do_s[r * T::kStride + c] = row < S ? dout[off] : 0.f;
-    }
-    if (tid < BQ) {
-      const int row = i0 + tid;
-      m_s[tid] = row < S ? row_max[head + row] : 0.f;
-      inv_l_s[tid] = row < S ? 1.f / row_sum[head + row] : 0.f;
-      delta_s[tid] = row < S ? delta[head + row] : 0.f;
-    }
-    __syncthreads();
-
+    const float* q_s = stage(i);
+    const float* do_s = q_s + BQ * LD;
+    const float* m_s = do_s + BQ * LD;
+    const float* l_s = m_s + BQ;
+    const float* delta_s = l_s + BQ;
     const int n_rows = min(BQ, S - i0);
-    const int row = i0 + lane;
+    if (k0 + kr0 < S && c0 < n_rows) {
+      float sc[PR / 8][4] = {}, dp[PR / 8][4] = {};
 #pragma unroll
-    for (int kk = 0; kk < KPW; ++kk) {
-      const int j = warp * KPW + kk;
-      const int key = k0 + j;
-      float dot = 0.f, dpv = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < DH; ++d) {
-        dot = fmaf(q_s[lane * T::kStride + d], k_s[j * DH + d], dot);
-        dpv = fmaf(do_s[lane * T::kStride + d], v_s[j * DH + d], dpv);
-      }
-      float p = 0.f, ds = 0.f;
-      if (lane < n_rows && real[kk]) {
-        const bool replaced = causal && key > row;
-        const float s = replaced ? kMaskedScore : dot * scale + kbias[kk];
-        p = expf(s - m_s[lane]) * inv_l_s[lane];
-        ds = replaced ? 0.f : p * (dpv - delta_s[lane]);
-      }
-      p_s[warp * BQ + lane] = p;
-      ds_s[warp * BQ + lane] = ds;
-      __syncwarp();
+      for (int ks = 0; ks < DH / 8; ++ks) {
+        const FragA ka = load_a<LD>(k_s, kr0, 8 * ks, g, t);
+        const FragA va = load_a<LD>(v_s, kr0, 8 * ks, g, t);
 #pragma unroll
-      for (int e = 0; e < T::kDimsPerLane; ++e) {
-        const int c = lane + 32 * e;
-        float a_v = acc_dv[kk][e], a_k = acc_dk[kk][e];
-        for (int i = 0; i < n_rows; ++i) {
-          a_v = fmaf(p_s[warp * BQ + i], do_s[i * T::kStride + c], a_v);
-          a_k = fmaf(ds_s[warp * BQ + i], q_s[i * T::kStride + c], a_k);
+        for (int j = 0; j < PR / 8; ++j) {
+          mma3(sc[j], ka, load_bt<LD>(q_s, c0 + 8 * j, 8 * ks, g, t));
+          mma3(dp[j], va, load_bt<LD>(do_s, c0 + 8 * j, 8 * ks, g, t));
         }
-        acc_dv[kk][e] = a_v;
-        acc_dk[kk][e] = a_k;
       }
-      __syncwarp();  // p_s and ds_s are rewritten by the next key
+#pragma unroll
+      for (int j = 0; j < PR / 8; ++j) {
+        const int ri = c0 + 8 * j + 2 * t;
+        const float2 mm = *reinterpret_cast<const float2*>(m_s + ri);
+        const float2 ll = *reinterpret_cast<const float2*>(l_s + ri);
+        const float2 dd = *reinterpret_cast<const float2*>(delta_s + ri);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = e & 1;
+          const int key = k0 + kr0 + g + 8 * (e >> 1);
+          float p = 0.f, ds = 0.f;
+          if (ri + c < n_rows && kreal[e >> 1]) {
+            const bool replaced = causal && key > i0 + ri + c;
+            const float s = replaced ? kMaskedScore
+                                     : sc[j][e] * scale + kbias[e >> 1];
+            p = expf(s - (c ? mm.y : mm.x)) * (1.f / (c ? ll.y : ll.x));
+            ds = replaced ? 0.f : p * (dp[j][e] - (c ? dd.y : dd.x));
+          }
+          sc[j][e] = p;
+          dp[j][e] = ds;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < PR / 8; ++j) {
+        const FragA pa = from_acc(sc[j]);
+        const FragA sa = from_acc(dp[j]);
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n) {
+          mma3(acc_dv[n], pa,
+               load_b_paired<LD>(do_s, c0 + 8 * j, 8 * n, g, t));
+          mma3(acc_dk[n], sa,
+               load_b_paired<LD>(q_s, c0 + 8 * j, 8 * n, g, t));
+        }
+      }
     }
+    __syncthreads();  // stage i is consumed before tile i + 2 overwrites it
   }
 
+  sum_parts(acc_dk, smem, group, part, lane);
+  sum_parts(acc_dv, smem, group, part, lane);
+  if (part > 0) return;
 #pragma unroll
-  for (int kk = 0; kk < KPW; ++kk) {
-    if (!real[kk]) continue;
-    const size_t key_row = head + k0 + warp * KPW + kk;
+  for (int hh = 0; hh < 2; ++hh) {
+    if (!kreal[hh]) continue;
+    const size_t key_row = head + k0 + kr0 + g + 8 * hh;
 #pragma unroll
-    for (int e = 0; e < T::kDimsPerLane; ++e) {
-      dk[key_row * DH + lane + 32 * e] = acc_dk[kk][e] * scale;
-      dv[key_row * DH + lane + 32 * e] = acc_dv[kk][e];
+    for (int n = 0; n < DH / 8; ++n) {
+      const int c = 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(dk + key_row * DH + c) = make_float2(
+          acc_dk[n][2 * hh] * scale, acc_dk[n][2 * hh + 1] * scale);
+      *reinterpret_cast<float2*>(dv + key_row * DH + c) =
+          make_float2(acc_dv[n][2 * hh], acc_dv[n][2 * hh + 1]);
     }
   }
 }
@@ -362,16 +652,26 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// Shared memory of a launch: the block's own tiles and one stage, or two
+// when the loop has more than one tile.
+template <typename Tile>
+constexpr int smem_bytes(int stages) {
+  return (Tile::kOwnFloats + stages * Tile::kStageFloats) *
+         static_cast<int>(sizeof(float));
+}
+
 template <int DH>
 cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const uint8_t* key_mask, const float* o,
                       const float* dout, const float* row_max,
                       const float* row_sum, float* delta, float* dq, int B,
                       int H, int S, int causal, cudaStream_t stream) {
-  constexpr int bytes = DqShape<DH>::kSmemFloats * sizeof(float);
-  static const cudaError_t attr = allow_smem(flash_bwd_dq_kernel<DH>, bytes);
+  using T = DqTile<DH>;
+  static const cudaError_t attr =
+      allow_smem(flash_bwd_dq_kernel<DH>, smem_bytes<T>(2));
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((S + kDqBlockQ - 1) / kDqBlockQ, H, B);
+  const int bytes = smem_bytes<T>(S > T::kKeys ? 2 : 1);
+  const dim3 grid((S + T::kRows - 1) / T::kRows, H, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   flash_bwd_dq_kernel<DH><<<grid, kThreads, bytes, stream>>>(
       q, k, v, key_mask, o, dout, row_max, row_sum, delta, dq, H, S, causal,
@@ -385,10 +685,12 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* row_max, const float* row_sum,
                        const float* delta, float* dk, float* dv, int B, int H,
                        int S, int causal, cudaStream_t stream) {
-  constexpr int bytes = DkvShape<DH>::kSmemFloats * sizeof(float);
-  static const cudaError_t attr = allow_smem(flash_bwd_dkv_kernel<DH>, bytes);
+  using T = DkvTile<DH>;
+  static const cudaError_t attr =
+      allow_smem(flash_bwd_dkv_kernel<DH>, smem_bytes<T>(2));
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((S + kDkvBlockK - 1) / kDkvBlockK, H, B);
+  const int bytes = smem_bytes<T>(S > T::kRows ? 2 : 1);
+  const dim3 grid((S + T::kKeys - 1) / T::kKeys, H, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   flash_bwd_dkv_kernel<DH><<<grid, kThreads, bytes, stream>>>(
       q, k, v, key_mask, dout, row_max, row_sum, delta, dk, dv, H, S, causal,
@@ -403,9 +705,9 @@ bool bad_shape(int B, int H, int S) {
 }  // namespace
 
 // All tensors float32 and contiguous: q, k, v, o, dout, dq, dk, dv are
-// (B, H, S, Dh); row_max, row_sum (from the forward) and delta are
-// (B, H, S).  key_mask: (B, S) bool (nonzero = attend) or null.  Each entry
-// returns the cudaError_t of its launch.
+// (B, H, S, Dh) and 16-byte aligned; row_max, row_sum (from the forward)
+// and delta are (B, H, S).  key_mask: (B, S) bool (nonzero = attend) or
+// null.  Each entry returns the cudaError_t of its launch.
 
 // Writes dq and delta = rowsum(dout * o).  Run it before the dkv entry on
 // the same stream: dkv reads delta.

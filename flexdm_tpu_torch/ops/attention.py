@@ -17,7 +17,10 @@ the JAX layout: ``q, k, v`` are ``(B, H, S, Dh)`` and ``key_mask`` is a
   a dq kernel (which also writes ``delta = rowsum(dO * O)``) and a dk/dv
   kernel.  They replace the TPU kernels ``_flash_bwd_dq_kernel`` /
   ``_flash_bwd_dkv_kernel`` and their S >= 4096 stream variants: they keep
-  only tiles in shared memory, so one kernel covers every S.
+  only tiles in shared memory, so one kernel covers every S.  Every
+  product runs on the tensor cores (``mma.sync`` TF32) with each operand
+  split into two TF32 terms and three products summed in float32, which
+  keeps float32-level accuracy (~1e-6); tiles arrive by ``cp.async``.
 * :class:`FlashAttention` wires the two into autograd (the JAX package's
   ``jax.custom_vjp``); the key mask gets no gradient.
 * :func:`dot_product_attention` dispatches on the device of its inputs: a
@@ -29,7 +32,10 @@ forward's row max and row sum, not from the logsumexp: in a fully masked
 row every score rounds to exactly ``-1e9`` in float32, so does the
 logsumexp, and ``exp(s - lse)`` would give 1 for every key where the
 softmax gives ``1/S``.  The port follows the plain path there; the TPU
-kernels do not.
+kernels do not.  The backward kernels sum the scores in another order
+than the forward kernel, so their p is the forward's to ~1e-6 relative,
+not bit for bit; a fully masked row still gets exactly ``1/S`` (its
+scores round to ``-1e9`` = m, and the forward summed l = S).
 
 The TPU path's tile padding (``_pad_len``, ``_block_size``) and its
 XLA-vs-Pallas rule (``_prefer_pallas``) are not carried over: the kernels
@@ -228,6 +234,10 @@ def _check_backward_inputs(q, k, v, key_mask, o, m, l, do):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous tensor like q")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernels "
+                             "copy rows 16 bytes at a time)")
     b, h, s, _ = q.shape
     for name, t in (("m", m), ("l", l)):
         if (tuple(t.shape) != (b, h, s) or t.dtype != torch.float32

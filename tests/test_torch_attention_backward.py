@@ -1,10 +1,12 @@
 """Port attention backward: the plain backward (explicit formulas) and
 autograd through the plain forward against ``jax.vjp`` through the JAX
-package's Pallas kernels in interpret mode, and the CUDA backward kernels
+package's Pallas kernels in interpret mode; the CUDA backward kernels'
+split-TF32 arithmetic emulated on the CPU; and the CUDA backward kernels
 against the plain backward (on a card only).
 
 Tolerance 2e-4 abs + 2e-4 rel, the bar of the JAX package's own
-Pallas-vs-XLA gradient tests."""
+Pallas-vs-XLA gradient tests; 1e-4 abs + 1e-4 rel (``CARD_TOL``, the bar
+of ``chip_smoke.py``) for the kernels and their emulation."""
 
 import numpy as np
 import pytest
@@ -108,6 +110,69 @@ def test_fully_masked_row_follows_the_plain_path(causal):
     np.testing.assert_allclose(pallas_dv[0], want[2][0], **TOL)
 
 
+def _tf32(x):
+    """Round float32 to TF32: to nearest, ties away from zero, on the low
+    13 bits of the float32 word (``cvt.rna.tf32.f32``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a, b, split):
+    """``a @ b`` as the backward kernels' tensor-core products compute it:
+    TF32 operands, float32 sums.  ``split``: each operand is hi + lo with
+    hi = tf32(x), lo = tf32(x - hi), and a b = lo hi' + hi lo' + hi hi'."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not split:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tf32_backward(q, k, v, bias, o, do, causal, split):
+    """The backward kernels' arithmetic in plain PyTorch: every product
+    through :func:`_tf32_matmul`; p = exp(s - m) / l with the forward's
+    float32 row max and sum."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    scores = port_attn._scores(q, k, bias, causal)
+    m = scores.amax(-1, keepdim=True)
+    l = torch.exp(scores - m).sum(-1, keepdim=True)
+    s = _tf32_matmul(q, k.transpose(-1, -2), split) * scale
+    s = s + bias[:, None, None, :]
+    if causal:
+        s = s.masked_fill(port_attn._outside_causal_band(q), port_attn.NEG_INF)
+    p = torch.exp(s - m) / l
+    dp = _tf32_matmul(do, v.transpose(-1, -2), split)
+    ds = p * (dp - (do * o).sum(-1, keepdim=True))
+    if causal:
+        ds = ds.masked_fill(port_attn._outside_causal_band(q), 0.0)
+    return (_tf32_matmul(ds, k, split) * scale,
+            _tf32_matmul(ds.transpose(-1, -2), q, split) * scale,
+            _tf32_matmul(p.transpose(-1, -2), do, split))
+
+
+@pytest.mark.parametrize("shape,causal,fully_masked_row", [
+    ((8, 8, 50, 32), False, True), ((8, 8, 50, 32), True, True),
+    ((1, 1, 1024, 64), False, False), ((1, 1, 1024, 64), True, False),
+])
+def test_split_tf32_products_meet_the_card_tolerance(shape, causal,
+                                                     fully_masked_row):
+    """Why the backward kernels split every operand: with the 3-term TF32
+    split their products stay within ``CARD_TOL`` of the float32 plain
+    backward; a single TF32 pass does not (errors ~1e-3)."""
+    q, k, v, do, mask = (torch.from_numpy(a) for a in _inputs(
+        shape, seed=11, fully_masked_row=fully_masked_row))
+    b, _, s, _ = shape
+    bias = port_attn.key_bias(mask, b, s, "cpu")
+    o = port_attn.attention_reference(q, k, v, bias, causal)
+    want = port_attn.attention_reference_backward(q, k, v, bias, o, do, causal)
+    split = _tf32_backward(q, k, v, bias, o, do, causal, split=True)
+    single = _tf32_backward(q, k, v, bias, o, do, causal, split=False)
+    for g, w, n in zip(split, want, "qkv"):
+        torch.testing.assert_close(g, w, **CARD_TOL, msg=f"d{n}")
+    for g, w, n in zip(single, want, "qkv"):
+        assert not torch.allclose(g, w, **CARD_TOL), f"single-pass d{n}"
+
+
 def test_kernel_backward_raises_without_cuda():
     """CPU tensors handed to the backward kernels raise; nothing falls back
     and no launch is counted."""
@@ -123,8 +188,10 @@ def test_kernel_backward_raises_without_cuda():
 @pytest.mark.parametrize("shape,causal", [
     ((256, 8, 50, 32), False), ((8, 8, 51, 32), True), ((2, 4, 512, 64), False),
     ((2, 4, 650, 32), True), ((2, 2, 128, 128), False),
+    ((2, 2, 65, 64), True), ((2, 2, 129, 128), True),
 ])
 def test_kernel_backward_matches_plain_on_card(shape, causal):
+    """Within ``CARD_TOL`` of the plain backward, and bitwise deterministic."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
     q, k, v, do, mask = (torch.from_numpy(a).cuda() for a in _inputs(
@@ -132,11 +199,28 @@ def test_kernel_backward_matches_plain_on_card(shape, causal):
     q, k, v = (t.requires_grad_() for t in (q, k, v))
     b, _, s, _ = shape
     bias = port_attn.key_bias(mask, b, s, q.device)
-    o = port_attn.dot_product_attention(q, k, v, mask, causal)
-    got = torch.autograd.grad(o, (q, k, v), do)
+    got, again = (torch.autograd.grad(
+        port_attn.dot_product_attention(q, k, v, mask, causal), (q, k, v), do)
+        for _ in range(2))
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
     ref_o = port_attn.attention_reference(q, k, v, bias, causal)
     want = port_attn.attention_reference_backward(
         q.detach(), k.detach(), v.detach(), bias, ref_o.detach(), do, causal
     )
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **CARD_TOL)
+
+
+@pytest.mark.cuda
+def test_kernel_backward_refuses_unaligned_rows():
+    """The kernels copy rows 16 bytes at a time: a tensor that does not
+    start on a 16-byte boundary raises, and nothing is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    q = torch.zeros(1 + 2 * 4 * 32, device="cuda")[1:].view(1, 2, 4, 32)
+    stats = torch.ones(1, 2, 4, device="cuda")
+    counts = (port_attn.BWD_DQ_LAUNCHES, port_attn.BWD_DKV_LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        port_attn.flash_attention_backward(q, q, q, None, q, stats, stats, q)
+    assert (port_attn.BWD_DQ_LAUNCHES, port_attn.BWD_DKV_LAUNCHES) == counts
