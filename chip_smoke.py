@@ -9,16 +9,23 @@ Phases, each of which must pass (any failure exits non-zero):
 2. build: compiles the CUDA libraries from ``flexdm_tpu_torch/csrc`` with
    nvcc for sm_90a, one nvcc per source, all at once (seconds, printed
    with the ptxas report);
-3. kernel: the flash-attention forward kernel against its plain PyTorch
-   version on the card (O and lse within 2e-5 abs + 2e-5 rel, float32),
-   then both timed with CUDA events;
+3. kernel: the flash-attention forward kernel (split-TF32 tensor-core
+   products) against its plain PyTorch version on the card (O and lse
+   within 2e-5 abs + 2e-5 rel, float32) at the serving and training
+   shapes, S=650 and the kernel's tile edges (S = 16, 17, 63, 64, 65,
+   128, 129 at Dh 32, 64, 128), and a second call bitwise equal to the
+   first; then kernel, plain version and one library call
+   (``scaled_dot_product_attention``, a yardstick the port never calls)
+   timed at (8, 8, 50, 32), (256, 8, 50, 32) and (8, 8, 650, 32), beside
+   the bound computed from the shapes;
 4. backward: the backward kernels (dq with delta, dk/dv; split-TF32
    tensor-core products) through autograd against the plain backward and
    against autograd of the plain forward, dq, dk and dv within 1e-4 abs +
    1e-4 rel at every shape, S=4096 (the regime of the TPU's stream
    kernels) and the kernels' tile edges (S = 64, 65, 128, 129 at Dh 32,
    64, 128) included, and a second call bitwise equal to the first; then
-   the kernels and the plain autograd backward timed;
+   the kernels, the plain autograd backward and the library call's
+   backward timed, beside their bounds;
 5. slice: the crello Ours-EXP job (D=256, 4 DeepSVG blocks, 8 heads,
    batch 8) with random weights from seed 0 on a synthetic data dir,
    served over HTTP through ``CoalescingEngine``; every answer is checked
@@ -36,8 +43,9 @@ Phases, each of which must pass (any failure exits non-zero):
    counts the launches of every kernel: each backward kernel at least once
    per block per step.
 
-The last lines are one JSON object per kernel, the card's name and power
-limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
+The last lines are one JSON object per kernel (times at the training
+shape (256, 8, 50, 32); launches from the training CLI run), the card's name
+and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 """
 
 import copy
@@ -149,6 +157,7 @@ def phase_build():
 
 def phase_kernel(card):
     import torch
+    import torch.nn.functional as F
 
     from flexdm_tpu_torch.ops import attention as attn
 
@@ -163,7 +172,13 @@ def phase_kernel(card):
         ((2, 4, 512, 64), True, False),
         ((2, 4, 650, 32), False, True),
         ((2, 4, 650, 32), True, False),
+        ((256, 8, 50, 32), False, True),
     ]
+    # The kernel's tile edges (64-row query tiles; 64-key K/V tiles, 32 at
+    # Dh=128).
+    cases += [((2, 2, s, dh), causal, True)
+              for s in (16, 17, 63, 64, 65, 128, 129)
+              for dh in (32, 64, 128) for causal in (False, True)]
     worst = 0.0
     for shape, causal, fully_masked in cases:
         b, h, s, dh = shape
@@ -174,6 +189,7 @@ def phase_kernel(card):
             mask[-1] = False
         mask = mask.cuda()
         o, lse = attn.flash_attention_forward(q, k, v, mask, causal)
+        again = attn.flash_attention_forward(q, k, v, mask, causal)
         bias = attn.key_bias(mask, b, s, q.device)
         ref_o = attn.attention_reference(q, k, v, bias, causal)
         ref_lse = attn.attention_reference_lse(q, k, bias, causal)
@@ -182,36 +198,103 @@ def phase_kernel(card):
         err_lse = (lse - ref_lse).abs().max().item()
         worst = max(worst, err_o, err_lse)
         log(f"[kernel] {shape} causal={causal} fully_masked_row="
-            f"{fully_masked}: max|dO|={err_o:.3e} max|dlse|={err_lse:.3e}")
+            f"{fully_masked}: max|dO|={err_o:.3e} max|dlse|={err_lse:.3e} "
+            f"(bound 2e-5 abs + 2e-5 rel); a second call bitwise equal")
         check(torch.isfinite(o).all().item(), f"non-finite O at {shape}")
         check(torch.allclose(o, ref_o, **KERNEL_TOL), f"O differs at {shape}")
         check(torch.allclose(lse, ref_lse, **KERNEL_TOL),
               f"lse differs at {shape}")
+        check(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+              f"two forward calls differ at {shape} causal={causal}")
 
     timings = {}
-    for shape in ((8, 8, 50, 32), (8, 8, 650, 32)):
+    for shape in ((8, 8, 50, 32), (256, 8, 50, 32), (8, 8, 650, 32)):
         b, h, s, dh = shape
         q, k, v = (torch.randn(shape, generator=g).cuda() for _ in range(3))
         mask = torch.ones(b, s, dtype=torch.bool)
         mask[:, s - s // 5:] = False
         mask = mask.cuda()
         bias = attn.key_bias(mask, b, s, q.device)
+        sdpa_mask = bias[:, None, None, :]
         kernel = lambda: attn.flash_attention_forward(q, k, v, mask)  # noqa: E731
         plain = lambda: attn.attention_reference(q, k, v, bias)  # noqa: E731
-        kernel_ms, plain_ms = device_ms(kernel), device_ms(plain)
-        timings[shape] = (kernel_ms, plain_ms)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=sdpa_mask)
+        t = {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
+             "library_ms": device_ms(library)}
+        t.update(forward_bound(shape))
+        timings[shape] = t
         log(f"[time] attention {shape} device time (CUDA graph of 20 calls, "
-            f"median of 50): kernel {kernel_ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms [{card}]")
+            f"median of 50): kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library (scaled_dot_product_attention"
+            f", O only; {sdpa_kernels(library)}) {t['library_ms']:.4f} ms; "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; FP32 pipes "
+            f"{t['fp32_bound_ms']:.4f} ms) [{card}]")
         log(f"[time] attention {shape} per call from Python (median of "
             f"50 x 20): kernel {time_ms(kernel):.4f} ms, plain "
             f"{time_ms(plain):.4f} ms [{card}]")
     return worst, timings
 
 
+# Peaks of one NVIDIA H100 SXM (data sheet, dense): HBM bytes/s, TF32
+# tensor-core and FP32 (FMA pipe) FLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+TF32_FLOPS = 495e12
+FP32_FLOPS = 67e12
+
+
+def bound(nbytes, flops):
+    """The least time (ms) for ``nbytes`` of device-memory traffic and
+    ``flops`` of TF32 tensor-core work, and which of the two sets it, beside
+    the same work on the FP32 pipes."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / TF32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "fp32_bound_ms": max(t_bytes, flops / FP32_FLOPS * 1e3)}
+
+
+def forward_bound(shape):
+    """Reads q, k, v and the (B, S) byte mask; writes O, lse, m, l.  Two
+    products of 2 S^2 Dh FLOPs per (batch, head)."""
+    b, h, s, dh = shape
+    rows = b * h * s
+    return bound(4 * (4 * rows * dh + 3 * rows) + b * s,
+                 4 * b * h * s * s * dh)
+
+
+def backward_bounds(shape):
+    """dq: reads q, k, v, o, dO, m, l, mask, writes dq, delta; 3 products.
+    dk/dv: reads q, k, v, dO, m, l, delta, mask, writes dk, dv; 4 products
+    (2 S^2 Dh FLOPs each)."""
+    b, h, s, dh = shape
+    rows = b * h * s
+    product = 2 * b * h * s * s * dh
+    return (bound(4 * (6 * rows * dh + 3 * rows) + b * s, 3 * product),
+            bound(4 * (6 * rows * dh + 3 * rows) + b * s, 4 * product))
+
+
+def sdpa_kernels(fn):
+    """The device kernels one call of ``fn`` runs (which backend of
+    ``scaled_dot_product_attention`` served it), from the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+    except Exception as e:  # the label only; the timing stands without it
+        return f"kernels not read: {type(e).__name__}"
+    return "kernels " + ", ".join(n[:60] for n in names) if names else \
+        "no device kernel seen by the profiler"
+
+
 def make_job(root):
     """A crello data dir and an Ours-EXP job with port weights (seed 0)."""
-    from flexdm_tpu.data import DatasetSpec, synthetic
+    from flexdm_tpu_torch.data import DatasetSpec, synthetic
 
     from flexdm_tpu_torch.config import TrainConfig, build_model
     from flexdm_tpu_torch.convert import init_params, save_weights
@@ -283,7 +366,7 @@ def check_predictions(spec, task, docs, preds, fields="all", element=None):
 def phase_slice(card):
     import torch
 
-    from flexdm_tpu.data import split_device_batch
+    from flexdm_tpu_torch.data import split_device_batch
 
     from flexdm_tpu_torch.ops import attention as attn
     from flexdm_tpu_torch.serve import CoalescingEngine, InferenceEngine, \
@@ -390,6 +473,7 @@ def phase_backward(card):
     """The backward kernels against the plain backward; returns the worst
     error per kernel and the timings."""
     import torch
+    import torch.nn.functional as F
 
     from flexdm_tpu_torch.ops import attention as attn
 
@@ -462,24 +546,36 @@ def phase_backward(card):
         bias = attn.key_bias(mask, b, s, q.device)
         ref_o = attn.attention_reference(qg, kg, vg, bias)
 
-        def plain_fwd(backward=False):
+        sdpa_mask = bias[:, None, None, :]
+
+        def plain_fwd(backward=False, forward=attn.attention_reference):
             # Autograd runs a backward op on the stream of its forward op
             # and of its leaves, so a graph captures the plain backward
             # only with its forward and leaves made inside the capture.
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = attn.attention_reference(*leaves, bias)
+            out = forward(*leaves)
             return torch.autograd.grad(out, leaves, do) if backward else out
+
+        def library(*leaves):
+            return F.scaled_dot_product_attention(*leaves,
+                                                  attn_mask=sdpa_mask)
 
         calls = {
             "dq": lambda: attn._backward_dq(q, k, v, mask, o, m, l, do),
             "dkv": lambda: attn._backward_dkv(q, k, v, mask, m, l, delta, do),
             "kernels": lambda: attn.flash_attention_backward(
                 q, k, v, mask, o, m, l, do),
-            "plain_fwd": plain_fwd,
-            "plain_fwd_bwd": lambda: plain_fwd(backward=True),
+            "plain_fwd": lambda: plain_fwd(
+                forward=lambda *x: attn.attention_reference(*x, bias)),
+            "plain_fwd_bwd": lambda: plain_fwd(
+                True, lambda *x: attn.attention_reference(*x, bias)),
+            "library_fwd": lambda: plain_fwd(forward=library),
+            "library_fwd_bwd": lambda: plain_fwd(True, library),
         }
         t = {name: device_ms(fn) for name, fn in calls.items()}
         t["plain"] = t["plain_fwd_bwd"] - t["plain_fwd"]
+        t["library"] = t["library_fwd_bwd"] - t["library_fwd"]
+        t["bounds"] = dict(zip(("dq", "dkv"), backward_bounds(shape)))
         timings[shape] = t
         per_call = {
             "kernels": time_ms(calls["kernels"]),
@@ -491,7 +587,16 @@ def phase_backward(card):
             f"{t['dkv']:.4f} ms, kernels (dq + dkv) {t['kernels']:.4f} ms; "
             f"plain autograd backward {t['plain']:.4f} ms (forward + "
             f"backward {t['plain_fwd_bwd']:.4f} ms less forward "
-            f"{t['plain_fwd']:.4f} ms) [{card}]")
+            f"{t['plain_fwd']:.4f} ms); library backward "
+            f"(scaled_dot_product_attention, forward + backward "
+            f"{t['library_fwd_bwd']:.4f} ms less forward "
+            f"{t['library_fwd']:.4f} ms; "
+            f"{sdpa_kernels(lambda: plain_fwd(True, library))}) "
+            f"{t['library']:.4f} ms [{card}]")
+        for name, bd in t["bounds"].items():
+            log(f"[time] attention backward {shape} {name}: bound "
+                f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}; FP32 pipes "
+                f"{bd['fp32_bound_ms']:.4f} ms), kernel {t[name]:.4f} ms")
         log(f"[time] attention backward {shape} per call from Python "
             f"(median of 50 x 20): kernels {per_call['kernels']:.4f} ms, "
             f"plain autograd backward {per_call['plain']:.4f} ms [{card}]")
@@ -508,7 +613,7 @@ def launch_counts():
 def train_setup(root):
     """A synthetic crello dir big enough for full batches of 256, and the
     Ours-EXP preset pointing at it."""
-    from flexdm_tpu.data import synthetic
+    from flexdm_tpu_torch.data import synthetic
 
     t0 = time.perf_counter()
     data_dir = synthetic.generate(
@@ -646,7 +751,7 @@ def phase_train_cli(root, data_dir, card):
     """``python -m flexdm_tpu_torch`` for 2 epochs, then serve its best."""
     import torch
 
-    from flexdm_tpu.data import DatasetSpec, split_device_batch
+    from flexdm_tpu_torch.data import DatasetSpec, split_device_batch
 
     from flexdm_tpu_torch.cli import main as train_main
     from flexdm_tpu_torch.ops import attention as attn
@@ -699,7 +804,7 @@ def phase_train_cli(root, data_dir, card):
 def phase_train(card):
     import torch
 
-    from flexdm_tpu.data import DatasetSpec, split_device_batch
+    from flexdm_tpu_torch.data import DatasetSpec, split_device_batch
 
     with tempfile.TemporaryDirectory() as root:
         data_dir, args = train_setup(root)
@@ -726,21 +831,29 @@ def main():
     phase_build()
     kernel_err, timings = phase_kernel(card)
     backward_err, backward_timings = phase_backward(card)
-    launches, latency, slice_err = phase_slice(card)
+    phase_slice(card)
     step_ms, train_counts = phase_train(card)
-    kernel_ms, plain_ms = timings[(8, 8, 50, 32)]
-    bwd = backward_timings[(256, 8, 50, 32)]
+    # The training shape, which every kernel of the path runs at (the
+    # forward also serves at (8, 8, 50, 32): the log lines above).
+    shape = (256, 8, 50, 32)
+    fwd = timings[shape]
+    bwd = backward_timings[shape]
     source = "flexdm_tpu_torch/csrc/flash_attention_bwd.cu"
     tpu = "flexdm_tpu/ops/attention.py"
+
+    def times(ms, plain_ms, library_ms, bd):
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms"],
+                "bound_by": bd["bound_by"], "library_ms": library_ms,
+                "shape": list(shape)}
+
     log(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "flexdm_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": f"{tpu}:77",
-        "launches": launches,
+        "launches": train_counts["fwd"],
         "max_abs_err": kernel_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
+        **times(fwd["ms"], fwd["plain_ms"], fwd["library_ms"], fwd),
     }, {
         "name": "flash_attention_bwd_dq",
         "route": "cuda",
@@ -748,8 +861,7 @@ def main():
         "replaces": f"{tpu}:116 and {tpu}:217",
         "launches": train_counts["dq"],
         "max_abs_err": backward_err["dq"],
-        "ms": bwd["dq"],
-        "plain_ms": bwd["plain"],
+        **times(bwd["dq"], bwd["plain"], bwd["library"], bwd["bounds"]["dq"]),
     }, {
         "name": "flash_attention_bwd_dkv",
         "route": "cuda",
@@ -757,8 +869,8 @@ def main():
         "replaces": f"{tpu}:156 and {tpu}:254",
         "launches": train_counts["dkv"],
         "max_abs_err": max(backward_err["dk"], backward_err["dv"]),
-        "ms": bwd["dkv"],
-        "plain_ms": bwd["plain"],
+        **times(bwd["dkv"], bwd["plain"], bwd["library"],
+                bwd["bounds"]["dkv"]),
     }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -13,8 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
-from flexdm_tpu.data.schema import Schema
-
+from .data.schema import Schema
 from .models.mfp import MFPModel
 
 

@@ -38,10 +38,11 @@
 // mma.sync.m16n8k8 with TF32 operands and FP32 accumulators, with each
 // operand split as it enters registers: hi = tf32(a), lo = tf32(a - hi),
 // and a b ~ lo hi' + hi lo' + hi hi' (three MMAs per k-step, summed from
-// zero on the tensor core and added to the accumulator in FP32; see
-// mma3).  A single TF32 pass keeps ~3 decimal digits and misses the 1e-4
-// gate of the card checks by 10x (tests/test_torch_attention_backward.py
-// emulates both); the split's error is ~1e-6, that of an FP32 FMA loop.
+// zero on the tensor core and added to the accumulator in FP32; see mma3
+// in mma_tf32.cuh, which both attention sources share).  A single TF32
+// pass keeps ~3 decimal digits and misses the 1e-4 gate of the card checks
+// by 10x (tests/test_torch_attention_backward.py emulates both); the
+// split's error is ~1e-6, that of an FP32 FMA loop.
 //
 // What bounded the previous design (FMA pipes, one output element per lane)
 // was shared memory: every FMA read both operands as separate 4-byte
@@ -105,6 +106,8 @@
 
 #include <cstdint>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
 // A block has kGroups x kParts warps.  Warp w owns the rows (dq) or keys
@@ -113,176 +116,6 @@ namespace {
 constexpr int kGroups = 4;
 constexpr int kParts = 2;
 constexpr int kThreads = kGroups * kParts * 32;
-constexpr int kPad = 4;  // floats of padding per shared row
-constexpr float kMaskedScore = -1e9f;
-constexpr int kStaticSmemLimit = 48 * 1024;
-
-// ---------------------------------------------------------------------------
-// Asynchronous copies
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled where !real (src is not read).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool real) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(real ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool real) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(real ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most one committed group of this thread is in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Rows [row0, row0 + ROWS) of a (S, DH) slice into a [ROWS][DH + kPad] tile;
-// rows >= S are zero-filled.
-template <int ROWS, int DH>
-__device__ __forceinline__ void load_rows(float* tile, const float* src,
-                                          int row0, int S, int tid) {
-  constexpr int kChunks = DH / 4;
-  static_assert(ROWS * kChunks % kThreads == 0, "tile not a whole number "
-                                                "of copies per thread");
-#pragma unroll
-  for (int n = 0; n < ROWS * kChunks / kThreads; ++n) {
-    const int i = tid + n * kThreads;
-    const int r = i / kChunks, c = i % kChunks * 4;
-    const bool real = row0 + r < S;
-    const float* from =
-        real ? src + static_cast<size_t>(row0 + r) * DH + c : src;
-    cp_async16(tile + r * (DH + kPad) + c, from, real);
-  }
-}
-
-// Entries [row0, row0 + ROWS) of a length-S vector; past S zero-filled.
-template <int ROWS>
-__device__ __forceinline__ void load_vec(float* dst, const float* src,
-                                         int row0, int S, int tid) {
-  for (int i = tid; i < ROWS; i += kThreads) {
-    const bool real = row0 + i < S;
-    cp_async4(dst + i, real ? src + row0 + i : src, real);
-  }
-}
-
-__device__ __forceinline__ float key_bias(const uint8_t* key_mask, int b,
-                                          int S, int key) {
-  const bool keep = key < S && (key_mask == nullptr ||
-                                key_mask[static_cast<size_t>(b) * S + key]);
-  return keep ? 0.f : kMaskedScore;
-}
-
-// ---------------------------------------------------------------------------
-// Split-TF32 tensor-core products (mma.sync.m16n8k8).  Lane = 4 g + t.
-//   A (16 x 8): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-//   B (8 x 8):  b0 (k = t, n = g), b1 (k = t + 4, n = g)
-//   C (16 x 8): c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
-// ---------------------------------------------------------------------------
-
-// An operand fragment as hi + lo, each TF32.  TF32 rounding is round to
-// nearest, ties away, on the low 13 bits of the float32 word (the rounding
-// of cvt.rna.tf32.f32): add half of the dropped range and let the tensor
-// core, which reads only the upper 19 bits, drop the rest (8-22% faster
-// than cvt.rna.tf32.f32 on the H100, which is not a full-rate
-// instruction).  hi is masked, so x - hi is exact.
-template <int N>
-struct Split {
-  uint32_t hi[N], lo[N];
-  __device__ __forceinline__ void set(int i, float x) {
-    hi[i] = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-    lo[i] = __float_as_uint(x - __uint_as_float(hi[i])) + 0x1000u;
-  }
-};
-using FragA = Split<4>;
-using FragB = Split<2>;
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in three TF32 products, the small terms first.  The tensor
-// core's own float32 accumulation is not round-to-nearest (its error does
-// not average out), so the three products of the k-step are summed there
-// from zero and added to d with a round-to-nearest float32 add:
-// accumulating all k-steps on the tensor core measured 5x the error, and
-// in the training step turned the key-bias gradient (exactly 0 in exact
-// arithmetic: sum_j ds_ij = 0) into 2e-5 of noise against 4e-7 on the FMA
-// path.
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
-                                     const FragB& b) {
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  mma(c, a.lo, b.hi);
-  mma(c, a.hi, b.lo);
-  mma(c, a.hi, b.hi);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += c[e];
-}
-
-// A = tile[r0 .. r0+16)[c0 .. c0+8) of a row-major tile.
-template <int LD>
-__device__ __forceinline__ FragA load_a(const float* tile, int r0, int c0,
-                                        int g, int t) {
-  const float* p = tile + (r0 + g) * LD + c0 + t;
-  FragA f;
-  f.set(0, p[0]);
-  f.set(1, p[8 * LD]);
-  f.set(2, p[4]);
-  f.set(3, p[8 * LD + 4]);
-  return f;
-}
-
-// B = (tile[n0 .. n0+8)[k0 .. k0+8))^T: column n of B is row n0 + n.
-template <int LD>
-__device__ __forceinline__ FragB load_bt(const float* tile, int n0, int k0,
-                                         int g, int t) {
-  const float* p = tile + (n0 + g) * LD + k0 + t;
-  FragB f;
-  f.set(0, p[0]);
-  f.set(1, p[4]);
-  return f;
-}
-
-// B = tile[k0 .. k0+8)[n0 .. n0+8) in the k order of from_acc: a lane's
-// b0, b1 are rows k0 + 2t, k0 + 2t + 1.
-template <int LD>
-__device__ __forceinline__ FragB load_b_paired(const float* tile, int k0,
-                                               int n0, int g, int t) {
-  const float* p = tile + (k0 + 2 * t) * LD + n0 + g;
-  FragB f;
-  f.set(0, p[0]);
-  f.set(1, p[LD]);
-  return f;
-}
-
-// An accumulator n-tile (16 x 8) as the A operand of the next product: the
-// lane's columns 2t and 2t + 1 serve as k = t and k = t + 4.
-__device__ __forceinline__ FragA from_acc(const float (&c)[4]) {
-  FragA f;
-  f.set(0, c[0]);
-  f.set(1, c[2]);
-  f.set(2, c[1]);
-  f.set(3, c[3]);
-  return f;
-}
 
 // Adds the partial sums of a group's kParts warps into part 0, in part
 // order, through shared memory (buf: (kParts - 1) x kGroups x NT x 128
@@ -368,12 +201,13 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   int n_tiles = (S + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (min(q0 + T::kRows, S) + BK - 1) / BK);
   auto load_kv = [&](int i) {
-    load_rows<BK, DH>(stage(i), k + head * DH, i * BK, S, tid);
-    load_rows<BK, DH>(stage(i) + BK * LD, v + head * DH, i * BK, S, tid);
+    load_rows<BK, DH, kThreads>(stage(i), k + head * DH, i * BK, S, tid);
+    load_rows<BK, DH, kThreads>(stage(i) + BK * LD, v + head * DH, i * BK, S,
+                                tid);
   };
 
-  load_rows<T::kRows, DH>(q_s, q + head * DH, q0, S, tid);
-  load_rows<T::kRows, DH>(do_s, dout + head * DH, q0, S, tid);
+  load_rows<T::kRows, DH, kThreads>(q_s, q + head * DH, q0, S, tid);
+  load_rows<T::kRows, DH, kThreads>(do_s, dout + head * DH, q0, S, tid);
   load_kv(0);
   cp_async_commit();
   if (tid < BK) stage(0)[2 * BK * LD + tid] = key_bias(key_mask, b, S, tid);
@@ -538,15 +372,17 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_tiles = (S + BQ - 1) / BQ;
   auto load_q = [&](int i) {
     float* st = stage(i);
-    load_rows<BQ, DH>(st, q + head * DH, i * BQ, S, tid);
-    load_rows<BQ, DH>(st + BQ * LD, dout + head * DH, i * BQ, S, tid);
-    load_vec<BQ>(st + 2 * BQ * LD, row_max + head, i * BQ, S, tid);
-    load_vec<BQ>(st + 2 * BQ * LD + BQ, row_sum + head, i * BQ, S, tid);
-    load_vec<BQ>(st + 2 * BQ * LD + 2 * BQ, delta + head, i * BQ, S, tid);
+    load_rows<BQ, DH, kThreads>(st, q + head * DH, i * BQ, S, tid);
+    load_rows<BQ, DH, kThreads>(st + BQ * LD, dout + head * DH, i * BQ, S,
+                                tid);
+    float* stats = st + 2 * BQ * LD;
+    load_vec<BQ, kThreads>(stats, row_max + head, i * BQ, S, tid);
+    load_vec<BQ, kThreads>(stats + BQ, row_sum + head, i * BQ, S, tid);
+    load_vec<BQ, kThreads>(stats + 2 * BQ, delta + head, i * BQ, S, tid);
   };
 
-  load_rows<T::kKeys, DH>(k_s, k + head * DH, k0, S, tid);
-  load_rows<T::kKeys, DH>(v_s, v + head * DH, k0, S, tid);
+  load_rows<T::kKeys, DH, kThreads>(k_s, k + head * DH, k0, S, tid);
+  load_rows<T::kKeys, DH, kThreads>(v_s, v + head * DH, k0, S, tid);
   load_q(0);
   cp_async_commit();
 
@@ -641,23 +477,6 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           make_float2(acc_dv[n][2 * hh], acc_dv[n][2 * hh + 1]);
     }
   }
-}
-
-// Above 48 KB a block's dynamic shared memory must be opted into, once per
-// kernel instance.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  if (bytes <= kStaticSmemLimit) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-// Shared memory of a launch: the block's own tiles and one stage, or two
-// when the loop has more than one tile.
-template <typename Tile>
-constexpr int smem_bytes(int stages) {
-  return (Tile::kOwnFloats + stages * Tile::kStageFloats) *
-         static_cast<int>(sizeof(float));
 }
 
 template <int DH>

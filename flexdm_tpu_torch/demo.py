@@ -13,10 +13,9 @@ from typing import Optional
 
 import torch
 
-from flexdm_tpu.data import DatasetSpec
-
 from .config import TrainConfig, build_model
 from .convert import load_weights
+from .data import DatasetSpec
 from .evaluation.harness import _group_masks
 from .models.masking import (
     get_initial_masks,

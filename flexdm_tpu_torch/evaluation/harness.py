@@ -11,8 +11,7 @@ from typing import Dict
 
 import torch
 
-from flexdm_tpu.data.schema import Schema
-
+from ..data.schema import Schema
 from ..models.masking import get_initial_masks, get_seq_mask
 
 

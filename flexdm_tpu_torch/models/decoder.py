@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from flexdm_tpu.data.schema import ColumnSpec, Schema
+from ..data.schema import ColumnSpec, Schema
 
 
 def head_shape(column: ColumnSpec):

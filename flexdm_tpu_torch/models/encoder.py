@@ -28,8 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from flexdm_tpu.data.schema import MASK_VALUE, NULL_VALUE, Schema
-
+from ..data.schema import MASK_VALUE, NULL_VALUE, Schema
 from .masking import get_seq_mask
 
 CONTEXTS = (None, "id")

@@ -27,8 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from flexdm_tpu.data.schema import Schema
-
+from ..data.schema import Schema
 from .masking import get_seq_mask
 
 Tensors = Dict[str, torch.Tensor]

@@ -28,7 +28,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from flexdm_tpu.data.schema import MASK_VALUE, NULL_VALUE, ColumnSpec, Schema
+from ..data.schema import MASK_VALUE, NULL_VALUE, ColumnSpec, Schema
 
 Tensors = Dict[str, torch.Tensor]
 

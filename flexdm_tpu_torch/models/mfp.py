@@ -21,8 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from flexdm_tpu.data.schema import Schema, make_task_probs
-
+from ..data.schema import Schema, make_task_probs
 from .decoder import Decoder
 from .encoder import Encoder
 from .losses import compute_mfp_loss

@@ -1,8 +1,8 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
-Each library is compiled once per source hash into
-``build/flexdm_tpu_torch/`` at the repository root, for ``sm_90a`` (Hopper),
-with a plain C interface: the caller passes device pointers as
+Each library is compiled once per hash of its sources, the shared headers
+and the flags into ``build/flexdm_tpu_torch/`` at the repository root, for
+``sm_90a`` (Hopper), with a plain C interface: the caller passes device pointers as
 ``ctypes.c_void_p`` and PyTorch's current stream.  Nothing here links
 against PyTorch, so a build takes seconds.  A missing ``nvcc`` or a failed
 compile raises with the compiler's output; there is no fallback.
@@ -55,10 +55,11 @@ def find_nvcc() -> str:
 
 def build_library(name: str, sources: Sequence[str]) -> Path:
     """Compile ``csrc/<sources>`` into ``lib<name>-<hash>.so``; reuse it when
-    the sources and flags are unchanged."""
+    the sources, every header ``csrc/*.cuh`` (a source may include any of
+    them) and the flags are unchanged."""
     paths = [CSRC_DIR / s for s in sources]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in [*paths, *sorted(CSRC_DIR.glob("*.cuh"))]:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"

@@ -9,10 +9,10 @@ the JAX layout: ``q, k, v`` are ``(B, H, S, Dh)`` and ``key_mask`` is a
   kernels, written out as the formulas autograd computes.
 * :func:`flash_attention_forward` launches the hand-written Hopper kernel
   ``csrc/flash_attention_fwd.cu``, which replaces the TPU kernel
-  ``_flash_fwd_kernel``.  The kernel note in the source says what bounds it
-  on the H100 (at the serving shape B=8, H=8, S=50, Dh=32 it is a tiny,
-  latency-bound launch) and what its design does about it (16-row query
-  tiles, so 256 blocks fill the 132 SMs instead of 64).
+  ``_flash_fwd_kernel``: 64-row query tiles, both products (q k^T and
+  p v) on the tensor cores with the split-TF32 arithmetic described
+  below, K/V tiles by ``cp.async``.  The kernel note in the source says
+  what bounds it on the H100.
 * :func:`flash_attention_backward` launches ``csrc/flash_attention_bwd.cu``:
   a dq kernel (which also writes ``delta = rowsum(dO * O)``) and a dk/dv
   kernel.  They replace the TPU kernels ``_flash_bwd_dq_kernel`` /
@@ -32,7 +32,7 @@ forward's row max and row sum, not from the logsumexp: in a fully masked
 row every score rounds to exactly ``-1e9`` in float32, so does the
 logsumexp, and ``exp(s - lse)`` would give 1 for every key where the
 softmax gives ``1/S``.  The port follows the plain path there; the TPU
-kernels do not.  The backward kernels sum the scores in another order
+kernels do not.  The backward kernels compute the scores in other tiles
 than the forward kernel, so their p is the forward's to ~1e-6 relative,
 not bit for bit; a fully masked row still gets exactly ``1/S`` (its
 scores round to ``-1e9`` = m, and the forward summed l = S).
@@ -154,6 +154,13 @@ def _launch(name: str, fn, *args) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def _check_aligned(**tensors):
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernels "
+                             "copy rows 16 bytes at a time)")
+
+
 def _check_inputs(q, k, v, key_mask):
     if q.device.type != "cuda":
         raise ValueError(
@@ -176,6 +183,7 @@ def _check_inputs(q, k, v, key_mask):
         )
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    _check_aligned(q=q, k=k, v=v)
     if key_mask is not None:
         b, _, s, _ = q.shape
         if (key_mask.dtype != torch.bool or tuple(key_mask.shape) != (b, s)
@@ -234,10 +242,7 @@ def _check_backward_inputs(q, k, v, key_mask, o, m, l, do):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous tensor like q")
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernels "
-                             "copy rows 16 bytes at a time)")
+    _check_aligned(o=o, do=do)
     b, h, s, _ = q.shape
     for name, t in (("m", m), ("l", l)):
         if (tuple(t.shape) != (b, h, s) or t.dtype != torch.float32

@@ -36,8 +36,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from flexdm_tpu.data import DatasetSpec, split_device_batch
-
+from .data import DatasetSpec, split_device_batch
 from .demo import build_task_masks, load_model
 from .evaluation.harness import task_id_for_mode
 from .models import forward_eval

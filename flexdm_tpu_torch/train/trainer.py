@@ -33,10 +33,9 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
-from flexdm_tpu.data import NUM_VALID_KEY, DatasetSpec, split_device_batch
-
 from ..config import TrainConfig, build_model
 from ..convert import init_params
+from ..data import NUM_VALID_KEY, DatasetSpec, split_device_batch
 from ..models import forward_train, make_task_config
 from ..models.masking import draw_train, record_draws
 from .checkpoint import checkpoint_path, save_checkpoint

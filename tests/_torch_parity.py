@@ -1,5 +1,6 @@
 """Shared helpers of the PyTorch-port parity tests: one numpy batch, masks
-and weights handed to both packages."""
+and weights handed to both packages, and the CUDA kernels' tensor-core
+arithmetic emulated on the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -57,3 +58,21 @@ def assert_trees_close(got, want, rtol, atol):
             np.asarray(got[name]), np.asarray(want[name]),
             rtol=rtol, atol=atol, err_msg=name,
         )
+
+
+def tf32(x):
+    """Round float32 to TF32: to nearest, ties away from zero, on the low
+    13 bits of the float32 word (``cvt.rna.tf32.f32``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_matmul(a, b, split):
+    """``a @ b`` as the attention kernels' tensor-core products compute it:
+    TF32 operands, float32 sums.  ``split``: each operand is hi + lo with
+    hi = tf32(x), lo = tf32(x - hi), and a b = lo hi' + hi lo' + hi hi'."""
+    ah, bh = tf32(a), tf32(b)
+    if not split:
+        return ah @ bh
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh

@@ -1,5 +1,6 @@
-"""Port attention: plain PyTorch version against the JAX package, and the
-CUDA kernel against the plain version (on a card only)."""
+"""Port attention: plain PyTorch version against the JAX package, the CUDA
+forward kernel's split-TF32 arithmetic emulated on the CPU, and the CUDA
+kernel against the plain version (on a card only)."""
 
 import numpy as np
 import pytest
@@ -10,6 +11,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from flexdm_tpu.ops import attention as jax_attn  # noqa: E402
 from flexdm_tpu_torch.ops import attention as port_attn  # noqa: E402
+from tests._torch_parity import tf32_matmul  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -73,6 +75,54 @@ def test_plain_lse_matches_flash_forward(name):
     np.testing.assert_allclose(port, np.asarray(lse)[..., 0], **TOL)
 
 
+def _tf32_forward(q, k, v, bias, causal, split, block=64):
+    """The forward kernel's arithmetic in plain PyTorch: both products
+    through :func:`tf32_matmul`, online softmax over ``block``-key tiles.
+    Returns ``(O, lse)``."""
+    s = tf32_matmul(q, k.transpose(-1, -2), split) / np.sqrt(q.shape[-1])
+    s = s + bias[:, None, None, :]
+    if causal:
+        s = s.masked_fill(port_attn._outside_causal_band(q), port_attn.NEG_INF)
+    m = torch.full(s.shape[:-1], -np.inf)
+    l = torch.zeros(s.shape[:-1])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, s.shape[-1], block):
+        tile = s[..., k0:k0 + block]
+        m_new = torch.maximum(m, tile.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(tile - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + tf32_matmul(
+            p, v[..., k0:k0 + block, :], split)
+        m = m_new
+    return acc / l[..., None], m + torch.log(l)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 650, 32), (8, 8, 50, 32)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_tf32_forward_meets_the_card_tolerance(shape, causal):
+    """Why the forward kernel splits both products: with the 3-term TF32
+    split, O and lse stay within ``TOL`` (the card's bar) of the float32
+    plain version, fully masked rows included; a single TF32 pass does
+    not."""
+    rng = np.random.default_rng(13)
+    b, h, s, dh = shape
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               for _ in range(3))
+    mask = torch.from_numpy(rng.random((b, s)) > 0.3)
+    mask[:, 0] = True
+    mask[-1] = False
+    bias = port_attn.key_bias(mask, b, s, "cpu")
+    want = (port_attn.attention_reference(q, k, v, bias, causal),
+            port_attn.attention_reference_lse(q, k, bias, causal))
+    split = _tf32_forward(q, k, v, bias, causal, split=True)
+    single = _tf32_forward(q, k, v, bias, causal, split=False)
+    for got, w, name in zip(split, want, ("O", "lse")):
+        torch.testing.assert_close(got, w, **TOL, msg=name)
+    assert not torch.allclose(single[0], want[0], **TOL)
+    assert not torch.allclose(single[1], want[1], **TOL)
+
+
 def test_kernel_path_raises_without_cuda():
     """A CPU tensor handed to the kernel wrapper raises; nothing falls back."""
     q = torch.zeros(1, 1, 4, 32)
@@ -106,3 +156,29 @@ def test_kernel_matches_plain_on_card(shape, causal):
     torch.testing.assert_close(
         lse, port_attn.attention_reference_lse(q, k, bias, causal), **TOL
     )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [16, 17, 63, 64, 65, 128, 129])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_kernel_tile_edges_on_card(s, dh):
+    """The kernel's tile edges (64-row query tiles; 64-key K/V tiles, 32 at
+    Dh=128), causal, with a fully masked row: within ``TOL`` of the plain
+    version, and a second call bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    shape = (2, 2, s, dh)
+    g = torch.Generator().manual_seed(s * dh)
+    q, k, v = (torch.randn(shape, generator=g).cuda() for _ in range(3))
+    mask = torch.rand(2, s, generator=g) > 0.3
+    mask[:, 0] = True
+    mask[-1] = False
+    mask = mask.cuda()
+    got = port_attn.flash_attention_forward(q, k, v, mask, True)
+    again = port_attn.flash_attention_forward(q, k, v, mask, True)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    bias = port_attn.key_bias(mask, 2, s, q.device)
+    torch.testing.assert_close(
+        got[0], port_attn.attention_reference(q, k, v, bias, True), **TOL)
+    torch.testing.assert_close(
+        got[1], port_attn.attention_reference_lse(q, k, bias, True), **TOL)

@@ -18,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from flexdm_tpu.ops import attention as jax_attn  # noqa: E402
 from flexdm_tpu_torch.ops import attention as port_attn  # noqa: E402
+from tests._torch_parity import tf32_matmul  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 CARD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -110,44 +111,26 @@ def test_fully_masked_row_follows_the_plain_path(causal):
     np.testing.assert_allclose(pallas_dv[0], want[2][0], **TOL)
 
 
-def _tf32(x):
-    """Round float32 to TF32: to nearest, ties away from zero, on the low
-    13 bits of the float32 word (``cvt.rna.tf32.f32``)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _tf32_matmul(a, b, split):
-    """``a @ b`` as the backward kernels' tensor-core products compute it:
-    TF32 operands, float32 sums.  ``split``: each operand is hi + lo with
-    hi = tf32(x), lo = tf32(x - hi), and a b = lo hi' + hi lo' + hi hi'."""
-    ah, bh = _tf32(a), _tf32(b)
-    if not split:
-        return ah @ bh
-    al, bl = _tf32(a - ah), _tf32(b - bh)
-    return al @ bh + ah @ bl + ah @ bh
-
-
 def _tf32_backward(q, k, v, bias, o, do, causal, split):
     """The backward kernels' arithmetic in plain PyTorch: every product
-    through :func:`_tf32_matmul`; p = exp(s - m) / l with the forward's
+    through :func:`tf32_matmul`; p = exp(s - m) / l with the forward's
     float32 row max and sum."""
     scale = 1.0 / np.sqrt(q.shape[-1])
     scores = port_attn._scores(q, k, bias, causal)
     m = scores.amax(-1, keepdim=True)
     l = torch.exp(scores - m).sum(-1, keepdim=True)
-    s = _tf32_matmul(q, k.transpose(-1, -2), split) * scale
+    s = tf32_matmul(q, k.transpose(-1, -2), split) * scale
     s = s + bias[:, None, None, :]
     if causal:
         s = s.masked_fill(port_attn._outside_causal_band(q), port_attn.NEG_INF)
     p = torch.exp(s - m) / l
-    dp = _tf32_matmul(do, v.transpose(-1, -2), split)
+    dp = tf32_matmul(do, v.transpose(-1, -2), split)
     ds = p * (dp - (do * o).sum(-1, keepdim=True))
     if causal:
         ds = ds.masked_fill(port_attn._outside_causal_band(q), 0.0)
-    return (_tf32_matmul(ds, k, split) * scale,
-            _tf32_matmul(ds.transpose(-1, -2), q, split) * scale,
-            _tf32_matmul(p.transpose(-1, -2), do, split))
+    return (tf32_matmul(ds, k, split) * scale,
+            tf32_matmul(ds.transpose(-1, -2), q, split) * scale,
+            tf32_matmul(p.transpose(-1, -2), do, split))
 
 
 @pytest.mark.parametrize("shape,causal,fully_masked_row", [

@@ -244,7 +244,7 @@ def test_coalescing_rejects_malformed_element_without_hanging(engine, docs):
 _NO_JAX = r"""
 import importlib.abc, json, os, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "flexdm_tpu")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -252,9 +252,10 @@ class Block(importlib.abc.MetaPathFinder):
             raise ImportError(f"{name} is blocked")
 
 sys.meta_path.insert(0, Block())
+assert os.environ["FLEXDM_PLATFORM"] == "cpu"
 data_dir, job, crello_dir = sys.argv[1:4]
 
-from flexdm_tpu.data import DatasetSpec
+from flexdm_tpu_torch.data import DatasetSpec
 from flexdm_tpu_torch.config import TrainConfig, build_model
 from flexdm_tpu_torch.convert import init_params, save_weights
 from flexdm_tpu_torch.serve import InferenceEngine, _jsonable
@@ -288,9 +289,10 @@ print("OK", len(out))
 
 
 def test_port_runs_with_jax_blocked(rico_dir, crello_dir, tmp_path):
-    """Serving and a 1-epoch training run, with JAX unimportable."""
-    env = {k: v for k, v in os.environ.items() if k != "FLEXDM_PLATFORM"}
-    env["PYTHONPATH"] = REPO
+    """Serving and a 1-epoch training run, with JAX and every module of the
+    JAX package unimportable, and ``FLEXDM_PLATFORM`` set (with it set,
+    importing ``flexdm_tpu`` imports JAX)."""
+    env = dict(os.environ, FLEXDM_PLATFORM="cpu", PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _NO_JAX, rico_dir, str(tmp_path / "job"),
          crello_dir],
