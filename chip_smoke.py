@@ -11,21 +11,22 @@ Phases, each of which must pass (any failure exits non-zero):
    with the ptxas report);
 3. kernel: the flash-attention forward kernel (split-TF32 tensor-core
    products) against its plain PyTorch version on the card (O and lse
-   within 2e-5 abs + 2e-5 rel, float32) at the serving and training
-   shapes, S=650 and the kernel's tile edges (S = 16, 17, 63, 64, 65,
-   128, 129 at Dh 32, 64, 128), and a second call bitwise equal to the
-   first; then kernel, plain version and one library call
+   within 2e-5 abs + 2e-5 rel, float32) at the serving, training and
+   crello_flat shapes, S=650 and the kernel's tile edges (S = 16, 17, 63,
+   64, 65, 128, 129 at Dh 32, 64, 128), and a second call bitwise equal
+   to the first; then kernel, plain version and one library call
    (``scaled_dot_product_attention``, a yardstick the port never calls)
-   timed at (8, 8, 50, 32), (256, 8, 50, 32) and (8, 8, 650, 32), beside
-   the bound computed from the shapes;
+   timed at (8, 8, 50, 32), (256, 8, 50, 32), (8, 8, 650, 32) and
+   (64, 8, 500, 32), beside the bound computed from the shapes;
 4. backward: the backward kernels (dq with delta, dk/dv; split-TF32
    tensor-core products) through autograd against the plain backward and
    against autograd of the plain forward, dq, dk and dv within 1e-4 abs +
    1e-4 rel at every shape, S=4096 (the regime of the TPU's stream
-   kernels) and the kernels' tile edges (S = 64, 65, 128, 129 at Dh 32,
-   64, 128) included, and a second call bitwise equal to the first; then
-   the kernels, the plain autograd backward and the library call's
-   backward timed, beside their bounds;
+   kernels), S=500 and the kernels' tile edges (S = 64, 65, 128, 129 at
+   Dh 32, 64, 128) included, and a second call bitwise equal to the
+   first; then the kernels, the plain autograd backward and the library
+   call's backward timed at (256, 8, 50, 32), (1, 2, 4096, 64) and
+   (64, 8, 500, 32), beside their bounds;
 5. slice: the crello Ours-EXP job (D=256, 4 DeepSVG blocks, 8 heads,
    batch 8) with random weights from seed 0 on a synthetic data dir,
    served over HTTP through ``CoalescingEngine``; every answer is checked
@@ -33,7 +34,12 @@ Phases, each of which must pass (any failure exits non-zero):
    attention call of every forward pass;
 6. parity: the same masked batch through the model on the card (kernel)
    and on the CPU (plain attention); decoder outputs within 1e-4;
-7. train: crello Ours-EXP at full width and batch 256 on a synthetic
+7. maskgit: ``/predict`` with ``num_iter=3`` over HTTP (crello Ours-EXP,
+   random weights with the decoder heads x8 so the confidences spread,
+   batch 8): only masked fields change, >= 3 x 4 forward launches per
+   batch, answers equal to the CPU engine's except on documents with a
+   field within 1e-5 of a round's threshold or of an argmax tie (counted);
+8. train: crello Ours-EXP at full width and batch 256 on a synthetic
    512/64/64 data dir: (i) one step on the card against the same step on
    a CPU copy (dropout 0, same draws): loss, every clipped gradient leaf
    and the updated parameters; (ii) 30 steps on one fixed batch lower the
@@ -41,10 +47,18 @@ Phases, each of which must pass (any failure exits non-zero):
    ``main()`` for 2 epochs, every ``history.jsonl`` value finite, and the
    serving engine loads its ``best`` and answers ``/predict``.  Each run
    counts the launches of every kernel: each backward kernel at least once
-   per block per step.
+   per block per step;
+9. rico: rico Ours-EXP at batch 256, as 8(i) and 8(ii), the pos-sort loss
+   live (near-tie sort-key argmaxes counted);
+10. flat: crello_flat (500 (element, field) tokens) at batch 64: 8(i) on
+    16 documents (the CPU's plain attention at S=500 is slow), 8(ii), and
+    the trained weights served over HTTP.
+Each step phase ends with a ``torch.profiler`` window: device kernel time
+per step, its attention share and the busiest kernels.
 
 The last lines are one JSON object per kernel (times at the training
-shape (256, 8, 50, 32); launches from the training CLI run), the card's name
+shape (256, 8, 50, 32); ``launches`` from the training CLI run and
+``launches_by_path`` from each training path's 30 steps), the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -69,6 +83,14 @@ TRAIN_BATCH = 256
 TRAIN_STEPS = 30
 TIMED_STEPS = 20
 CONFIG = "configs/crello_ours_exp.json"
+RICO_CONFIG = "configs/rico_ours_exp.json"
+FLAT_CONFIG = "configs/crello_flat.json"
+FLAT_BATCH = 64  # crello_flat's published batch
+FLAT_PARITY_DOCS = 16  # the CPU copy's plain attention at S=500 is slow
+MASKGIT_ITERS = 3
+NEAR_TIE = 1e-5
+# The shapes every kernel is timed at: serving, training, crello_flat.
+FLAT_SHAPE = (64, 8, 500, 32)
 
 
 class SmokeFailure(RuntimeError):
@@ -173,6 +195,7 @@ def phase_kernel(card):
         ((2, 4, 650, 32), False, True),
         ((2, 4, 650, 32), True, False),
         ((256, 8, 50, 32), False, True),
+        (FLAT_SHAPE, False, True),
     ]
     # The kernel's tile edges (64-row query tiles; 64-key K/V tiles, 32 at
     # Dh=128).
@@ -208,7 +231,8 @@ def phase_kernel(card):
               f"two forward calls differ at {shape} causal={causal}")
 
     timings = {}
-    for shape in ((8, 8, 50, 32), (256, 8, 50, 32), (8, 8, 650, 32)):
+    for shape in ((8, 8, 50, 32), (256, 8, 50, 32), (8, 8, 650, 32),
+                  FLAT_SHAPE):
         b, h, s, dh = shape
         q, k, v = (torch.randn(shape, generator=g).cuda() for _ in range(3))
         mask = torch.ones(b, s, dtype=torch.bool)
@@ -292,27 +316,47 @@ def sdpa_kernels(fn):
         "no device kernel seen by the profiler"
 
 
-def make_job(root):
-    """A crello data dir and an Ours-EXP job with port weights (seed 0)."""
+def load_args(config, data_dir):
+    """A preset of ``configs/`` pointing at ``data_dir``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, config)) as f:
+        args = json.load(f)
+    args["data_dir"] = data_dir
+    return args
+
+
+def write_job(job, args, model):
+    """A job dir: ``args.json`` and ``model``'s weights as ``best``."""
+    from flexdm_tpu_torch.convert import save_weights
+
+    os.makedirs(os.path.join(job, "checkpoints"))
+    with open(os.path.join(job, "args.json"), "w") as f:
+        json.dump(args, f)
+    save_weights(os.path.join(job, "checkpoints", "best.torch.npz"), model)
+
+
+def make_job(root, name="job", decoder_scale=1.0):
+    """A crello data dir and an Ours-EXP job with port weights (seed 0);
+    ``decoder_scale`` multiplies the decoder heads' kernels (peakier
+    softmaxes, so MaskGIT confidences spread out)."""
+    import torch
+
     from flexdm_tpu_torch.data import DatasetSpec, synthetic
 
     from flexdm_tpu_torch.config import TrainConfig, build_model
-    from flexdm_tpu_torch.convert import init_params, save_weights
+    from flexdm_tpu_torch.convert import init_params
 
     data_dir = synthetic.generate(
-        "crello", os.path.join(root, "data"), 64, 16, 16, seed=0
+        "crello", os.path.join(root, name + "_data"), 64, 16, 16, seed=0
     )
-    job = os.path.join(root, "job")
-    os.makedirs(os.path.join(job, "checkpoints"))
-    here = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(here, CONFIG)) as f:
-        args = json.load(f)
-    args["data_dir"] = data_dir
-    with open(os.path.join(job, "args.json"), "w") as f:
-        json.dump(args, f)
+    args = load_args(CONFIG, data_dir)
     spec = DatasetSpec("crello", data_dir, BATCH)
     model = init_params(build_model(TrainConfig.from_args(args), spec.schema), 0)
-    save_weights(os.path.join(job, "checkpoints", "best.torch.npz"), model)
+    with torch.no_grad():
+        for head in model.decoder.children():
+            head.weight.mul_(decoder_scale)
+    job = os.path.join(root, name)
+    write_job(job, args, model)
     return job, spec
 
 
@@ -488,6 +532,7 @@ def phase_backward(card):
         ((2, 2, 128, 128), False, True),
         ((1, 2, 4096, 64), False, False),
         ((1, 2, 4096, 64), True, True),
+        (FLAT_SHAPE, False, True),
     ]
     # The kernels' tile edges (64 rows or keys; 32 Q/dO rows at Dh=128).
     cases += [((2, 2, s, dh), causal, True) for s in (64, 65, 128, 129)
@@ -533,7 +578,7 @@ def phase_backward(card):
             f"1e-4 rel); a second call bitwise equal")
 
     timings = {}
-    for shape in ((256, 8, 50, 32), (1, 2, 4096, 64)):
+    for shape in ((256, 8, 50, 32), (1, 2, 4096, 64), FLAT_SHAPE):
         b, h, s, dh = shape
         q, k, v, do = (torch.randn(shape, generator=g).cuda()
                        for _ in range(4))
@@ -603,6 +648,35 @@ def phase_backward(card):
     return worst, timings
 
 
+def profile_steps(fn, steps=5):
+    """Device kernel time per call of ``fn`` over ``steps`` calls from
+    ``torch.profiler``: total and attention kernels' ms, kernels per call,
+    and the three kernels that take the most time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    count = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time", None)
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.cuda_time if us is None else us)
+        count += 1
+    total = sum(by_name.values()) / 1e3 / steps
+    attention = sum(v for k, v in by_name.items()
+                    if "flash_" in k) / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    top = ", ".join(f"{k[:50]} {v / 1e3 / steps:.3f} ms" for k, v in top)
+    return total, attention, count / steps, top
+
+
 def launch_counts():
     from flexdm_tpu_torch.ops import attention as attn
 
@@ -610,31 +684,62 @@ def launch_counts():
             "dkv": attn.BWD_DKV_LAUNCHES}
 
 
-def train_setup(root):
-    """A synthetic crello dir big enough for full batches of 256, and the
-    Ours-EXP preset pointing at it."""
-    from flexdm_tpu_torch.data import synthetic
+def train_data(root, dataset, seed):
+    """A synthetic 512/64/64 data dir (full batches of 256) and its first
+    training batch of 256 as CPU tensors."""
+    import torch
+
+    from flexdm_tpu_torch.data import DatasetSpec, split_device_batch, \
+        synthetic
 
     t0 = time.perf_counter()
     data_dir = synthetic.generate(
-        "crello", os.path.join(root, "train_data"), 2 * TRAIN_BATCH, 64, 64,
-        seed=0)
-    log(f"[train] synthetic crello 512/64/64 in "
+        dataset, os.path.join(root, f"{dataset}_train_data"),
+        2 * TRAIN_BATCH, 64, 64, seed=seed)
+    log(f"[train] synthetic {dataset} 512/64/64 in "
         f"{time.perf_counter() - t0:.1f} s")
-    here = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(here, CONFIG)) as f:
-        args = json.load(f)
-    args["data_dir"] = data_dir
-    return data_dir, args
+    spec = DatasetSpec(dataset, data_dir, TRAIN_BATCH)
+    batch = {k: torch.from_numpy(v) for k, v in split_device_batch(
+        next(iter(spec.make_dataset("train")))).items()}
+    return data_dir, spec, batch
 
 
-def phase_train_parity(args, spec, batch):
+def near_tie_argmaxes(model, batch, draws, task_config):
+    """How many argmaxes the pos-sort protocol takes (the sort keys'
+    predicted logits, valid elements of the pos-task rows) have their top
+    two logits within ``NEAR_TIE``: where the card and the CPU may argmax
+    differently, and then sort differently."""
+    import torch
+
+    from flexdm_tpu_torch.models.masking import get_seq_mask, \
+        preprocess_for_train
+    from flexdm_tpu_torch.models.sorting import SORT_KEYS
+
+    schema = model.schema
+    with torch.no_grad():
+        _, modified, _ = preprocess_for_train(
+            batch, schema, draws.tasks, draws.uniforms, draws.element,
+            draws.values)
+        outputs = model(modified)
+    rows = (draws.tasks == task_config.pos_task_id)[:, None]
+    valid = (get_seq_mask(batch["length"], schema.max_length) & rows)
+    count = 0
+    for name in SORT_KEYS:
+        top = outputs[name].topk(2, -1).values
+        near = (top[..., 0] - top[..., 1]) <= NEAR_TIE
+        count += int((near & valid[..., None]).sum())
+    return count, int(valid.sum())
+
+
+def phase_train_parity(args, spec, batch, label="crello Ours-EXP"):
     """One step on the card against the same step on a CPU copy (dropout
     0, the same draws).  Loss and per-field losses within 1e-5 relative;
     every clipped gradient leaf (``mu / 0.1`` after the first keras-Adam
     step) within 1e-5 + 1e-3 of the leaf's largest entry, and nonzero;
     parameters within 1e-6 where |g| > 1e-3 on both, within 2 lr + 1e-6
-    elsewhere (a near-zero gradient's sign decides a +-lr first step)."""
+    elsewhere (a near-zero gradient's sign decides a +-lr first step).
+    Under the pos-sort protocol (rico) it also counts the near-tie
+    argmaxes of the sort."""
     import torch
 
     from flexdm_tpu_torch.config import TrainConfig, build_model
@@ -649,8 +754,15 @@ def phase_train_parity(args, spec, batch):
     task_config = make_task_config(schema, config.masking_method)
     cpu_model = init_params(build_model(config, schema), 0)
     card_model = copy.deepcopy(cpu_model).cuda()
-    draws = draw_train(schema, TRAIN_BATCH, task_config.task_probs,
-                       torch.Generator().manual_seed(3))
+    b = batch["length"].shape[0]
+    draws = draw_train(schema, b, task_config.task_probs,
+                       torch.Generator().manual_seed(3),
+                       **cpu_model.draw_options())
+    ties = ""
+    if task_config.sort_pos:
+        n, elements = near_tie_argmaxes(cpu_model, batch, draws, task_config)
+        ties = (f"; sort_flag live on {elements} elements, {n} sort-key "
+                f"argmaxes within {NEAR_TIE} of a tie")
     results = {}
     for where, model in (("cpu", cpu_model), ("cuda", card_model)):
         adam = KerasAdam(model.parameters(), config.learning_rate)
@@ -685,16 +797,18 @@ def phase_train_parity(args, spec, batch):
               f"{name}: updated parameters differ")
         check(delta.max().item() <= 2 * config.learning_rate + 1e-6,
               f"{name}: updated parameters differ by more than 2 lr")
-    log(f"[train] step parity, card vs CPU, batch {TRAIN_BATCH}: loss "
+    log(f"[train] {label} step parity, card vs CPU, batch {b}: loss "
         f"{got_m['loss']:.6f} vs {want_m['loss']:.6f}; max |dg| "
         f"{worst_g:.2e} over {len(names)} leaves (all nonzero); max |dp| "
-        f"{worst_p:.2e} where |g| > 1e-3")
+        f"{worst_p:.2e} where |g| > 1e-3{ties}")
     return got_m["loss"], want_m["loss"]
 
 
-def phase_train_steps(args, spec, batch, card):
+def phase_train_steps(args, spec, batch, card, label="crello Ours-EXP"):
     """30 steps on one fixed batch (fixed draws, dropout on): the loss
-    falls; the last 20 steps timed one by one with CUDA events."""
+    falls; the last 20 steps timed one by one with CUDA events.  Each
+    kernel must launch at least once per block per step.  Returns the
+    median step, the losses, the launches and the trained model."""
     import torch
 
     from flexdm_tpu_torch.config import TrainConfig, build_model
@@ -713,7 +827,9 @@ def phase_train_steps(args, spec, batch, card):
                            KerasAdam(model.parameters(), config.learning_rate),
                            config.l2)
     generator = torch.Generator("cuda").manual_seed(0)
-    draws = draw_train(schema, TRAIN_BATCH, task_config.task_probs, generator)
+    b = batch["length"].shape[0]
+    draws = draw_train(schema, b, task_config.task_probs, generator,
+                       **model.draw_options())
     draws.dropout = generator
     batch = {k: v.cuda() for k, v in batch.items()}
     num_blocks = len(list(model.blocks.children()))
@@ -730,21 +846,27 @@ def phase_train_steps(args, spec, batch, card):
         if i >= TRAIN_STEPS - TIMED_STEPS:
             times.append(start.elapsed_time(stop))
     counts = launch_counts()
-    log(f"[train] {TRAIN_STEPS} steps on one batch: loss {losses[0]:.3f} -> "
-        f"{losses[-1]:.3f}; launches {counts} for {TRAIN_STEPS} steps x "
-        f"{num_blocks} blocks")
+    log(f"[train] {label}: {TRAIN_STEPS} steps on one batch: loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f}; launches {counts} for "
+        f"{TRAIN_STEPS} steps x {num_blocks} blocks")
     check(all(math.isfinite(x) for x in losses), "non-finite training loss")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     for name, n in counts.items():
         check(n >= num_blocks * TRAIN_STEPS,
               f"{name} kernel launched {n} times for {TRAIN_STEPS} steps")
     step_ms = statistics.median(times)
-    log(f"[time] train step, crello Ours-EXP, batch {TRAIN_BATCH} (fixed "
+    log(f"[time] train step, {label}, batch {b} (fixed "
         f"batch, draws and dropout on the card; CUDA events, median of "
         f"{TIMED_STEPS} warm steps): {step_ms:.2f} ms, "
-        f"{TRAIN_BATCH / step_ms * 1e3:.0f} documents/s; min "
+        f"{b / step_ms * 1e3:.0f} documents/s; min "
         f"{min(times):.2f} max {max(times):.2f} ms [{card}]")
-    return step_ms, losses
+    device, attention, kernels, top = profile_steps(
+        lambda: step(batch, draws))
+    log(f"[time] train step, {label}, torch.profiler over 5 more steps: "
+        f"device kernel time {device:.3f} ms per step ({device / step_ms:.1%}"
+        f" of the median step), attention kernels {attention:.3f} ms, "
+        f"{kernels:.0f} device kernels per step; most time: {top} [{card}]")
+    return step_ms, losses, counts, model
 
 
 def phase_train_cli(root, data_dir, card):
@@ -801,20 +923,162 @@ def phase_train_cli(root, data_dir, card):
     return counts, seconds, steps
 
 
-def phase_train(card):
+def phase_train(card, root, data_dir, spec, batch):
+    args = load_args(CONFIG, data_dir)
+    phase_train_parity(args, spec, batch)
+    step_ms, _, counts, _ = phase_train_steps(args, spec, batch, card)
+    cli_counts, _, _ = phase_train_cli(root, data_dir, card)
+    return step_ms, counts, cli_counts
+
+
+def phase_rico(card, root):
+    """rico Ours-EXP at full width and batch 256: the pos-sort loss."""
+    data_dir, spec, batch = train_data(root, "rico", seed=1)
+    args = load_args(RICO_CONFIG, data_dir)
+    phase_train_parity(args, spec, batch, "rico Ours-EXP")
+    step_ms, _, counts, _ = phase_train_steps(args, spec, batch, card,
+                                              "rico Ours-EXP")
+    return step_ms, counts
+
+
+def phase_flat(card, root, data_dir, spec, batch):
+    """crello_flat (the VanillaTransformer over 50 x 10 = 500 tokens) at
+    D=256, 4 blocks, batch 64: step parity on 16 documents, 30 steps, then
+    the trained weights served over HTTP."""
+    from flexdm_tpu_torch.data import split_device_batch
+
+    from flexdm_tpu_torch.ops import attention as attn
+    from flexdm_tpu_torch.serve import InferenceEngine, _jsonable, serve
+
+    args = load_args(FLAT_CONFIG, data_dir)
+    batch = {k: v[:FLAT_BATCH] for k, v in batch.items()}
+    phase_train_parity(
+        args, spec, {k: v[:FLAT_PARITY_DOCS] for k, v in batch.items()},
+        f"crello_flat ({FLAT_PARITY_DOCS} of the {FLAT_BATCH} documents: "
+        "the CPU copy's plain attention at S=500 is slow)")
+    step_ms, _, counts, model = phase_train_steps(args, spec, batch, card,
+                                                  "crello_flat")
+    job = os.path.join(root, "flat_job")
+    write_job(job, args, model)
+    engine = InferenceEngine(job, batch_size=BATCH, device="cuda")
+    check(engine.model.seq_type == "flat", "the flat job loaded another model")
+    docs = _jsonable(spec.unbatch(split_device_batch(
+        next(iter(spec.make_dataset("test", batch_size=BATCH))))))
+    server = serve(engine, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        attn.reset_launch_counts()
+        body, secs = http(server.server_address[1], "/predict",
+                          dict(task="pos", documents=docs))
+        serve_counts = launch_counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+    check_predictions(spec, "pos", docs, body["predictions"])
+    num_blocks = len(list(engine.model.blocks.children()))
+    check(serve_counts["fwd"] >= num_blocks,
+          f"flat /predict launched {serve_counts}")
+    log(f"[flat] the trained crello_flat weights served: /predict pos "
+        f"x{len(docs)} docs: 200 in {secs * 1e3:.1f} ms; launches "
+        f"{serve_counts} [{card}]")
+    return step_ms, counts
+
+
+def maskgit_reference(engine, cpu_model, docs, task):
+    """The CPU's MaskGIT decode of ``docs`` as the engine batches them:
+    per document, how many masked fields had a confidence within
+    ``NEAR_TIE`` of their round's threshold or a final argmax within
+    ``NEAR_TIE`` of a tie (where the card may decode otherwise)."""
     import torch
 
-    from flexdm_tpu_torch.data import DatasetSpec, split_device_batch
+    from flexdm_tpu_torch.data import split_device_batch
+    from flexdm_tpu_torch.demo import build_task_masks
+    from flexdm_tpu_torch.models import forward_eval
+
+    schema = engine.schema
+    padded = list(docs) + [docs[-1]] * (engine.batch_size - len(docs))
+    batch = {k: torch.from_numpy(v) for k, v in split_device_batch(
+        engine.spec.batch_documents(padded)).items()}
+    masks = build_task_masks(schema, batch, task)
+    rounds = []
+    out = forward_eval(cpu_model, batch, masks, num_iter=MASKGIT_ITERS,
+                       rounds=rounds)
+    near = torch.zeros(engine.batch_size, dtype=torch.long)
+    for r in rounds:
+        thr = r["threshold"][:, None]
+        for conf in r["confidence"].values():
+            gap = (conf - thr).abs()
+            near += ((conf > 0) & (gap > 0) & (gap <= NEAR_TIE)).sum(1)
+    for c in schema.sequence_columns:
+        if c.is_categorical:
+            top = out[c.name].topk(2, -1).values
+            tie = ((top[..., 0] - top[..., 1]) <= NEAR_TIE).any(-1)
+            near += (tie & masks[c.name]).sum(1)
+    return near[:len(docs)].tolist()
+
+
+def phase_maskgit(card):
+    """MaskGIT serving: ``/predict`` with ``num_iter=3`` over HTTP on a
+    crello Ours-EXP job (random weights, decoder heads x8), batch 8.  Only
+    masked fields change; the forward kernel launches >= 3 x 4 times per
+    batch; the answers equal the CPU's but for documents with a near tie;
+    the request is timed."""
+    from flexdm_tpu_torch.data import split_device_batch
+
+    from flexdm_tpu_torch.ops import attention as attn
+    from flexdm_tpu_torch.serve import CoalescingEngine, InferenceEngine, \
+        _jsonable, serve
 
     with tempfile.TemporaryDirectory() as root:
-        data_dir, args = train_setup(root)
-        spec = DatasetSpec("crello", data_dir, TRAIN_BATCH)
-        batch = {k: torch.from_numpy(v) for k, v in split_device_batch(
-            next(iter(spec.make_dataset("train")))).items()}
-        phase_train_parity(args, spec, batch)
-        step_ms, _ = phase_train_steps(args, spec, batch, card)
-        counts, _, _ = phase_train_cli(root, data_dir, card)
-    return step_ms, counts
+        job, spec = make_job(root, "maskgit_job", decoder_scale=8.0)
+        engine = InferenceEngine(job, batch_size=BATCH, device="cuda")
+        cpu = InferenceEngine(job, batch_size=BATCH, device="cpu")
+        num_blocks = len(list(engine.model.blocks.children()))
+        log(f"[maskgit] warmup {engine.warmup([('pos', MASKGIT_ITERS)])}")
+        docs = _jsonable(spec.unbatch(split_device_batch(
+            next(iter(spec.make_dataset("test", batch_size=BATCH))))))
+        server = serve(CoalescingEngine(engine, window_ms=3.0), port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        times = []
+        try:
+            port = server.server_address[1]
+            for task in ("pos", "attr"):
+                attn.reset_launch_counts()
+                body, seconds = http(port, "/predict", dict(
+                    task=task, documents=docs, num_iter=MASKGIT_ITERS))
+                counts = launch_counts()
+                preds = body["predictions"]
+                check_predictions(spec, task, docs, preds)
+                check(counts["fwd"] >= MASKGIT_ITERS * num_blocks,
+                      f"{task}: forward launched {counts['fwd']} times for "
+                      f"{MASKGIT_ITERS} rounds x {num_blocks} blocks")
+                want = cpu.predict(docs, task=task, num_iter=MASKGIT_ITERS)
+                near = maskgit_reference(engine, cpu.model, docs, task)
+                differ = [i for i, (g, w) in enumerate(zip(preds, want))
+                          if g != w]
+                check(all(near[i] for i in differ),
+                      f"{task}: documents {differ} differ from the CPU's "
+                      f"with no near tie (near-tie fields {near})")
+                log(f"[maskgit] {task} num_iter={MASKGIT_ITERS} x{len(docs)} "
+                    f"docs: 200 in {seconds * 1e3:.1f} ms; forward launches "
+                    f"{counts['fwd']} (>= {MASKGIT_ITERS} x {num_blocks}); "
+                    f"card = CPU on {len(docs) - len(differ)} of {len(docs)} "
+                    f"documents; {sum(near)} fields within {NEAR_TIE} of a "
+                    f"threshold or an argmax tie (per document {near})")
+            for _ in range(20):
+                body, seconds = http(port, "/predict", dict(
+                    task="pos", documents=docs, num_iter=MASKGIT_ITERS))
+                times.append(seconds * 1e3)
+        finally:
+            server.shutdown()
+            server.server_close()
+    ms = statistics.median(times)
+    log(f"[time] HTTP /predict pos num_iter={MASKGIT_ITERS}, {BATCH} docs, "
+        f"warm: median {ms:.2f} ms of 20 (min {min(times):.2f}, max "
+        f"{max(times):.2f}) [{card}]")
+    return ms
 
 
 def main():
@@ -832,9 +1096,24 @@ def main():
     kernel_err, timings = phase_kernel(card)
     backward_err, backward_timings = phase_backward(card)
     phase_slice(card)
-    step_ms, train_counts = phase_train(card)
+    maskgit_ms = phase_maskgit(card)
+    with tempfile.TemporaryDirectory() as root:
+        data_dir, spec, batch = train_data(root, "crello", seed=0)
+        step_ms, step_counts, train_counts = phase_train(
+            card, root, data_dir, spec, batch)
+        rico_ms, rico_counts = phase_rico(card, root)
+        flat_ms, flat_counts = phase_flat(card, root, data_dir, spec, batch)
+    log(f"[time] summary: train step crello Ours-EXP {step_ms:.2f} ms, rico "
+        f"Ours-EXP {rico_ms:.2f} ms (batch {TRAIN_BATCH}), crello_flat "
+        f"{flat_ms:.2f} ms (batch {FLAT_BATCH}); /predict num_iter="
+        f"{MASKGIT_ITERS} {maskgit_ms:.2f} ms ({BATCH} docs) [{card}]")
+    by_path = {"crello_ours_exp_steps": step_counts,
+               "crello_ours_exp_cli": train_counts,
+               "rico_ours_exp_steps": rico_counts,
+               "crello_flat_steps": flat_counts}
     # The training shape, which every kernel of the path runs at (the
-    # forward also serves at (8, 8, 50, 32): the log lines above).
+    # forward also serves at (8, 8, 50, 32) and crello_flat runs
+    # (64, 8, 500, 32): the log lines above).
     shape = (256, 8, 50, 32)
     fwd = timings[shape]
     bwd = backward_timings[shape]
@@ -846,12 +1125,16 @@ def main():
                 "bound_by": bd["bound_by"], "library_ms": library_ms,
                 "shape": list(shape)}
 
+    def launches(name):
+        return {path: counts[name] for path, counts in by_path.items()}
+
     log(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "flexdm_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": f"{tpu}:77",
         "launches": train_counts["fwd"],
+        "launches_by_path": launches("fwd"),
         "max_abs_err": kernel_err,
         **times(fwd["ms"], fwd["plain_ms"], fwd["library_ms"], fwd),
     }, {
@@ -860,6 +1143,7 @@ def main():
         "source": source,
         "replaces": f"{tpu}:116 and {tpu}:217",
         "launches": train_counts["dq"],
+        "launches_by_path": launches("dq"),
         "max_abs_err": backward_err["dq"],
         **times(bwd["dq"], bwd["plain"], bwd["library"], bwd["bounds"]["dq"]),
     }, {
@@ -868,6 +1152,7 @@ def main():
         "source": source,
         "replaces": f"{tpu}:156 and {tpu}:254",
         "launches": train_counts["dkv"],
+        "launches_by_path": launches("dkv"),
         "max_abs_err": max(backward_err["dk"], backward_err["dv"]),
         **times(bwd["dkv"], bwd["plain"], bwd["library"],
                 bwd["bounds"]["dkv"]),

@@ -6,7 +6,7 @@ something the port does not have yet raises ``NotImplementedError``:
 ``--resume``, ``--weights``, ``--num_devices``/``--model_parallel`` above 1,
 ``--dtype bfloat16``, ``--enable_profile``, ``--input_mode device``,
 ``--checkpoint_every``, an ``--attention_impl`` other than ``auto``, and
-every ``--arch_type``/``--seq_type`` but the oneshot default model.
+every ``--arch_type`` but the oneshot model (``build_model`` raises).
 """
 
 from __future__ import annotations

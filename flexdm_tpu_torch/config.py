@@ -54,14 +54,12 @@ class TrainConfig:
 
 
 def build_model(config: TrainConfig, schema: Schema) -> MFPModel:
-    """The ``arch_type='oneshot'`` model; anything this port does not have
-    yet raises ``NotImplementedError``."""
+    """The ``arch_type='oneshot'`` model, built as the JAX trainer builds it
+    (``flexdm_tpu/train/trainer.py:105-130``); a baseline or a compute dtype
+    other than float32 raises ``NotImplementedError``."""
     unsupported = {
         "arch_type": config.arch_type != "oneshot",
-        "seq_type": config.seq_type != "default",
-        "input_dtype": config.input_dtype != "set",
         "dtype": config.dtype not in (None, "float32"),
-        "use_elemwise_noise": config.use_elemwise_noise,
     }
     for field, bad in unsupported.items():
         if bad:
@@ -76,4 +74,7 @@ def build_model(config: TrainConfig, schema: Schema) -> MFPModel:
         num_heads=config.num_heads,
         dropout=config.dropout,
         context=config.context,
+        input_dtype=config.input_dtype,
+        seq_type=config.seq_type,
+        use_elemwise_noise=config.use_elemwise_noise,
     )

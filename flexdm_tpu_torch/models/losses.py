@@ -16,8 +16,10 @@ to the same size are scored together in one (B, S, G, Vpad) bucket with
 ``-1e9`` logit padding, which leaves logsumexp, the label logit and the
 argmax exact.
 
-The rico position protocol (``sort_flag``: score ``pos`` on sorted
-elements) and ``predict_context`` canvas heads are not in this port yet.
+``sort_flag`` is the rico position protocol: for the flagged samples both
+the ground truth and the (argmaxed) predictions are sorted element-wise
+before scoring.  ``predict_context`` (scoring canvas heads) is not in this
+port yet; nothing in the trainer, the server or the evaluation sets it.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 
 from ..data.schema import Schema
 from .masking import get_seq_mask
+from .sorting import sort_inputs
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -65,17 +68,54 @@ def continuous_loss_and_score(y_true: torch.Tensor, y_pred: torch.Tensor):
     return mse, 0.5 * cos + 0.5
 
 
+def _apply_sorting(schema: Schema, y_true: Tensors, y_pred: Tensors,
+                   sort_flag: torch.Tensor, ignore_sort: Optional[str]):
+    """Per sample, the sorted element order where ``sort_flag`` (B,) is
+    set.  ``ignore_sort``: ``"gt"`` leaves the ground truth unsorted,
+    ``"pred"`` the predictions."""
+    if ignore_sort not in ("gt", "pred", None):
+        raise ValueError(f"ignore_sort {ignore_sort!r}")
+    y_true_sort = y_true if ignore_sort == "gt" else sort_inputs(y_true, schema)
+    # The predictions are ordered by the ground-truth lengths; that entry is
+    # for the ordering only and never reaches the returned predictions.
+    orig_length = y_pred.get("length")
+    y_pred = dict(y_pred, length=y_true["length"])
+    y_pred_sort = (y_pred if ignore_sort == "pred"
+                   else sort_inputs(y_pred, schema, from_logits=True))
+    new_true: Tensors = {}
+    new_pred: Tensors = {}
+    for name in y_true:
+        if name not in schema or schema[name].demo_only:
+            continue
+        column = schema[name]
+        if column.is_sequence:
+            flag = sort_flag[:, None, None]
+            new_true[name] = torch.where(flag, y_true_sort[name], y_true[name])
+            pflag = flag[..., None] if column.is_categorical else flag
+            new_pred[name] = torch.where(pflag, y_pred_sort[name],
+                                         y_pred[name])
+        else:
+            new_true[name] = y_true[name]
+            if name == "length":
+                if orig_length is not None:
+                    new_pred[name] = orig_length
+            elif name in y_pred:
+                new_pred[name] = y_pred[name]
+    return new_true, new_pred
+
+
 def compute_mfp_loss(schema: Schema, y_true: Tensors, y_pred: Tensors,
                      masks: Tensors, sort_flag: Optional[torch.Tensor] = None,
+                     ignore_sort: Optional[str] = None,
                      sample_weight: Optional[torch.Tensor] = None,
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss and the metrics ``{field}_loss``, ``{field}_score``,
     ``{field}_score_num``, ``{field}_score_den``, ``total_score`` and
-    ``loss`` (all 0-dim tensors)."""
+    ``loss`` (all 0-dim tensors).  ``sort_flag`` (B,) bool: score those
+    samples on sorted elements (see :func:`_apply_sorting`)."""
     if sort_flag is not None:
-        raise NotImplementedError(
-            "sort_flag (the rico pos-sort protocol) is not in this port yet"
-        )
+        y_true, y_pred = _apply_sorting(schema, y_true, y_pred, sort_flag,
+                                        ignore_sort)
     seq_mask = get_seq_mask(y_true["length"], schema.max_length)
     S = seq_mask.shape[1]
     seq_w = seq_mask.to(torch.float32)[..., None]  # (B, S, 1)

@@ -12,11 +12,11 @@ fields selected for MLM, 80% are masked, 10% replaced by a random token
 and 10% left unchanged.
 
 Every random draw is an argument (task ids, the fused ``(B, 3, n_seq, S)``
-uniforms, the element-pick uniforms, the replacement values), so a caller
-decides the generator and a test can hand both packages the same numbers.
-:func:`draw_train` draws them all from one ``torch.Generator``.  The
-element-wise shuffle/sort of the autoregressive baselines and of
-``input_dtype != 'set'`` is not in this port yet.
+uniforms, the element-pick uniforms, the replacement values, and where the
+model needs them the shuffle uniforms and the element-wise noise), so a
+caller decides the generator and a test can hand both packages the same
+numbers.  :func:`draw_train` draws them all from one ``torch.Generator``.
+The autoregressive baselines' last-element pick is not in this port yet.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from ..data.schema import MASK_VALUE, NULL_VALUE, ColumnSpec, Schema
 Tensors = Dict[str, torch.Tensor]
 
 MASK_PROB = 0.15
+NOISE_SIZE = 4  # channels of the element-wise noise (encoder.py:51)
 REPLACE_PROB = 0.1
 UNCHANGE_PROB = 0.1
 
@@ -176,26 +177,37 @@ class TrainDraws:
     MLM draw; ``element`` (B,) uniforms of the elem task's pick; ``values``
     the random-replacement tokens per sequence column (like the column's
     input); ``dropout`` the generator the dropout masks come from (None:
-    no dropout)."""
+    no dropout); ``shuffle`` the (B, S) uniforms that order the elements
+    of an ``input_dtype='shuffled_set'`` model; ``noise`` the (B, S', 4)
+    standard normals of a ``use_elemwise_noise`` encoder."""
 
     tasks: torch.Tensor
     uniforms: torch.Tensor
     element: torch.Tensor
     values: Tensors
     dropout: Optional[torch.Generator] = None
+    shuffle: Optional[torch.Tensor] = None
+    noise: Optional[torch.Tensor] = None
 
     def to(self, device) -> "TrainDraws":
+        def move(x):
+            return None if x is None else x.to(device)
+
         return TrainDraws(
             self.tasks.to(device), self.uniforms.to(device),
             self.element.to(device),
             {k: v.to(device) for k, v in self.values.items()}, self.dropout,
+            move(self.shuffle), move(self.noise),
         )
 
 
 def draw_train(schema: Schema, batch_size: int, task_probs: Sequence[float],
-               generator: torch.Generator) -> TrainDraws:
+               generator: torch.Generator, shuffle: bool = False,
+               noise_length: Optional[int] = None) -> TrainDraws:
     """All the draws of :class:`TrainDraws` (but ``dropout``) from one
-    generator, on the generator's device."""
+    generator, on the generator's device.  ``shuffle`` and
+    ``noise_length`` (S') ask for the draws only some models need; they
+    come after the others, so the others do not depend on them."""
     device = generator.device
     shape = (batch_size, schema.max_length)
 
@@ -220,27 +232,39 @@ def draw_train(schema: Schema, batch_size: int, task_probs: Sequence[float],
             values[column.name] = 0.1 * torch.randn(
                 dims, generator=generator, device=device
             )
-    return TrainDraws(tasks, uniforms, element, values)
+    draws = TrainDraws(tasks, uniforms, element, values)
+    if shuffle:
+        draws.shuffle = uniform(*shape)
+    if noise_length is not None:
+        draws.noise = torch.randn((batch_size, noise_length, NOISE_SIZE),
+                                  generator=generator, device=device)
+    return draws
 
 
 def record_draws(schema: Schema, task_probs: Sequence[float], seed: int,
-                 records: Sequence[int]) -> TrainDraws:
+                 records: Sequence[int], **options) -> TrainDraws:
     """Draws for a batch whose rows are the records ``records``: row ``i``
     comes from a CPU generator seeded by ``(seed, records[i])`` alone, so a
     record's masks do not depend on the batch it lands in (validation
-    scores do not change with the batch size or its padding)."""
+    scores do not change with the batch size or its padding).  ``options``
+    go to :func:`draw_train`."""
     rows = []
     for record in records:
         mixed = np.random.SeedSequence([seed, int(record)]).generate_state(2)
         generator = torch.Generator().manual_seed(
             int(mixed[0]) << 32 | int(mixed[1])
         )
-        rows.append(draw_train(schema, 1, task_probs, generator))
+        rows.append(draw_train(schema, 1, task_probs, generator, **options))
+
+    def cat(name):
+        if getattr(rows[0], name) is None:
+            return None
+        return torch.cat([getattr(r, name) for r in rows])
+
     return TrainDraws(
-        torch.cat([r.tasks for r in rows]),
-        torch.cat([r.uniforms for r in rows]),
-        torch.cat([r.element for r in rows]),
+        cat("tasks"), cat("uniforms"), cat("element"),
         {k: torch.cat([r.values[k] for r in rows]) for k in rows[0].values},
+        shuffle=cat("shuffle"), noise=cat("noise"),
     )
 
 

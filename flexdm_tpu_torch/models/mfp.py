@@ -1,22 +1,26 @@
 """The MFP model, its training forward and its eval forward (PyTorch).
 
-Counterpart of ``flexdm_tpu/models/mfp.py`` for ``seq_type='default'``:
+Counterpart of ``flexdm_tpu/models/mfp.py`` for the oneshot model:
 
-* :class:`MFPModel` is Encoder -> Blocks -> Decoder;
-* :func:`forward_train` masks a batch per sampled task, runs the network
-  (with dropout when training) and scores it with ``compute_mfp_loss``;
-  every random number comes in through :class:`~.masking.TrainDraws`;
+* :class:`MFPModel` is Encoder -> Blocks -> Decoder, over one token per
+  element (``seq_type='default'``) or one token per (element, field)
+  (``seq_type='flat'``, the VanillaTransformer);
+* :func:`forward_train` shuffles or sorts the elements where the model's
+  ``input_dtype`` asks for it, masks the batch per sampled task, runs the
+  network (with dropout when training) and scores it with
+  ``compute_mfp_loss`` (rico: ``pos`` scored on sorted elements); every
+  random number comes in through :class:`~.masking.TrainDraws`;
 * :func:`forward_eval` applies externally supplied masks, runs the network
-  once and merges ground truth back onto the unmasked fields.
+  once or decodes with :func:`iterative_decode` (MaskGIT), and merges
+  ground truth back onto the unmasked fields.
 
-MaskGIT decoding (``num_iter > 1``), the rico pos-sort protocol and the
-baselines are not in this port yet.
+The baselines are not in this port yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -27,13 +31,19 @@ from .encoder import Encoder
 from .losses import compute_mfp_loss
 from .masking import (
     TrainDraws,
+    apply_token,
+    filter_padding,
+    get_seq_mask,
     merge_inputs_and_prediction,
     preprocess_for_test,
     preprocess_for_train,
 )
+from .sorting import shuffle_inputs, sort_inputs
 from .transformer import Blocks
 
 Tensors = Dict[str, torch.Tensor]
+
+INPUT_DTYPES = ("set", "shuffled_set", "sorted_set")
 
 
 class MFPModel(nn.Module):
@@ -42,23 +52,51 @@ class MFPModel(nn.Module):
     def __init__(self, schema: Schema, latent_dim: int = 256,
                  num_blocks: int = 4, block_type: str = "deepsvg",
                  num_heads: int = 8, dropout: float = 0.1,
-                 context: Optional[str] = None):
+                 context: Optional[str] = None, input_dtype: str = "set",
+                 seq_type: str = "default", use_elemwise_noise: bool = False):
         super().__init__()
+        if input_dtype not in INPUT_DTYPES:
+            raise ValueError(f"input_dtype {input_dtype!r} not in "
+                             f"{INPUT_DTYPES}")
+        if seq_type == "flat":
+            if input_dtype != "shuffled_set":
+                raise ValueError("seq_type 'flat' needs input_dtype "
+                                 f"'shuffled_set', got {input_dtype!r}")
+            fusion = detachment = "flat"
+        elif seq_type == "default":
+            fusion, detachment = "add", "default"
+        else:
+            raise ValueError(f"seq_type {seq_type!r}")
         self.schema = schema
         self.context = context
-        self.encoder = Encoder(schema, latent_dim, context)
+        self.input_dtype = input_dtype
+        self.seq_type = seq_type
+        self.use_elemwise_noise = use_elemwise_noise
+        self.encoder = Encoder(schema, latent_dim, context, input_dtype,
+                               fusion, dropout, use_elemwise_noise)
         self.blocks = Blocks(
             latent_dim=latent_dim, num_blocks=num_blocks,
             block_type=block_type, num_heads=num_heads, dropout=dropout,
         )
-        self.decoder = Decoder(schema, latent_dim, context)
+        self.decoder = Decoder(schema, latent_dim, context, detachment)
 
     def forward(self, inputs: Tensors,
-                generator: Optional[torch.Generator] = None) -> Tensors:
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> Tensors:
         """Predictions per field; dropout draws from ``generator`` (none:
-        no dropout)."""
-        seq, seq_mask = self.encoder(inputs)
+        no dropout); ``noise`` is a ``use_elemwise_noise`` model's draw."""
+        seq, seq_mask = self.encoder(inputs, generator, noise)
         return self.decoder(self.blocks(seq, seq_mask, generator))
+
+    def draw_options(self) -> Dict:
+        """The :func:`~.masking.draw_train` options of this model: the
+        shuffle uniforms and the noise's sequence length, where needed."""
+        noise_length = None
+        if self.use_elemwise_noise:
+            token = self.context in ("id", "length", "canvas")
+            noise_length = self.schema.max_length + int(token)
+        return dict(shuffle=self.input_dtype == "shuffled_set",
+                    noise_length=noise_length)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,11 +120,17 @@ def forward_train(model: MFPModel, inputs: Tensors, draws: TrainDraws,
                   task_config: TaskConfig, train: bool = True,
                   sample_weight: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One training forward: mask per task, predict, score.  Returns
-    ``(loss, metrics)``.  ``train=False`` keeps the random task masking
-    (that is how the reference validates) but turns dropout off;
-    ``sample_weight`` (B,) zeroes batch-padding rows."""
+    """One training forward: order the elements, mask per task, predict,
+    score.  Returns ``(loss, metrics)``.  ``train=False`` keeps the random
+    task masking (that is how the reference validates) but turns dropout
+    off; ``sample_weight`` (B,) zeroes batch-padding rows."""
     schema = model.schema
+    if model.input_dtype == "shuffled_set":
+        if draws.shuffle is None:
+            raise ValueError("input_dtype 'shuffled_set' needs draws.shuffle")
+        inputs = shuffle_inputs(inputs, schema, draws.shuffle)
+    elif model.input_dtype == "sorted_set":
+        inputs = sort_inputs(inputs, schema)
     sort_flag = None
     if task_config.sort_pos:
         sort_flag = draws.tasks == task_config.pos_task_id
@@ -94,7 +138,7 @@ def forward_train(model: MFPModel, inputs: Tensors, draws: TrainDraws,
         inputs, schema, draws.tasks, draws.uniforms, draws.element,
         draws.values,
     )
-    outputs = model(modified, draws.dropout if train else None)
+    outputs = model(modified, draws.dropout if train else None, draws.noise)
     return compute_mfp_loss(
         schema, targets, outputs, masks, sort_flag=sort_flag,
         sample_weight=sample_weight,
@@ -103,13 +147,89 @@ def forward_train(model: MFPModel, inputs: Tensors, draws: TrainDraws,
 
 @torch.no_grad()
 def forward_eval(model: MFPModel, inputs: Tensors, masks: Tensors,
-                 tasks: Optional[torch.Tensor] = None,
-                 num_iter: int = 1) -> Tensors:
-    """Masked inputs -> predictions with ground truth merged back."""
-    if num_iter != 1:
-        raise ValueError(
-            f"num_iter={num_iter}: MaskGIT decoding is not in this port yet"
-        )
+                 tasks: Optional[torch.Tensor] = None, num_iter: int = 1,
+                 rounds: Optional[List[Dict]] = None) -> Tensors:
+    """Masked inputs -> predictions with ground truth merged back.
+    ``num_iter > 1`` decodes with :func:`iterative_decode` (``rounds``
+    collects its rounds); below 2 it is one pass."""
+    if model.use_elemwise_noise:
+        # JAX's forward_eval gives such a model no noise rng either.
+        raise ValueError("forward_eval: a use_elemwise_noise model has no "
+                         "eval behaviour (it draws noise only in training)")
     modified = preprocess_for_test(inputs, model.schema, masks, tasks)
-    outputs = model(modified)
+    if num_iter > 1:
+        outputs = iterative_decode(model, masks, inputs, modified, num_iter,
+                                   rounds)
+    else:
+        outputs = model(modified)
     return merge_inputs_and_prediction(inputs, model.schema, masks, outputs)
+
+
+def iterative_decode(model: MFPModel, masks: Tensors, inputs: Tensors,
+                     modified_inputs: Tensors, num_iter: int,
+                     rounds: Optional[List[Dict]] = None) -> Tensors:
+    """MaskGIT decoding (flexdm_tpu/models/mfp.py:254-337).
+
+    Each of ``num_iter`` rounds runs the model, scores every still-masked
+    categorical field by its confidence (the channel mean of the max
+    softmax probability; 0 where the field is not masked), takes the
+    threshold at position ``round(num_masked / num_iter)`` (clipped) of the
+    confidences sorted descending, commits the argmax of every field at or
+    above it, and re-masks the rest.  A categorical field keeps the
+    outputs of the round that committed it (round 0's if none did);
+    numerical fields take the last round's.  ``rounds``, if given,
+    receives per round ``{"confidence": {name: (B, S)}, "threshold":
+    (B,)}``.
+    """
+    schema = model.schema
+    masks = dict(masks)
+    seq_mask = get_seq_mask(inputs["length"], schema.max_length)
+    filtered = filter_padding(inputs, schema, seq_mask)
+    cat_cols = [c for c in schema.modeled
+                if c.is_sequence and c.is_categorical]
+    num_masked = sum(masks[c.name].to(torch.int32).sum(-1) for c in cat_cols)
+    # int / int -> float32, then round half to even, as in JAX.
+    num_update = torch.round(
+        num_masked.to(torch.float32) / num_iter).to(torch.int32)
+
+    modified = dict(modified_inputs)
+    final_outputs: Tensors = {}
+    outputs: Tensors = {}
+    for i in range(num_iter):
+        outputs = model(modified)
+        if i == 0:
+            final_outputs = dict(outputs)
+        confidence = {
+            c.name: torch.where(
+                masks[c.name],
+                torch.softmax(outputs[c.name], -1).amax(-1).mean(-1),
+                0.0,
+            )
+            for c in cat_cols
+        }  # each (B, S)
+        conf_all = torch.cat([confidence[c.name] for c in cat_cols], -1)
+        conf_sorted = torch.sort(conf_all, -1, descending=True).values
+        idx = num_update.clamp(0, conf_all.shape[-1] - 1).long()
+        threshold = conf_sorted.gather(-1, idx[:, None])  # (B, 1)
+        if rounds is not None:
+            rounds.append({"confidence": confidence,
+                           "threshold": threshold[:, 0]})
+        for c in cat_cols:
+            name = c.name
+            pred = outputs[name].argmax(-1).to(filtered[name].dtype)
+            update = (confidence[name] >= threshold) & (confidence[name] > 0)
+            filtered[name] = torch.where(update[:, :, None], pred,
+                                         filtered[name])
+            masks[name] = masks[name] & ~update
+            if i > 0:
+                final_outputs[name] = torch.where(
+                    update[:, :, None, None], outputs[name],
+                    final_outputs[name])
+        for c in schema.modeled:
+            if c.is_sequence:
+                modified[c.name] = apply_token(filtered[c.name], c,
+                                               masks[c.name], "masked")
+    for c in schema.modeled:
+        if c.is_sequence and not c.is_categorical:
+            final_outputs[c.name] = outputs[c.name]
+    return final_outputs

@@ -2,9 +2,10 @@
 
 Counterpart of ``flexdm_tpu/models/transformer.py``: multi-head
 self-attention with a fused QKV projection, the post-norm
-``TransformerBlock``, the pre-norm ``DeepSVGBlock`` (the default) and the
-``Blocks`` stack.  Parameter names follow the flax tree (``attn.query``,
-``norm1``, ``mlp_0``, ``seq2seq_{i}``, ...) so the weight bridge in
+``TransformerBlock``, the pre-norm ``DeepSVGBlock`` (the default), the
+``Blocks`` stack and the learned ``PositionEmbedding``.  Parameter names
+follow the flax tree (``attn.query``, ``norm1``, ``mlp_0``,
+``seq2seq_{i}``, ...) so the weight bridge in
 :mod:`flexdm_tpu_torch.convert` maps leaves one to one.
 
 Dropout sits where the JAX blocks put ``FastDropout`` (after attention and
@@ -12,9 +13,8 @@ after the MLP) and draws from the ``generator`` passed down the stack; with
 no generator it is off (JAX ``deterministic=True``).
 
 LayerNorm epsilon is 1e-3 (keras), not PyTorch's 1e-5; the MLP is ``2 * D``
-wide with ReLU.  Cross-attention, the conditional input and the learned
-position embedding are used only by the baselines and by
-``input_dtype != 'set'``; they are not in this port yet.
+wide with ReLU.  Cross-attention and the conditional input are used only
+by the baselines; they are not in this port yet.
 """
 
 from __future__ import annotations
@@ -29,6 +29,21 @@ from ..ops.attention import dot_product_attention
 from ..ops.rng import FastDropout
 
 LAYER_NORM_EPS = 1e-3
+
+
+class PositionEmbedding(nn.Module):
+    """Learned ``(maxlen + 1, D)`` position table, broadcast over the batch,
+    then dropout on the caller's generator (transformer.py:63-77)."""
+
+    def __init__(self, output_dim: int, maxlen: int, dropout: float = 0.1):
+        super().__init__()
+        self.embeddings = nn.Parameter(torch.empty(maxlen + 1, output_dim))
+        self.dropout = FastDropout(dropout)
+
+    def forward(self, seq_len: int, batch: int,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        emb = self.embeddings[None, :seq_len].expand(batch, -1, -1)
+        return self.dropout(emb, generator)
 
 
 class MultiHeadAttention(nn.Module):

@@ -9,7 +9,7 @@ Counterpart of ``flexdm_tpu/serve.py`` on PyTorch:
 * ``python -m flexdm_tpu_torch.serve --job-dir <job>`` — a stdlib HTTP
   server: ``GET /healthz``, ``GET /schema``, ``POST /predict`` with
   ``{"task": "pos", "documents": [...], "fields": "all"|"changed",
-  "element": ..., "seed": ...}``.
+  "element": ..., "seed": ..., "num_iter": 1}``.
 
 The job needs its port weights, ``checkpoints/<name>.torch.npz`` (see
 ``tools/export_torch_weights.py``).  The JAX engine's packed single-buffer
@@ -18,8 +18,10 @@ the device as a dict of tensors.  What stays is the scoped fetch: only the
 columns the task can change come back, categorical ones argmaxed on the
 device.  ``elem`` draws its random element from a ``torch.Generator``
 seeded with the request's seed, so its picks differ from the JAX engine's;
-a pinned ``element`` gives the same masks in both.  ``num_iter > 1``
-(MaskGIT) is not in this port yet and is answered with 400.
+a pinned ``element`` gives the same masks in both.  ``num_iter`` is any
+integer: above 1 the categorical fields are decoded with MaskGIT in that
+many rounds, below 2 in one pass (as the JAX engine reads it); a value
+that is not an integer is answered with 400.
 """
 
 from __future__ import annotations
@@ -69,13 +71,9 @@ def _normalize_element(element, n: int) -> Optional[List[int]]:
     """``element`` as ``n`` ints (one int is repeated), or ValueError."""
     if element is None:
         return None
-
-    def is_int(e):
-        return isinstance(e, (int, np.integer)) and not isinstance(e, bool)
-
-    if is_int(element):
+    if _is_int(element):
         return [int(element)] * n
-    if not isinstance(element, (list, tuple)) or not all(map(is_int, element)):
+    if not isinstance(element, (list, tuple)) or not all(map(_is_int, element)):
         raise ValueError(
             f"element must be an int or a list of ints, got {element!r}"
         )
@@ -84,15 +82,17 @@ def _normalize_element(element, n: int) -> Optional[List[int]]:
     return [int(e) for e in element]
 
 
+def _is_int(x) -> bool:
+    return isinstance(x, (int, np.integer)) and not isinstance(x, bool)
+
+
 def _check_request(tasks, task, num_iter, fields):
     if task not in tasks:
         raise ValueError(f"unknown task {task!r}; one of {tasks}")
     if fields not in ("all", "changed"):
         raise ValueError(f"fields must be 'all' or 'changed', got {fields!r}")
-    if int(num_iter) != 1:
-        raise ValueError(
-            f"num_iter={num_iter}: MaskGIT decoding is not in this port yet"
-        )
+    if not _is_int(num_iter):
+        raise ValueError(f"num_iter must be an integer, got {num_iter!r}")
 
 
 class InferenceEngine:
@@ -131,7 +131,8 @@ class InferenceEngine:
         ]
 
     @torch.inference_mode()
-    def _step(self, numeric: Dict[str, np.ndarray], task: str, seed: int,
+    def _step(self, numeric: Dict[str, np.ndarray], task: str,
+              num_iter: int, seed: int,
               element: Optional[List[int]]) -> Dict[str, np.ndarray]:
         batch = {
             k: torch.from_numpy(v).to(self.device) for k, v in numeric.items()
@@ -149,7 +150,8 @@ class InferenceEngine:
                 (self.batch_size,), self._task_ids[task],
                 dtype=torch.int32, device=self.device,
             )
-        pred = forward_eval(self.model, batch, masks, tasks=tasks)
+        pred = forward_eval(self.model, batch, masks, tasks=tasks,
+                            num_iter=num_iter)
         fetched = {
             c.name: pred[c.name].argmax(-1).to(torch.int32)
             if c.is_categorical else pred[c.name]
@@ -204,7 +206,7 @@ class InferenceEngine:
         if element is not None:
             element = element + [0] * (self.batch_size - n)
         with self._lock:
-            host = self._step(numeric, task, seed, element)
+            host = self._step(numeric, task, int(num_iter), seed, element)
         if fields == "all":
             for k, v in batch.items():
                 host.setdefault(k, v)
@@ -402,7 +404,7 @@ def make_handler(engine):
                 predictions = engine.predict(
                     req["documents"],
                     task=req.get("task", "pos"),
-                    num_iter=int(req.get("num_iter", 1)),
+                    num_iter=req.get("num_iter", 1),
                     seed=int(req.get("seed", 0)),
                     fields=req.get("fields", "all"),
                     element=req.get("element"),

@@ -2,10 +2,12 @@
 
 Counterpart of ``flexdm_tpu/train/trainer.py`` for the oneshot model on one
 device.  A step draws its task ids, MLM uniforms, element picks,
-replacement values and dropout masks from one ``torch.Generator`` on the
-device, masks the batch per task, runs the model (attention through the
-CUDA kernels on a card), adds the L2 penalty, back-propagates, clips each
-gradient to norm 1 and takes a keras-Adam step.
+replacement values, dropout masks and, where the model needs them, the
+shuffle uniforms and the element-wise noise from one ``torch.Generator``
+on the device, masks the batch per task, runs the model (attention
+through the CUDA kernels on a card), adds the L2 penalty,
+back-propagates, clips each gradient to norm 1 and takes a keras-Adam
+step.
 
 Protocol as in the JAX trainer: batches from the host ``DataLoader`` with
 ``drop_remainder``; validation every ``validation_freq`` epochs on the same
@@ -89,7 +91,7 @@ def evaluate_split(model, loader, schema, task_config, seed: int,
         # Padded rows take the next indices; their weight is 0.
         draws = record_draws(
             schema, task_config.task_probs, seed,
-            range(weights_total, weights_total + b),
+            range(weights_total, weights_total + b), **model.draw_options(),
         ).to(device)
         sample_weight = torch.zeros(b, device=device)
         sample_weight[:num_valid] = 1.0
@@ -166,7 +168,8 @@ def train(config: TrainConfig) -> Dict[str, Any]:
         for _ in range(steps_per_epoch):
             batch = to_device(next(batches), device)
             draws = draw_train(schema, config.batch_size,
-                               task_config.task_probs, generator)
+                               task_config.task_probs, generator,
+                               **model.draw_options())
             draws.dropout = generator
             metrics = train_step(batch, draws)
             step += 1

@@ -60,6 +60,25 @@ def assert_trees_close(got, want, rtol, atol):
         )
 
 
+def model_pair(schema, sample, latent_dim=32, num_blocks=2, num_heads=4,
+               seed=0, **kwargs):
+    """A JAX ``MFPModel`` with its initialised parameters, and the port's
+    model (eval mode) with the same weights; ``kwargs`` go to both."""
+    from flexdm_tpu.models import mfp as jax_mfp
+    from flexdm_tpu.train.trainer import init_params
+    from flexdm_tpu_torch.convert import load_jax_params
+    from flexdm_tpu_torch.models import mfp as port_mfp
+
+    sizes = dict(latent_dim=latent_dim, num_blocks=num_blocks,
+                 num_heads=num_heads)
+    jax_model = jax_mfp.MFPModel(schema, attention_impl="xla", **sizes,
+                                 **kwargs)
+    params = jax.jit(lambda: init_params(jax_model, sample, seed=seed))()
+    port_model = port_mfp.MFPModel(schema, **sizes, **kwargs).eval()
+    load_jax_params(port_model, flat_params(params))
+    return jax_model, params, port_model
+
+
 def tf32(x):
     """Round float32 to TF32: to nearest, ties away from zero, on the low
     13 bits of the float32 word (``cvt.rna.tf32.f32``)."""

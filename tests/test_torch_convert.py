@@ -49,6 +49,36 @@ def test_port_names_cover_the_jax_tree(request, dataset, context):
     })
 
 
+@pytest.mark.parametrize("dataset,variant", [
+    ("crello", dict(context="length")),
+    ("crello", dict(context="canvas")),
+    ("crello", dict(context="canvas_add")),
+    ("rico", dict(input_dtype="shuffled_set", context="id")),
+    ("crello", dict(input_dtype="sorted_set", use_elemwise_noise=True)),
+    ("crello", dict(seq_type="flat", input_dtype="shuffled_set")),
+    ("rico", dict(seq_type="flat", input_dtype="shuffled_set")),
+], ids=["length", "canvas", "canvas_add", "shuffled-id", "sorted-noise",
+        "flat-crello", "flat-rico"])
+def test_port_names_cover_every_variant(request, dataset, variant):
+    """The same for every other oneshot variant: the position tables
+    (``emb_seq_pos``, ``input_const``), ``input_length``, the canvas
+    columns' tables and heads, ``input_noise``; a missing or extra leaf
+    fails."""
+    spec = request.getfixturevalue(f"{dataset}_spec")
+    sizes = dict(latent_dim=32, num_blocks=2, num_heads=4)
+    shapes = traverse_util.flatten_dict(jax_init_params(
+        jax_mfp.MFPModel(spec.schema, **sizes, **variant),
+        numpy_batch(spec, 2), 0, abstract=True), sep="/")
+    port = init_params(MFPModel(spec.schema, **sizes, **variant), 0)
+    port_flat = params_to_jax(port.state_dict())
+    assert set(port_flat) == set(shapes)
+    for name, value in shapes.items():
+        assert port_flat[name].shape == value.shape, name
+    load_jax_params(MFPModel(spec.schema, **sizes, **variant), {
+        name: np.zeros(v.shape, v.dtype) for name, v in shapes.items()
+    })
+
+
 @pytest.mark.parametrize("dataset", ["crello", "rico"])
 def test_round_trip_is_bit_exact(request, dataset):
     schema = request.getfixturevalue(f"{dataset}_spec").schema

@@ -1,5 +1,6 @@
-"""Port ``compute_mfp_loss`` against the JAX package on random logits:
-the loss and every metric within 1e-5 relative."""
+"""Port ``compute_mfp_loss`` against the JAX package on random logits,
+with and without the rico pos-sort protocol: the loss and every metric
+within 1e-5 relative (``MODULE_TOL`` of the model tests is 2e-5)."""
 
 import numpy as np
 import pytest
@@ -70,12 +71,32 @@ def test_categorical_score_ignores_out_of_range_labels():
     np.testing.assert_array_equal(hit.numpy(), np.asarray(want_hit))
 
 
-def test_sort_flag_is_not_ported(rico_spec):
-    schema = rico_spec.schema
-    batch = numpy_batch(rico_spec, 2)
-    with pytest.raises(NotImplementedError, match="sort"):
-        port_losses.compute_mfp_loss(
-            schema, to_torch(batch), to_torch(_predictions(schema, 2, 0)),
-            to_torch(random_masks(schema, batch)),
-            sort_flag=torch.ones(2, dtype=torch.bool),
-        )
+@pytest.mark.parametrize("dataset", ["crello", "rico"])
+@pytest.mark.parametrize("ignore_sort", [None, "gt", "pred"])
+def test_sort_flag_matches_jax(request, dataset, ignore_sort):
+    """The pos-sort protocol: the flagged samples are scored on sorted
+    ground truth and sorted (argmaxed) predictions."""
+    spec = request.getfixturevalue(f"{dataset}_spec")
+    schema = spec.schema
+    batch = numpy_batch(spec, 6)
+    masks = random_masks(schema, batch, seed=4, p=0.6)
+    pred = _predictions(schema, 6, seed=5)
+    flag = np.array([1, 0, 1, 1, 0, 1], bool)
+    want_loss, want = jax.jit(jax_losses.compute_mfp_loss,
+                              static_argnums=(0, 5))(
+        schema, to_jax(batch), to_jax(pred), to_jax(masks),
+        jnp.asarray(flag), ignore_sort,
+    )
+    got_loss, got = port_losses.compute_mfp_loss(
+        schema, to_torch(batch), to_torch(pred), to_torch(masks),
+        sort_flag=torch.from_numpy(flag), ignore_sort=ignore_sort,
+    )
+    assert set(got) == set(want)
+    np.testing.assert_allclose(got_loss.item(), float(want_loss), **TOL)
+    for name in sorted(want):
+        np.testing.assert_allclose(got[name].item(), float(want[name]),
+                                   err_msg=name, **TOL)
+    # The flag really changes the score.
+    _, unsorted = port_losses.compute_mfp_loss(
+        schema, to_torch(batch), to_torch(pred), to_torch(masks))
+    assert got["left_loss"].item() != unsorted["left_loss"].item()

@@ -31,6 +31,7 @@ from flexdm_tpu_torch.models import transformer as port_transformer  # noqa: E40
 from tests._torch_parity import (  # noqa: E402
     assert_trees_close,
     flat_params,
+    model_pair,
     numpy_batch,
     random_masks,
     to_jax,
@@ -60,12 +61,22 @@ def _modified(schema, batch, seed=0):
     return {k: np.asarray(v) for k, v in modified.items()}
 
 
+CONTEXTS = [None, "id", "length", "canvas", "canvas_add"]
+
+
 @pytest.mark.parametrize("dataset", ["crello", "rico"])
-@pytest.mark.parametrize("context", [None, "id"])
+@pytest.mark.parametrize("context", CONTEXTS)
 def test_encoder_matches_jax(request, dataset, context):
     schema = _spec(request, dataset).schema
     inputs = _modified(schema, numpy_batch(_spec(request, dataset)))
     jax_enc = jax_encoder.Encoder(schema, latent_dim=D, context=context)
+    if dataset == "rico" and "canvas" in str(context):
+        # rico has no canvas columns: both packages refuse.
+        with pytest.raises(AssertionError, match="canvas"):
+            jax_enc.init(jax.random.PRNGKey(0), to_jax(inputs))
+        with pytest.raises(ValueError, match="canvas columns"):
+            port_encoder.Encoder(schema, latent_dim=D, context=context)
+        return
     variables = jax_enc.init(jax.random.PRNGKey(0), to_jax(inputs))
     want_seq, want_mask = jax_enc.apply(variables, to_jax(inputs))
     port_enc = port_encoder.Encoder(schema, latent_dim=D, context=context)
@@ -74,6 +85,55 @@ def test_encoder_matches_jax(request, dataset, context):
         seq, seq_mask = port_enc(to_torch(inputs))
     np.testing.assert_allclose(seq.numpy(), np.asarray(want_seq), **MODULE_TOL)
     np.testing.assert_array_equal(seq_mask.numpy(), np.asarray(want_mask))
+
+
+def _noise_of(module, variables, inputs, key):
+    """The encoder's output with its element-wise noise drawn from ``key``,
+    and that noise (the input of its ``input_noise`` Dense)."""
+    from flax import linen as nn
+
+    seen = []
+
+    def grab(next_fun, args, kwargs, context):
+        if (context.module.name == "input_noise"
+                and context.method_name == "__call__"):
+            seen.append(np.array(args[0]))
+        return next_fun(*args, **kwargs)
+
+    with nn.intercept_methods(grab):
+        out = module.apply(variables, inputs, rngs={"noise": key})
+    assert len(seen) == 1
+    return out, seen[0]
+
+
+@pytest.mark.parametrize("dataset,context", [
+    ("crello", None), ("crello", "canvas"), ("crello", "canvas_add"),
+    ("rico", "id"), ("rico", "length"),
+])
+def test_encoder_position_and_noise_match_jax(request, dataset, context):
+    """``input_dtype='shuffled_set'`` (the ``input_const`` position table)
+    and ``use_elemwise_noise``, the noise JAX drew handed to the port."""
+    schema = _spec(request, dataset).schema
+    inputs = _modified(schema, numpy_batch(_spec(request, dataset)))
+    kwargs = dict(latent_dim=D, context=context, input_dtype="shuffled_set",
+                  use_elemwise_noise=True)
+    jax_enc = jax_encoder.Encoder(schema, **kwargs)
+    variables = jax_enc.init(
+        {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)},
+        to_jax(inputs))
+    (want_seq, want_mask), noise = _noise_of(
+        jax_enc, variables, to_jax(inputs), jax.random.PRNGKey(2))
+    token = context in ("id", "length", "canvas")
+    assert noise.shape == (4, schema.max_length + token, 4)
+    port_enc = port_encoder.Encoder(schema, **kwargs)
+    load_jax_params(port_enc, flat_params(variables))
+    with torch.no_grad():
+        seq, seq_mask = port_enc(to_torch(inputs),
+                                 noise=torch.from_numpy(noise))
+    np.testing.assert_allclose(seq.numpy(), np.asarray(want_seq), **MODULE_TOL)
+    np.testing.assert_array_equal(seq_mask.numpy(), np.asarray(want_mask))
+    with pytest.raises(ValueError, match="noise"):
+        port_enc(to_torch(inputs))
 
 
 @pytest.mark.parametrize("block", ["deepsvg", "transformer"])
@@ -113,10 +173,12 @@ def _unflatten(flat):
 
 
 @pytest.mark.parametrize("dataset", ["crello", "rico"])
-@pytest.mark.parametrize("context", [None, "id"])
+@pytest.mark.parametrize("context", CONTEXTS)
 def test_decoder_matches_jax(request, dataset, context):
+    """Every context: the context token split off (id, length, canvas) or
+    kept (canvas_add), and crello's canvas heads (canvas)."""
     schema = _spec(request, dataset).schema
-    s = schema.max_length + (context is not None)
+    s = schema.max_length + (context in ("id", "length", "canvas"))
     h = np.random.default_rng(4).normal(size=(2, s, D)).astype(np.float32)
     jax_dec = jax_decoder.Decoder(schema, latent_dim=D, context=context)
     variables = jax_dec.init(jax.random.PRNGKey(2), jnp.asarray(h))
@@ -272,11 +334,18 @@ def test_forward_eval_matches_jax(request, dataset, context, task):
     assert masked
 
 
-def test_forward_eval_rejects_maskgit(crello_spec):
+def test_forward_eval_refuses_a_noise_model(crello_spec):
+    """A ``use_elemwise_noise`` model draws noise only in training: JAX's
+    forward_eval has no noise rng for it and fails; the port says why."""
     schema = crello_spec.schema
-    model = port_mfp.MFPModel(schema, latent_dim=D, num_blocks=1,
-                              num_heads=HEADS).eval()
-    batch = to_torch(numpy_batch(crello_spec, 2))
-    masks = port_demo.build_task_masks(schema, batch, "pos")
-    with pytest.raises(ValueError, match="MaskGIT"):
-        port_mfp.forward_eval(model, batch, masks, num_iter=2)
+    batch = numpy_batch(crello_spec, 2)
+    jax_model, params, port_model = model_pair(
+        schema, batch, num_blocks=1, use_elemwise_noise=True)
+    masks = port_demo.build_task_masks(schema, to_torch(batch), "pos")
+    with pytest.raises(Exception, match="noise"):
+        jax_mfp.forward_eval(jax_model, params, to_jax(batch),
+                             to_jax(to_numpy(masks)))
+    for num_iter in (1, 2):
+        with pytest.raises(ValueError, match="use_elemwise_noise"):
+            port_mfp.forward_eval(port_model, to_torch(batch), masks,
+                                  num_iter=num_iter)

@@ -75,6 +75,21 @@ def test_engine_matches_jax_engine(job, engine, docs, request_args):
     assert engine.predict(docs, **request_args) == want
 
 
+@pytest.mark.parametrize("request_args", [
+    {"task": "pos", "num_iter": 2},
+    {"task": "attr", "num_iter": 3},
+    {"task": "elem", "element": 1, "num_iter": 3, "fields": "changed"},
+], ids=["pos-2", "attr-3", "elem-pinned-3"])
+def test_engine_maskgit_matches_jax_engine(job, engine, docs, request_args):
+    """MaskGIT requests: the same documents as the JAX engine's, and
+    ``num_iter`` below 2 is one pass."""
+    want = JaxEngine(job, batch_size=4).predict(docs, **request_args)
+    assert engine.predict(docs, **request_args) == want
+    one_pass = dict(request_args, num_iter=1)
+    assert (engine.predict(docs, **dict(request_args, num_iter=0))
+            == engine.predict(docs, **one_pass))
+
+
 def test_engine_chunks_fields_and_rejects(engine, docs):
     nine = (docs * 3)[:9]
     full = engine.predict(nine, task="pos")
@@ -97,7 +112,7 @@ def test_engine_chunks_fields_and_rejects(engine, docs):
                 assert el_out == el_in
     assert engine.predict(docs, task="elem", element=1, seed=9) == pinned
     bad = [
-        dict(task="nope"), dict(fields="nope"), dict(num_iter=2),
+        dict(task="nope"), dict(fields="nope"), dict(num_iter=2.5),
         dict(task="pos", element=0), dict(task="elem", element=[0]),
         dict(task="elem", element=99), dict(task="elem", element=1.5),
         dict(seed=-1),
@@ -121,8 +136,9 @@ def test_jsonable_decodes_bytes_arrays():
 
 
 def test_engine_warmup(engine):
-    timings = engine.warmup([("pos", 1), ("elem", 1), ("nope", 1)])
-    assert set(timings) == {"pos/1", "elem/1", "elem/1/pinned"}
+    timings = engine.warmup([("pos", 1), ("elem", 1), ("nope", 1),
+                             ("pos", 3)])
+    assert set(timings) == {"pos/1", "elem/1", "elem/1/pinned", "pos/3"}
     assert engine.warmup(split="no_such_split") == {}
 
 
@@ -151,7 +167,10 @@ def test_http_round_trip(engine, docs):
         assert info["dataset"] == "rico" and "pos" in info["tasks"]
         out = _post(port, {"task": "pos", "documents": docs})
         assert out["predictions"] == engine.predict(docs, task="pos")
-        for payload in ({"task": "pos", "documents": docs, "num_iter": 2},
+        out = _post(port, {"task": "pos", "documents": docs, "num_iter": 3})
+        assert out["predictions"] == engine.predict(docs, task="pos",
+                                                    num_iter=3)
+        for payload in ({"task": "pos", "documents": docs, "num_iter": 2.5},
                         {"task": "elem", "documents": docs, "element": 2.5},
                         {"task": "nope", "documents": docs}):
             with pytest.raises(urllib.error.HTTPError) as err:
@@ -283,15 +302,24 @@ spec = DatasetSpec("crello", crello_dir, 2)
 docs = _jsonable(spec.unbatch(next(iter(spec.make_dataset("test", batch_size=2)))))
 engine = InferenceEngine(trained, batch_size=2, device="cpu")
 assert len(engine.predict(docs, task="pos")) == 2
+
+flat = os.path.join(os.path.dirname(job), "flat")
+main(["--preset", "crello_flat", "--data_dir", crello_dir, "--job-dir", flat,
+      "--num_epochs", "1", "--batch_size", "16", "--latent_dim", "32",
+      "--num_blocks", "1", "--device", "cpu", "--log_level", "WARNING"])
+engine = InferenceEngine(flat, batch_size=2, device="cpu")
+assert engine.model.seq_type == "flat"
+assert len(engine.predict(docs, task="pos", num_iter=2)) == 2
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("OK", len(out))
 """
 
 
 def test_port_runs_with_jax_blocked(rico_dir, crello_dir, tmp_path):
-    """Serving and a 1-epoch training run, with JAX and every module of the
-    JAX package unimportable, and ``FLEXDM_PLATFORM`` set (with it set,
-    importing ``flexdm_tpu`` imports JAX)."""
+    """Serving, a 1-epoch training run, and a flat model trained for an
+    epoch and served with MaskGIT (``num_iter=2``), with JAX and every
+    module of the JAX package unimportable, and ``FLEXDM_PLATFORM`` set
+    (with it set, importing ``flexdm_tpu`` imports JAX)."""
     env = dict(os.environ, FLEXDM_PLATFORM="cpu", PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _NO_JAX, rico_dir, str(tmp_path / "job"),

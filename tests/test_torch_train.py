@@ -12,8 +12,10 @@
   parameter by up to 2 lr: the bound used there is 2 lr + 1e-6.
 * Validation scores that do not change with the batch size (the JAX
   package's ``test_val_scores_invariant_to_batch_size``).
+* The same step for rico Ours-EXP (``sort_flag`` live) and crello_flat
+  (the shuffle uniforms JAX drew handed to the port).
 * A CPU ``train()`` of 2 epochs whose ``best`` the port's engine serves,
-  and the CLI's refusals.
+  one epoch of the rico and flat presets, and the CLI's refusals.
 """
 
 import json
@@ -43,6 +45,8 @@ from flexdm_tpu_torch.train import trainer as port_trainer  # noqa: E402
 from tests._torch_parity import flat_params, numpy_batch, to_jax, to_torch  # noqa: E402
 
 LR, L2 = 1e-4, 1e-2
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs")
 METHOD = "random_elem_type_pos_attr_img_txt"  # every task of crello
 
 
@@ -53,7 +57,7 @@ def _jax_step_draws(schema, batch, base_key, n_tasks):
     @jax.jit
     def draw(base_key):
         key = jax.random.fold_in(base_key, 0)
-        k_task, _, k_mask, _, _, _ = jax.random.split(key, 6)
+        k_task, k_shuffle, k_mask, _, _, _ = jax.random.split(key, 6)
         k_random, k_elem = jax.random.split(k_mask)
         b = batch["length"].shape[0]
         values = {}
@@ -69,26 +73,44 @@ def _jax_step_draws(schema, batch, base_key, n_tasks):
                 values[column.name] = 0.1 * jax_rng.normal(
                     k, x.shape, dtype=x.dtype)
         gumbel = jax.random.gumbel(k_task, (b, n_tasks), jnp.float32)
-        return gumbel, jax.random.uniform(k_elem, (b,)), values
+        shuffle = jax.random.uniform(k_shuffle, (b, schema.max_length))
+        return gumbel, jax.random.uniform(k_elem, (b,)), values, shuffle
 
-    gumbel, element, values = jax.device_get(draw(base_key))
+    gumbel, element, values, shuffle = jax.device_get(draw(base_key))
     return (np.array(gumbel), np.array(element),
-            {k: np.array(v) for k, v in values.items()})
+            {k: np.array(v) for k, v in values.items()}, np.array(shuffle))
 
 
 def test_train_step_matches_jax(crello_spec):
-    schema = crello_spec.schema
-    batch = numpy_batch(crello_spec, 8)
+    _check_step_matches_jax(crello_spec, METHOD)
+
+
+def test_train_step_matches_jax_rico_pos_sort(rico_spec):
+    """rico Ours-EXP's step: ``sort_flag`` live for the pos-task rows."""
+    _check_step_matches_jax(rico_spec, "elem_pos_attr", min_pos_rows=2)
+
+
+def test_train_step_matches_jax_flat(crello_spec):
+    """crello_flat's step: elements shuffled by the drawn uniforms, S * F
+    tokens."""
+    _check_step_matches_jax(crello_spec, METHOD, seq_type="flat",
+                            input_dtype="shuffled_set")
+
+
+def _check_step_matches_jax(spec, method, min_pos_rows=0, **model_kwargs):
+    schema = spec.schema
+    batch = numpy_batch(spec, 8)
     jax_model = jax_mfp.MFPModel(schema, latent_dim=32, num_blocks=2,
                                  num_heads=4, dropout=0.0,
-                                 attention_impl="xla")
+                                 attention_impl="xla", **model_kwargs)
     # The port's keras initialisation, handed to JAX through convert.py.
     model = init_params(port_mfp.MFPModel(
-        schema, latent_dim=32, num_blocks=2, num_heads=4, dropout=0.0), 0)
+        schema, latent_dim=32, num_blocks=2, num_heads=4, dropout=0.0,
+        **model_kwargs), 0)
     params = traverse_util.unflatten_dict({
         k: jnp.asarray(v) for k, v in params_to_jax(model.state_dict()).items()
     }, sep="/")
-    task_config = jax_mfp.make_task_config(schema, METHOD)
+    task_config = jax_mfp.make_task_config(schema, method)
     tx = jax_optim.make_optimizer(LR, clipnorm=1.0)
     state = jax_trainer.TrainState(params=params, opt_state=tx.init(params),
                                    step=jnp.asarray(0))
@@ -99,18 +121,22 @@ def test_train_step_matches_jax(crello_spec):
     new_state, want = step(state, to_jax(batch), base_key,
                            jnp.asarray(uniforms))
 
-    gumbel, element, values = _jax_step_draws(
+    gumbel, element, values, shuffle = _jax_step_draws(
         schema, batch, base_key, len(task_config.task_probs))
     tasks = port_masking.sample_tasks(torch.from_numpy(gumbel),
                                       task_config.task_probs)
     assert len(set(tasks.tolist())) > 1
+    pos = schema.task_names.index("pos")
+    assert int((tasks == pos).sum()) >= min_pos_rows
     draws = port_masking.TrainDraws(
         tasks, torch.from_numpy(uniforms), torch.from_numpy(element),
         to_torch(values),
+        shuffle=torch.from_numpy(shuffle) if model.draw_options()["shuffle"]
+        else None,
     )
     adam = port_optim.KerasAdam(model.parameters(), LR)
     got = port_trainer.make_train_step(
-        model, port_mfp.make_task_config(schema, METHOD), adam, L2
+        model, port_mfp.make_task_config(schema, method), adam, L2
     )(to_torch(batch), draws)
 
     assert set(got) == set(want)
@@ -194,6 +220,39 @@ def test_train_on_cpu_then_serve(crello_dir, crello_spec, tmp_path):
         len(d["elements"]) for d in docs]
 
 
+@pytest.mark.parametrize("preset,dataset", [
+    ("rico_ours_exp", "rico"), ("crello_flat", "crello"),
+])
+def test_train_preset_on_cpu_then_serve(request, preset, dataset, tmp_path):
+    """rico Ours-EXP (the pos-sort loss) and crello_flat (shuffled S * F
+    tokens) train for an epoch at tiny width; ``best`` answers a MaskGIT
+    request."""
+    data_dir = request.getfixturevalue(f"{dataset}_dir")
+    spec = request.getfixturevalue(f"{dataset}_spec")
+    job = str(tmp_path / "job")
+    cli.main([
+        "--preset", preset, "--data_dir", data_dir, "--job-dir", job,
+        "--num_epochs", "1", "--batch_size", "16", "--latent_dim", "32",
+        "--num_blocks", "2", "--device", "cpu", "--log_level", "WARNING",
+    ])
+    with open(os.path.join(job, "args.json")) as f:
+        args = json.load(f)
+    with open(os.path.join(CONFIGS, f"{preset}.json")) as f:
+        assert args["masking_method"] == json.load(f)["masking_method"]
+    with open(os.path.join(job, "logs", "history.jsonl")) as f:
+        history = [json.loads(line) for line in f]
+    assert [h["step"] for h in history] == [6]  # 96 records // 16
+    assert all(math.isfinite(v) for v in history[0].values()
+               if isinstance(v, float))
+    assert "val_total_score" in history[0]
+    engine = InferenceEngine(job, batch_size=4, device="cpu")
+    docs = _jsonable(spec.unbatch(
+        next(iter(spec.make_dataset("test", batch_size=2)))))
+    out = engine.predict(docs, task="pos", num_iter=2)
+    assert [len(d["elements"]) for d in out] == [
+        len(d["elements"]) for d in docs]
+
+
 def test_nan_stops_without_saving(crello_dir, tmp_path, monkeypatch):
     """A non-finite loss ends the run at the epoch's end with no
     checkpoint written."""
@@ -233,7 +292,7 @@ def test_cli_refuses_what_the_port_lacks(flags, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--arch_type", "canvasvae"], ["--seq_type", "flat"],
+    ["--arch_type", "canvasvae"], ["--arch_type", "layoutvae"],
     ["--dtype", "bfloat16"],
 ])
 def test_cli_refuses_unported_models(crello_dir, flags, tmp_path):
