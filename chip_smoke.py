@@ -11,13 +11,14 @@ Phases, each of which must pass (any failure exits non-zero):
    with the ptxas report);
 3. kernel: the flash-attention forward kernel (split-TF32 tensor-core
    products) against its plain PyTorch version on the card (O and lse
-   within 2e-5 abs + 2e-5 rel, float32) at the serving, training and
-   crello_flat shapes, S=650 and the kernel's tile edges (S = 16, 17, 63,
-   64, 65, 128, 129 at Dh 32, 64, 128), and a second call bitwise equal
-   to the first; then kernel, plain version and one library call
-   (``scaled_dot_product_attention``, a yardstick the port never calls)
-   timed at (8, 8, 50, 32), (256, 8, 50, 32), (8, 8, 650, 32) and
-   (64, 8, 500, 32), beside the bound computed from the shapes;
+   within 2e-5 abs + 2e-5 rel, float32) at the serving, training,
+   crello_flat training and crello_flat ``elem`` evaluation shapes, S=650
+   and the kernel's tile edges (S = 16, 17, 63, 64, 65, 128, 129 at Dh 32,
+   64, 128), and a second call bitwise equal to the first; then kernel,
+   plain version and one library call (``scaled_dot_product_attention``, a
+   yardstick the port never calls) timed at (8, 8, 50, 32),
+   (256, 8, 50, 32), (8, 8, 650, 32), (64, 8, 500, 32) and
+   (256, 8, 500, 32), beside the bound computed from the shapes;
 4. backward: the backward kernels (dq with delta, dk/dv; split-TF32
    tensor-core products) through autograd against the plain backward and
    against autograd of the plain forward, dq, dk and dv within 1e-4 abs +
@@ -52,17 +53,31 @@ Phases, each of which must pass (any failure exits non-zero):
    live (near-tie sort-key argmaxes counted);
 10. flat: crello_flat (500 (element, field) tokens) at batch 64: 8(i) on
     16 documents (the CPU's plain attention at S=500 is slow), 8(ii), and
-    the trained weights served over HTTP.
+    the trained weights served over HTTP;
+11. eval: ``python -m flexdm_tpu_torch.evaluation``'s ``main()`` on the
+    card at batch 256 over a synthetic 2048-document test split (8 full
+    batches): the job of 8(iii) with ``all_feat``, ``elem``, ``random`` and
+    ``pos --num_iter 3``, the rico job of 9 with ``pos`` (sorted) and the
+    crello_flat job of 10 with ``elem`` (forwards at (256, 8, 500, 32)).
+    Each run: timed on the host clock, its CSV read back, the harness's
+    sums on the card over the same split give the CLI's scores, the
+    forward launched at least once per block per forward; then card vs
+    CPU on the jobs' 64-document test split (crello_flat its first 4
+    documents), the card at the CLI's batch of 256 rows: every Σden and
+    numerical Σnum within 1e-4 relative and every categorical Σnum equal,
+    apart from rows or fields near a tie (counted).
 Each step phase ends with a ``torch.profiler`` window: device kernel time
 per step, its attention share and the busiest kernels.
 
 The last lines are one JSON object per kernel (times at the training
 shape (256, 8, 50, 32); ``launches`` from the training CLI run and
-``launches_by_path`` from each training path's 30 steps), the card's name
+``launches_by_path`` from each training path's 30 steps and each eval
+path's CLI runs), the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 """
 
 import copy
+import csv
 import json
 import math
 import os
@@ -91,6 +106,11 @@ MASKGIT_ITERS = 3
 NEAR_TIE = 1e-5
 # The shapes every kernel is timed at: serving, training, crello_flat.
 FLAT_SHAPE = (64, 8, 500, 32)
+EVAL_BATCH = 256  # the eval CLI's default batch
+EVAL_FLAT_SHAPE = (EVAL_BATCH, 8, 500, 32)  # a crello_flat ``elem`` chunk
+EVAL_DOCS = 2048  # the timed eval split: 8 full batches of EVAL_BATCH
+EVAL_RTOL = 1e-4  # card vs CPU: Σden and numerical Σnum of the eval sums
+FLAT_EVAL_DOCS = 4  # crello_flat eval compared on 4 documents (S=500 on CPU)
 
 
 class SmokeFailure(RuntimeError):
@@ -196,6 +216,7 @@ def phase_kernel(card):
         ((2, 4, 650, 32), True, False),
         ((256, 8, 50, 32), False, True),
         (FLAT_SHAPE, False, True),
+        (EVAL_FLAT_SHAPE, False, True),
     ]
     # The kernel's tile edges (64-row query tiles; 64-key K/V tiles, 32 at
     # Dh=128).
@@ -232,7 +253,7 @@ def phase_kernel(card):
 
     timings = {}
     for shape in ((8, 8, 50, 32), (256, 8, 50, 32), (8, 8, 650, 32),
-                  FLAT_SHAPE):
+                  FLAT_SHAPE, EVAL_FLAT_SHAPE):
         b, h, s, dh = shape
         q, k, v = (torch.randn(shape, generator=g).cuda() for _ in range(3))
         mask = torch.ones(b, s, dtype=torch.bool)
@@ -932,12 +953,14 @@ def phase_train(card, root, data_dir, spec, batch):
 
 
 def phase_rico(card, root):
-    """rico Ours-EXP at full width and batch 256: the pos-sort loss."""
+    """rico Ours-EXP at full width and batch 256: the pos-sort loss.  The
+    trained weights become ``rico_job`` for the eval phase."""
     data_dir, spec, batch = train_data(root, "rico", seed=1)
     args = load_args(RICO_CONFIG, data_dir)
     phase_train_parity(args, spec, batch, "rico Ours-EXP")
-    step_ms, _, counts, _ = phase_train_steps(args, spec, batch, card,
-                                              "rico Ours-EXP")
+    step_ms, _, counts, model = phase_train_steps(args, spec, batch, card,
+                                                  "rico Ours-EXP")
+    write_job(os.path.join(root, "rico_job"), args, model)
     return step_ms, counts
 
 
@@ -1081,6 +1104,293 @@ def phase_maskgit(card):
     return ms
 
 
+class NearTies:
+    """The ``observe`` hook of a CPU reference run of the harness: where the
+    card may score a categorical field otherwise.  A masked field is near a
+    tie when its top two logits lie within ``NEAR_TIE`` or, under MaskGIT,
+    its confidence lies within ``NEAR_TIE`` of its round's threshold.
+    ``allowance[column]`` bounds |card Σnum - CPU Σnum|: the near-tie
+    channels of the column in one unsorted pass; where one flip can move
+    other fields of its row (the pos sort, MaskGIT), every masked channel
+    of each row that holds a near tie."""
+
+    def __init__(self, schema, whole_rows):
+        self.schema = schema
+        self.whole_rows = whole_rows
+        self.columns = [c for c in schema.columns
+                        if c.is_sequence and not c.demo_only]
+        self.fields = self.rows = 0
+        self.allowance = {c.name: 0 for c in self.columns}
+
+    def __call__(self, batch, masks, weight, prediction, rounds):
+        import torch
+
+        from flexdm_tpu_torch.models.masking import get_seq_mask
+
+        live = (get_seq_mask(batch["length"], self.schema.max_length)
+                & (weight > 0)[:, None])
+        masked = {c.name: masks[c.name] & live for c in self.columns}
+        near_rows = torch.zeros(live.shape[0], dtype=torch.bool)
+        for c in self.columns:
+            if not c.is_categorical:
+                continue
+            top = prediction[c.name].topk(2, -1).values
+            near = ((top[..., 0] - top[..., 1]) <= NEAR_TIE) \
+                & masked[c.name][..., None]
+            self.fields += int(near.sum())
+            self.allowance[c.name] += 0 if self.whole_rows else int(near.sum())
+            near_rows |= near.flatten(1).any(1)
+        for r in rounds or ():
+            thr = r["threshold"][:, None]
+            for conf in r["confidence"].values():
+                gap = (conf - thr).abs()
+                near = (conf > 0) & (gap > 0) & (gap <= NEAR_TIE) & live
+                self.fields += int(near.sum())
+                near_rows |= near.any(1)
+        if self.whole_rows:
+            self.rows += int(near_rows.sum())
+            for c in self.columns:
+                channels = c.shape[-1] if c.is_categorical else 1
+                self.allowance[c.name] += channels * int(
+                    (masked[c.name] & near_rows[:, None]).sum())
+
+
+class FirstDocs:
+    """The first ``n`` test documents as one batch: a loader for the
+    harness."""
+
+    def __init__(self, spec, n):
+        self.loader = spec.make_dataset("test", batch_size=n)
+        self.num_records = n
+
+    def __iter__(self):
+        yield next(iter(self.loader))
+
+
+def compare_sums(label, schema, got, want, ties):
+    """Card sums against the CPU's: every Σden and every numerical Σnum
+    within ``EVAL_RTOL`` relative, every categorical Σnum equal, each
+    apart from its column's near-tie allowance.  Returns the largest
+    relative difference of a numerical Σnum and the largest difference of
+    a categorical one."""
+    check(set(got) == set(want), f"{label}: metrics {set(got) ^ set(want)}")
+    worst = worst_cat = 0.0
+    for c in ties.columns:
+        num, den = f"{c.name}_score_num", f"{c.name}_score_den"
+        allow = ties.allowance[c.name]
+        check(abs(got[den] - want[den]) <= EVAL_RTOL * abs(want[den]),
+              f"{label}: {den} card {got[den]} vs CPU {want[den]}")
+        diff = abs(got[num] - want[num])
+        if c.is_categorical:
+            worst_cat = max(worst_cat, diff)
+            check(diff <= allow, f"{label}: {num} card {got[num]} vs CPU "
+                  f"{want[num]} with {allow} near-tie channels")
+        else:
+            worst = max(worst, diff / max(abs(want[num]), 1e-30))
+            check(diff <= EVAL_RTOL * abs(want[num]) + allow,
+                  f"{label}: {num} card {got[num]} vs CPU {want[num]}")
+    return worst, worst_cat
+
+
+def eval_tasks(schema, mode):
+    """``(task, group)`` of every task ``evaluate_all`` runs for ``mode``."""
+    groups = schema.attribute_groups
+    if mode in ("elem", "random"):
+        return [(mode, None)]
+    if mode == "all_feat":
+        return [(n, (n, k)) for n, k in groups.items() if n != "type"]
+    return [(mode, (mode, groups[mode]))]
+
+
+def eval_data(root):
+    """Synthetic crello and rico data dirs whose test split holds
+    ``EVAL_DOCS`` documents: the split the eval CLI is timed on.  One
+    pass of a fresh loader over each is timed: the host decode every eval
+    run pays once."""
+    from flexdm_tpu_torch.data import DatasetSpec, synthetic
+
+    dirs = {}
+    for dataset in ("crello", "rico"):
+        t0 = time.perf_counter()
+        dirs[dataset] = synthetic.generate(
+            dataset, os.path.join(root, f"{dataset}_eval_data"), 0, 0,
+            EVAL_DOCS, seed=1)
+        generated = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batches = sum(1 for _ in DatasetSpec(
+            dataset, dirs[dataset], EVAL_BATCH).make_dataset(
+                "test", batch_size=EVAL_BATCH))
+        log(f"[eval] synthetic {dataset} test split of {EVAL_DOCS} in "
+            f"{generated:.1f} s")
+        log(f"[time] eval decode: one pass of a fresh loader over the "
+            f"{dataset} test split, {batches} batches of {EVAL_BATCH}: "
+            f"{time.perf_counter() - t0:.3f} s on the host")
+    return dirs
+
+
+def eval_run(card, root, label, job, mode, timed_dir, num_iter=1,
+             compare_docs=None, compare_chunk=EVAL_BATCH):
+    """``python -m flexdm_tpu_torch.evaluation`` on the card at batch
+    ``EVAL_BATCH`` over the test split of ``timed_dir`` (timed, launches
+    counted, its CSV read back); the harness's sums on the card over that
+    split equal to the CLI's scores; then the card against the CPU on the
+    job's own test split (the whole of it, or its first ``compare_docs``
+    documents, the CPU in ``elem`` chunks of ``compare_chunk``), near ties
+    counted.  Returns the forward's launch counts."""
+    import torch
+
+    from flexdm_tpu_torch.data import DatasetSpec
+    from flexdm_tpu_torch.demo import load_model
+    from flexdm_tpu_torch.evaluation import harness
+    from flexdm_tpu_torch.ops import attention as attn
+
+    result_csv = os.path.join(root, f"{label}_{mode}.csv")
+    argv = ["--job-dir", job, "--batch_size", str(EVAL_BATCH),
+            "--task_mode", mode, "--num_iter", str(num_iter),
+            "--result_csv", result_csv, "--data_dir", timed_dir]
+    torch.cuda.synchronize()
+    attn.reset_launch_counts()
+    t0 = time.perf_counter()
+    final = harness.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    with open(result_csv) as f:
+        rows = list(csv.reader(f))
+    check(len(rows) == 2 and rows[0] == list(final)
+          and [float(v) for v in rows[1]] == list(final.values()),
+          f"{label} {mode}: the CSV {rows} is not {final}")
+    check(final and finite(final) and all(0.0 <= v <= 1.0
+                                          for v in final.values()),
+          f"{label} {mode}: scores {final}")
+
+    card_model, spec = load_model(job, batch_size=EVAL_BATCH, device="cuda")
+    cpu_model = copy.deepcopy(card_model).cpu()
+    schema = spec.schema
+    num_blocks = len(list(card_model.blocks.children()))
+    timed = DatasetSpec(spec.name, timed_dir, EVAL_BATCH).make_dataset(
+        "test", batch_size=EVAL_BATCH)
+    check(timed.num_records == EVAL_DOCS,
+          f"{label}: {timed.num_records} timed test documents")
+    split = spec.make_dataset("test", batch_size=EVAL_BATCH)
+    whole_rows = bool(schema.sort_pos and mode == "pos") or num_iter > 1
+    ans, forwards, units, worst, worst_cat = {}, 0, 0, 0.0, 0.0
+    fields = rows_near = 0
+    t_harness = 0.0
+    for task, group in eval_tasks(schema, mode):
+        real = []  # rows of weight > 0 per forward: documents or replicas
+        timed_rows = set()
+
+        def observe(batch, masks, w, *_):
+            real.append(int((w > 0).sum()))
+            timed_rows.add(batch["length"].shape[0])
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sums = harness.task_sums(card_model, timed, task, group, num_iter,
+                                 observe=observe)
+        torch.cuda.synchronize()
+        t_harness += time.perf_counter() - t0
+        ans[task] = harness._ratios(schema, sums)
+        forwards += len(real) * max(num_iter, 1)
+        units += sum(real)
+
+        ties = NearTies(schema, whole_rows)
+        docs = split if compare_docs is None else FirstDocs(spec, compare_docs)
+        rows_seen = []
+        on_card = harness.task_sums(
+            card_model, docs, task, group, num_iter,
+            observe=lambda batch, *_: rows_seen.append(
+                batch["length"].shape[0]))
+        check(rows_seen and set(rows_seen) == timed_rows,
+              f"{label} {task}: the card compared at batch rows "
+              f"{rows_seen}, the CLI ran at {timed_rows}")
+        want = harness.task_sums(cpu_model, docs, task, group, num_iter,
+                                 elem_chunk=compare_chunk, observe=ties)
+        rel, cat = compare_sums(f"{label} {task}", schema, on_card, want,
+                                ties)
+        worst, worst_cat = max(worst, rel), max(worst_cat, cat)
+        fields += ties.fields
+        rows_near += ties.rows
+    check(harness.merge_results(ans) == final,
+          f"{label} {mode}: the harness on the card gave "
+          f"{harness.merge_results(ans)}, the CLI {final}")
+    check(counts["fwd"] >= num_blocks * forwards,
+          f"{label} {mode}: forward launched {counts['fwd']} times for "
+          f"{forwards} forwards x {num_blocks} blocks")
+    check(counts["dq"] == counts["dkv"] == 0,
+          f"{label} {mode}: a backward kernel ran in evaluation: {counts}")
+    what = "replicas" if mode == "elem" else "documents x tasks"
+    compared = ("the whole 64-document split" if compare_docs is None
+                else f"the first {compare_docs} documents")
+    log(f"[eval] {label} --task_mode {mode} --num_iter {num_iter}: "
+        f"{len(final)} fields, e.g. {dict(list(final.items())[:3])}; forward "
+        f"launches {counts['fwd']} (>= {forwards} forwards x {num_blocks} "
+        f"blocks); card (the CLI's {sorted(timed_rows)} rows a forward) = "
+        f"CPU on {compared} (numerical Σnum within {worst:.2e} relative, "
+        f"categorical Σnum apart by at most {worst_cat:g}); {fields} masked "
+        f"fields within {NEAR_TIE} of a tie or a threshold"
+        + (f" on {rows_near} rows" if whole_rows else ""))
+    log(f"[time] eval {label} --task_mode {mode} --num_iter {num_iter}, "
+        f"{EVAL_DOCS} documents at batch {EVAL_BATCH}: CLI {seconds:.3f} s "
+        f"(model load, decode and CSV included), {seconds / len(ans):.3f} s "
+        f"per task, {units} {what}, {units / seconds:.1f} {what}/s; harness "
+        f"alone {t_harness:.3f} s (decode of the split included), "
+        f"{units / t_harness:.1f} {what}/s, {forwards} forwards [{card}]")
+    return counts
+
+
+def phase_eval(card, root):
+    """``python -m flexdm_tpu_torch.evaluation`` on the card at batch 256
+    over a 2048-document test split: crello Ours-EXP (the CLI-trained job)
+    ``all_feat``, ``elem``, ``random`` and ``pos --num_iter 3``; rico
+    Ours-EXP ``pos`` (the sort live); crello_flat ``elem`` (forwards at
+    (256, 8, 500, 32)), then a ``torch.profiler`` window over one such
+    chunk.  Returns the forward's launches per path."""
+    import torch
+
+    from flexdm_tpu_torch.demo import load_model
+    from flexdm_tpu_torch.evaluation import harness
+
+    t0 = time.perf_counter()
+    data = eval_data(root)
+    crello_job = os.path.join(root, "train_job")
+    by_path = {}
+    for mode, num_iter in (("all_feat", 1), ("elem", 1), ("random", 1),
+                           ("pos", MASKGIT_ITERS)):
+        counts = eval_run(card, root, "crello Ours-EXP", crello_job, mode,
+                          data["crello"], num_iter)
+        total = by_path.setdefault("crello_ours_exp_eval",
+                                   dict.fromkeys(counts, 0))
+        for name, n in counts.items():
+            total[name] += n
+    by_path["rico_ours_exp_eval"] = eval_run(
+        card, root, "rico Ours-EXP", os.path.join(root, "rico_job"), "pos",
+        data["rico"])
+    flat_job = os.path.join(root, "flat_job")
+    by_path["crello_flat_eval"] = eval_run(
+        card, root, "crello_flat", flat_job, "elem", data["crello"],
+        compare_docs=FLAT_EVAL_DOCS, compare_chunk=64)
+
+    model, spec = load_model(flat_job, batch_size=EVAL_BATCH, device="cuda")
+    batch, weight, _, lengths = next(harness._batches(
+        spec.make_dataset("test", batch_size=EVAL_BATCH), "cuda"))
+    replicas = torch.from_numpy(harness._elem_replicas(
+        lengths, spec.schema.max_length, EVAL_BATCH)[:EVAL_BATCH]).cuda()
+    step, _ = harness.make_elem_step(model)
+    device, attention, kernels, top = profile_steps(
+        lambda: step(batch, replicas, weight), steps=3)
+    bd = forward_bound(EVAL_FLAT_SHAPE)
+    log(f"[time] eval crello_flat elem, one chunk of {EVAL_BATCH} replicas "
+        f"(4 forward kernels at {EVAL_FLAT_SHAPE}), torch.profiler over 3 "
+        f"chunks: device kernel time {device:.3f} ms per chunk, attention "
+        f"kernels {attention:.3f} ms ({attention / 4:.4f} ms per launch; "
+        f"bound {bd['bound_ms']:.4f} ms, {bd['bound_by']}), {kernels:.0f} "
+        f"device kernels; most time: {top} [{card}]")
+    log(f"[eval] phase done in {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main():
     import torch
 
@@ -1103,6 +1413,7 @@ def main():
             card, root, data_dir, spec, batch)
         rico_ms, rico_counts = phase_rico(card, root)
         flat_ms, flat_counts = phase_flat(card, root, data_dir, spec, batch)
+        eval_counts = phase_eval(card, root)
     log(f"[time] summary: train step crello Ours-EXP {step_ms:.2f} ms, rico "
         f"Ours-EXP {rico_ms:.2f} ms (batch {TRAIN_BATCH}), crello_flat "
         f"{flat_ms:.2f} ms (batch {FLAT_BATCH}); /predict num_iter="
@@ -1110,7 +1421,7 @@ def main():
     by_path = {"crello_ours_exp_steps": step_counts,
                "crello_ours_exp_cli": train_counts,
                "rico_ours_exp_steps": rico_counts,
-               "crello_flat_steps": flat_counts}
+               "crello_flat_steps": flat_counts, **eval_counts}
     # The training shape, which every kernel of the path runs at (the
     # forward also serves at (8, 8, 50, 32) and crello_flat runs
     # (64, 8, 500, 32): the log lines above).

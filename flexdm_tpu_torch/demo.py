@@ -26,12 +26,15 @@ from .models.masking import (
 
 
 def load_model(job_dir: str, checkpoint: str = "best", batch_size: int = 8,
-               device="cuda"):
+               device="cuda", data_dir: Optional[str] = None):
     """Rebuild a job's model from ``args.json`` and its port weights file;
-    returns ``(model, spec)`` with the model on ``device`` in eval mode."""
+    returns ``(model, spec)`` with the model on ``device`` in eval mode.
+    ``data_dir`` overrides the data dir that ``args.json`` records (a job
+    moved to another machine)."""
     with open(os.path.join(job_dir, "args.json")) as f:
         config = TrainConfig.from_args(json.load(f))
-    spec = DatasetSpec(config.dataset_name, config.data_dir, batch_size)
+    spec = DatasetSpec(config.dataset_name, data_dir or config.data_dir,
+                       batch_size)
     model = build_model(config, spec.schema)
     load_weights(
         os.path.join(job_dir, "checkpoints", f"{checkpoint}.torch.npz"), model

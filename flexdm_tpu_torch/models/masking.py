@@ -241,20 +241,23 @@ def draw_train(schema: Schema, batch_size: int, task_probs: Sequence[float],
     return draws
 
 
+def record_generator(seed: int, record: int) -> torch.Generator:
+    """A CPU generator seeded by ``(seed, record)`` alone."""
+    mixed = np.random.SeedSequence([seed, int(record)]).generate_state(2)
+    return torch.Generator().manual_seed(int(mixed[0]) << 32 | int(mixed[1]))
+
+
 def record_draws(schema: Schema, task_probs: Sequence[float], seed: int,
                  records: Sequence[int], **options) -> TrainDraws:
     """Draws for a batch whose rows are the records ``records``: row ``i``
-    comes from a CPU generator seeded by ``(seed, records[i])`` alone, so a
+    comes from :func:`record_generator` of ``(seed, records[i])``, so a
     record's masks do not depend on the batch it lands in (validation
     scores do not change with the batch size or its padding).  ``options``
     go to :func:`draw_train`."""
     rows = []
     for record in records:
-        mixed = np.random.SeedSequence([seed, int(record)]).generate_state(2)
-        generator = torch.Generator().manual_seed(
-            int(mixed[0]) << 32 | int(mixed[1])
-        )
-        rows.append(draw_train(schema, 1, task_probs, generator, **options))
+        rows.append(draw_train(schema, 1, task_probs,
+                               record_generator(seed, record), **options))
 
     def cat(name):
         if getattr(rows[0], name) is None:

@@ -57,8 +57,12 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 def make_train_step(model, task_config, optimizer: KerasAdam,
                     l2) -> Callable:
     """``step(batch, draws) -> metrics``: forward, L2, backward, per-tensor
-    clip, keras Adam.  Every parameter of ``optimizer`` must get a
-    gradient (``torch.autograd.grad`` raises otherwise)."""
+    clip, keras Adam.  A parameter the loss does not reach (the canvas
+    heads of a ``context='canvas'`` model under ``l2=0``) gets a zero
+    gradient, as ``jax.grad`` gives it, so keras Adam leaves it as it is;
+    the first step logs the names of such parameters."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    logged = []
 
     def train_step(batch, draws) -> Dict[str, torch.Tensor]:
         loss, metrics = forward_train(model, batch, draws, task_config,
@@ -66,7 +70,16 @@ def make_train_step(model, task_config, optimizer: KerasAdam,
         if l2:
             loss = loss + l2 * l2_penalty(model)
             metrics = dict(metrics, loss=loss)
-        grads = torch.autograd.grad(loss, optimizer.params)
+        raw = torch.autograd.grad(loss, optimizer.params, allow_unused=True)
+        if not logged:
+            logged.append(True)
+            unused = [names.get(id(p), "?")
+                      for p, g in zip(optimizer.params, raw) if g is None]
+            if unused:
+                logger.info("no gradient reaches %s: held at zero",
+                            ", ".join(unused))
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(optimizer.params, raw)]
         clip_by_per_leaf_norm(grads, CLIPNORM)
         optimizer.step(grads)
         return {k: v.detach() for k, v in metrics.items()}

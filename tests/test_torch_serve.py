@@ -303,6 +303,16 @@ docs = _jsonable(spec.unbatch(next(iter(spec.make_dataset("test", batch_size=2))
 engine = InferenceEngine(trained, batch_size=2, device="cpu")
 assert len(engine.predict(docs, task="pos")) == 2
 
+import csv, runpy
+
+scores = os.path.join(os.path.dirname(job), "scores.csv")
+sys.argv = ["flexdm_tpu_torch.evaluation", "--job-dir", trained, "--device", "cpu",
+            "--task_mode", "all_feat", "--batch_size", "8", "--result_csv", scores]
+runpy.run_module("flexdm_tpu_torch.evaluation", run_name="__main__")
+with open(scores) as f:
+    keys, values = list(csv.reader(f))
+assert "left" in keys and "text_embedding" in keys and len(values) == len(keys)
+
 flat = os.path.join(os.path.dirname(job), "flat")
 main(["--preset", "crello_flat", "--data_dir", crello_dir, "--job-dir", flat,
       "--num_epochs", "1", "--batch_size", "16", "--latent_dim", "32",
@@ -316,8 +326,10 @@ print("OK", len(out))
 
 
 def test_port_runs_with_jax_blocked(rico_dir, crello_dir, tmp_path):
-    """Serving, a 1-epoch training run, and a flat model trained for an
-    epoch and served with MaskGIT (``num_iter=2``), with JAX and every
+    """Serving, a 1-epoch training run scored by ``python -m
+    flexdm_tpu_torch.evaluation --task_mode all_feat``, and a flat model
+    trained for an epoch and served with MaskGIT (``num_iter=2``), with JAX
+    and every
     module of the JAX package unimportable, and ``FLEXDM_PLATFORM`` set
     (with it set, importing ``flexdm_tpu`` imports JAX)."""
     env = dict(os.environ, FLEXDM_PLATFORM="cpu", PYTHONPATH=REPO)

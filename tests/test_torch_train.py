@@ -19,6 +19,7 @@
 """
 
 import json
+import logging
 import math
 import os
 
@@ -97,7 +98,31 @@ def test_train_step_matches_jax_flat(crello_spec):
                             input_dtype="shuffled_set")
 
 
-def _check_step_matches_jax(spec, method, min_pos_rows=0, **model_kwargs):
+def test_train_step_matches_jax_canvas_without_l2(crello_spec, caplog):
+    """``context='canvas'`` with ``l2=0``: the canvas heads are in no loss
+    term, so they get a zero gradient and stay as they are, as in JAX; the
+    step logs their names."""
+    schema = crello_spec.schema
+    canvas = tuple(f"/decoder_{c.name}/" for c in schema.valid_columns(True)
+                   if not c.is_sequence)
+    assert canvas
+    with caplog.at_level(logging.INFO, logger=port_trainer.__name__):
+        _check_step_matches_jax(crello_spec, METHOD, l2=0.0, unused=canvas,
+                                context="canvas")
+    logged = [r.getMessage() for r in caplog.records
+              if r.name == port_trainer.__name__
+              and r.getMessage().startswith("no gradient reaches")]
+    assert len(logged) == 1
+    for c in schema.valid_columns(True):
+        if not c.is_sequence:
+            assert f"decoder_{c.name}." in logged[0], (c.name, logged[0])
+
+
+def _check_step_matches_jax(spec, method, min_pos_rows=0, l2=L2, unused=(),
+                            **model_kwargs):
+    """``unused``: name parts of the leaves the loss does not reach; their
+    gradient is 0 and their parameters stay as they were, in both
+    packages."""
     schema = spec.schema
     batch = numpy_batch(spec, 8)
     jax_model = jax_mfp.MFPModel(schema, latent_dim=32, num_blocks=2,
@@ -107,9 +132,10 @@ def _check_step_matches_jax(spec, method, min_pos_rows=0, **model_kwargs):
     model = init_params(port_mfp.MFPModel(
         schema, latent_dim=32, num_blocks=2, num_heads=4, dropout=0.0,
         **model_kwargs), 0)
+    initial = {k: np.array(v)
+               for k, v in params_to_jax(model.state_dict()).items()}
     params = traverse_util.unflatten_dict({
-        k: jnp.asarray(v) for k, v in params_to_jax(model.state_dict()).items()
-    }, sep="/")
+        k: jnp.asarray(v) for k, v in initial.items()}, sep="/")
     task_config = jax_mfp.make_task_config(schema, method)
     tx = jax_optim.make_optimizer(LR, clipnorm=1.0)
     state = jax_trainer.TrainState(params=params, opt_state=tx.init(params),
@@ -117,7 +143,7 @@ def _check_step_matches_jax(spec, method, min_pos_rows=0, **model_kwargs):
     uniforms = np.random.default_rng(0).random(
         port_masking.train_draw_shape(schema, 8)).astype(np.float32)
     base_key = jax.random.PRNGKey(5)
-    step = jax.jit(jax_trainer.make_train_step(jax_model, task_config, tx, L2))
+    step = jax.jit(jax_trainer.make_train_step(jax_model, task_config, tx, l2))
     new_state, want = step(state, to_jax(batch), base_key,
                            jnp.asarray(uniforms))
 
@@ -136,7 +162,7 @@ def _check_step_matches_jax(spec, method, min_pos_rows=0, **model_kwargs):
     )
     adam = port_optim.KerasAdam(model.parameters(), LR)
     got = port_trainer.make_train_step(
-        model, port_mfp.make_task_config(schema, method), adam, L2
+        model, port_mfp.make_task_config(schema, method), adam, l2
     )(to_torch(batch), draws)
 
     assert set(got) == set(want)
@@ -150,9 +176,15 @@ def _check_step_matches_jax(spec, method, min_pos_rows=0, **model_kwargs):
     new_params = flat_params(new_state.params)
     port_params = params_to_jax(dict(model.named_parameters()))
     assert set(flat_mu) == set(jax_mu)
+    assert all(any(part in name for name in jax_mu) for part in unused)
     for name in sorted(jax_mu):
         g, w = flat_mu[name] / 0.1, jax_mu[name] / 0.1
         assert np.abs(g - w).max() <= 5e-6, name
+        if any(part in name for part in unused):
+            assert not g.any() and not w.any(), f"{name} got a gradient"
+            np.testing.assert_array_equal(port_params[name], initial[name])
+            np.testing.assert_array_equal(new_params[name], initial[name])
+            continue
         assert np.abs(g).max() > 0, f"{name} got no gradient"
         steady = (np.abs(g) > 1e-3) & (np.abs(w) > 1e-3)
         delta = np.abs(port_params[name] - new_params[name])
