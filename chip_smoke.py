@@ -66,13 +66,34 @@ Phases, each of which must pass (any failure exits non-zero):
     documents), the card at the CLI's batch of 256 rows: every Σden and
     numerical Σnum within 1e-4 relative and every categorical Σnum equal,
     apart from rows or fields near a tie (counted).
+12. bf16 (``--dtype bfloat16``): (a) the bf16 kernel instances against
+    their plain bf16 versions at the serving, training and crello_flat
+    shapes, S=650, the tile edges (causal, a fully masked row) and, for the
+    backward, S=4096: O, dq, dk and dv within one bf16 ulp (2^-7 relative)
+    plus 2^-8 of the largest reference entry, lse and delta within 2e-5
+    abs + 2e-5 rel, a second call bitwise equal; timed beside the plain
+    bf16 version, one bf16 ``scaled_dot_product_attention`` call and the
+    float32 kernel, with bounds at 2 bytes per bf16 element and the bf16
+    tensor-core peak; (b) crello Ours-EXP at batch 256 in bf16: the card's
+    decoder outputs (mean |difference|; the largest within twice) and loss
+    no farther from the CPU's bf16 ones than the CPU's bf16 ones are from
+    its float32 ones, 30 fixed-batch steps that
+    track phase 8's float32 losses within 5%, a 2-epoch CLI run with
+    ``--dtype bfloat16`` whose ``best`` is served over HTTP and evaluated
+    with ``all_feat`` on phase 11's 2048-document split (card against CPU:
+    numerical Σnum within one bf16 ulp relative, categorical Σnum equal
+    apart from fields whose top two logits lie within four bf16 ulps);
+    (c) crello_flat at batch 64 in bf16: (b)'s parity on 16 documents and
+    30 timed steps.  Every bf16 path launches only bf16 kernels, every
+    float32 path only float32 ones.
 Each step phase ends with a ``torch.profiler`` window: device kernel time
 per step, its attention share and the busiest kernels.
 
-The last lines are one JSON object per kernel (times at the training
-shape (256, 8, 50, 32); ``launches`` from the training CLI run and
-``launches_by_path`` from each training path's 30 steps and each eval
-path's CLI runs), the card's name
+The last lines are one JSON object per kernel, float32 and bf16 instances
+(times at the training shape (256, 8, 50, 32); ``launches`` from the
+training CLI run of the instance's dtype and ``launches_by_path`` from
+each training path's 30 steps and each eval path's CLI runs), the card's
+name
 and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -111,6 +132,14 @@ EVAL_FLAT_SHAPE = (EVAL_BATCH, 8, 500, 32)  # a crello_flat ``elem`` chunk
 EVAL_DOCS = 2048  # the timed eval split: 8 full batches of EVAL_BATCH
 EVAL_RTOL = 1e-4  # card vs CPU: Σden and numerical Σnum of the eval sums
 FLAT_EVAL_DOCS = 4  # crello_flat eval compared on 4 documents (S=500 on CPU)
+BF16 = "bfloat16"
+BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative
+# Top two logits this close (relative) make a near tie in bf16: the card's
+# and the CPU's bf16 logits differ by a few ulps once a flipped rounding
+# has travelled through the blocks.
+BF16_TIE = 4 * BF16_ULP
+F32_KERNELS = ("fwd", "dq", "dkv")
+BF16_KERNELS = ("fwd_bf16", "dq_bf16", "dkv_bf16")
 
 
 class SmokeFailure(RuntimeError):
@@ -189,8 +218,9 @@ def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(attn.LIBRARIES)) as pool:
         list(pool.map(lambda lib: _build.build_library(*lib), attn.LIBRARIES))
-    attn._kernel()
-    attn._bwd_kernels()
+    for dtype in attn.KERNEL_DTYPES:
+        attn._kernel(dtype)
+        attn._bwd_kernels(dtype)
     log(f"[build] {', '.join(src for _, lib in attn.LIBRARIES for src in lib)}"
         f" -> sm_90a in {time.perf_counter() - t0:.2f} s")
     for name, _ in attn.LIBRARIES:
@@ -281,42 +311,44 @@ def phase_kernel(card):
     return worst, timings
 
 
-# Peaks of one NVIDIA H100 SXM (data sheet, dense): HBM bytes/s, TF32
-# tensor-core and FP32 (FMA pipe) FLOP/s.
+# Peaks of one NVIDIA H100 SXM (data sheet, dense): HBM bytes/s, TF32 and
+# bf16 tensor-core and FP32 (FMA pipe) FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989.4e12
 FP32_FLOPS = 67e12
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=TF32_FLOPS):
     """The least time (ms) for ``nbytes`` of device-memory traffic and
-    ``flops`` of TF32 tensor-core work, and which of the two sets it, beside
-    the same work on the FP32 pipes."""
+    ``flops`` of tensor-core work at ``peak`` (TF32 by default), and which
+    of the two sets it, beside the same work on the FP32 pipes."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / TF32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "fp32_bound_ms": max(t_bytes, flops / FP32_FLOPS * 1e3)}
 
 
-def forward_bound(shape):
-    """Reads q, k, v and the (B, S) byte mask; writes O, lse, m, l.  Two
-    products of 2 S^2 Dh FLOPs per (batch, head)."""
+def forward_bound(shape, itemsize=4, peak=TF32_FLOPS):
+    """Reads q, k, v and the (B, S) byte mask; writes O and (float32) lse,
+    m, l.  Two products of 2 S^2 Dh FLOPs per (batch, head).  ``itemsize``:
+    bytes per element of q, k, v and O (2 for bf16, with ``BF16_FLOPS``)."""
     b, h, s, dh = shape
     rows = b * h * s
-    return bound(4 * (4 * rows * dh + 3 * rows) + b * s,
-                 4 * b * h * s * s * dh)
+    return bound(itemsize * 4 * rows * dh + 4 * 3 * rows + b * s,
+                 4 * b * h * s * s * dh, peak)
 
 
-def backward_bounds(shape):
+def backward_bounds(shape, itemsize=4, peak=TF32_FLOPS):
     """dq: reads q, k, v, o, dO, m, l, mask, writes dq, delta; 3 products.
     dk/dv: reads q, k, v, dO, m, l, delta, mask, writes dk, dv; 4 products
-    (2 S^2 Dh FLOPs each)."""
+    (2 S^2 Dh FLOPs each).  m, l and delta are float32."""
     b, h, s, dh = shape
     rows = b * h * s
     product = 2 * b * h * s * s * dh
-    return (bound(4 * (6 * rows * dh + 3 * rows) + b * s, 3 * product),
-            bound(4 * (6 * rows * dh + 3 * rows) + b * s, 4 * product))
+    nbytes = itemsize * 6 * rows * dh + 4 * 3 * rows + b * s
+    return (bound(nbytes, 3 * product, peak), bound(nbytes, 4 * product, peak))
 
 
 def sdpa_kernels(fn):
@@ -485,11 +517,12 @@ def phase_slice(card):
                     passes += 1
                 latency[n] = statistics.median(times)
             launches = attn.KERNEL_LAUNCHES
+            check_one_instance(launch_counts(), None, "slice")
         finally:
             server.shutdown()
             server.server_close()
         log(f"[slice] kernel launches {launches} over {passes} forward passes "
-            f"x {num_blocks} blocks")
+            f"x {num_blocks} blocks; no bf16 kernel launched")
         check(launches >= num_blocks * passes,
               f"kernel launched {launches} times for {passes} passes")
         for n, ms in latency.items():
@@ -702,7 +735,22 @@ def launch_counts():
     from flexdm_tpu_torch.ops import attention as attn
 
     return {"fwd": attn.KERNEL_LAUNCHES, "dq": attn.BWD_DQ_LAUNCHES,
-            "dkv": attn.BWD_DKV_LAUNCHES}
+            "dkv": attn.BWD_DKV_LAUNCHES, "fwd_bf16": attn.BF16_FWD_LAUNCHES,
+            "dq_bf16": attn.BF16_DQ_LAUNCHES,
+            "dkv_bf16": attn.BF16_DKV_LAUNCHES}
+
+
+def kernel_names(dtype):
+    """``(fwd, dq, dkv)`` count names of the kernel instance a model of
+    compute ``dtype`` runs."""
+    return BF16_KERNELS if dtype == BF16 else F32_KERNELS
+
+
+def check_one_instance(counts, dtype, label):
+    """A path of compute ``dtype`` launched no kernel of the other dtype."""
+    other = F32_KERNELS if dtype == BF16 else BF16_KERNELS
+    check(not any(counts[n] for n in other),
+          f"{label}: a kernel of the other dtype launched: {counts}")
 
 
 def train_data(root, dataset, seed):
@@ -872,9 +920,11 @@ def phase_train_steps(args, spec, batch, card, label="crello Ours-EXP"):
         f"{TRAIN_STEPS} steps x {num_blocks} blocks")
     check(all(math.isfinite(x) for x in losses), "non-finite training loss")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    for name, n in counts.items():
-        check(n >= num_blocks * TRAIN_STEPS,
-              f"{name} kernel launched {n} times for {TRAIN_STEPS} steps")
+    for name in kernel_names(config.dtype):
+        check(counts[name] >= num_blocks * TRAIN_STEPS,
+              f"{name} kernel launched {counts[name]} times for "
+              f"{TRAIN_STEPS} steps")
+    check_one_instance(counts, config.dtype, label)
     step_ms = statistics.median(times)
     log(f"[time] train step, {label}, batch {b} (fixed "
         f"batch, draws and dropout on the card; CUDA events, median of "
@@ -890,8 +940,9 @@ def phase_train_steps(args, spec, batch, card, label="crello Ours-EXP"):
     return step_ms, losses, counts, model
 
 
-def phase_train_cli(root, data_dir, card):
-    """``python -m flexdm_tpu_torch`` for 2 epochs, then serve its best."""
+def phase_train_cli(root, data_dir, card, dtype=None):
+    """``python -m flexdm_tpu_torch`` for 2 epochs (``--dtype``, if given),
+    then serve its best."""
     import torch
 
     from flexdm_tpu_torch.data import DatasetSpec, split_device_batch
@@ -900,10 +951,11 @@ def phase_train_cli(root, data_dir, card):
     from flexdm_tpu_torch.ops import attention as attn
     from flexdm_tpu_torch.serve import InferenceEngine, _jsonable, serve
 
-    job = os.path.join(root, "train_job")
+    job = os.path.join(root, "train_job" + (f"_{dtype}" if dtype else ""))
     argv = ["--preset", "crello_ours_exp", "--data_dir", data_dir,
             "--job-dir", job, "--num_epochs", "2", "--validation_freq", "1",
-            "--log_level", "WARNING"]
+            "--log_level", "WARNING"] + (["--dtype", dtype] if dtype else [])
+    fwd, dq, dkv = kernel_names(dtype)
     attn.reset_launch_counts()
     t0 = time.perf_counter()
     train_main(argv)
@@ -913,7 +965,8 @@ def phase_train_cli(root, data_dir, card):
     with open(os.path.join(job, "logs", "history.jsonl")) as f:
         history = [json.loads(line) for line in f]
     steps = history[-1]["step"]
-    log(f"[train] CLI {' '.join(argv[:2])} ... --num_epochs 2: {steps} steps "
+    log(f"[train] CLI {' '.join(argv[:2])} ... --num_epochs 2"
+        f"{' --dtype ' + dtype if dtype else ''}: {steps} steps "
         f"in {seconds:.1f} s (validation, test and checkpoints included) "
         f"[{card}]; launches {counts}")
     log(f"[train] history: " + "; ".join(
@@ -921,11 +974,13 @@ def phase_train_cli(root, data_dir, card):
         f"{h['val_total_score']:.4f}" for h in history))
     check(len(history) == 2 and steps == 4, f"history {history}")
     check(all(finite(h) for h in history), "non-finite value in history")
-    check(counts["dq"] >= 4 * steps and counts["dkv"] >= 4 * steps,
+    check(counts[dq] >= 4 * steps and counts[dkv] >= 4 * steps,
           f"backward kernels launched {counts} for {steps} steps")
-    check(counts["fwd"] >= 4 * steps, f"forward launched {counts}")
+    check(counts[fwd] >= 4 * steps, f"forward launched {counts}")
+    check_one_instance(counts, dtype, "CLI training")
 
     engine = InferenceEngine(job, batch_size=BATCH, device="cuda")
+    check(engine.model.dtype == dtype, f"served {engine.model.dtype}")
     spec = DatasetSpec("crello", data_dir, BATCH)
     docs = _jsonable(spec.unbatch(split_device_batch(
         next(iter(spec.make_dataset("test", batch_size=4))))))
@@ -933,23 +988,27 @@ def phase_train_cli(root, data_dir, card):
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
+        attn.reset_launch_counts()
         body, secs = http(server.server_address[1], "/predict",
                           dict(task="pos", documents=docs))
+        serve_counts = launch_counts()
     finally:
         server.shutdown()
         server.server_close()
     check_predictions(spec, "pos", docs, body["predictions"])
+    check(serve_counts[fwd] >= 4, f"/predict launched {serve_counts}")
+    check_one_instance(serve_counts, dtype, "serving the CLI's best")
     log(f"[train] the trained job's best served: /predict pos x{len(docs)} "
-        f"docs: 200 in {secs * 1e3:.1f} ms")
-    return counts, seconds, steps
+        f"docs: 200 in {secs * 1e3:.1f} ms; launches {serve_counts}")
+    return counts, seconds, steps, job
 
 
 def phase_train(card, root, data_dir, spec, batch):
     args = load_args(CONFIG, data_dir)
     phase_train_parity(args, spec, batch)
-    step_ms, _, counts, _ = phase_train_steps(args, spec, batch, card)
-    cli_counts, _, _ = phase_train_cli(root, data_dir, card)
-    return step_ms, counts, cli_counts
+    step_ms, losses, counts, _ = phase_train_steps(args, spec, batch, card)
+    cli_counts = phase_train_cli(root, data_dir, card)[0]
+    return step_ms, losses, counts, cli_counts
 
 
 def phase_rico(card, root):
@@ -1002,6 +1061,7 @@ def phase_flat(card, root, data_dir, spec, batch):
     num_blocks = len(list(engine.model.blocks.children()))
     check(serve_counts["fwd"] >= num_blocks,
           f"flat /predict launched {serve_counts}")
+    check_one_instance(serve_counts, None, "flat /predict")
     log(f"[flat] the trained crello_flat weights served: /predict pos "
         f"x{len(docs)} docs: 200 in {secs * 1e3:.1f} ms; launches "
         f"{serve_counts} [{card}]")
@@ -1077,6 +1137,7 @@ def phase_maskgit(card):
                 check(counts["fwd"] >= MASKGIT_ITERS * num_blocks,
                       f"{task}: forward launched {counts['fwd']} times for "
                       f"{MASKGIT_ITERS} rounds x {num_blocks} blocks")
+                check_one_instance(counts, None, f"maskgit {task}")
                 want = cpu.predict(docs, task=task, num_iter=MASKGIT_ITERS)
                 near = maskgit_reference(engine, cpu.model, docs, task)
                 differ = [i for i, (g, w) in enumerate(zip(preds, want))
@@ -1112,11 +1173,13 @@ class NearTies:
     ``allowance[column]`` bounds |card Σnum - CPU Σnum|: the near-tie
     channels of the column in one unsorted pass; where one flip can move
     other fields of its row (the pos sort, MaskGIT), every masked channel
-    of each row that holds a near tie."""
+    of each row that holds a near tie.  ``rel`` widens "near" by that
+    fraction of the larger value (a bf16 model: ``BF16_TIE``)."""
 
-    def __init__(self, schema, whole_rows):
+    def __init__(self, schema, whole_rows, rel=0.0):
         self.schema = schema
         self.whole_rows = whole_rows
+        self.rel = rel
         self.columns = [c for c in schema.columns
                         if c.is_sequence and not c.demo_only]
         self.fields = self.rows = 0
@@ -1134,17 +1197,20 @@ class NearTies:
         for c in self.columns:
             if not c.is_categorical:
                 continue
-            top = prediction[c.name].topk(2, -1).values
-            near = ((top[..., 0] - top[..., 1]) <= NEAR_TIE) \
+            top = prediction[c.name].float().topk(2, -1).values
+            near = ((top[..., 0] - top[..., 1])
+                    <= NEAR_TIE + self.rel * top[..., 0].abs()) \
                 & masked[c.name][..., None]
             self.fields += int(near.sum())
             self.allowance[c.name] += 0 if self.whole_rows else int(near.sum())
             near_rows |= near.flatten(1).any(1)
         for r in rounds or ():
-            thr = r["threshold"][:, None]
+            thr = r["threshold"].float()[:, None]
             for conf in r["confidence"].values():
+                conf = conf.float()
                 gap = (conf - thr).abs()
-                near = (conf > 0) & (gap > 0) & (gap <= NEAR_TIE) & live
+                near = ((conf > 0) & (gap > 0)
+                        & (gap <= NEAR_TIE + self.rel * thr) & live)
                 self.fields += int(near.sum())
                 near_rows |= near.any(1)
         if self.whole_rows:
@@ -1167,12 +1233,12 @@ class FirstDocs:
         yield next(iter(self.loader))
 
 
-def compare_sums(label, schema, got, want, ties):
-    """Card sums against the CPU's: every Σden and every numerical Σnum
-    within ``EVAL_RTOL`` relative, every categorical Σnum equal, each
-    apart from its column's near-tie allowance.  Returns the largest
-    relative difference of a numerical Σnum and the largest difference of
-    a categorical one."""
+def compare_sums(label, schema, got, want, ties, rtol=EVAL_RTOL):
+    """Card sums against the CPU's: every Σden within ``EVAL_RTOL`` and
+    every numerical Σnum within ``rtol`` relative, every categorical Σnum
+    equal, each apart from its column's near-tie allowance.  Returns the
+    largest relative difference of a numerical Σnum and the largest
+    difference of a categorical one."""
     check(set(got) == set(want), f"{label}: metrics {set(got) ^ set(want)}")
     worst = worst_cat = 0.0
     for c in ties.columns:
@@ -1187,7 +1253,7 @@ def compare_sums(label, schema, got, want, ties):
                   f"{want[num]} with {allow} near-tie channels")
         else:
             worst = max(worst, diff / max(abs(want[num]), 1e-30))
-            check(diff <= EVAL_RTOL * abs(want[num]) + allow,
+            check(diff <= rtol * abs(want[num]) + allow,
                   f"{label}: {num} card {got[num]} vs CPU {want[num]}")
     return worst, worst_cat
 
@@ -1236,7 +1302,8 @@ def eval_run(card, root, label, job, mode, timed_dir, num_iter=1,
     split equal to the CLI's scores; then the card against the CPU on the
     job's own test split (the whole of it, or its first ``compare_docs``
     documents, the CPU in ``elem`` chunks of ``compare_chunk``), near ties
-    counted.  Returns the forward's launch counts."""
+    counted; a bf16 job with bf16's bars (``BF16_ULP``, ``BF16_TIE``).
+    Returns the forward's launch counts."""
     import torch
 
     from flexdm_tpu_torch.data import DatasetSpec
@@ -1267,6 +1334,8 @@ def eval_run(card, root, label, job, mode, timed_dir, num_iter=1,
     card_model, spec = load_model(job, batch_size=EVAL_BATCH, device="cuda")
     cpu_model = copy.deepcopy(card_model).cpu()
     schema = spec.schema
+    bf16 = card_model.dtype == BF16
+    fwd = kernel_names(card_model.dtype)[0]
     num_blocks = len(list(card_model.blocks.children()))
     timed = DatasetSpec(spec.name, timed_dir, EVAL_BATCH).make_dataset(
         "test", batch_size=EVAL_BATCH)
@@ -1295,7 +1364,7 @@ def eval_run(card, root, label, job, mode, timed_dir, num_iter=1,
         forwards += len(real) * max(num_iter, 1)
         units += sum(real)
 
-        ties = NearTies(schema, whole_rows)
+        ties = NearTies(schema, whole_rows, BF16_TIE if bf16 else 0.0)
         docs = split if compare_docs is None else FirstDocs(spec, compare_docs)
         rows_seen = []
         on_card = harness.task_sums(
@@ -1308,28 +1377,30 @@ def eval_run(card, root, label, job, mode, timed_dir, num_iter=1,
         want = harness.task_sums(cpu_model, docs, task, group, num_iter,
                                  elem_chunk=compare_chunk, observe=ties)
         rel, cat = compare_sums(f"{label} {task}", schema, on_card, want,
-                                ties)
+                                ties, BF16_ULP if bf16 else EVAL_RTOL)
         worst, worst_cat = max(worst, rel), max(worst_cat, cat)
         fields += ties.fields
         rows_near += ties.rows
     check(harness.merge_results(ans) == final,
           f"{label} {mode}: the harness on the card gave "
           f"{harness.merge_results(ans)}, the CLI {final}")
-    check(counts["fwd"] >= num_blocks * forwards,
-          f"{label} {mode}: forward launched {counts['fwd']} times for "
+    check(counts[fwd] >= num_blocks * forwards,
+          f"{label} {mode}: forward launched {counts[fwd]} times for "
           f"{forwards} forwards x {num_blocks} blocks")
-    check(counts["dq"] == counts["dkv"] == 0,
+    check(not any(counts[n] for n in ("dq", "dkv", "dq_bf16", "dkv_bf16")),
           f"{label} {mode}: a backward kernel ran in evaluation: {counts}")
+    check_one_instance(counts, card_model.dtype, f"{label} {mode}")
     what = "replicas" if mode == "elem" else "documents x tasks"
     compared = ("the whole 64-document split" if compare_docs is None
                 else f"the first {compare_docs} documents")
     log(f"[eval] {label} --task_mode {mode} --num_iter {num_iter}: "
         f"{len(final)} fields, e.g. {dict(list(final.items())[:3])}; forward "
-        f"launches {counts['fwd']} (>= {forwards} forwards x {num_blocks} "
+        f"launches {counts[fwd]} (>= {forwards} forwards x {num_blocks} "
         f"blocks); card (the CLI's {sorted(timed_rows)} rows a forward) = "
         f"CPU on {compared} (numerical Σnum within {worst:.2e} relative, "
         f"categorical Σnum apart by at most {worst_cat:g}); {fields} masked "
-        f"fields within {NEAR_TIE} of a tie or a threshold"
+        f"fields within {NEAR_TIE}{' + 4 bf16 ulps' if bf16 else ''} of a "
+        f"tie or a threshold"
         + (f" on {rows_near} rows" if whole_rows else ""))
     log(f"[time] eval {label} --task_mode {mode} --num_iter {num_iter}, "
         f"{EVAL_DOCS} documents at batch {EVAL_BATCH}: CLI {seconds:.3f} s "
@@ -1340,20 +1411,20 @@ def eval_run(card, root, label, job, mode, timed_dir, num_iter=1,
     return counts
 
 
-def phase_eval(card, root):
+def phase_eval(card, root, data):
     """``python -m flexdm_tpu_torch.evaluation`` on the card at batch 256
-    over a 2048-document test split: crello Ours-EXP (the CLI-trained job)
-    ``all_feat``, ``elem``, ``random`` and ``pos --num_iter 3``; rico
-    Ours-EXP ``pos`` (the sort live); crello_flat ``elem`` (forwards at
-    (256, 8, 500, 32)), then a ``torch.profiler`` window over one such
-    chunk.  Returns the forward's launches per path."""
+    over the 2048-document test splits of ``data`` (:func:`eval_data`):
+    crello Ours-EXP (the CLI-trained job) ``all_feat``, ``elem``, ``random``
+    and ``pos --num_iter 3``; rico Ours-EXP ``pos`` (the sort live);
+    crello_flat ``elem`` (forwards at (256, 8, 500, 32)), then a
+    ``torch.profiler`` window over one such chunk.  Returns the forward's
+    launches per path."""
     import torch
 
     from flexdm_tpu_torch.demo import load_model
     from flexdm_tpu_torch.evaluation import harness
 
     t0 = time.perf_counter()
-    data = eval_data(root)
     crello_job = os.path.join(root, "train_job")
     by_path = {}
     for mode, num_iter in (("all_feat", 1), ("elem", 1), ("random", 1),
@@ -1391,6 +1462,307 @@ def phase_eval(card, root):
     return by_path
 
 
+def bf16_close(got, want):
+    """The card's bar for the bf16 kernels: |got - want| <= 2^-7 |want| +
+    2^-8 max|want|, elementwise; returns (within, max |got - want|)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bar = BF16_ULP * want.abs() + 2.0 ** -8 * want.abs().max()
+    return bool((err <= bar).all()), err.max().item()
+
+
+def phase_bf16_kernel(card):
+    """12(a): the bf16 kernel instances against their plain bf16 versions,
+    forward and backward (through autograd), a second call bitwise equal;
+    then timed beside the plain bf16 version, one bf16
+    ``scaled_dot_product_attention`` call and the float32 kernel.  Returns
+    the worst errors and the timings per shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexdm_tpu_torch.ops import attention as attn
+
+    bf16 = torch.bfloat16
+    g = torch.Generator().manual_seed(12)
+    cases = [  # (B, H, S, Dh), causal, fully masked last batch row
+        ((8, 8, 50, 32), False, False),
+        ((8, 8, 50, 32), True, True),
+        ((256, 8, 50, 32), False, True),
+        (FLAT_SHAPE, False, True),
+        (EVAL_FLAT_SHAPE, False, True),
+        ((2, 4, 650, 32), True, True),
+        ((8, 8, 650, 32), False, False),
+        ((1, 2, 4096, 64), False, False),
+        ((1, 2, 4096, 64), True, True),
+    ]
+    cases += [((2, 2, s, dh), True, True)
+              for s in (16, 17, 63, 64, 65, 128, 129) for dh in (32, 64, 128)]
+    worst = dict.fromkeys(("O", "lse", "delta", "dq", "dk", "dv"), 0.0)
+    for shape, causal, fully_masked in cases:
+        b, h, s, dh = shape
+        q, k, v, do = (torch.randn(shape, generator=g).to("cuda", bf16)
+                       for _ in range(4))
+        mask = torch.rand(b, s, generator=g) > 0.3
+        mask[:, 0] = True
+        if fully_masked:
+            mask[-1] = False
+        mask = mask.cuda()
+        bias = attn.key_bias(mask, b, s, q.device)
+        o, lse, m, l = attn._forward(q, k, v, mask, causal)
+        again = attn._forward(q, k, v, mask, causal)
+        check(all(torch.equal(x, y) for x, y in zip((o, lse, m, l), again)),
+              f"two bf16 forward calls differ at {shape} causal={causal}")
+        check(o.dtype == bf16 and lse.dtype == torch.float32,
+              f"bf16 forward wrote {o.dtype}, {lse.dtype}")
+        ok, err = bf16_close(o, attn.attention_reference(q, k, v, bias,
+                                                         causal))
+        check(ok, f"bf16 O differs at {shape} causal={causal}: {err}")
+        worst["O"] = max(worst["O"], err)
+        ref_lse = attn.attention_reference_lse(q, k, bias, causal)
+        check(torch.allclose(lse, ref_lse, **KERNEL_TOL),
+              f"bf16 lse differs at {shape}")
+        worst["lse"] = max(worst["lse"], (lse - ref_lse).abs().max().item())
+        _, delta = attn._backward_dq(q, k, v, mask, o, m, l, do, causal)
+        ref_delta = (do.float() * o.float()).sum(-1)
+        check(torch.allclose(delta, ref_delta, **KERNEL_TOL),
+              f"bf16 delta differs at {shape}")
+        worst["delta"] = max(worst["delta"],
+                             (delta - ref_delta).abs().max().item())
+        grads = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            grads.append(torch.autograd.grad(
+                attn.dot_product_attention(*leaves, mask, causal), leaves, do))
+        check(all(torch.equal(x, y) for x, y in zip(*grads)),
+              f"two bf16 backward calls differ at {shape} causal={causal}")
+        want = attn.attention_reference_backward(q, k, v, bias, o, do, causal)
+        errs = []
+        for name, x, w in zip(("dq", "dk", "dv"), grads[0], want):
+            ok, err = bf16_close(x, w)
+            check(x.dtype == bf16 and ok,
+                  f"bf16 {name} differs at {shape} causal={causal}: {err}")
+            worst[name] = max(worst[name], err)
+            errs.append(err)
+        torch.cuda.synchronize()
+        log(f"[bf16 kernel] {shape} causal={causal} fully_masked_row="
+            f"{fully_masked}: max|d(dq, dk, dv)| {errs[0]:.2e} {errs[1]:.2e} "
+            f"{errs[2]:.2e} (bar one bf16 ulp + 2^-8 max|ref|); O, lse, "
+            f"delta within their bars; second calls bitwise equal")
+
+    fwd_t, bwd_t = {}, {}
+    for shape in ((8, 8, 50, 32), (256, 8, 50, 32), FLAT_SHAPE,
+                  EVAL_FLAT_SHAPE):
+        b, h, s, dh = shape
+        q, k, v = (torch.randn(shape, generator=g).to("cuda", bf16)
+                   for _ in range(3))
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        mask = torch.ones(b, s, dtype=torch.bool)
+        mask[:, s - s // 5:] = False
+        mask = mask.cuda()
+        bias = attn.key_bias(mask, b, s, q.device)
+        sdpa_mask = bias.to(bf16)[:, None, None, :]
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=sdpa_mask)
+        t = {
+            "ms": device_ms(lambda: attn.flash_attention_forward(q, k, v,
+                                                                 mask)),
+            "plain_ms": device_ms(lambda: attn.attention_reference(q, k, v,
+                                                                   bias)),
+            "library_ms": device_ms(library),
+            "f32_ms": device_ms(lambda: attn.flash_attention_forward(
+                q32, k32, v32, mask)),
+        }
+        t.update(forward_bound(shape, 2, BF16_FLOPS))
+        fwd_t[shape] = t
+        log(f"[time] bf16 attention {shape} device time (CUDA graph of 20 "
+            f"calls, median of 50): kernel {t['ms']:.4f} ms, plain bf16 "
+            f"{t['plain_ms']:.4f} ms, library (bf16 "
+            f"scaled_dot_product_attention, O only; {sdpa_kernels(library)})"
+            f" {t['library_ms']:.4f} ms, float32 kernel {t['f32_ms']:.4f} ms"
+            f"; bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+    for shape in ((256, 8, 50, 32), (1, 2, 4096, 64), FLAT_SHAPE):
+        b, h, s, dh = shape
+        q, k, v, do = (torch.randn(shape, generator=g).to("cuda", bf16)
+                       for _ in range(4))
+        mask = torch.ones(b, s, dtype=torch.bool)
+        mask[:, s - s // 5:] = False
+        mask = mask.cuda()
+        bias = attn.key_bias(mask, b, s, q.device)
+        sdpa_mask = bias.to(bf16)[:, None, None, :]
+        o, _, m, l = attn._forward(q, k, v, mask, False)
+        _, delta = attn._backward_dq(q, k, v, mask, o, m, l, do)
+        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+        o32, _, m32, l32 = attn._forward(q32, k32, v32, mask, False)
+        _, delta32 = attn._backward_dq(q32, k32, v32, mask, o32, m32, l32,
+                                       do32)
+
+        def fwd_bwd(forward, backward=False):
+            # Leaves made inside the captured function (see phase 4).
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = forward(*leaves)
+            return torch.autograd.grad(out, leaves, do) if backward else out
+
+        def plain(*x):
+            return attn.attention_reference(*x, bias)
+
+        def library(*x):
+            return F.scaled_dot_product_attention(*x, attn_mask=sdpa_mask)
+
+        t = {name: device_ms(fn) for name, fn in {
+            "dq": lambda: attn._backward_dq(q, k, v, mask, o, m, l, do),
+            "dkv": lambda: attn._backward_dkv(q, k, v, mask, m, l, delta, do),
+            "f32_dq": lambda: attn._backward_dq(q32, k32, v32, mask, o32,
+                                                m32, l32, do32),
+            "f32_dkv": lambda: attn._backward_dkv(q32, k32, v32, mask, m32,
+                                                  l32, delta32, do32),
+            "plain_fwd": lambda: fwd_bwd(plain),
+            "plain_fwd_bwd": lambda: fwd_bwd(plain, True),
+            "library_fwd": lambda: fwd_bwd(library),
+            "library_fwd_bwd": lambda: fwd_bwd(library, True),
+        }.items()}
+        t["plain"] = t["plain_fwd_bwd"] - t["plain_fwd"]
+        t["library"] = t["library_fwd_bwd"] - t["library_fwd"]
+        t["bounds"] = dict(zip(("dq", "dkv"),
+                               backward_bounds(shape, 2, BF16_FLOPS)))
+        bwd_t[shape] = t
+        log(f"[time] bf16 attention backward {shape} device time (CUDA graph"
+            f" of 20 calls, median of 50): dq {t['dq']:.4f} ms, dkv "
+            f"{t['dkv']:.4f} ms; float32 kernels dq {t['f32_dq']:.4f} ms, "
+            f"dkv {t['f32_dkv']:.4f} ms; plain bf16 autograd backward "
+            f"{t['plain']:.4f} ms; library bf16 backward "
+            f"(scaled_dot_product_attention, "
+            f"{sdpa_kernels(lambda: fwd_bwd(library, True))}) "
+            f"{t['library']:.4f} ms; bounds dq "
+            f"{t['bounds']['dq']['bound_ms']:.4f} ms "
+            f"({t['bounds']['dq']['bound_by']}), dkv "
+            f"{t['bounds']['dkv']['bound_ms']:.4f} ms "
+            f"({t['bounds']['dkv']['bound_by']}) [{card}]")
+    log(f"[bf16 kernel] worst errors over {len(cases)} cases: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    return worst, fwd_t, bwd_t
+
+
+def model_distance(a, b):
+    """Mean and max |a - b| over every decoder output, in float32."""
+    import torch
+
+    diffs = torch.cat([(a[k].float().cpu() - b[k].float().cpu()).abs()
+                       .flatten() for k in sorted(b)])
+    return diffs.mean().item(), diffs.max().item()
+
+
+def phase_bf16_parity(args, spec, batch, label):
+    """12(b)/(c): the bf16 model (dropout 0) on the card against the same
+    bf16 model on the CPU: the decoder outputs on the step's masked batch
+    (mean |difference|; the largest within twice) and the loss of one
+    training step (the same draws) no farther from the CPU's bf16 ones than
+    those are from the CPU's float32 ones.  The two bf16 runs round their
+    products in other orders, and a flipped rounding travels through the
+    blocks, so the card's distance is of the same order as bf16's own."""
+    import torch
+
+    from flexdm_tpu_torch.config import TrainConfig, build_model
+    from flexdm_tpu_torch.convert import init_params
+    from flexdm_tpu_torch.models import make_task_config
+    from flexdm_tpu_torch.models.masking import draw_train, \
+        preprocess_for_train
+    from flexdm_tpu_torch.train.optim import KerasAdam
+    from flexdm_tpu_torch.train.trainer import make_train_step
+
+    schema = spec.schema
+    config = TrainConfig.from_args(dict(args, dropout=0.0))
+    cpu32 = init_params(build_model(TrainConfig.from_args(
+        dict(args, dropout=0.0, dtype=None)), schema), 0)
+    cpu16 = build_model(config, schema)
+    cpu16.load_state_dict(cpu32.state_dict())
+    card16 = copy.deepcopy(cpu16).cuda()
+    task_config = make_task_config(schema, config.masking_method)
+    b = batch["length"].shape[0]
+    draws = draw_train(schema, b, task_config.task_probs,
+                       torch.Generator().manual_seed(3),
+                       **cpu16.draw_options())
+    _, modified, _ = preprocess_for_train(
+        batch, schema, draws.tasks, draws.uniforms, draws.element,
+        draws.values)
+    outputs = {}
+    with torch.no_grad():
+        for where, model in (("cpu32", cpu32), ("cpu16", cpu16),
+                             ("card16", card16)):
+            device = "cuda" if where == "card16" else "cpu"
+            outputs[where] = model({k: v.to(device)
+                                    for k, v in modified.items()})
+    check(all(v.dtype == torch.bfloat16 for v in outputs["card16"].values()),
+          f"{label}: bf16 outputs are not bf16")
+    card_d = model_distance(outputs["card16"], outputs["cpu16"])
+    ref_d = model_distance(outputs["cpu16"], outputs["cpu32"])
+    losses = {}
+    for where, model in (("cpu32", cpu32), ("cpu16", cpu16),
+                         ("card16", card16)):
+        device = "cuda" if where == "card16" else "cpu"
+        adam = KerasAdam(model.parameters(), config.learning_rate)
+        metrics = make_train_step(model, task_config, adam, config.l2)(
+            {k: v.to(device) for k, v in batch.items()}, draws.to(device))
+        losses[where] = metrics["loss"].item()
+        check(all(p.dtype == torch.float32 for p in model.parameters())
+              and all(mu.dtype == torch.float32 for mu in adam.mu),
+              f"{label}: a parameter or Adam moment left float32")
+    card_l = abs(losses["card16"] - losses["cpu16"])
+    ref_l = abs(losses["cpu16"] - losses["cpu32"])
+    log(f"[bf16] {label} parity, batch {b}: decoder outputs card-vs-CPU bf16 "
+        f"mean {card_d[0]:.3e} max {card_d[1]:.3e}, CPU bf16-vs-float32 mean "
+        f"{ref_d[0]:.3e} max {ref_d[1]:.3e}; loss card bf16 "
+        f"{losses['card16']:.6f}, CPU bf16 {losses['cpu16']:.6f}, CPU "
+        f"float32 {losses['cpu32']:.6f} (|card - CPU bf16| {card_l:.2e}, "
+        f"|CPU bf16 - float32| {ref_l:.2e})")
+    check(card_d[0] <= ref_d[0] and card_d[1] <= 2 * ref_d[1],
+          f"{label}: card bf16 outputs {card_d} (mean, max) from the CPU's, "
+          f"farther than CPU bf16 from float32 {ref_d} (max: twice)")
+    check(card_l <= max(ref_l, 1e-5 * abs(losses["cpu32"])),
+          f"{label}: card bf16 loss {card_l} from the CPU's, farther than "
+          f"CPU bf16 from float32 {ref_l}")
+
+
+def phase_bf16(card, root, data_dir, spec, batch, data, f32_losses,
+               f32_step_ms, f32_flat_ms):
+    """12(b) crello Ours-EXP and 12(c) crello_flat in bf16: parity, 30
+    steps (crello's tracking phase 8's float32 losses within 5%), the
+    bf16 CLI run served and evaluated.  Returns the step times and the
+    launches per path."""
+    t0 = time.perf_counter()
+    args = dict(load_args(CONFIG, data_dir), dtype=BF16)
+    label = "crello Ours-EXP bf16"
+    phase_bf16_parity(args, spec, batch, label)
+    step_ms, losses, counts, _ = phase_train_steps(args, spec, batch, card,
+                                                   label)
+    drift = [abs(a - b) / abs(a) for a, b in zip(f32_losses, losses)]
+    log(f"[bf16] {label}: {TRAIN_STEPS} steps track phase 8's float32 run "
+        f"from the same init, draws and dropout: largest relative loss gap "
+        f"{max(drift):.2%} (bar 5%); median step {step_ms:.2f} ms against "
+        f"float32 {f32_step_ms:.2f} ms [{card}]")
+    check(max(drift) < 0.05, f"{label}: bf16 losses drift from float32: "
+          f"{list(zip(f32_losses, losses))}")
+    cli_counts, _, _, job = phase_train_cli(root, data_dir, card, BF16)
+    eval_counts = eval_run(card, root, label, job, "all_feat",
+                           data["crello"])
+
+    flat_args = dict(load_args(FLAT_CONFIG, data_dir), dtype=BF16)
+    flat_batch = {k: v[:FLAT_BATCH] for k, v in batch.items()}
+    phase_bf16_parity(flat_args, spec, {k: v[:FLAT_PARITY_DOCS]
+                                        for k, v in flat_batch.items()},
+                      f"crello_flat bf16 ({FLAT_PARITY_DOCS} documents)")
+    flat_ms, _, flat_counts, _ = phase_train_steps(
+        flat_args, spec, flat_batch, card, "crello_flat bf16")
+    log(f"[bf16] crello_flat: median step {flat_ms:.2f} ms against float32 "
+        f"{f32_flat_ms:.2f} ms (batch {FLAT_BATCH}) [{card}]")
+    log(f"[bf16] phase done in {time.perf_counter() - t0:.1f} s")
+    return step_ms, flat_ms, {
+        "crello_ours_exp_bf16_steps": counts,
+        "crello_ours_exp_bf16_cli": cli_counts,
+        "crello_ours_exp_bf16_eval": eval_counts,
+        "crello_flat_bf16_steps": flat_counts,
+    }
+
+
 def main():
     import torch
 
@@ -1398,9 +1770,14 @@ def main():
         raise SmokeFailure("no CUDA device: this smoke run needs one GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs accumulate in float32, as the TPU's do.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     log(f"[device] torch {torch.__version__} CUDA {torch.version.cuda} "
-        f"python {sys.version.split()[0]}; {card}")
+        f"python {sys.version.split()[0]}; {card}; allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"allow_bf16_reduced_precision_reduction "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
     phase_build()
     kernel_err, timings = phase_kernel(card)
@@ -1409,65 +1786,78 @@ def main():
     maskgit_ms = phase_maskgit(card)
     with tempfile.TemporaryDirectory() as root:
         data_dir, spec, batch = train_data(root, "crello", seed=0)
-        step_ms, step_counts, train_counts = phase_train(
+        step_ms, f32_losses, step_counts, train_counts = phase_train(
             card, root, data_dir, spec, batch)
         rico_ms, rico_counts = phase_rico(card, root)
         flat_ms, flat_counts = phase_flat(card, root, data_dir, spec, batch)
-        eval_counts = phase_eval(card, root)
-    log(f"[time] summary: train step crello Ours-EXP {step_ms:.2f} ms, rico "
-        f"Ours-EXP {rico_ms:.2f} ms (batch {TRAIN_BATCH}), crello_flat "
-        f"{flat_ms:.2f} ms (batch {FLAT_BATCH}); /predict num_iter="
+        data = eval_data(root)
+        eval_counts = phase_eval(card, root, data)
+        bf16_err, bf16_fwd, bf16_bwd = phase_bf16_kernel(card)
+        bf16_ms, bf16_flat_ms, bf16_counts = phase_bf16(
+            card, root, data_dir, spec, batch, data, f32_losses, step_ms,
+            flat_ms)
+    log(f"[time] summary: train step crello Ours-EXP {step_ms:.2f} ms "
+        f"(bf16 {bf16_ms:.2f} ms), rico Ours-EXP {rico_ms:.2f} ms (batch "
+        f"{TRAIN_BATCH}), crello_flat {flat_ms:.2f} ms (bf16 "
+        f"{bf16_flat_ms:.2f} ms, batch {FLAT_BATCH}); /predict num_iter="
         f"{MASKGIT_ITERS} {maskgit_ms:.2f} ms ({BATCH} docs) [{card}]")
     by_path = {"crello_ours_exp_steps": step_counts,
                "crello_ours_exp_cli": train_counts,
                "rico_ours_exp_steps": rico_counts,
-               "crello_flat_steps": flat_counts, **eval_counts}
+               "crello_flat_steps": flat_counts, **eval_counts,
+               **bf16_counts}
     # The training shape, which every kernel of the path runs at (the
     # forward also serves at (8, 8, 50, 32) and crello_flat runs
     # (64, 8, 500, 32): the log lines above).
     shape = (256, 8, 50, 32)
-    fwd = timings[shape]
-    bwd = backward_timings[shape]
-    source = "flexdm_tpu_torch/csrc/flash_attention_bwd.cu"
     tpu = "flexdm_tpu/ops/attention.py"
+    csrc = "flexdm_tpu_torch/csrc/"
+    bf16_cli = bf16_counts["crello_ours_exp_bf16_cli"]
 
-    def times(ms, plain_ms, library_ms, bd):
-        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bd["bound_ms"],
-                "bound_by": bd["bound_by"], "library_ms": library_ms,
-                "shape": list(shape)}
+    def fwd_times(t):
+        return {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], "shape": list(shape)}
 
-    def launches(name):
-        return {path: counts[name] for path, counts in by_path.items()}
+    def bwd_times(t, part):
+        bd = t["bounds"][part]
+        return {"ms": t[part], "plain_ms": t["plain"],
+                "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                "library_ms": t["library"], "shape": list(shape)}
 
-    log(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "flexdm_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": f"{tpu}:77",
-        "launches": train_counts["fwd"],
-        "launches_by_path": launches("fwd"),
-        "max_abs_err": kernel_err,
-        **times(fwd["ms"], fwd["plain_ms"], fwd["library_ms"], fwd),
-    }, {
-        "name": "flash_attention_bwd_dq",
-        "route": "cuda",
-        "source": source,
-        "replaces": f"{tpu}:116 and {tpu}:217",
-        "launches": train_counts["dq"],
-        "launches_by_path": launches("dq"),
-        "max_abs_err": backward_err["dq"],
-        **times(bwd["dq"], bwd["plain"], bwd["library"], bwd["bounds"]["dq"]),
-    }, {
-        "name": "flash_attention_bwd_dkv",
-        "route": "cuda",
-        "source": source,
-        "replaces": f"{tpu}:156 and {tpu}:254",
-        "launches": train_counts["dkv"],
-        "launches_by_path": launches("dkv"),
-        "max_abs_err": max(backward_err["dk"], backward_err["dv"]),
-        **times(bwd["dkv"], bwd["plain"], bwd["library"],
-                bwd["bounds"]["dkv"]),
-    }]}))
+    def entry(name, dtype, source, replaces, key, cli_counts, err, t):
+        """One kernel: ``launches`` from the CLI run of its dtype."""
+        return {"name": name, "route": "cuda", "dtype": dtype,
+                "source": csrc + source, "replaces": replaces,
+                "launches": cli_counts[key],
+                "launches_by_path": {path: counts[key]
+                                     for path, counts in by_path.items()},
+                "max_abs_err": err, **t}
+
+    fwd, bwd = timings[shape], backward_timings[shape]
+    fwd16, bwd16 = bf16_fwd[shape], bf16_bwd[shape]
+    dq_tpu = f"{tpu}:116 and {tpu}:217"
+    dkv_tpu = f"{tpu}:156 and {tpu}:254"
+    log(json.dumps({"kernels": [
+        entry("flash_attention_fwd", "float32", "flash_attention_fwd.cu",
+              f"{tpu}:77", "fwd", train_counts, kernel_err, fwd_times(fwd)),
+        entry("flash_attention_bwd_dq", "float32", "flash_attention_bwd.cu",
+              dq_tpu, "dq", train_counts, backward_err["dq"],
+              bwd_times(bwd, "dq")),
+        entry("flash_attention_bwd_dkv", "float32",
+              "flash_attention_bwd.cu", dkv_tpu, "dkv", train_counts,
+              max(backward_err["dk"], backward_err["dv"]),
+              bwd_times(bwd, "dkv")),
+        entry("flash_attention_fwd_bf16", BF16, "flash_attention_fwd_bf16.cu",
+              f"{tpu}:77", "fwd_bf16", bf16_cli, bf16_err["O"],
+              fwd_times(fwd16)),
+        entry("flash_attention_bwd_dq_bf16", BF16,
+              "flash_attention_bwd_bf16.cu", dq_tpu, "dq_bf16", bf16_cli,
+              bf16_err["dq"], bwd_times(bwd16, "dq")),
+        entry("flash_attention_bwd_dkv_bf16", BF16,
+              "flash_attention_bwd_bf16.cu", dkv_tpu, "dkv_bf16", bf16_cli,
+              max(bf16_err["dk"], bf16_err["dv"]), bwd_times(bwd16, "dkv")),
+    ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

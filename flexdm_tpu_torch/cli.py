@@ -4,9 +4,12 @@ The flags and ``--preset`` mirror ``flexdm_tpu/cli.py`` (``python -m
 flexdm_tpu``), plus ``--device`` (default ``cuda``).  A flag that selects
 something the port does not have yet raises ``NotImplementedError``:
 ``--resume``, ``--weights``, ``--num_devices``/``--model_parallel`` above 1,
-``--dtype bfloat16``, ``--enable_profile``, ``--input_mode device``,
-``--checkpoint_every``, an ``--attention_impl`` other than ``auto``, and
-every ``--arch_type`` but the oneshot model (``build_model`` raises).
+``--enable_profile``, ``--input_mode device``, ``--checkpoint_every``, an
+``--attention_impl`` other than ``auto``, every ``--arch_type`` but the
+oneshot model and a ``--dtype`` other than ``float32`` and ``bfloat16``
+(``build_model`` raises for those two).  ``--dtype bfloat16`` computes in
+bf16 where the JAX package does; parameters, gradients, the optimizer
+state and checkpoints stay float32.
 """
 
 from __future__ import annotations

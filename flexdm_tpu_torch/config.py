@@ -55,17 +55,12 @@ class TrainConfig:
 
 def build_model(config: TrainConfig, schema: Schema) -> MFPModel:
     """The ``arch_type='oneshot'`` model, built as the JAX trainer builds it
-    (``flexdm_tpu/train/trainer.py:105-130``); a baseline or a compute dtype
-    other than float32 raises ``NotImplementedError``."""
-    unsupported = {
-        "arch_type": config.arch_type != "oneshot",
-        "dtype": config.dtype not in (None, "float32"),
-    }
-    for field, bad in unsupported.items():
-        if bad:
-            raise NotImplementedError(
-                f"{field}={getattr(config, field)!r} is not in this port yet"
-            )
+    (``flexdm_tpu/train/trainer.py:105-130``), in the compute ``dtype`` of
+    the job (None, ``"float32"`` or ``"bfloat16"``); a baseline or another
+    dtype raises ``NotImplementedError``."""
+    if config.arch_type != "oneshot":
+        raise NotImplementedError(
+            f"arch_type={config.arch_type!r} is not in this port yet")
     return MFPModel(
         schema,
         latent_dim=config.latent_dim,
@@ -77,4 +72,5 @@ def build_model(config: TrainConfig, schema: Schema) -> MFPModel:
         input_dtype=config.input_dtype,
         seq_type=config.seq_type,
         use_elemwise_noise=config.use_elemwise_noise,
+        dtype=config.dtype,
     )

@@ -13,6 +13,10 @@ logits, numerical heads the ``(B, S, C)`` vector.
 * ``detachment='flat'``: the ``(B, S * F, D)`` stream is cut back into
   one ``(B, S, D)`` sequence per field, each read by its own head.
 
+Every head is a Dense in the compute ``dtype`` when one is given (input,
+kernel and bias cast at apply time, flexdm_tpu/models/decoder.py:100-132),
+so the outputs are bf16 under ``--dtype bfloat16``.
+
 The baselines' ``detachment='none'`` and ``predict_mask`` are not in this
 port yet.
 """
@@ -22,10 +26,10 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..data.schema import ColumnSpec, Schema
+from .transformer import dense
 
 
 def head_shape(column: ColumnSpec):
@@ -38,7 +42,8 @@ def head_shape(column: ColumnSpec):
 
 class Decoder(nn.Module):
     def __init__(self, schema: Schema, latent_dim: int = 256,
-                 context: Optional[str] = None, detachment: str = "default"):
+                 context: Optional[str] = None, detachment: str = "default",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if detachment not in ("default", "flat"):
             raise NotImplementedError(
@@ -49,6 +54,7 @@ class Decoder(nn.Module):
         self.context = context
         self.detachment = detachment
         self.latent_dim = latent_dim
+        self.dtype = dtype
         columns = schema.valid_columns(context == "canvas")
         self.columns = [c for c in columns if c.is_sequence]
         self.canvas_columns = [c for c in columns if not c.is_sequence]
@@ -57,23 +63,28 @@ class Decoder(nn.Module):
                 f"decoder_{c.name}", nn.Linear(latent_dim, head_shape(c)[0])
             )
 
+    def _head(self, column: ColumnSpec, h: torch.Tensor) -> torch.Tensor:
+        head = getattr(self, f"decoder_{column.name}")
+        return dense(h, head.weight, head.bias, self.dtype)
+
     def forward(self, h: torch.Tensor) -> Dict[str, torch.Tensor]:
         b = h.shape[0]
         canvas_h = None
         if self.context in ("id", "length", "canvas"):
             canvas_h, h = h[:, :1], h[:, 1:]
-        heads = [getattr(self, f"decoder_{c.name}") for c in self.columns]
         outputs = {}
         if self.detachment == "flat":
             fields = h.reshape(b, -1, len(self.columns), self.latent_dim)
-            for i, (c, head) in enumerate(zip(self.columns, heads)):
-                outputs[c.name] = head(fields[:, :, i]).view(
+            for i, c in enumerate(self.columns):
+                outputs[c.name] = self._head(c, fields[:, :, i]).view(
                     (b, -1) + head_shape(c)[1])
             return outputs
-        fused = F.linear(
+        heads = [getattr(self, f"decoder_{c.name}") for c in self.columns]
+        fused = dense(
             h,
             torch.cat([m.weight for m in heads]),
             torch.cat([m.bias for m in heads]),
+            self.dtype,
         )
         offset = 0
         for c in self.columns:
@@ -83,6 +94,6 @@ class Decoder(nn.Module):
             )
             offset += units
         for c in self.canvas_columns:
-            head = getattr(self, f"decoder_{c.name}")
-            outputs[c.name] = head(canvas_h).view((b,) + head_shape(c)[1])
+            outputs[c.name] = self._head(c, canvas_h).view(
+                (b,) + head_shape(c)[1])
         return outputs

@@ -16,10 +16,19 @@ and ``flat`` (one token per (element, field), the VanillaTransformer).
 one lookup, and all numerical columns go through ONE matmul of
 ``[x * normal, normal, is_masked, is_unused]`` against
 ``[kernel; bias; special[0]; special[1]]`` (encoder.py:98-149).  ``flat``
-and the canvas columns embed each column on its own the same way
-(encoder.py:151-180); ``flat`` stacks the fields to ``(B, S * F, D)``,
-repeats the mask F times and adds the position embedding ``emb_seq_pos``
+and the canvas columns embed each column on its own (encoder.py:151-180):
+a table lookup, or the Dense with the special rows put in by
+``torch.where``.  ``flat`` stacks the fields to ``(B, S * F, D)``, repeats
+the mask F times and adds the position embedding ``emb_seq_pos``
 (encoder.py:198-210).
+
+Under a compute ``dtype`` (bf16) the rounding points are JAX's.  The
+``add`` contraction rounds every operand (one-hot counts, table rows,
+inputs, kernels, bias and special rows) to bf16, sums in float32 and
+rounds the sum once; so do the lookups of the other categorical columns.
+A numerical column outside ``add`` is a bf16 Dense, and the float32
+special rows put in by ``torch.where`` promote it to float32, as
+``jnp.where`` does.
 
 Contexts (encoder.py:216-241): ``id`` (task embedding), ``length``
 (length embedding) and ``canvas`` (the sum of the canvas columns'
@@ -42,7 +51,7 @@ from torch import nn
 
 from ..data.schema import MASK_VALUE, NULL_VALUE, ColumnSpec, Schema
 from .masking import NOISE_SIZE, get_seq_mask
-from .transformer import PositionEmbedding
+from .transformer import PositionEmbedding, dense
 
 CONTEXTS = (None, "id", "canvas", "length", "canvas_add")
 FUSIONS = ("add", "flat")
@@ -52,7 +61,8 @@ class Encoder(nn.Module):
     def __init__(self, schema: Schema, latent_dim: int = 128,
                  context: Optional[str] = None, input_dtype: str = "set",
                  fusion: str = "add", dropout: float = 0.1,
-                 use_elemwise_noise: bool = False):
+                 use_elemwise_noise: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if context not in CONTEXTS:
             raise ValueError(f"encoder context {context!r} not in {CONTEXTS}")
@@ -68,6 +78,7 @@ class Encoder(nn.Module):
         self.context = context
         self.fusion = fusion
         self.use_elemwise_noise = use_elemwise_noise
+        self.dtype = dtype
         use_canvas = context is not None and "canvas" in context
         columns = schema.valid_columns(use_canvas)
         self.seq_columns = [c for c in columns if c.is_sequence]
@@ -108,10 +119,21 @@ class Encoder(nn.Module):
         if use_elemwise_noise:
             self.input_noise = nn.Linear(NOISE_SIZE, latent_dim)
 
+    def _operand(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` rounded to the compute dtype and back to float32, where
+        there is one: an operand of a bf16 product summed in float32."""
+        return x if self.dtype is None else x.to(self.dtype).float()
+
+    def _result(self, x: torch.Tensor) -> torch.Tensor:
+        """A float32 sum rounded once to the compute dtype, if any."""
+        return x if self.dtype is None else x.to(self.dtype)
+
     def _categorical(self, inputs, columns) -> torch.Tensor:
         """The sum over ``columns`` and their channels of the table rows
-        of their ids, as one lookup in the concatenated tables."""
-        tables = [getattr(self, f"input_{c.name}") for c in columns]
+        of their ids, as one lookup in the concatenated tables (float32;
+        rows rounded to the compute dtype first)."""
+        tables = [self._operand(getattr(self, f"input_{c.name}"))
+                  for c in columns]
         # One zero row after the tables takes every out-of-range id.
         table = torch.cat(tables + [tables[0].new_zeros(1, self.latent_dim)])
         rows = table.shape[0] - 1
@@ -128,11 +150,12 @@ class Encoder(nn.Module):
 
     def _numerical(self, inputs, columns) -> torch.Tensor:
         """The sum over ``columns`` of ``normal * (x W + b) + is_masked *
-        special[0] + is_unused * special[1]``, as one matmul."""
+        special[0] + is_unused * special[1]``, as one float32 matmul
+        (operands rounded to the compute dtype first)."""
         feats, rows = [], []
         for c in columns:
             x = inputs[c.name]
-            dense = getattr(self, f"input_{c.name}")
+            layer = getattr(self, f"input_{c.name}")
             special = getattr(self, f"input_{c.name}_special")
             is_masked = (x == MASK_VALUE).all(-1)
             is_unused = (x == NULL_VALUE).all(-1)
@@ -141,16 +164,22 @@ class Encoder(nn.Module):
             feats.append(
                 torch.stack([normal, is_masked, is_unused], -1).to(x.dtype)
             )
-            rows.append(dense.weight.t())
-            rows.append(torch.cat([dense.bias[None], special]))
-        return torch.cat(feats, -1) @ torch.cat(rows)
+            rows.append(layer.weight.t())
+            rows.append(torch.cat([layer.bias[None], special]))
+        return (self._operand(torch.cat(feats, -1))
+                @ self._operand(torch.cat(rows)))
 
     def _column(self, inputs, column: ColumnSpec) -> torch.Tensor:
         """One column's embedding, ``(B, S, D)`` for a sequence column and
         ``(B, D)`` for a canvas one (encoder.py:151-180)."""
         if column.is_categorical:
-            return self._categorical(inputs, [column])
-        return self._numerical(inputs, [column])
+            return self._result(self._categorical(inputs, [column]))
+        x = inputs[column.name]
+        layer = getattr(self, f"input_{column.name}")
+        special = getattr(self, f"input_{column.name}_special")
+        h = dense(x, layer.weight, layer.bias, self.dtype)
+        h = torch.where((x == MASK_VALUE).all(-1)[..., None], special[0], h)
+        return torch.where((x == NULL_VALUE).all(-1)[..., None], special[1], h)
 
     def forward(self, inputs: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
@@ -168,7 +197,7 @@ class Encoder(nn.Module):
                 parts.append(self._categorical(inputs, self.cat_columns))
             if self.num_columns:
                 parts.append(self._numerical(inputs, self.num_columns))
-            seq = sum(parts[1:], parts[0])
+            seq = self._result(sum(parts[1:], parts[0]))
         else:
             fields = [self._column(inputs, c) for c in self.seq_columns]
             seq = torch.stack(fields, dim=2).reshape(b, -1, self.latent_dim)
@@ -201,5 +230,6 @@ class Encoder(nn.Module):
                     "use_elemwise_noise: the encoder needs its (B, S', "
                     f"{NOISE_SIZE}) normal draw, and none was given"
                 )
-            seq = seq + self.input_noise(noise.to(seq.dtype))
+            seq = seq + dense(noise.to(seq.dtype), self.input_noise.weight,
+                              self.input_noise.bias, self.dtype)
         return seq, seq_mask

@@ -14,6 +14,13 @@ Counterpart of ``flexdm_tpu/models/mfp.py`` for the oneshot model:
   once or decodes with :func:`iterative_decode` (MaskGIT), and merges
   ground truth back onto the unmasked fields.
 
+``dtype="bfloat16"`` is the JAX package's mixed precision: the encoder,
+the blocks and the decoder compute in bf16 where flax does (see
+:mod:`.transformer`), parameters stay float32, and the losses cast every
+prediction to float32.  MaskGIT's confidences are taken in the logits'
+dtype, as in JAX, so bf16 confidences can tie exactly; every tied field at
+the threshold is committed.
+
 The baselines are not in this port yet.
 """
 
@@ -44,6 +51,19 @@ from .transformer import Blocks
 Tensors = Dict[str, torch.Tensor]
 
 INPUT_DTYPES = ("set", "shuffled_set", "sorted_set")
+# Compute dtypes (``--dtype``) and the torch dtype each computes in (None:
+# float32 throughout); the attention kernels have instances for these.
+COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(dtype: Optional[str]) -> Optional[torch.dtype]:
+    """The torch compute dtype of a ``--dtype`` value; another value raises
+    ``NotImplementedError``."""
+    if dtype not in COMPUTE_DTYPES:
+        raise NotImplementedError(
+            f"dtype={dtype!r} is not in this port: it computes in "
+            f"{sorted(k for k in COMPUTE_DTYPES if k)}")
+    return COMPUTE_DTYPES[dtype]
 
 
 class MFPModel(nn.Module):
@@ -53,8 +73,10 @@ class MFPModel(nn.Module):
                  num_blocks: int = 4, block_type: str = "deepsvg",
                  num_heads: int = 8, dropout: float = 0.1,
                  context: Optional[str] = None, input_dtype: str = "set",
-                 seq_type: str = "default", use_elemwise_noise: bool = False):
+                 seq_type: str = "default", use_elemwise_noise: bool = False,
+                 dtype: Optional[str] = None):
         super().__init__()
+        compute = compute_dtype(dtype)
         if input_dtype not in INPUT_DTYPES:
             raise ValueError(f"input_dtype {input_dtype!r} not in "
                              f"{INPUT_DTYPES}")
@@ -72,13 +94,16 @@ class MFPModel(nn.Module):
         self.input_dtype = input_dtype
         self.seq_type = seq_type
         self.use_elemwise_noise = use_elemwise_noise
+        self.dtype = dtype
         self.encoder = Encoder(schema, latent_dim, context, input_dtype,
-                               fusion, dropout, use_elemwise_noise)
+                               fusion, dropout, use_elemwise_noise, compute)
         self.blocks = Blocks(
             latent_dim=latent_dim, num_blocks=num_blocks,
             block_type=block_type, num_heads=num_heads, dropout=dropout,
+            dtype=compute,
         )
-        self.decoder = Decoder(schema, latent_dim, context, detachment)
+        self.decoder = Decoder(schema, latent_dim, context, detachment,
+                               compute)
 
     def forward(self, inputs: Tensors,
                 generator: Optional[torch.Generator] = None,

@@ -21,6 +21,13 @@ the JAX layout: ``q, k, v`` are ``(B, H, S, Dh)`` and ``key_mask`` is a
   product runs on the tensor cores (``mma.sync`` TF32) with each operand
   split into two TF32 terms and three products summed in float32, which
   keeps float32-level accuracy (~1e-6); tiles arrive by ``cp.async``.
+* Both take float32 or bfloat16 (q, k and v of one dtype).  bfloat16
+  launches the bf16 instances ``csrc/flash_attention_fwd_bf16.cu`` and
+  ``csrc/flash_attention_bwd_bf16.cu``: every product on the bf16 tensor
+  cores (``mma.sync.m16n8k16``) with float32 sums; the probabilities and
+  ``ds`` enter their products as bf16 operands, and O, dq, dk and dv are
+  rounded to bf16 once.  lse, m, l and delta stay float32.  A bf16 input
+  is never upcast to reuse the float32 kernels.
 * :class:`FlashAttention` wires the two into autograd (the JAX package's
   ``jax.custom_vjp``); the key mask gets no gradient.
 * :func:`dot_product_attention` dispatches on the device of its inputs: a
@@ -36,6 +43,14 @@ kernels do not.  The backward kernels compute the scores in other tiles
 than the forward kernel, so their p is the forward's to ~1e-6 relative,
 not bit for bit; a fully masked row still gets exactly ``1/S`` (its
 scores round to ``-1e9`` = m, and the forward summed l = S).
+
+The plain versions take bfloat16 with the TPU kernels' semantics: the
+inputs are upcast, everything is computed in float32, and O, dq, dk and
+dv are cast to the input dtype once (``_flash_fwd_kernel`` and its
+backward kernels), not XLA's bf16 scores and probabilities.  The key bias
+stays float32 (-1e9) at every dtype; JAX builds it in q's dtype, so in
+bf16 a fully masked row's lse there is -998244352 + log S, here
+-1e9 + log S (O is the same).
 
 The TPU path's tile padding (``_pad_len``, ``_block_size``) and its
 XLA-vs-Pallas rule (``_prefer_pallas``) are not carried over: the kernels
@@ -55,17 +70,25 @@ import torch
 NEG_INF = -1e9
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
 # Launches of each CUDA kernel: the forward, and the backward's dq (with
-# delta) and dk/dv kernels.
+# delta) and dk/dv kernels; the BF16_ counts are the bf16 instances'.
 KERNEL_LAUNCHES = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
+BF16_FWD_LAUNCHES = 0
+BF16_DQ_LAUNCHES = 0
+BF16_DKV_LAUNCHES = 0
 _launches_lock = threading.Lock()
 
 # (library name, sources) of each kernel library, built by ops/_build.py.
 FWD_LIBRARY = ("flexdm_attention", ("flash_attention_fwd.cu",))
 BWD_LIBRARY = ("flexdm_attention_bwd", ("flash_attention_bwd.cu",))
-LIBRARIES = (FWD_LIBRARY, BWD_LIBRARY)
+FWD_BF16_LIBRARY = ("flexdm_attention_bf16", ("flash_attention_fwd_bf16.cu",))
+BWD_BF16_LIBRARY = ("flexdm_attention_bwd_bf16",
+                    ("flash_attention_bwd_bf16.cu",))
+LIBRARIES = (FWD_LIBRARY, BWD_LIBRARY, FWD_BF16_LIBRARY, BWD_BF16_LIBRARY)
 
 
 def key_bias(key_mask: Optional[torch.Tensor], b: int, s: int,
@@ -84,22 +107,28 @@ def _outside_causal_band(q):
 
 
 def _scores(q, k, bias, causal):
+    """float32 scores of (possibly bf16) q and k: the kernels' products
+    take bf16 operands exactly and sum in float32."""
+    q, k = q.float(), k.float()
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
-    scores = scores + bias[:, None, None, :]
+    scores = scores + bias[:, None, None, :].float()
     if causal:
         scores = scores.masked_fill(_outside_causal_band(q), NEG_INF)
     return scores
 
 
 def attention_reference(q, k, v, bias, causal: bool = False) -> torch.Tensor:
-    """Plain PyTorch attention (``_attention_xla``): ``bias`` is ``(B, S)``."""
+    """Plain PyTorch attention (``_attention_xla``): ``bias`` is ``(B, S)``.
+    Computed in float32 and returned in q's dtype."""
     return torch.einsum(
-        "bhqk,bhkd->bhqd", torch.softmax(_scores(q, k, bias, causal), -1), v
-    )
+        "bhqk,bhkd->bhqd", torch.softmax(_scores(q, k, bias, causal), -1),
+        v.float(),
+    ).to(q.dtype)
 
 
 def attention_reference_lse(q, k, bias, causal: bool = False) -> torch.Tensor:
-    """Row logsumexp ``(B, H, S)`` of the scores, as the kernel writes it."""
+    """Row logsumexp ``(B, H, S)`` of the scores (float32), as the kernel
+    writes it."""
     return torch.logsumexp(_scores(q, k, bias, causal), dim=-1)
 
 
@@ -110,17 +139,19 @@ def attention_reference_backward(q, k, v, bias, o, do, causal: bool = False):
     ``delta = sum(dO * O)``, ``p = softmax``, ``ds = p (dO V^T - delta)``
     (zero where the causal band replaced the score: that replacement passes
     no gradient), ``dq = scale ds K``, ``dk = scale ds^T Q``,
-    ``dv = p^T dO``."""
+    ``dv = p^T dO``, in float32 from the (possibly bf16) inputs; each
+    gradient is cast to its input's dtype once."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = torch.softmax(_scores(q, k, bias, causal), -1)
-    delta = (do * o).sum(-1, keepdim=True)
-    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, v) - delta)
+    q32, k32, v32, o32, do32 = (t.float() for t in (q, k, v, o, do))
+    delta = (do32 * o32).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do32, v32) - delta)
     if causal:
         ds = ds.masked_fill(_outside_causal_band(q), 0.0)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
-    return dq, dk, dv
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k32) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q32) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _bind(name: str, sources, symbol: str, n_pointers: int):
@@ -136,16 +167,31 @@ def _bind(name: str, sources, symbol: str, n_pointers: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The forward's bound C entry point (built with nvcc on first use)."""
+def _kernel(dtype=torch.float32):
+    """The forward's bound C entry point for ``dtype`` (built with nvcc on
+    first use)."""
+    if dtype == torch.bfloat16:
+        return _bind(*FWD_BF16_LIBRARY, "flexdm_flash_attention_fwd_bf16", 8)
     return _bind(*FWD_LIBRARY, "flexdm_flash_attention_fwd", 8)
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_kernels():
-    """The backward's bound C entry points ``(dq, dkv)``."""
+def _bwd_kernels(dtype=torch.float32):
+    """The backward's bound C entry points ``(dq, dkv)`` for ``dtype``."""
+    if dtype == torch.bfloat16:
+        return (_bind(*BWD_BF16_LIBRARY, "flexdm_flash_attention_bwd_dq_bf16",
+                      10),
+                _bind(*BWD_BF16_LIBRARY,
+                      "flexdm_flash_attention_bwd_dkv_bf16", 10))
     return (_bind(*BWD_LIBRARY, "flexdm_flash_attention_bwd_dq", 10),
             _bind(*BWD_LIBRARY, "flexdm_flash_attention_bwd_dkv", 10))
+
+
+def _count(name: str) -> None:
+    """One more launch on the counter ``name`` (one of the ``*_LAUNCHES``
+    above)."""
+    with _launches_lock:
+        globals()[name] += 1
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -161,22 +207,30 @@ def _check_aligned(**tensors):
                              "copy rows 16 bytes at a time)")
 
 
+def _check_dtypes(q, k, v):
+    """float32 and bfloat16 have kernel instances; another dtype, or q, k
+    and v of mixed dtypes, raises (nothing is cast to fit)."""
+    if q.dtype not in KERNEL_DTYPES or not q.dtype == k.dtype == v.dtype:
+        raise ValueError(
+            "q, k and v must be all float32 or all bfloat16, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+
+
 def _check_inputs(q, k, v, key_mask):
+    _check_dtypes(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(
             f"the attention kernels need CUDA tensors, got {q.device}"
         )
     for name, t in (("k", k), ("v", v)):
-        if t.device != q.device or t.shape != q.shape or t.dtype != q.dtype:
+        if t.device != q.device or t.shape != q.shape:
             raise ValueError(
-                f"{name} must match q in device, shape and dtype: "
-                f"{t.device}/{tuple(t.shape)}/{t.dtype} vs "
-                f"{q.device}/{tuple(q.shape)}/{q.dtype}"
+                f"{name} must match q in device and shape: "
+                f"{t.device}/{tuple(t.shape)} vs {q.device}/{tuple(q.shape)}"
             )
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, S, Dh), got {tuple(q.shape)}")
-    if q.dtype != torch.float32:
-        raise ValueError(f"the kernel takes float32, got {q.dtype}")
     if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
         raise ValueError(
             f"head dim {q.shape[-1]} not in {SUPPORTED_HEAD_DIMS}"
@@ -199,20 +253,19 @@ def _check_inputs(q, k, v, key_mask):
 def _forward(q, k, v, key_mask, causal):
     """Launch the forward kernel: ``O``, and the row ``lse``, max ``m`` and
     sum ``l`` (each ``(B, H, S)``)."""
-    global KERNEL_LAUNCHES
     _check_inputs(q, k, v, key_mask)
-    fn = _kernel()
+    bf16 = q.dtype == torch.bfloat16
+    fn = _kernel(q.dtype)
     b, h, s, dh = q.shape
     o = torch.empty_like(q)
     lse, m, l = torch.empty((3, b, h, s), dtype=torch.float32, device=q.device)
     _launch(
-        "flash_attention_fwd", fn,
+        "flash_attention_fwd" + "_bf16" * bf16, fn,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(key_mask),
         o.data_ptr(), lse.data_ptr(), m.data_ptr(), l.data_ptr(),
         b, h, s, dh, int(causal), _stream(q),
     )
-    with _launches_lock:
-        KERNEL_LAUNCHES += 1
+    _count("BF16_FWD_LAUNCHES" if bf16 else "KERNEL_LAUNCHES")
     return o, lse, m, l
 
 
@@ -254,35 +307,33 @@ def _check_backward_inputs(q, k, v, key_mask, o, m, l, do):
 def _backward_dq(q, k, v, key_mask, o, m, l, do, causal=False):
     """Launch the dq kernel; returns ``dq`` and ``delta = rowsum(dO * O)``
     ``(B, H, S)``, which :func:`_backward_dkv` reads."""
-    global BWD_DQ_LAUNCHES
+    bf16 = q.dtype == torch.bfloat16
     b, h, s, dh = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     _launch(
-        "flash_attention_bwd_dq", _bwd_kernels()[0],
+        "flash_attention_bwd_dq" + "_bf16" * bf16, _bwd_kernels(q.dtype)[0],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(key_mask),
         o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), b, h, s, dh, int(causal), _stream(q),
     )
-    with _launches_lock:
-        BWD_DQ_LAUNCHES += 1
+    _count("BF16_DQ_LAUNCHES" if bf16 else "BWD_DQ_LAUNCHES")
     return dq, delta
 
 
 def _backward_dkv(q, k, v, key_mask, m, l, delta, do, causal=False):
     """Launch the dk/dv kernel; returns ``(dk, dv)``."""
-    global BWD_DKV_LAUNCHES
+    bf16 = q.dtype == torch.bfloat16
     b, h, s, dh = q.shape
     dk, dv = torch.empty((2,) + tuple(q.shape), dtype=q.dtype,
                          device=q.device)
     _launch(
-        "flash_attention_bwd_dkv", _bwd_kernels()[1],
+        "flash_attention_bwd_dkv" + "_bf16" * bf16, _bwd_kernels(q.dtype)[1],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(key_mask),
         do.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, h, s, dh, int(causal), _stream(q),
     )
-    with _launches_lock:
-        BWD_DKV_LAUNCHES += 1
+    _count("BF16_DKV_LAUNCHES" if bf16 else "BWD_DKV_LAUNCHES")
     return dk, dv
 
 
@@ -299,8 +350,10 @@ def flash_attention_backward(q, k, v, key_mask, o, m, l, do, causal=False):
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     global KERNEL_LAUNCHES, BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
+    global BF16_FWD_LAUNCHES, BF16_DQ_LAUNCHES, BF16_DKV_LAUNCHES
     with _launches_lock:
         KERNEL_LAUNCHES = BWD_DQ_LAUNCHES = BWD_DKV_LAUNCHES = 0
+        BF16_FWD_LAUNCHES = BF16_DQ_LAUNCHES = BF16_DKV_LAUNCHES = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -332,11 +385,13 @@ def dot_product_attention(
     key_mask: Optional[torch.Tensor] = None,
     causal: bool = False,
 ) -> torch.Tensor:
-    """Masked scaled-dot-product attention, ``(B, H, S, Dh)`` in and out."""
+    """Masked scaled-dot-product attention, ``(B, H, S, Dh)`` in and out,
+    float32 or bfloat16."""
+    _check_dtypes(q, k, v)
     if q.device.type == "cuda":
         return FlashAttention.apply(q, k, v, key_mask, causal)
     if q.device.type == "cpu":
         b, _, s, _ = q.shape
-        bias = key_bias(key_mask, b, s, q.device, q.dtype)
+        bias = key_bias(key_mask, b, s, q.device)
         return attention_reference(q, k, v, bias, causal)
     raise ValueError(f"no attention path for device {q.device}")

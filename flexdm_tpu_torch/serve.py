@@ -157,7 +157,10 @@ class InferenceEngine:
             if c.is_categorical else pred[c.name]
             for c in self._in_scope(task)
         }
-        return {k: v.cpu().numpy() for k, v in fetched.items()}
+        # numpy has no bfloat16: a bf16 model's floats cross as float32
+        # (exact).
+        return {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+                for k, v in fetched.items()}
 
     def predict(self, documents: List[Dict], task: str = "pos",
                 num_iter: int = 1, seed: int = 0, fields: str = "all",

@@ -292,6 +292,15 @@ docs = _jsonable(spec.unbatch(next(iter(spec.make_dataset("test", batch_size=2))
 out = engine.predict(docs, task="pos")
 assert len(out) == 2
 
+bf16 = os.path.join(os.path.dirname(job), "bf16")
+os.makedirs(os.path.join(bf16, "checkpoints"))
+with open(os.path.join(bf16, "args.json"), "w") as f:
+    json.dump(dict(config, dtype="bfloat16"), f)
+save_weights(os.path.join(bf16, "checkpoints", "best.torch.npz"), model)
+engine = InferenceEngine(bf16, batch_size=2, device="cpu")
+assert engine.model.dtype == "bfloat16"
+assert len(engine.predict(docs, task="pos", num_iter=2)) == 2
+
 from flexdm_tpu_torch.cli import main
 
 trained = os.path.join(os.path.dirname(job), "trained")
@@ -326,8 +335,9 @@ print("OK", len(out))
 
 
 def test_port_runs_with_jax_blocked(rico_dir, crello_dir, tmp_path):
-    """Serving, a 1-epoch training run scored by ``python -m
-    flexdm_tpu_torch.evaluation --task_mode all_feat``, and a flat model
+    """Serving (a float32 and a bf16 model), a 1-epoch training run scored
+    by ``python -m flexdm_tpu_torch.evaluation --task_mode all_feat``, and
+    a flat model
     trained for an epoch and served with MaskGIT (``num_iter=2``), with JAX
     and every
     module of the JAX package unimportable, and ``FLEXDM_PLATFORM`` set

@@ -15,7 +15,8 @@
 * The same step for rico Ours-EXP (``sort_flag`` live) and crello_flat
   (the shuffle uniforms JAX drew handed to the port).
 * A CPU ``train()`` of 2 epochs whose ``best`` the port's engine serves,
-  one epoch of the rico and flat presets, and the CLI's refusals.
+  one epoch of the rico and flat presets, and the CLI's refusals
+  (``--dtype float16``: no kernel instance computes in it).
 """
 
 import json
@@ -325,7 +326,7 @@ def test_cli_refuses_what_the_port_lacks(flags, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--arch_type", "canvasvae"], ["--arch_type", "layoutvae"],
-    ["--dtype", "bfloat16"],
+    ["--dtype", "float16"],
 ])
 def test_cli_refuses_unported_models(crello_dir, flags, tmp_path):
     with pytest.raises(NotImplementedError, match="not in this port"):
