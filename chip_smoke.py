@@ -225,6 +225,33 @@ def phase_build():
         f" -> sm_90a in {time.perf_counter() - t0:.2f} s")
     for name, _ in attn.LIBRARIES:
         log(_build.BUILD_LOGS.get(name, f"{name}: (reused build)").strip())
+    log("[build] bf16 backward kernels (ptxas): " + "; ".join(
+        ptxas_summary(_build.BUILD_LOGS.get(attn.BWD_BF16_LIBRARY[0], ""))))
+
+
+def ptxas_summary(report):
+    """``kernel<args>: N registers, S bytes spilled`` per kernel of a ptxas
+    report (``-Xptxas -v``), spills as the larger of stores and loads."""
+    import re
+
+    out, name, spill = [], None, 0
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '\S*?\d(flash_\w+?"
+                          r"_kernel)(ILi\d+ELi\d+E)?", line)
+        if entry:
+            name = entry.group(1) + "".join(
+                f"<{a},{b}>" for a, b in re.findall(
+                    r"ILi(\d+)ELi(\d+)E", entry.group(2) or ""))
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        if spills:
+            spill = max(map(int, spills.groups()))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            out.append(f"{name}: {regs.group(1)} registers, {spill} bytes "
+                       "spilled")
+            name, spill = None, 0
+    return out or ["(no ptxas report: reused build)"]
 
 
 def phase_kernel(card):
@@ -1625,9 +1652,11 @@ def phase_bf16_kernel(card):
         t["bounds"] = dict(zip(("dq", "dkv"),
                                backward_bounds(shape, 2, BF16_FLOPS)))
         bwd_t[shape] = t
+        flops = 14 * b * h * s * s * dh  # 7 products of 2 S^2 Dh
         log(f"[time] bf16 attention backward {shape} device time (CUDA graph"
             f" of 20 calls, median of 50): dq {t['dq']:.4f} ms, dkv "
-            f"{t['dkv']:.4f} ms; float32 kernels dq {t['f32_dq']:.4f} ms, "
+            f"{t['dkv']:.4f} ms (together {flops / (t['dq'] + t['dkv']) / 1e9:.1f}"
+            f" TFLOP/s); float32 kernels dq {t['f32_dq']:.4f} ms, "
             f"dkv {t['f32_dkv']:.4f} ms; plain bf16 autograd backward "
             f"{t['plain']:.4f} ms; library bf16 backward "
             f"(scaled_dot_product_attention, "

@@ -1,7 +1,8 @@
 """Port attention in bfloat16: the plain versions against the JAX package's
 Pallas kernels in interpret mode on the same bf16 inputs, the bf16 CUDA
-kernels' operand rounding emulated on the CPU, the wrappers' dtype checks,
-and the bf16 kernel instances against the plain versions (on a card only).
+kernels' operand rounding and tile sums emulated on the CPU, and the
+wrappers' dtype checks.  The kernels themselves are held to the plain
+versions on the card by tests/test_torch_attention_bf16_cuda.py.
 
 Bars.  The TPU kernels and the plain versions compute in float32 from the
 bf16 inputs and round O, dq, dk and dv once, so the two agree to one bf16
@@ -23,31 +24,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from flexdm_tpu.ops import attention as jax_attn  # noqa: E402
 from flexdm_tpu_torch.ops import attention as port_attn  # noqa: E402
+from _bf16_bars import (  # noqa: E402
+    LSE_TOL, assert_bf16_close, bf16_draw)
 
-ULP = 2.0 ** -7
-LSE_TOL = dict(rtol=2e-5, atol=2e-5)
 JAX_BF16_NEG_INF = float(jnp.asarray(jax_attn.NEG_INF, jnp.bfloat16))
-
-
-def assert_bf16_close(got, want, name="", floor=True):
-    """``|got - want| <= 2^-7 |want| + 2^-8 max|want|`` (the card's bar),
-    or within one ulp alone (``floor=False``), elementwise in float32."""
-    got, want = (x.float() if isinstance(x, torch.Tensor)
-                 else torch.from_numpy(np.array(x, np.float32))
-                 for x in (got, want))
-    bound = ULP * want.abs()
-    if floor:
-        bound = bound + 2.0 ** -8 * want.abs().max()
-    err = (got - want).abs()
-    assert bool((err <= bound + 1e-30).all()), (
-        f"{name}: max error {err.max().item():.3e}, worst excess "
-        f"{(err - bound).max().item():.3e}")
-
-
-def _bf16(rng, shape):
-    """A standard normal draw rounded to bf16, as numpy float32 (exact)."""
-    x = rng.normal(size=shape).astype(np.float32)
-    return torch.from_numpy(x).bfloat16().float().numpy()
 
 
 def _case(name, seed=0):
@@ -57,7 +37,7 @@ def _case(name, seed=0):
     b, h, s, dh = {"masked": (2, 4, 50, 32), "causal": (2, 4, 16, 32),
                    "ragged": (1, 2, 200, 16),
                    "fully_masked": (2, 2, 16, 8)}[name]
-    q, k, v, do = (_bf16(rng, (b, h, s, dh)) for _ in range(4))
+    q, k, v, do = (bf16_draw(rng, (b, h, s, dh)) for _ in range(4))
     mask = np.ones((b, s), bool)
     if name == "masked":
         mask = rng.integers(0, 2, (b, s)).astype(bool)
@@ -119,7 +99,7 @@ BWD_CASES = {  # name: (shape, causal, valid keys)
 def _bwd_inputs(name):
     shape, causal, valid = BWD_CASES[name]
     rng = np.random.default_rng(len(name))
-    q, k, v, do = (_bf16(rng, shape) for _ in range(4))
+    q, k, v, do = (bf16_draw(rng, shape) for _ in range(4))
     mask = rng.random((shape[0], shape[2])) > 0.3
     if valid is not None:
         mask[:] = np.arange(shape[2]) < valid
@@ -188,10 +168,47 @@ def _emulated_forward(q, k, v, bias, causal, block=64):
     return (acc / l[..., None]).bfloat16(), m + torch.log(l)
 
 
+# The bf16 backward kernels' tiling (csrc/flash_attention_bwd_bf16.cu): a
+# consumer warpgroup owns 64 rows or keys; dq walks K/V tiles of 32 keys
+# (64 at Dh >= 64), dk/dv Q/dO tiles of 32 rows; a block runs two
+# warpgroups that take the tiles alternately when the grid has fewer than
+# 264 blocks.
+KERNEL_TILE = 64
+DKV_ROWS = 32
+SPLIT_BELOW_BLOCKS = 264
+
+
+def _dq_keys(dh):
+    return 32 if dh == 32 else 64
+
+
+def _consumer_groups(b, h, s, tiles):
+    blocks = -(-s // KERNEL_TILE) * b * h
+    return 2 if tiles >= 2 and blocks < SPLIT_BELOW_BLOCKS else 1
+
+
+def _tile_sums(a, x, tile, groups):
+    """``a @ x`` as the kernels sum it: one float32 product per ``tile`` of
+    the contraction axis, each warpgroup adding its tiles (every
+    ``groups``-th) in order, then warpgroup 1's sum added to warpgroup
+    0's."""
+    n = a.shape[-1]
+    sums = [torch.zeros(a.shape[:-1] + x.shape[-1:]) for _ in range(groups)]
+    for i, k0 in enumerate(range(0, n, tile)):
+        sums[i % groups] = sums[i % groups] + (
+            a[..., k0:k0 + tile] @ x[..., k0:k0 + tile, :])
+    out = sums[0]
+    for part in sums[1:]:
+        out = out + part
+    return out
+
+
 def _emulated_backward(q, k, v, bias, o, do, causal):
     """The bf16 backward kernels' arithmetic: float32 p and ds from the bf16
-    operands, each rounded to bf16 as the operand of its products."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    operands, each rounded to bf16 as the operand of its products; dq summed
+    over K/V tiles, dk and dv over Q/dO tiles, per warpgroup."""
+    b, h, s, dh = q.shape
+    scale = 1.0 / math.sqrt(dh)
     q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
     p = torch.softmax(port_attn._scores(q, k, bias, causal), -1)
     delta = (do * o).sum(-1, keepdim=True)
@@ -199,22 +216,30 @@ def _emulated_backward(q, k, v, bias, o, do, causal):
     if causal:
         ds = ds.masked_fill(port_attn._outside_causal_band(q), 0.0)
     p16, ds16 = _rounded(p), _rounded(ds)
-    return ((ds16 @ k * scale).bfloat16(),
-            (ds16.transpose(-1, -2) @ q * scale).bfloat16(),
-            (p16.transpose(-1, -2) @ do).bfloat16())
+    keys = _dq_keys(dh)
+    dq_groups = _consumer_groups(b, h, s, -(-s // keys))
+    dkv_groups = _consumer_groups(b, h, s, -(-s // DKV_ROWS))
+    return ((_tile_sums(ds16, k, keys, dq_groups) * scale).bfloat16(),
+            (_tile_sums(ds16.transpose(-1, -2), q, DKV_ROWS, dkv_groups)
+             * scale).bfloat16(),
+            _tile_sums(p16.transpose(-1, -2), do, DKV_ROWS,
+                       dkv_groups).bfloat16())
 
 
-@pytest.mark.parametrize("shape", [(2, 4, 650, 32), (8, 8, 50, 32)])
+@pytest.mark.parametrize("shape", [(2, 4, 650, 32), (8, 8, 50, 32),
+                                   (1, 1, 4096, 64), (2, 2, 300, 128)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_operand_rounding_meets_the_card_bar(shape, causal):
     """Why the bf16 kernels keep p and ds in one bf16 term: with P (forward)
-    and p, ds (backward) rounded to bf16 operands and every sum in float32,
-    O, dq, dk and dv stay within the card's bar of the plain bf16 versions,
+    and p, ds (backward) rounded to bf16 operands and every sum in float32
+    (the backward's per tile and per warpgroup, S=4096 and Dh=128
+    included), O, dq, dk and dv stay within the card's bar of the plain
+    bf16 versions,
     and lse within 2e-5 (the scores are exact products summed in
     float32), fully masked rows included."""
     rng = np.random.default_rng(17)
     b, h, s, dh = shape
-    q, k, v, do = (torch.from_numpy(_bf16(rng, shape)).bfloat16()
+    q, k, v, do = (torch.from_numpy(bf16_draw(rng, shape)).bfloat16()
                    for _ in range(4))
     mask = torch.from_numpy(rng.random((b, s)) > 0.3)
     mask[:, 0] = True
@@ -259,7 +284,7 @@ def test_bf16_cpu_path_never_upcasts_its_output():
     """A bf16 forward on the CPU returns bf16 and its gradients are bf16,
     through the plain version (the kernels' counts stay put)."""
     rng = np.random.default_rng(3)
-    q, k, v = (torch.from_numpy(_bf16(rng, (1, 2, 9, 32))).bfloat16()
+    q, k, v = (torch.from_numpy(bf16_draw(rng, (1, 2, 9, 32))).bfloat16()
                .requires_grad_() for _ in range(3))
     before = _launches()
     o = port_attn.dot_product_attention(q, k, v, causal=True)
@@ -267,60 +292,3 @@ def test_bf16_cpu_path_never_upcasts_its_output():
     assert o.dtype == torch.bfloat16
     assert all(g.dtype == torch.bfloat16 for g in grads)
     assert _launches() == before
-
-
-def _card_inputs(shape, seed, fully_masked=True):
-    b, _, s, _ = shape
-    g = torch.Generator().manual_seed(seed)
-    q, k, v, do = (torch.randn(shape, generator=g).bfloat16().cuda()
-                   for _ in range(4))
-    mask = torch.rand(b, s, generator=g) > 0.3
-    mask[:, 0] = True
-    if fully_masked:
-        mask[-1] = False
-    return q, k, v, do, mask.cuda()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 8, 50, 32), (2, 4, 650, 32),
-                                   (2, 4, 512, 64), (2, 2, 100, 128)])
-@pytest.mark.parametrize("causal", [False, True])
-def test_bf16_kernels_match_plain_on_card(shape, causal):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
-    q, k, v, do, mask = _card_inputs(shape, sum(shape))
-    b, _, s, _ = shape
-    before = port_attn.BF16_FWD_LAUNCHES
-    o, lse = port_attn.flash_attention_forward(q, k, v, mask, causal)
-    assert port_attn.BF16_FWD_LAUNCHES == before + 1
-    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
-    bias = port_attn.key_bias(mask, b, s, q.device)
-    assert_bf16_close(o, port_attn.attention_reference(q, k, v, bias, causal),
-                      "O")
-    torch.testing.assert_close(
-        lse, port_attn.attention_reference_lse(q, k, bias, causal), **LSE_TOL)
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    got = torch.autograd.grad(
-        port_attn.dot_product_attention(*leaves, mask, causal), leaves, do)
-    want = port_attn.attention_reference_backward(q, k, v, bias, o, do, causal)
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        assert g.dtype == torch.bfloat16
-        assert_bf16_close(g, w, name)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("s", [16, 17, 63, 64, 65, 128, 129])
-@pytest.mark.parametrize("dh", [32, 64, 128])
-def test_bf16_kernel_tile_edges_on_card(s, dh):
-    """The bf16 kernels' tile edges, causal, with a fully masked row: within
-    the card's bar, and a second call bitwise equal."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
-    shape = (2, 2, s, dh)
-    q, k, v, do, mask = _card_inputs(shape, s * dh)
-    bias = port_attn.key_bias(mask, 2, s, q.device)
-    got = port_attn.flash_attention_forward(q, k, v, mask, True)
-    again = port_attn.flash_attention_forward(q, k, v, mask, True)
-    assert all(torch.equal(x, y) for x, y in zip(got, again))
-    assert_bf16_close(
-        got[0], port_attn.attention_reference(q, k, v, bias, True), "O")
