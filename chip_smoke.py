@@ -86,13 +86,30 @@ Phases, each of which must pass (any failure exits non-zero):
     (c) crello_flat at batch 64 in bf16: (b)'s parity on 16 documents and
     30 timed steps.  Every bf16 path launches only bf16 kernels, every
     float32 path only float32 ones.
+13. trainer (crello Ours-EXP, batch 256, the 512/64/64 split of 8): (a)
+    the ``Prefetcher`` with the trainer's ``PinnedCopy`` (pinned host
+    arrays, a side-stream copy, an event the main stream waits on) over
+    two passes of the loader while a training step runs on the main stream
+    for each batch: every device batch equal to its host batch; (b) a
+    2-epoch ``--input_mode device`` CLI run, ``--resume --num_epochs 3``
+    on a copy of its job, against a fresh 3-epoch run: the histories
+    within 1e-5 relative; (c) that fresh run with ``--enable_profile``: its
+    trace names the forward, dq and dk/dv kernels; (d) one step with
+    ``remat`` against the step without it (dropout on): loss within 1e-5
+    relative, gradients within 1e-5 + 1e-3 of the leaf's largest entry,
+    the forward launched 8 times a step instead of 4; the peak memory of
+    a crello_flat step at batch 64 with and without ``remat``; (e) the
+    CLI's documents per second from ``history.jsonl`` wall times, host
+    mode without the prefetch thread (the parent's loop), host mode with
+    it, and device mode, in turns.
 Each step phase ends with a ``torch.profiler`` window: device kernel time
 per step, its attention share and the busiest kernels.
 
 The last lines are one JSON object per kernel, float32 and bf16 instances
 (times at the training shape (256, 8, 50, 32); ``launches`` from the
 training CLI run of the instance's dtype and ``launches_by_path`` from
-each training path's 30 steps and each eval path's CLI runs), the card's
+each training path's 30 steps, each eval path's CLI runs and each
+trainer path of phase 13), the card's
 name
 and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 """
@@ -1792,6 +1809,345 @@ def phase_bf16(card, root, data_dir, spec, batch, data, f32_losses,
     }
 
 
+
+# ---------------------------------------------------------------------------
+# 13. trainer: the prefetch thread, the device-resident split, resume,
+# --enable_profile, remat and the CLI's documents per second.
+# ---------------------------------------------------------------------------
+
+TIMED_EPOCHS = 8  # 2 steps an epoch on the 512-record split
+
+
+def _step_model(args, remat=False, dropout=None):
+    """A crello-shaped model (seed 0) on the card with its step, task
+    config and a generator on the card (seed 0)."""
+    import torch
+
+    from flexdm_tpu_torch.config import TrainConfig, build_model
+    from flexdm_tpu_torch.convert import init_params
+    from flexdm_tpu_torch.data import DatasetSpec
+    from flexdm_tpu_torch.models import make_task_config
+    from flexdm_tpu_torch.train.optim import KerasAdam
+    from flexdm_tpu_torch.train.trainer import make_train_step
+
+    overrides = {"remat": remat}
+    if dropout is not None:
+        overrides["dropout"] = dropout
+    config = TrainConfig.from_args(dict(args, **overrides))
+    schema = DatasetSpec(config.dataset_name, config.data_dir).schema
+    task_config = make_task_config(schema, config.masking_method)
+    model = init_params(build_model(config, schema), 0).cuda()
+    adam = KerasAdam(model.parameters(), config.learning_rate)
+    step = make_train_step(model, task_config, adam, config.l2)
+    return model, adam, step, task_config, schema
+
+
+def _draws(model, schema, task_config, b, generator):
+    from flexdm_tpu_torch.models.masking import draw_train
+
+    draws = draw_train(schema, b, task_config.task_probs, generator,
+                       **model.draw_options())
+    draws.dropout = generator
+    return draws
+
+
+def trainer_prefetch(args, spec, card):
+    """13(a): the ``Prefetcher`` with the trainer's ``PinnedCopy`` over an
+    epoch of the train split (2 repeats of the loader), a training step on
+    the main stream reading each batch; each device batch equal to its
+    host batch after ``.cpu()``."""
+    import torch
+
+    from flexdm_tpu_torch.data import split_device_batch
+    from flexdm_tpu_torch.data.pipeline import Prefetcher
+    from flexdm_tpu_torch.ops import attention as attn
+    from flexdm_tpu_torch.train.trainer import PinnedCopy
+
+    model, _, step, task_config, schema = _step_model(args)
+    generator = torch.Generator("cuda").manual_seed(0)
+
+    def loader():
+        return spec.make_dataset("train", batch_size=TRAIN_BATCH,
+                                 shuffle=True, repeat=True, seed=0,
+                                 drop_remainder=True)
+
+    n = 2 * (loader().num_records // TRAIN_BATCH)
+    host = iter(loader())
+    copy = PinnedCopy("cuda")
+    prefetcher = Prefetcher(loader(), depth=2, transform=copy)
+    batches = iter(prefetcher)
+    attn.reset_launch_counts()
+    try:
+        for i in range(n):
+            batch = copy.take(next(batches))
+            metrics = step(batch, _draws(model, schema, task_config,
+                                         TRAIN_BATCH, generator))
+            want = split_device_batch(next(host))
+            check(set(batch) == set(want), f"batch keys {sorted(batch)}")
+            for k, v in want.items():
+                check(torch.equal(batch[k].cpu(), torch.from_numpy(v)),
+                      f"prefetched batch {i}: {k} differs from the host's")
+        torch.cuda.synchronize()
+    finally:
+        prefetcher.close()
+    counts = launch_counts()
+    check(not prefetcher._thread.is_alive(), "the prefetch thread runs on")
+    check(math.isfinite(metrics["loss"].item()), "non-finite loss")
+    for name in F32_KERNELS:
+        check(counts[name] >= 4 * n, f"{name} launched {counts} in {n} steps")
+    log(f"[trainer] Prefetcher + PinnedCopy: {n} batches of {TRAIN_BATCH} "
+        f"copied on a side stream while {n} steps ran on the main stream, "
+        f"each equal to its host batch; launches {counts}")
+    return counts
+
+
+def _cli(argv, data_dir, job, extra=()):
+    """``python -m flexdm_tpu_torch``'s ``main()`` on crello Ours-EXP;
+    returns the history, the launches and the seconds."""
+    import torch
+
+    from flexdm_tpu_torch.cli import main as train_main
+    from flexdm_tpu_torch.ops import attention as attn
+
+    attn.reset_launch_counts()
+    t0 = time.perf_counter()
+    train_main(["--preset", "crello_ours_exp", "--data_dir", data_dir,
+                "--job-dir", job, "--log_level", "WARNING", *argv, *extra])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    with open(os.path.join(job, "logs", "history.jsonl")) as f:
+        history = [json.loads(line) for line in f]
+    check(all(finite(h) for h in history), f"non-finite history {history}")
+    return history, counts, seconds
+
+
+def _history_gap(a, b):
+    """Largest relative differences between two histories' numbers, of the
+    training fields and of the validation (``val_*``) ones; wall times
+    aside, every other value must be equal."""
+    worst = {"train": 0.0, "val": 0.0}
+    for x, y in zip(a, b):
+        check(set(x) == set(y), f"history keys {sorted(x)} vs {sorted(y)}")
+        for k, v in x.items():
+            if k == "wall_time":
+                continue
+            if not isinstance(v, float):
+                check(v == y[k], f"history {k}: {v} vs {y[k]}")
+                continue
+            part = "val" if k.startswith("val_") else "train"
+            worst[part] = max(worst[part],
+                              abs(v - y[k]) / max(abs(y[k]), 1e-30))
+    return worst
+
+
+def trainer_resume(root, data_dir, card):
+    """13(b), 13(c): a 2-epoch ``--input_mode device`` CLI run, then
+    ``--resume --num_epochs 3`` on a copy of its job, against a fresh
+    3-epoch run with ``--enable_profile`` whose trace names the three
+    kernels."""
+    import shutil
+
+    job = os.path.join(root, "trainer_job")
+    argv = ["--input_mode", "device", "--validation_freq", "1"]
+    first, first_counts, _ = _cli(argv + ["--num_epochs", "2"], data_dir,
+                                  job)
+    resumed_job = job + "_resumed"
+    shutil.copytree(job, resumed_job)
+    resumed, resume_counts, _ = _cli(
+        argv + ["--num_epochs", "3", "--resume"], data_dir, resumed_job)
+    fresh_job = os.path.join(root, "trainer_job_fresh")
+    fresh, fresh_counts, _ = _cli(
+        argv + ["--num_epochs", "3", "--enable_profile"], data_dir,
+        fresh_job)
+    steps = first[-1]["step"] // 2
+    check([h["epoch"] for h in resumed] == [1, 2, 3]
+          and resumed[:2] == first, f"resumed history {resumed}")
+    check([h["step"] for h in fresh] == [steps, 2 * steps, 3 * steps],
+          f"fresh history {fresh}")
+    # One epoch of training (the forward also runs in validation and test).
+    check(resume_counts["dq"] == resume_counts["dkv"] == 4 * steps
+          and resume_counts["fwd"] >= 4 * steps,
+          f"the resumed run (1 epoch) launched {resume_counts}")
+    # Training fields to the step's loss bar, validation fields to the
+    # eval sums' bar (PERF.md section 2): the card's validation losses
+    # differ from run to run by ~1e-6 even where the training losses are
+    # bitwise equal.
+    gap = _history_gap(resumed, fresh)
+    check(gap["train"] <= 1e-5 and gap["val"] <= EVAL_RTOL,
+          f"resumed history differs from the fresh run by {gap} "
+          f"(relative): {resumed} vs {fresh}")
+    log(f"[trainer] --input_mode device: 2 epochs, then --resume to 3 on a "
+        f"copy of the job, against a fresh 3-epoch run: largest relative "
+        f"history difference {gap['train']:.3e} in the training fields "
+        f"(bar 1e-5), {gap['val']:.3e} in the validation ones (bar "
+        f"{EVAL_RTOL:g}); the 2-epoch run against the fresh run's first 2 "
+        f"epochs: {_history_gap(first, fresh[:2])}; launches 2-epoch "
+        f"{first_counts}, resumed epoch {resume_counts}")
+
+    traces = [os.path.join(dirpath, f) for dirpath, _, files in
+              os.walk(os.path.join(fresh_job, "logs", "trace"))
+              for f in files if f.endswith(".json")]
+    check(len(traces) == 1, f"--enable_profile wrote {traces}")
+    with open(traces[0]) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    found = {kernel: sum(1 for n in names if kernel in n) for kernel in
+             ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+              "flash_bwd_dkv_kernel")}
+    check(all(found.values()), f"the trace misses a kernel: {found} in "
+          f"{sorted(names)[:20]}")
+    log(f"[trainer] --enable_profile: {os.path.relpath(traces[0], root)} "
+        f"({os.path.getsize(traces[0]) / 1e6:.1f} MB) names "
+        f"{sorted(n for n in names if 'flash_' in n)}")
+    return {"trainer_device_cli": first_counts,
+            "trainer_resume_cli": resume_counts,
+            "trainer_profiled_cli": fresh_counts}
+
+
+def trainer_remat(args, flat_args, spec, batch, card):
+    """13(d): one full-width crello Ours-EXP step with ``remat`` against
+    the step without it (dropout on, the same draws): loss within 1e-5
+    relative, gradients within 1e-5 + 1e-3 of the leaf's largest entry;
+    the forward launched twice a block.  Then the peak memory of one
+    crello_flat step at batch 64 with and without ``remat``."""
+    import torch
+
+    from flexdm_tpu_torch.ops import attention as attn
+
+    b = batch["length"].shape[0]
+    device_batch = {k: v.cuda() for k, v in batch.items()}
+    results, counts = {}, {}
+    for remat in (False, True):
+        model, adam, step, task_config, schema = _step_model(args, remat)
+        generator = torch.Generator("cuda").manual_seed(5)
+        draws = _draws(model, schema, task_config, b, generator)
+        attn.reset_launch_counts()
+        metrics = step(device_batch, draws)
+        torch.cuda.synchronize()
+        counts[remat] = launch_counts()
+        results[remat] = (metrics["loss"].item(),
+                          [mu.cpu() / 0.1 for mu in adam.mu])
+        del model, adam, step
+    (loss, grads), (r_loss, r_grads) = results[False], results[True]
+    check(abs(r_loss - loss) <= 1e-5 * abs(loss),
+          f"remat loss {r_loss} vs {loss}")
+    worst = 0.0
+    for g, r in zip(grads, r_grads):
+        err = (g - r).abs().max().item()
+        worst = max(worst, err)
+        check(err <= 1e-5 + 1e-3 * g.abs().max().item(),
+              f"remat gradient differs by {err}")
+    check(counts[False]["fwd"] == 4 and counts[True]["fwd"] == 8,
+          f"forward launches per step {counts}")
+    check(counts[True]["dq"] == counts[True]["dkv"] == 4,
+          f"remat backward launches {counts[True]}")
+    log(f"[trainer] remat, crello Ours-EXP batch {b}, dropout on: loss "
+        f"{r_loss:.6f} vs {loss:.6f}, max |dg| {worst:.2e}; forward "
+        f"launches per step {counts[False]['fwd']} without, "
+        f"{counts[True]['fwd']} with remat; launches {counts[True]}")
+
+    flat_batch = {k: v[:FLAT_BATCH].cuda() for k, v in batch.items()}
+    peak = {}
+    for remat in (False, True):
+        model, adam, step, task_config, schema = _step_model(flat_args, remat)
+        generator = torch.Generator("cuda").manual_seed(5)
+        draws = _draws(model, schema, task_config, FLAT_BATCH, generator)
+        step(flat_batch, draws)  # Adam's moments exist from here on
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        step(flat_batch, draws)
+        torch.cuda.synchronize()
+        peak[remat] = (torch.cuda.max_memory_allocated(), start)
+        del model, adam, step, draws
+        torch.cuda.empty_cache()
+    # What was allocated before the step (the weights, Adam state and
+    # batch, and whatever earlier phases still hold) is given apart.
+    mib = {remat: [x / 2**20 for x in peak[remat]] for remat in peak}
+    log(f"[trainer] remat memory, crello_flat batch {FLAT_BATCH} (S=500), "
+        f"one step, torch.cuda.max_memory_allocated: without remat "
+        f"{mib[False][0]:.1f} MiB ({mib[False][1]:.1f} before the step, "
+        f"+{mib[False][0] - mib[False][1]:.1f} in it), with remat "
+        f"{mib[True][0]:.1f} MiB ({mib[True][1]:.1f} before, "
+        f"+{mib[True][0] - mib[True][1]:.1f}) [{card}]")
+    check(peak[True][0] < peak[False][0], f"remat did not lower the peak: "
+          f"{peak}")
+    return {"trainer_remat_step": counts[True]}
+
+
+class SerialHostBatches:
+    """The parent's host loop, as ``HostBatches``'s stand-in: each batch
+    decoded, stacked and copied on the main thread when the step asks for
+    it (``to_device(next(batches))``)."""
+
+    def __init__(self, loader, device):
+        from flexdm_tpu_torch.train.trainer import to_device
+
+        self._batches, self._device, self._copy = iter(loader), device, \
+            to_device
+
+    def __next__(self):
+        return self._copy(next(self._batches), self._device)
+
+    def close(self):
+        pass
+
+
+def trainer_docs_per_s(root, data_dir, card):
+    """13(e): the CLI's documents per second from ``history.jsonl`` wall
+    times after the first epoch (validation only at the end), for host
+    mode without the prefetch thread (:class:`SerialHostBatches`), host
+    mode with it, and device mode, in turns (A B C C B A)."""
+    from flexdm_tpu_torch.train import trainer
+
+    setups = {"host, no prefetch": ["--input_mode", "host"],
+              "host, prefetch": ["--input_mode", "host"],
+              "device": ["--input_mode", "device"]}
+    order = list(setups) + list(reversed(setups))
+    rates = {name: [] for name in setups}
+    counts = {}
+    real = trainer.HostBatches
+    for i, name in enumerate(order):
+        job = os.path.join(root, f"trainer_rate_{i}")
+        if name == "host, no prefetch":
+            trainer.HostBatches = SerialHostBatches
+        try:
+            history, counts[name], _ = _cli(
+                setups[name] + ["--num_epochs", str(TIMED_EPOCHS),
+                                "--validation_freq", "1000"], data_dir, job)
+        finally:
+            trainer.HostBatches = real
+        steps = history[-1]["step"] - history[0]["step"]
+        seconds = history[-1]["wall_time"] - history[0]["wall_time"]
+        rates[name].append(steps * TRAIN_BATCH / seconds)
+        check(counts[name]["fwd"] >= 4 * history[-1]["step"],
+              f"{name}: launches {counts[name]}")
+    log(f"[time] CLI documents/s, crello Ours-EXP batch {TRAIN_BATCH}, "
+        f"512-record split, epochs 2-{TIMED_EPOCHS} ({TIMED_EPOCHS - 1} x 2 "
+        f"steps) from history.jsonl wall times, runs in turns A B C C B A: "
+        + "; ".join(f"{name} {', '.join(f'{r:.1f}' for r in rs)}"
+                    for name, rs in rates.items()) + f" [{card}]")
+    return rates, {"trainer_host_serial_cli": counts["host, no prefetch"],
+                   "trainer_host_prefetch_cli": counts["host, prefetch"],
+                   "trainer_device_rate_cli": counts["device"]}
+
+
+def phase_trainer(card, root, data_dir, spec, batch):
+    """13. The trainer's input modes, resume, profiling and remat on the
+    card; returns the documents per second and the launches per path."""
+    t0 = time.perf_counter()
+    args = load_args(CONFIG, data_dir)
+    paths = {"trainer_prefetch_steps": trainer_prefetch(args, spec, card)}
+    paths.update(trainer_resume(root, data_dir, card))
+    paths.update(trainer_remat(args, load_args(FLAT_CONFIG, data_dir), spec,
+                               batch, card))
+    rates, rate_counts = trainer_docs_per_s(root, data_dir, card)
+    paths.update(rate_counts)
+    log(f"[trainer] phase done in {time.perf_counter() - t0:.1f} s")
+    return rates, paths
+
+
 def main():
     import torch
 
@@ -1825,16 +2181,21 @@ def main():
         bf16_ms, bf16_flat_ms, bf16_counts = phase_bf16(
             card, root, data_dir, spec, batch, data, f32_losses, step_ms,
             flat_ms)
+        rates, trainer_counts = phase_trainer(card, root, data_dir, spec,
+                                              batch)
     log(f"[time] summary: train step crello Ours-EXP {step_ms:.2f} ms "
         f"(bf16 {bf16_ms:.2f} ms), rico Ours-EXP {rico_ms:.2f} ms (batch "
         f"{TRAIN_BATCH}), crello_flat {flat_ms:.2f} ms (bf16 "
         f"{bf16_flat_ms:.2f} ms, batch {FLAT_BATCH}); /predict num_iter="
-        f"{MASKGIT_ITERS} {maskgit_ms:.2f} ms ({BATCH} docs) [{card}]")
+        f"{MASKGIT_ITERS} {maskgit_ms:.2f} ms ({BATCH} docs); CLI "
+        f"documents/s " + ", ".join(f"{k} {statistics.median(v):.1f}"
+                                    for k, v in rates.items())
+        + f" [{card}]")
     by_path = {"crello_ours_exp_steps": step_counts,
                "crello_ours_exp_cli": train_counts,
                "rico_ours_exp_steps": rico_counts,
                "crello_flat_steps": flat_counts, **eval_counts,
-               **bf16_counts}
+               **bf16_counts, **trainer_counts}
     # The training shape, which every kernel of the path runs at (the
     # forward also serves at (8, 8, 50, 32) and crello_flat runs
     # (64, 8, 500, 32): the log lines above).

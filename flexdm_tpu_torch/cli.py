@@ -1,13 +1,19 @@
 """``python -m flexdm_tpu_torch``: train an MFP model with the port.
 
 The flags and ``--preset`` mirror ``flexdm_tpu/cli.py`` (``python -m
-flexdm_tpu``), plus ``--device`` (default ``cuda``).  A flag that selects
-something the port does not have yet raises ``NotImplementedError``:
-``--resume``, ``--weights``, ``--num_devices``/``--model_parallel`` above 1,
-``--enable_profile``, ``--input_mode device``, ``--checkpoint_every``, an
-``--attention_impl`` other than ``auto``, every ``--arch_type`` but the
-oneshot model and a ``--dtype`` other than ``float32`` and ``bfloat16``
-(``build_model`` raises for those two).  ``--dtype bfloat16`` computes in
+flexdm_tpu``), plus ``--device`` (default ``cuda``).  ``--input_mode``
+defaults to ``device`` (the train split resident on the card), as the JAX
+CLI's does; ``host`` streams it through a prefetch thread.  ``--resume``
+continues from ``checkpoints/last.torch.npz``, ``--checkpoint_every``
+sets how often ``last`` is written, ``--weights`` warm-starts from a
+``*.torch.npz`` weight file (a JAX job's checkpoint is converted with
+``tools/export_torch_weights.py``), ``--enable_profile`` writes a
+``torch.profiler`` trace to ``logs/trace``.  A flag that selects something
+the port does not have yet raises ``NotImplementedError``:
+``--num_devices``/``--model_parallel`` above 1, an ``--attention_impl``
+other than ``auto``, every ``--arch_type`` but the oneshot model and a
+``--dtype`` other than ``float32`` and ``bfloat16`` (``build_model``
+raises for those two).  ``--dtype bfloat16`` computes in
 bf16 where the JAX package does; parameters, gradients, the optimizer
 state and checkpoints stay float32.
 """
@@ -83,7 +89,7 @@ def make_parser() -> argparse.ArgumentParser:
     add("--enable_profile", action="store_true")
     add("--validation_freq", default=10, type=int)
     add("--resume", action="store_true")
-    add("--input_mode", default="host", choices=["device", "host"])
+    add("--input_mode", default="device", choices=["device", "host"])
     add("--checkpoint_every", default=None, type=int)
     add("--device", default="cuda", help="torch device to train on")
     return parser
@@ -91,13 +97,8 @@ def make_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     unported = {
-        "--resume": args.resume,
-        "--weights": args.weights is not None,
         "--num_devices > 1": (args.num_devices or 1) > 1,
         "--model_parallel > 1": args.model_parallel > 1,
-        "--enable_profile": args.enable_profile,
-        "--input_mode device": args.input_mode == "device",
-        "--checkpoint_every": args.checkpoint_every is not None,
         f"--attention_impl {args.attention_impl}": args.attention_impl != "auto",
     }
     for flag, given in unported.items():

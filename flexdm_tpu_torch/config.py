@@ -1,11 +1,14 @@
 """Job configuration and model construction.
 
 Counterpart of ``TrainConfig`` and ``build_model`` in
-``flexdm_tpu/train/trainer.py``, for the fields the port has: the model,
-the task mix, the optimizer, the schedule and the device.  A job's
-``args.json`` (written by either trainer) is read with
-:meth:`TrainConfig.from_args`; fields the port does not have (mesh,
-resume, profiling, ...) are ignored there, and the CLI refuses them.
+``flexdm_tpu/train/trainer.py``, for the fields the port has: the model
+(``remat`` included), the task mix, the optimizer, the schedule, the
+input mode, warm start, resuming and the ``last`` checkpoint's period,
+profiling and the device.  A job's ``args.json`` (written by either
+trainer) is read with :meth:`TrainConfig.from_args`; fields the port does
+not have (the mesh, the attention implementation, the baselines' KL
+weight, ...) are ignored there, and the CLI refuses the mesh and an
+attention implementation other than ``auto``.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ class TrainConfig:
     dropout: float = 0.1
     num_heads: int = 8
     dtype: Optional[str] = None
+    remat: bool = False  # recompute each block's activations in the backward
     use_elemwise_noise: bool = False
     masking_method: str = "random"
     l2: Optional[float] = 1e-2
@@ -42,6 +46,15 @@ class TrainConfig:
     learning_rate: float = 1e-4
     validation_freq: int = 10
     seed: int = 0
+    weights: Optional[str] = None  # warm start from a *.torch.npz weight file
+    resume: bool = False  # continue from checkpoints/last.torch.npz
+    # Write 'last' every N epochs (None: every validation_freq epochs; 0:
+    # only at the end of the run) and at the end.
+    checkpoint_every: Optional[int] = None
+    # 'device': the train split resident on the device, batches gathered
+    # there; 'host': batches from the host loader through a prefetch thread.
+    input_mode: str = "device"
+    enable_profile: bool = False  # a torch.profiler trace in logs/trace
     device: str = "cuda"  # the torch device the job trains on
 
     def to_json(self) -> Dict[str, Any]:
@@ -73,4 +86,5 @@ def build_model(config: TrainConfig, schema: Schema) -> MFPModel:
         seq_type=config.seq_type,
         use_elemwise_noise=config.use_elemwise_noise,
         dtype=config.dtype,
+        remat=config.remat,
     )

@@ -1,26 +1,37 @@
-"""Host-side input pipeline: TFRecord shards -> fixed-shape numpy batches.
+"""Input pipeline: TFRecord shards -> fixed-shape batches, on the host or
+resident on the device.
 
-The port's own copy of the host loader of ``flexdm_tpu/data/pipeline.py``
-(``DataLoader``, ``split_device_batch``).  The JAX package's
-device-resident input mode (``DeviceDataCache`` and its gathers) is not
-carried over: the port's CLI refuses that mode.
+The port's own copy of ``flexdm_tpu/data/pipeline.py``:
 
-* **Static shapes.**  Every batch is ``(B, max_length, C)``.
-* **Decode once, cache.**  Records are decoded to compact per-record arrays on
-  first touch and cached in RAM; batches are then ``np.stack`` calls.
-* **Deterministic shuffling** from an explicit seed, re-derived per epoch.
-* **Final partial batches** are padded up to ``batch_size`` and annotated with
-  ``num_valid`` so evaluation can keep exact num/den score accounting.
+* :class:`DataLoader` streams padded numpy batches of one split.  Static
+  shapes: every batch is ``(B, max_length, C)``.  Records are decoded
+  once, on first touch, and cached in RAM; batches are ``np.stack`` calls.
+  The shuffle is re-derived per epoch from ``seed + epoch``, its epoch
+  counted from 0.  A final partial batch is padded up to ``batch_size``
+  and annotated with ``num_valid`` so evaluation keeps exact num/den
+  score accounting.
+* :class:`Prefetcher` runs any batch iterable (and a transform, such as
+  the host-to-device copy) in a background thread.
+* :class:`DeviceDataCache` stacks every record of a split once into
+  tensors on one device; a batch is an ``index_select`` on a ``(B,)``
+  index tensor, and :meth:`DeviceDataCache.epoch_indices` shuffles from
+  ``seed + epoch`` with the epoch counted from 1, as the JAX trainer
+  passes it, so the two packages' device-mode batches are the same
+  records.  The two modes' batch orders differ, as in JAX.
 
-The JAX package's per-host record sharding (``num_hosts``, ``host_id``) is
-not carried over: the port runs on one device (ROADMAP Queue A #11).
+The JAX package's per-host record sharding (``num_hosts``, ``host_id``)
+and its mesh-sharded cache are not carried over: the port runs on one
+device (ROADMAP Queue A #11).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Optional
+import queue
+import threading
+from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
+import torch
 
 from . import tfrecord
 
@@ -110,6 +121,100 @@ class DataLoader:
             if not self.repeat:
                 return
             epoch += 1
+
+
+class Prefetcher:
+    """Background-thread prefetch over any iterable, ``depth`` items ahead.
+
+    ``transform`` runs in the worker thread (the trainer passes the
+    host-to-device copy there, so copies overlap the steps).  An error in
+    the worker is raised in the consumer, after the items made before it.
+    :meth:`close` stops the worker (an endless loader would otherwise keep
+    it blocked on a full queue).
+    """
+
+    def __init__(self, iterable: Iterable, depth: int = 2,
+                 transform: Optional[Callable] = None):
+        self._queue: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._sentinel = object()
+        self._err: Optional[BaseException] = None
+        self._closed = threading.Event()
+
+        def worker():
+            try:
+                for item in iterable:
+                    if self._closed.is_set():
+                        return
+                    self._put(transform(item) if transform is not None
+                              else item)
+            except BaseException as e:  # raised again in the consumer
+                self._err = e
+            finally:
+                self._put(self._sentinel)
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> None:
+        while not self._closed.is_set():
+            try:
+                self._queue.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def __iter__(self):
+        while True:
+            item = self._queue.get()
+            if item is self._sentinel:
+                if self._err is not None:
+                    raise self._err
+                return
+            yield item
+
+    def close(self, timeout: float = 10.0) -> None:
+        """Stop the worker and drop what it had queued."""
+        self._closed.set()
+        while True:
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join(timeout)
+
+
+class DeviceDataCache:
+    """A whole split resident on one device.
+
+    Every record is stacked once into one tensor per field on ``device``
+    (the strings stay in the loader's host records); each training step
+    then gathers its batch with ``index_select`` on a ``(B,)`` index
+    tensor, so the only per-step traffic is the indices.  A failed upload
+    raises: there is no host fallback.
+    """
+
+    def __init__(self, loader: DataLoader, device):
+        records = [loader._record(i) for i in range(loader.num_records)]
+        self.num_records = len(records)
+        self.data: Dict[str, torch.Tensor] = {}
+        for k, v in records[0].items():
+            if isinstance(v, np.ndarray) and v.dtype == object:
+                continue
+            stacked = np.stack([r[k] for r in records], axis=0)
+            self.data[k] = torch.from_numpy(stacked).to(device)
+
+    def gather(self, indices: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Batch = dataset[indices], computed on the cache's device."""
+        return {k: v.index_select(0, indices) for k, v in self.data.items()}
+
+    def epoch_indices(self, batch_size: int, seed: int,
+                      epoch: int) -> np.ndarray:
+        """The epoch's ``(steps, batch_size)`` int64 index block:
+        ``default_rng(seed + epoch).permutation``, remainder dropped."""
+        order = np.random.default_rng(seed + epoch).permutation(
+            self.num_records)
+        steps = self.num_records // batch_size
+        return order[:steps * batch_size].reshape(steps, batch_size)
 
 
 def split_device_batch(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:

@@ -21,6 +21,9 @@ prediction to float32.  MaskGIT's confidences are taken in the logits'
 dtype, as in JAX, so bf16 confidences can tie exactly; every tied field at
 the threshold is committed.
 
+``remat=True`` recomputes each block in the backward
+(:class:`~.transformer.Blocks`), as JAX's ``MFPModel(remat=True)`` does.
+
 The baselines are not in this port yet.
 """
 
@@ -74,7 +77,7 @@ class MFPModel(nn.Module):
                  num_heads: int = 8, dropout: float = 0.1,
                  context: Optional[str] = None, input_dtype: str = "set",
                  seq_type: str = "default", use_elemwise_noise: bool = False,
-                 dtype: Optional[str] = None):
+                 dtype: Optional[str] = None, remat: bool = False):
         super().__init__()
         compute = compute_dtype(dtype)
         if input_dtype not in INPUT_DTYPES:
@@ -100,7 +103,7 @@ class MFPModel(nn.Module):
         self.blocks = Blocks(
             latent_dim=latent_dim, num_blocks=num_blocks,
             block_type=block_type, num_heads=num_heads, dropout=dropout,
-            dtype=compute,
+            dtype=compute, remat=remat,
         )
         self.decoder = Decoder(schema, latent_dim, context, detachment,
                                compute)

@@ -22,6 +22,15 @@ casts its input, kernel and bias to it at apply time (:func:`dense`), as
 only its output (:func:`layer_norm`), as flax's does.  Everything else
 follows PyTorch's promotion (bf16 + float32 -> float32), which is JAX's.
 
+``remat=True`` recomputes each block's activations in the backward
+(``torch.utils.checkpoint``, non-reentrant), as JAX's ``nn.remat`` over
+each block does: the forward kernel then runs twice a block per training
+step.  The recomputation replays the block's dropout draws: its
+``preserve_rng_state`` covers only the default CPU and CUDA generators,
+not the explicit one the blocks draw from, so :func:`_remat_block` saves
+that generator's state before the block, sets it back for the
+recomputation and then restores the state the generator had.
+
 Cross-attention and the conditional input are used only by the
 baselines; they are not in this port yet.
 """
@@ -33,6 +42,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention
 from ..ops.rng import FastDropout
@@ -165,14 +175,41 @@ BLOCK_TYPES = {
 }
 
 
+def _remat_block(block: nn.Module, seq: torch.Tensor,
+                 key_mask: Optional[torch.Tensor],
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``block(seq, key_mask, generator)`` under ``torch.utils.checkpoint``,
+    its recomputation drawing the same dropout masks as its forward.  The
+    recomputation may stop early, by an exception, once it has rebuilt the
+    saved tensors: the generator's state is restored in a ``finally``."""
+    start = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(x, mask):
+        if start is None or not calls:  # the forward
+            calls.append(True)
+            return block(x, mask, generator)
+        resume = generator.get_state()  # the recomputation: replay
+        generator.set_state(start)
+        try:
+            return block(x, mask, generator)
+        finally:
+            generator.set_state(resume)
+
+    return checkpoint(run, seq, key_mask, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 class Blocks(nn.Module):
-    """Stack of N blocks named ``seq2seq_{i}`` (transformer.py:219-252)."""
+    """Stack of N blocks named ``seq2seq_{i}`` (transformer.py:219-252);
+    ``remat`` recomputes each block in the backward."""
 
     def __init__(self, latent_dim: int = 128, num_blocks: int = 1,
                  block_type: str = "deepsvg", num_heads: int = 8,
                  lookahead: bool = True, dropout: float = 0.1,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         block_cls = BLOCK_TYPES[block_type]
         for i in range(num_blocks):
             self.add_module(f"seq2seq_{i}", block_cls(
@@ -181,6 +218,10 @@ class Blocks(nn.Module):
             ))
 
     def forward(self, seq, key_mask=None, generator=None):
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.children():
-            seq = block(seq, key_mask, generator)
+            if remat:
+                seq = _remat_block(block, seq, key_mask, generator)
+            else:
+                seq = block(seq, key_mask, generator)
         return seq

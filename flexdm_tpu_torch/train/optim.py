@@ -14,11 +14,14 @@ Counterpart of ``flexdm_tpu/train/optim.py``, which replicates keras
   any other gradient.
 
 Updates are in place on the parameters and on the moment buffers.
+:meth:`KerasAdam.state_dict` and :meth:`KerasAdam.load_state_dict` carry
+the moments and the iteration count in and out of the ``last``
+checkpoint.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -73,6 +76,27 @@ class KerasAdam:
         torch._foreach_mul_(update, self.alpha(self.count))
         torch._foreach_mul_(update, -self.learning_rate)
         torch._foreach_add_(self.params, update)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """``{"count": int, "mu": [...], "nu": [...]}``, the moments in
+        the order of :attr:`params` (the tensors themselves, not copies)."""
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Copy a :meth:`state_dict` in (onto the moments' device); the
+        moments must match :attr:`params` in number and shapes."""
+        for name in ("mu", "nu"):
+            moments = list(state[name])
+            if len(moments) != len(self.params):
+                raise ValueError(f"{name}: {len(moments)} moments for "
+                                 f"{len(self.params)} parameters")
+            for mine, theirs in zip(getattr(self, name), moments):
+                if tuple(mine.shape) != tuple(theirs.shape):
+                    raise ValueError(f"{name}: shape {tuple(theirs.shape)} "
+                                     f"for {tuple(mine.shape)}")
+                mine.copy_(torch.as_tensor(theirs))
+        self.count = int(state["count"])
 
 
 def regularized(model: nn.Module) -> List[torch.Tensor]:

@@ -312,9 +312,7 @@ def test_nan_stops_without_saving(crello_dir, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--resume"], ["--weights", "w"], ["--num_devices", "2"],
-    ["--model_parallel", "2"], ["--enable_profile"],
-    ["--input_mode", "device"], ["--checkpoint_every", "5"],
+    ["--num_devices", "2"], ["--model_parallel", "2"],
     ["--attention_impl", "pallas"],
 ])
 def test_cli_refuses_what_the_port_lacks(flags, tmp_path):
