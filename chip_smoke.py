@@ -7,8 +7,10 @@ Phases, each of which must pass (any failure exits non-zero):
 1. device: a CUDA device is present; prints torch/CUDA versions and the
    card's name and power limit; TF32 off, so float32 means float32;
 2. build: compiles the CUDA libraries from ``flexdm_tpu_torch/csrc`` with
-   nvcc for sm_90a, one nvcc per source, all at once (seconds, printed
-   with the ptxas report);
+   nvcc for sm_90a, one nvcc per source, and the host record decoder
+   (``csrc/tfrecord_io.cc``) with g++ at its first use, all at once
+   (seconds, printed with the ptxas report and g++'s version); fails if
+   the native decoder is not in use (14(a));
 3. kernel: the flash-attention forward kernel (split-TF32 tensor-core
    products) against its plain PyTorch version on the card (O and lse
    within 2e-5 abs + 2e-5 rel, float32) at the serving, training,
@@ -102,14 +104,32 @@ Phases, each of which must pass (any failure exits non-zero):
     CLI's documents per second from ``history.jsonl`` wall times, host
     mode without the prefetch thread (the parent's loop), host mode with
     it, and device mode, in turns.
+14. decode and demo: (a) in phase 2; (b) every record of phase 11's
+    2048-document crello and rico test splits decoded by the native
+    decoder equals its pure-Python decode, column by column (same dtype
+    and shape), and the native scan gives the Python scan's payloads with
+    the CRCs verified; (c) one pass of a fresh loader over each split, the
+    crello ``random`` harness (decode included) and the ``DeviceDataCache``
+    build over phase 8's 512-record train split, native and pure Python
+    in turns A B B A, where a native pass goes (scan, the C++ passes, the
+    Python around them, batch stacking), and phase 11's harness times with
+    the native decoder; (d) ``python -m flexdm_tpu_torch.demo``'s
+    ``main()`` on the card, 8 documents: the float32 crello job of 8(iii)
+    with ``pos``, ``elem --num-iter 2`` and ``elem --element 0``, the rico
+    job of 9 with ``pos`` and the bf16 job of 12(b) with ``pos``.  Each
+    page holds 8 rows of 3 SVGs that parse as XML; its predictions equal a
+    CPU ``run_demo`` of the same job and batch (categorical argmaxes equal,
+    numerical fields within 1e-4, bf16 one ulp) apart from documents with
+    a near tie (counted); the forward of the job's dtype launched at least
+    ``num_blocks x num_iter`` times and no other kernel; per-stage times.
 Each step phase ends with a ``torch.profiler`` window: device kernel time
 per step, its attention share and the busiest kernels.
 
 The last lines are one JSON object per kernel, float32 and bf16 instances
 (times at the training shape (256, 8, 50, 32); ``launches`` from the
 training CLI run of the instance's dtype and ``launches_by_path`` from
-each training path's 30 steps, each eval path's CLI runs and each
-trainer path of phase 13), the card's
+each training path's 30 steps, each eval path's CLI runs, each
+trainer path of phase 13 and the demo runs of phase 14), the card's
 name
 and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 """
@@ -227,14 +247,37 @@ def _median_event_ms(run, samples):
     return statistics.median(times)
 
 
+def build_native_decoder():
+    """14(a): the C++ record decoder, built with g++ from the checkout at
+    its first use (before any loader of this run); seconds taken."""
+    from flexdm_tpu_torch.data import tfrecord
+    from flexdm_tpu_torch.ops import _build
+
+    check(_build.find_cxx() is not None,
+          "no host C++ compiler: the native record decoder cannot be built")
+    t0 = time.perf_counter()
+    check(tfrecord.native_available(), "the native record decoder is off")
+    return time.perf_counter() - t0
+
+
 def phase_build():
-    """Every kernel library, one nvcc each, all started together."""
+    """Every kernel library, one nvcc each, and the host record decoder
+    (g++), all started together."""
+    from flexdm_tpu_torch.data import tfrecord
     from flexdm_tpu_torch.ops import _build
     from flexdm_tpu_torch.ops import attention as attn
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(attn.LIBRARIES)) as pool:
+    with ThreadPoolExecutor(len(attn.LIBRARIES) + 1) as pool:
+        native = pool.submit(build_native_decoder)
         list(pool.map(lambda lib: _build.build_library(*lib), attn.LIBRARIES))
+        native_s = native.result()
+    cxx = _build.find_cxx()
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True, check=True).stdout.splitlines()[0]
+    log(f"[build] {tfrecord.NATIVE_SOURCE.name} -> host library with "
+        f"{version} ({' '.join(_build.CXX_FLAGS)}) in {native_s:.2f} s; "
+        f"native decoder in use: {tfrecord.native_available()}")
     for dtype in attn.KERNEL_DTYPES:
         attn._kernel(dtype)
         attn._bwd_kernels(dtype)
@@ -1334,8 +1377,13 @@ def eval_data(root):
             f"{generated:.1f} s")
         log(f"[time] eval decode: one pass of a fresh loader over the "
             f"{dataset} test split, {batches} batches of {EVAL_BATCH}: "
-            f"{time.perf_counter() - t0:.3f} s on the host")
+            f"{time.perf_counter() - t0:.3f} s on the host (native decoder)")
     return dirs
+
+
+# (label, mode, num_iter) -> (CLI seconds, harness seconds) of each eval
+# run, for phase 14's summary.
+EVAL_SECONDS = {}
 
 
 def eval_run(card, root, label, job, mode, timed_dir, num_iter=1,
@@ -1446,6 +1494,7 @@ def eval_run(card, root, label, job, mode, timed_dir, num_iter=1,
         f"fields within {NEAR_TIE}{' + 4 bf16 ulps' if bf16 else ''} of a "
         f"tie or a threshold"
         + (f" on {rows_near} rows" if whole_rows else ""))
+    EVAL_SECONDS[label, mode, num_iter] = (seconds, t_harness)
     log(f"[time] eval {label} --task_mode {mode} --num_iter {num_iter}, "
         f"{EVAL_DOCS} documents at batch {EVAL_BATCH}: CLI {seconds:.3f} s "
         f"(model load, decode and CSV included), {seconds / len(ans):.3f} s "
@@ -2148,6 +2197,363 @@ def phase_trainer(card, root, data_dir, spec, batch):
     return rates, paths
 
 
+# ---------------------------------------------------------------------------
+# 14. decode and demo: the native record decoder against the pure-Python
+# one (arrays and times), and the demo renderer on the card.
+# ---------------------------------------------------------------------------
+
+DEMO_DOCS = 8
+DEMO_STAGES = ("load_model", "load_batch", "forward_eval", "unbatch",
+               "svg_html")
+# The same figures from an earlier run of this script, when the port decoded
+# in pure Python only (PERF.md section 5).
+EARLIER_PYTHON_DECODE_S = 2.147  # crello eval decode
+EARLIER_ALL_FEAT_S = 3.220  # crello all_feat harness
+
+
+def _records_equal(got, want):
+    import numpy as np
+
+    return set(got) == set(want) and all(
+        got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        and np.array_equal(got[k], want[k]) for k in want)
+
+
+def decode_parity(data):
+    """14(b): every test record of phase 11's splits decoded natively
+    equals its pure-Python decode, column by column (dtype and shape
+    included); the native scan gives the Python scan's payloads, with the
+    CRCs verified by each."""
+    from flexdm_tpu_torch.data import DatasetSpec, tfrecord
+
+    t0 = time.perf_counter()
+    for dataset, data_dir in data.items():
+        native = DatasetSpec(dataset, data_dir)
+        python = DatasetSpec(dataset, data_dir, native=False)
+        check(native._native_decoder is not None
+              and native._native_layout is not None,
+              f"{dataset}: the native decoder is not in use")
+        records = columns = 0
+        for shard in tfrecord.list_shards(data_dir, "test"):
+            payloads = tfrecord.read_records(shard, verify_crc=True)
+            check(payloads == tfrecord.read_records(
+                shard, verify_crc=True, native=False),
+                f"{shard}: native and Python scans differ")
+            for i, p in enumerate(payloads):
+                got = native.decode_record(p)
+                check(_records_equal(got, python.decode_record(p)),
+                      f"{shard} record {i}: native decode != Python decode")
+                records += 1
+                columns += len(got)
+        check(records == EVAL_DOCS, f"{dataset}: {records} test records")
+        log(f"[decode] {dataset}: {records} records, {columns} columns "
+            f"decoded natively = pure Python (np.array_equal, same dtype "
+            f"and shape); native scan = Python scan with verify_crc=True")
+    log(f"[decode] parity in {time.perf_counter() - t0:.1f} s")
+
+
+def in_turns(runs):
+    """Seconds of each ``(name, fn)`` in turns A B B A; ``{name: [s, s]}``."""
+    out = {name: [] for name, _ in runs}
+    for name, fn in runs + runs[::-1]:
+        t0 = time.perf_counter()
+        fn()
+        out[name].append(time.perf_counter() - t0)
+    return out
+
+
+def decode_breakdown(card, dataset, data_dir):
+    """Where one native pass over a test split goes: the shard scan, the
+    two C++ passes alone, the rest of ``decode_record`` (Python row
+    assembly, vocabulary lookups, bins) and the loader's batch stacking;
+    then the eval harness's per-batch host-to-device copy of the split
+    (``trainer.to_device``, as ``harness._batches`` makes it)."""
+    import numpy as np
+    import torch
+
+    from flexdm_tpu_torch.data import DatasetSpec, split_device_batch, \
+        tfrecord
+    from flexdm_tpu_torch.train.trainer import to_device
+
+    spec = DatasetSpec(dataset, data_dir, EVAL_BATCH)
+    t0 = time.perf_counter()
+    payloads = [p for shard in tfrecord.list_shards(data_dir, "test")
+                for p in tfrecord.read_records(shard)]
+    t_read = time.perf_counter() - t0
+    numeric, layout = spec._native_decoder, spec._native_layout
+    t0 = time.perf_counter()
+    for p in payloads:
+        numeric(p)
+        layout(p)
+    t_passes = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records = [spec.decode_record(p) for p in payloads]
+    t_records = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches = []
+    for i in range(0, len(records), EVAL_BATCH):
+        chunk = records[i:i + EVAL_BATCH]
+        batches.append({k: np.stack([r[k] for r in chunk])
+                        for k in chunk[0]})
+    t_stack = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches:
+        to_device(batch, "cuda")
+    torch.cuda.synchronize()
+    t_copy = time.perf_counter() - t0
+    nbytes = sum(v.nbytes for b in batches
+                 for v in split_device_batch(b).values())
+    log(f"[time] eval decode breakdown, {dataset} test split ({len(payloads)} "
+        f"records): shard scan {t_read:.3f} s, the two C++ passes "
+        f"{t_passes:.3f} s, the rest of decode_record (row assembly, "
+        f"lookups, bins) {t_records - t_passes:.3f} s, batch stacking "
+        f"{t_stack:.3f} s; then the harness's host-to-device copy of the "
+        f"{len(batches)} batches ({nbytes / 1e6:.1f} MB) {t_copy:.3f} s "
+        f"[{card}]")
+
+
+def decode_times(card, root, train_dir, data):
+    """14(c): the eval decode, the ``random`` harness and the
+    ``DeviceDataCache`` build, native and pure Python in turns; phase 11's
+    harness times with the native decoder beside the earlier pure-Python
+    ones."""
+    import torch
+
+    from flexdm_tpu_torch.data import DatasetSpec
+    from flexdm_tpu_torch.data.pipeline import DeviceDataCache
+    from flexdm_tpu_torch.demo import load_model
+    from flexdm_tpu_torch.evaluation import harness
+
+    def fmt(t):
+        return ", ".join(f"{k} " + " / ".join(f"{x:.3f}" for x in v) + " s"
+                         for k, v in t.items())
+
+    times = {}
+    for dataset, data_dir in data.items():
+        def one_pass(native, dataset=dataset, data_dir=data_dir):
+            return lambda: sum(1 for _ in DatasetSpec(
+                dataset, data_dir, EVAL_BATCH, native=native).make_dataset(
+                    "test", batch_size=EVAL_BATCH))
+
+        t = in_turns([("native", one_pass(True)),
+                      ("Python", one_pass(False))])
+        times[dataset] = t
+        log(f"[time] eval decode: one pass of a fresh loader over the "
+            f"{dataset} test split ({EVAL_DOCS} documents, batches of "
+            f"{EVAL_BATCH}), in turns A B B A: {fmt(t)}"
+            + (f" (earlier pure-Python run: {EARLIER_PYTHON_DECODE_S} s)"
+               if dataset == "crello" else "") + f" [{card}]")
+
+    for dataset, data_dir in data.items():
+        decode_breakdown(card, dataset, data_dir)
+
+    model, _ = load_model(os.path.join(root, "train_job"),
+                          batch_size=EVAL_BATCH, device="cuda")
+
+    def harness_random(native):
+        def run():
+            loader = DatasetSpec("crello", data["crello"], EVAL_BATCH,
+                                 native=native).make_dataset(
+                "test", batch_size=EVAL_BATCH)
+            harness.task_sums(model, loader, "random", None, 1)
+            torch.cuda.synchronize()
+        return run
+
+    t = in_turns([("native", harness_random(True)),
+                  ("Python", harness_random(False))])
+    times["random"] = t
+    log(f"[time] eval harness crello Ours-EXP random, {EVAL_DOCS} documents "
+        f"at batch {EVAL_BATCH} (a fresh loader, decode and 8 forwards), in "
+        f"turns A B B A: {fmt(t)} [{card}]")
+    phase11 = "; ".join(
+        f"{label} {mode}{f' --num_iter {n}' if n > 1 else ''} harness "
+        f"{h:.3f} s (CLI {c:.3f} s)"
+        for (label, mode, n), (c, h) in EVAL_SECONDS.items())
+    log(f"[time] eval with the native decoder (phase 11, 12): {phase11}; "
+        f"an earlier run's crello all_feat harness with the pure-Python "
+        f"decoder: {EARLIER_ALL_FEAT_S} s [{card}]")
+
+    def cache(native):
+        def run():
+            DeviceDataCache(DatasetSpec("crello", train_dir, TRAIN_BATCH,
+                                        native=native).make_dataset("train"),
+                            "cuda")
+            torch.cuda.synchronize()
+        return run
+
+    t = in_turns([("native", cache(True)), ("Python", cache(False))])
+    times["cache"] = t
+    log(f"[time] DeviceDataCache build over the 512-record crello train "
+        f"split (a fresh loader, decode, stack, upload), in turns A B B A: "
+        f"{fmt(t)} [{card}]")
+    return times
+
+
+def demo_near_ties(schema, out, rel):
+    """Per document of a CPU demo run's ``outputs``: the masked categorical
+    fields whose top two logits lie within ``NEAR_TIE`` (+ ``rel`` of the
+    top logit) and, under MaskGIT, the confidences that close to their
+    round's threshold: where the card may decide otherwise."""
+    import numpy as np
+
+    near = np.zeros(len(out["batch"]["length"]), dtype=np.int64)
+    for c in schema.modeled:
+        if c.is_sequence and c.is_categorical:
+            top = np.sort(out["pred"][c.name], -1)[..., -2:]
+            tie = ((top[..., 1] - top[..., 0])
+                   <= NEAR_TIE + rel * np.abs(top[..., 1]))
+            near += (tie & out["masks"][c.name][..., None]).reshape(
+                len(near), -1).sum(1)
+    for r in out["rounds"]:
+        thr = r["threshold"][:, None]
+        for conf in r["confidence"].values():
+            gap = np.abs(conf - thr)
+            near += ((conf > 0) & (gap > 0)
+                     & (gap <= NEAR_TIE + rel * thr)).sum(1)
+    return near
+
+
+def compare_demo(label, schema, got, want, bf16):
+    """The card's demo outputs against the CPU's: batch, masks and masked
+    view equal; per document, every categorical field's argmax equal and
+    every numerical field within ``SLICE_TOL`` (bf16: one bf16 ulp),
+    except documents that hold a near tie (counted).  Returns (documents
+    equal, near-tie fields, largest numerical difference)."""
+    import numpy as np
+
+    for part in ("batch", "masks", "view"):
+        for k, w in want[part].items():
+            if isinstance(w, np.ndarray) and w.dtype != object:
+                check(np.array_equal(got[part][k], w),
+                      f"{label}: {part} {k} differs between card and CPU")
+    near = demo_near_ties(schema, want, BF16_TIE if bf16 else 0.0)
+    columns = {c.name: c for c in schema.columns}
+    differ, worst = [], 0.0
+    for i in range(len(near)):
+        same = True
+        for name, w in want["pred"].items():
+            g, w = got["pred"][name][i], w[i]
+            c = columns[name]
+            if c.is_categorical and c.is_sequence:
+                same &= bool(np.array_equal(g.argmax(-1), w.argmax(-1)))
+            elif c.is_categorical:
+                same &= bool(np.array_equal(g, w))
+            else:
+                d = np.abs(g - w)
+                bar = (BF16_ULP * np.abs(w) if bf16 else
+                       SLICE_TOL["atol"] + SLICE_TOL["rtol"] * np.abs(w))
+                worst = max(worst, float(d.max(initial=0.0)))
+                same &= bool((d <= bar).all())
+        if not same:
+            differ.append(i)
+    check(all(near[i] for i in differ),
+          f"{label}: documents {differ} differ from the CPU's with no near "
+          f"tie (near-tie fields per document {near.tolist()})")
+    return len(near) - len(differ), int(near.sum()), worst
+
+
+def check_page(path, n):
+    """The page: ``n`` rows of 3 SVGs (ground truth, masked input,
+    prediction), each of which parses as XML."""
+    import xml.etree.ElementTree as ET
+
+    with open(path) as f:
+        rows = f.read().split("<tr>")[2:]  # after the header row
+    check(len(rows) == n, f"{path}: {len(rows)} rows, not {n}")
+    for r, row in enumerate(rows):
+        cells = [cell.split("</td>")[0] for cell in row.split("<td>")[1:]]
+        check(len(cells) == 3, f"{path} row {r}: {len(cells)} cells")
+        for cell in cells:
+            try:
+                root = ET.fromstring(cell)
+            except ET.ParseError as e:
+                raise SmokeFailure(f"{path} row {r}: {e}")
+            check(root.tag.endswith("svg"), f"{path} row {r}: {root.tag}")
+
+
+def phase_demo(card, root):
+    """14(d): ``python -m flexdm_tpu_torch.demo``'s ``main()`` on the card
+    for the float32 crello job of 8(iii) (``pos``, ``elem --num-iter 2``,
+    ``elem --element 0``), the rico job of 9 (``pos``) and the bf16 job of
+    12(b) (``pos``), ``DEMO_DOCS`` documents each; each page checked, its
+    predictions against a CPU ``run_demo`` of the same job and batch, the
+    forward of its dtype launched ``num_blocks x num_iter`` times at least
+    and no other kernel.  Returns the launches of the five runs."""
+    import torch
+
+    from flexdm_tpu_torch import demo
+    from flexdm_tpu_torch.ops import attention as attn
+
+    crello = os.path.join(root, "train_job")
+    runs = [
+        ("crello Ours-EXP", crello, "pos", 1, None),
+        ("crello Ours-EXP", crello, "elem", 2, None),
+        ("crello Ours-EXP", crello, "elem", 1, 0),
+        ("rico Ours-EXP", os.path.join(root, "rico_job"), "pos", 1, None),
+        ("crello Ours-EXP bf16", os.path.join(root, f"train_job_{BF16}"),
+         "pos", 1, None),
+    ]
+    total = None
+    for label, job, task, num_iter, element in runs:
+        with open(os.path.join(job, "args.json")) as f:
+            args = json.load(f)
+        dtype = args.get("dtype")
+        fwd = kernel_names(dtype)[0]
+        name = f"demo_{label.replace(' ', '_')}_{task}_{num_iter}_{element}"
+        page = os.path.join(root, name + ".html")
+        argv = ["--job-dir", job, "--task", task, "--num-examples",
+                str(DEMO_DOCS), "--num-iter", str(num_iter), "--out", page,
+                "--device", "cuda"]
+        argv += ["--element", str(element)] if element is not None else []
+        got, timings = {}, {}
+        torch.cuda.synchronize()
+        attn.reset_launch_counts()
+        demo.main(argv, timings=timings, outputs=got)
+        counts = launch_counts()
+        total = counts if total is None else {
+            k: total[k] + n for k, n in counts.items()}
+        check_page(page, DEMO_DOCS)
+        check(counts[fwd] >= args["num_blocks"] * num_iter,
+              f"{label} {task}: forward launched {counts[fwd]} times for "
+              f"{num_iter} forwards x {args['num_blocks']} blocks")
+        check(not any(counts[n] for n in ("dq", "dkv", "dq_bf16",
+                                          "dkv_bf16")),
+              f"{label} {task}: a backward kernel ran: {counts}")
+        check_one_instance(counts, dtype, f"demo {label} {task}")
+        want = {}
+        demo.run_demo(job, task, DEMO_DOCS, num_iter,
+                      os.path.join(root, name + "_cpu.html"),
+                      element=element, device="cpu", outputs=want)
+        schema = demo.load_model(job, device="cpu")[1].schema
+        equal, near, worst = compare_demo(f"demo {label} {task}", schema,
+                                          got, want, dtype == BF16)
+        what = (f"{task}" + (f" --num-iter {num_iter}" if num_iter > 1 else "")
+                + (f" --element {element}" if element is not None else ""))
+        log(f"[demo] {label} {what}: a page of {DEMO_DOCS} rows x 3 SVGs; "
+            f"card = CPU on {equal} of {DEMO_DOCS} documents ({near} "
+            f"near-tie fields; numerical fields within {worst:.2e}); "
+            f"launches {counts}")
+        log(f"[time] demo {label} {what}, {DEMO_DOCS} documents: "
+            + ", ".join(f"{k} {timings[k]:.3f} s" for k in DEMO_STAGES)
+            + f" [{card}]")
+    return total
+
+
+def phase_decode_demo(card, root, train_dir, data):
+    """14. The native decoder (built in phase 2) against the Python one,
+    its times, and the demo on the card; returns the demo's launches."""
+    from flexdm_tpu_torch.data import tfrecord
+
+    t0 = time.perf_counter()
+    check(tfrecord.native_available(), "the native record decoder is off")
+    decode_parity(data)
+    times = decode_times(card, root, train_dir, data)
+    counts = phase_demo(card, root)
+    log(f"[decode] phase done in {time.perf_counter() - t0:.1f} s")
+    return times, counts
+
+
 def main():
     import torch
 
@@ -2183,6 +2589,7 @@ def main():
             flat_ms)
         rates, trainer_counts = phase_trainer(card, root, data_dir, spec,
                                               batch)
+        decode_s, demo_counts = phase_decode_demo(card, root, data_dir, data)
     log(f"[time] summary: train step crello Ours-EXP {step_ms:.2f} ms "
         f"(bf16 {bf16_ms:.2f} ms), rico Ours-EXP {rico_ms:.2f} ms (batch "
         f"{TRAIN_BATCH}), crello_flat {flat_ms:.2f} ms (bf16 "
@@ -2190,12 +2597,15 @@ def main():
         f"{MASKGIT_ITERS} {maskgit_ms:.2f} ms ({BATCH} docs); CLI "
         f"documents/s " + ", ".join(f"{k} {statistics.median(v):.1f}"
                                     for k, v in rates.items())
+        + f"; eval decode crello native "
+        f"{statistics.median(decode_s['crello']['native']):.3f} s, Python "
+        f"{statistics.median(decode_s['crello']['Python']):.3f} s"
         + f" [{card}]")
     by_path = {"crello_ours_exp_steps": step_counts,
                "crello_ours_exp_cli": train_counts,
                "rico_ours_exp_steps": rico_counts,
                "crello_flat_steps": flat_counts, **eval_counts,
-               **bf16_counts, **trainer_counts}
+               **bf16_counts, **trainer_counts, "demo": demo_counts}
     # The training shape, which every kernel of the path runs at (the
     # forward also serves at (8, 8, 50, 32) and crello_flat runs
     # (64, 8, 500, 32): the log lines above).

@@ -69,7 +69,8 @@ class DataLoader:
             )
         payloads: List[bytes] = []
         for shard in shards:
-            payloads.extend(tfrecord.read_records(shard, verify_crc=verify_crc))
+            payloads.extend(tfrecord.read_records(
+                shard, verify_crc=verify_crc, native=spec.native))
         self._payloads = payloads
         self._decoded: List[Optional[Dict[str, np.ndarray]]] = [None] * len(
             payloads

@@ -2,9 +2,10 @@
 
 The port's own copy of ``flexdm_tpu/data/spec.py``, counterpart of the
 reference ``DataSpec`` (reference ``src/mfp/mfp/data/spec.py:24-361``).  It
-decodes records with the pure-Python proto codec only (the JAX package's
-optional C++ decoder is not carried over); the arrays are the same.
-Responsibilities:
+decodes records in two C++ passes of the port's native decoder
+(``csrc/tfrecord_io.cc`` through :mod:`.tfrecord`), or with the pure-Python
+proto codec where there is no C++ compiler or ``native=False``; the arrays
+are the same either way.  Responsibilities:
 
 * load the per-dataset YAML column spec (bundled under ``data/specs/`` or an
   explicit path) plus ``vocabulary.json`` from the data dir;
@@ -33,7 +34,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import yaml
 
-from . import example_proto
+from . import example_proto, tfrecord
 from .schema import CATEGORICAL, NUMERICAL, ColumnSpec, LossCondition, Schema
 
 _SPEC_DIR = os.path.join(os.path.dirname(__file__), "specs")
@@ -219,6 +220,10 @@ class DatasetSpec:
         loader = spec.make_dataset("train", batch_size=256, shuffle=True,
                                    repeat=True, seed=0)
         batch = next(iter(loader))      # dict of (B, 50, C) numpy arrays
+
+    ``native``: read and decode records with the C++ library where it is
+    available (the default); False keeps to the pure-Python reader and
+    proto codec (the same arrays, slower).
     """
 
     def __init__(
@@ -226,9 +231,11 @@ class DatasetSpec:
         name: str,
         path: Optional[str] = None,
         batch_size: int = 8,
+        native: bool = True,
     ):
         self.path = path
         self.batch_size = batch_size
+        self.native = native
         with open(_spec_path_for(name)) as f:
             self._spec = yaml.safe_load(f)
         self.name = self._spec.get("name", name)
@@ -362,26 +369,114 @@ class DatasetSpec:
     # ------------------------------------------------------------------
     # Decoding + preprocessing
     # ------------------------------------------------------------------
+    @property
+    def _native_seq_metas(self):
+        """(name, kind, S, width) for every numeric sequence column: the
+        work list of the C++ single-pass decoder
+        (``flexdm_decode_seq_features``)."""
+        if not hasattr(self, "_native_metas_cache"):
+            metas = []
+            for name, column, shape, np_dtype, is_seq in self._column_plan:
+                dtype = column["dtype"]
+                if is_seq and dtype != "string":
+                    kind = "float" if dtype.startswith("float") else "int64"
+                    metas.append(
+                        (name, kind, self.max_length, int(np.prod(shape)))
+                    )
+            self._native_metas_cache = tuple(metas)
+        return self._native_metas_cache
+
+    @property
+    def _native_decoder(self):
+        """The numeric-column decoder; None with ``native=False`` or
+        without the library."""
+        if not hasattr(self, "_native_decoder_cache"):
+            self._native_decoder_cache = (
+                tfrecord.make_seq_feature_decoder(self._native_seq_metas)
+                if self.native else None
+            )
+        return self._native_decoder_cache
+
+    @property
+    def _native_layout(self):
+        """The decoder of the rest of the record, string sequence columns
+        and every context feature (``flexdm_decode_strings_and_context``),
+        so a full decode never enters the Python proto parser.  None with
+        ``native=False``, without the library, or when a string sequence
+        column holds more than one value a row (the C++ pass takes exactly
+        one; such a record's strings and context go to the Python
+        parser)."""
+        if not hasattr(self, "_native_layout_cache"):
+            seq_names, ctx_metas = [], []
+            usable = self.native
+            for name, column, shape, np_dtype, is_seq in self._column_plan:
+                dt = column["dtype"]
+                if is_seq:
+                    if dt == "string":
+                        if int(np.prod(shape)) != 1:
+                            usable = False
+                            break
+                        seq_names.append(name)
+                else:
+                    kind = (
+                        "bytes" if dt == "string"
+                        else "float" if dt.startswith("float")
+                        else "int64"
+                    )
+                    ctx_metas.append((name, kind, int(np.prod(shape))))
+            self._native_layout_cache = (
+                tfrecord.make_string_context_decoder(
+                    seq_names, ctx_metas, self.max_length
+                ) if usable else None
+            )
+        return self._native_layout_cache
+
     def decode_record(self, payload: bytes) -> Dict[str, np.ndarray]:
         """One serialized SequenceExample -> padded, preprocessed arrays.
 
         Sequence columns come back ``(max_length, C)``; canvas columns ``(C,)``.
         String demo-only columns stay as object arrays.  Replaces
         ``tf.io.parse_sequence_example`` (reference
-        ``src/mfp/mfp/data/spec.py:255-287``) with the Python proto codec.
+        ``src/mfp/mfp/data/spec.py:255-287``): every numeric sequence
+        column in one C++ pass (:attr:`_native_seq_metas`), the string
+        columns and the context in a second (:attr:`_native_layout`); the
+        Python proto codec takes what those do not cover, or the whole
+        record without the native library.  The arrays are identical
+        either way (dtype, shape, padding, byte strings).
         """
-        context, feature_lists = example_proto.decode_sequence_example(payload)
+        decoder = self._native_decoder
+        native = decoder(payload) if decoder is not None else None
+        native_keys = (
+            frozenset(m[0] for m in self._native_seq_metas)
+            if native is not None else frozenset()
+        )
+        layout = self._native_layout if native is not None else None
+        if layout is not None:
+            # The two native passes cover the whole record; column names
+            # are unique, so one dict serves the sequence and the context
+            # lookups below.
+            context = feature_lists = layout(payload)
+        else:
+            context, feature_lists = example_proto.decode_sequence_example(
+                payload, skip_sequence_keys=native_keys
+            )
         S = self.max_length
         out: Dict[str, np.ndarray] = {}
         for name, column, shape, np_dtype, is_seq in self._column_plan:
-            if is_seq:
+            if name in native_keys:
+                arr = native[name][1].reshape((S,) + shape)
+                if arr.dtype != np_dtype:
+                    arr = arr.astype(np_dtype)
+            elif is_seq:
                 rows = feature_lists.get(name, [])
                 n = min(len(rows), S)
                 if np_dtype is object and name in self.vocabs:
                     # Fixed-width 'S' array instead of object: the vocab's
                     # vectorized searchsorted takes it directly, skipping
                     # the per-element type check object arrays require
-                    # (S-dtype zeros read back as b"").
+                    # (rows are flat bytes from the native decoder or
+                    # [bytes] lists from the Python parser; asarray takes
+                    # both, and S-dtype zeros read back as b"").
                     if n:
                         head = np.asarray(
                             rows[:n], dtype=np.bytes_
