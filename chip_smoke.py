@@ -122,14 +122,35 @@ Phases, each of which must pass (any failure exits non-zero):
     numerical fields within 1e-4, bf16 one ulp) apart from documents with
     a near tie (counted); the forward of the job's dtype launched at least
     ``num_blocks x num_iter`` times and no other kernel; per-stage times.
+15. baselines (crello CanvasVAE, LayoutVAE, AutoReg, BART; D=256, 8
+    heads, 4 blocks, batch 64, float32, on the 512/64/64 split of 8): for
+    each, (a) one training step on the card against the same step on a
+    CPU copy, 16 documents (dropout 0, the same draws and VAE normals):
+    the loss and its KL and length terms within 1e-5 relative, gradients
+    as in 8(i); (b) 5 timed steps with CUDA events, the peak memory and a
+    ``torch.profiler`` window; (c) ``python -m flexdm_tpu_torch --preset
+    crello_<name>`` for one epoch in device mode (validated; ``best``,
+    ``last``, ``final``); (d) ``random`` and ``elem`` (AutoReg, BART,
+    LayoutVAE: the queried element moved last) over the job's 64 test
+    documents on the card against the CPU (``elem`` on the first 2), sums
+    as in 11, whole rows near a tie allowed (a decode commits its
+    argmaxes; CanvasVAE decodes an argmaxed length); (e) one ``/predict``
+    of 8 documents over HTTP.  Every path's launches are exact: 4 / 200 /
+    4 / 6 forward launches and as many of dq and of dk/dv per training
+    step, 4 / 200 / 200 / 202 per eval forward; the plain attention never
+    runs on the card.  Then the causal kernels alone at (64, 8, 50, 32),
+    against their plain versions and timed beside them, the library call
+    with the same causal key mask, and the bounds of the causal band.
 Each step phase ends with a ``torch.profiler`` window: device kernel time
 per step, its attention share and the busiest kernels.
 
 The last lines are one JSON object per kernel, float32 and bf16 instances
-(times at the training shape (256, 8, 50, 32); ``launches`` from the
+(times at the training shape (256, 8, 50, 32), the float32 kernels' causal
+figures at (64, 8, 50, 32) under ``causal``; ``launches`` from the
 training CLI run of the instance's dtype and ``launches_by_path`` from
 each training path's 30 steps, each eval path's CLI runs, each
-trainer path of phase 13 and the demo runs of phase 14), the card's
+trainer path of phase 13, the demo runs of phase 14 and each baseline's
+steps, CLI run and evaluation of phase 15), the card's
 name
 and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 """
@@ -2554,6 +2575,552 @@ def phase_decode_demo(card, root, train_dir, data):
     return times, counts
 
 
+# --- 15. The baselines ------------------------------------------------------
+
+BASELINES = ("canvasvae", "layoutvae", "autoreg", "bart")
+BASELINE_BATCH = 64  # the presets' batch
+BASELINE_PARITY_DOCS = 16  # the CPU copy's 50-pass LayoutVAE step is slow
+BASELINE_STEPS = 5
+BASELINE_ELEM_DOCS = 2  # the CPU's elem decodes: one replica per element
+BASELINE_DOCS = 8  # one /predict
+CAUSAL_SHAPE = (64, 8, 50, 32)  # AutoReg's and BART's training attention
+# The attention key projection's bias gets a zero gradient in exact
+# arithmetic; phase 15 holds it to be rounding noise, below this on the
+# card and on the CPU, rather than to the other leaves' relative bar.
+KEY_BIAS = (".key.bias",)
+KEY_BIAS_NOISE = 1e-3
+# Attention forward launches of one training step (each also of dq and of
+# dk/dv) and of one eval forward, at the presets' 4 blocks and crello's
+# S = 50: CanvasVAE 2 + 2 blocks; LayoutVAE 50 passes x 4; AutoReg one
+# causal pass (training) or 49 decode steps x 4 + the final pass; BART 2
+# encoder blocks + 2 decoder blocks of two attentions (self, cross), the
+# decoder 49 + 1 times in the decode.
+BASELINE_STEP_LAUNCHES = {"canvasvae": 4, "layoutvae": 200, "autoreg": 4,
+                          "bart": 6}
+BASELINE_EVAL_LAUNCHES = {"canvasvae": 4, "layoutvae": 200, "autoreg": 200,
+                          "bart": 202}
+
+
+def baseline_launches(name, num_blocks, s):
+    """``(per training step, per eval forward)`` forward launches of a
+    baseline, counted from its structure."""
+    half = max(num_blocks // 2, 1)
+    return {"canvasvae": (2 * half, 2 * half),
+            "layoutvae": (s * num_blocks, s * num_blocks),
+            "autoreg": (num_blocks, s * num_blocks),
+            "bart": (3 * half, half + 2 * half * s)}[name]
+
+
+class PlainOnCard:
+    """Counts the calls of the plain attention on CUDA tensors (the kernels
+    take every one; this must stay 0) while it is entered."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __enter__(self):
+        from flexdm_tpu_torch.ops import attention as attn
+
+        self._plain = plain = attn.attention_reference
+
+        def counted(q, *args, **kwargs):
+            if q.is_cuda:
+                self.calls += 1
+            return plain(q, *args, **kwargs)
+
+        attn.attention_reference = counted
+        return self
+
+    def __exit__(self, *exc):
+        from flexdm_tpu_torch.ops import attention as attn
+
+        attn.attention_reference = self._plain
+
+
+class BaselineTies(NearTies):
+    """:class:`NearTies` of a baseline's CPU reference, whole rows: a
+    decode commits each element's argmaxes and later steps read them, and
+    CanvasVAE decodes ``argmax(length_logits)`` elements, so a row with a
+    near tie in either may differ anywhere it is masked."""
+
+    def __init__(self, schema, model):
+        super().__init__(schema, whole_rows=True)
+        self.lengths = []
+        if hasattr(model, "length_fc"):
+            model.length_fc.register_forward_hook(
+                lambda _m, _i, out: self.lengths.append(out.detach()))
+
+    def __call__(self, batch, masks, weight, prediction, rounds):
+        super().__call__(batch, masks, weight, prediction, rounds)
+        if not self.lengths:
+            return
+        top = self.lengths.pop().topk(2, -1).values
+        near = ((top[:, 0] - top[:, 1]) <= NEAR_TIE) & (weight > 0)
+        self.rows += int(near.sum())
+        for c in self.columns:
+            channels = c.shape[-1] if c.is_categorical else 1
+            self.allowance[c.name] += channels * int(
+                (masks[c.name] & near[:, None]).sum())
+
+
+def baseline_parity(args, spec, batch, label):
+    """One training step on the card against the same step on a CPU copy:
+    dropout 0, the same draws and the same VAE normals (a CPU generator
+    of one seed for each).  The loss and every ``*_loss``, ``*_kl`` and
+    ``kl_divergence`` term within 1e-5 relative; every clipped gradient
+    leaf within 1e-5 + 1e-3 of its largest entry, zero on one side only
+    where zero on both (counted), but the attention key biases, whose
+    gradient is zero in exact arithmetic: those below ``KEY_BIAS_NOISE``
+    on both sides; parameters as in :func:`phase_train_parity`."""
+    import torch
+
+    from flexdm_tpu_torch.config import TrainConfig, build_model
+    from flexdm_tpu_torch.convert import init_params
+    from flexdm_tpu_torch.models import make_task_config
+    from flexdm_tpu_torch.models.masking import draw_train
+    from flexdm_tpu_torch.models.mfp import draw_options
+    from flexdm_tpu_torch.train.optim import KerasAdam
+    from flexdm_tpu_torch.train.trainer import make_train_step
+
+    config = TrainConfig.from_args(dict(args, dropout=0.0))
+    schema = spec.schema
+    task_config = make_task_config(schema, config.masking_method)
+    cpu_model = init_params(build_model(config, schema), 0)
+    card_model = copy.deepcopy(cpu_model).cuda()
+    b = batch["length"].shape[0]
+    draws = draw_train(schema, b, task_config.task_probs,
+                       torch.Generator().manual_seed(3),
+                       **draw_options(cpu_model))
+    results = {}
+    for where, model in (("cpu", cpu_model), ("cuda", card_model)):
+        run = draws.to(where)
+        run.vae = torch.Generator().manual_seed(4)
+        adam = KerasAdam(model.parameters(), config.learning_rate)
+        step = make_train_step(model, task_config, adam, config.l2)
+        metrics = step({k: v.to(where) for k, v in batch.items()}, run)
+        results[where] = (
+            {k: v.item() for k, v in metrics.items()},
+            [mu.cpu() / 0.1 for mu in adam.mu],
+            [p.detach().cpu() for p in model.parameters()],
+        )
+    (want_m, want_g, want_p), (got_m, got_g, got_p) = (
+        results["cpu"], results["cuda"])
+    terms = sorted(k for k in want_m
+                   if k.endswith(("loss", "_kl", "kl_divergence")))
+    for name in terms:
+        err = abs(got_m[name] - want_m[name])
+        check(err <= 1e-5 * abs(want_m[name]) + 1e-7,
+              f"{label} {name}: card {got_m[name]} vs CPU {want_m[name]}")
+    worst_g = worst_p = worst_noise = 0.0
+    zero, noise, off = [], [], []
+    names = [n for n, _ in cpu_model.named_parameters()]
+    for name, g, w, p, wp in zip(names, got_g, want_g, got_p, want_p):
+        err = (g - w).abs().max().item()
+        if name.endswith(KEY_BIAS):
+            # Zero in exact arithmetic (softmax is blind to a shift shared
+            # by every key): both sides hold rounding noise, which S passes
+            # (LayoutVAE) add up; it must stay noise on both.
+            big = max(g.abs().max().item(), w.abs().max().item())
+            if big > KEY_BIAS_NOISE:
+                off.append(f"{name} (|g| {big:.2e})")
+            noise.append(name)
+            worst_noise = max(worst_noise, err)
+        else:
+            worst_g = max(worst_g, err)
+            if err > 1e-5 + 1e-3 * w.abs().max().item():
+                off.append(f"{name} (|dg| {err:.2e}, max|g| "
+                           f"{w.abs().max().item():.2e})")
+        if not w.abs().max().item():
+            check(not g.abs().max().item(),
+                  f"{label}: {name} got a gradient on the card only")
+            zero.append(name)
+        steady = (g.abs() > 1e-3) & (w.abs() > 1e-3)
+        delta = (p - wp).abs()
+        if steady.any():
+            worst_p = max(worst_p, delta[steady].max().item())
+            if delta[steady].max().item() > 1e-6:
+                off.append(f"{name}: updated parameters differ")
+        if delta.max().item() > 2 * config.learning_rate + 1e-6:
+            off.append(f"{name}: updated parameters differ by more than "
+                       "2 lr")
+    check(not off, f"{label}: {'; '.join(off)}")
+    log(f"[baselines] {label} step parity, card vs CPU, {b} documents: "
+        f"loss {got_m['loss']:.6f} vs {want_m['loss']:.6f}; "
+        + ", ".join(f"{k} {got_m[k]:.6g}" for k in terms if k != "loss")
+        + f"; max |dg| {worst_g:.2e} over {len(names) - len(noise)} leaves "
+        f"({len(zero)} with no gradient on either side"
+        + (f": {', '.join(zero[:6])}{' ...' if len(zero) > 6 else ''}"
+           if zero else "")
+        + f"); the {len(noise)} attention key biases (zero gradient in "
+        f"exact arithmetic) below {KEY_BIAS_NOISE:g} on both sides, apart "
+        f"by at most {worst_noise:.2e}; max |dp| {worst_p:.2e} where "
+        "|g| > 1e-3")
+
+
+def baseline_steps(args, spec, batch, card, label, per_step):
+    """``BASELINE_STEPS`` timed steps on the card (fixed batch and draws,
+    dropout and VAE normals drawn on the card) after one warm step: each
+    kernel launched exactly ``per_step`` times a step, the loss finite;
+    CUDA-event step times, the peak memory and a ``torch.profiler``
+    window.  Returns the median step and the launches."""
+    import torch
+
+    from flexdm_tpu_torch.config import TrainConfig, build_model
+    from flexdm_tpu_torch.convert import init_params
+    from flexdm_tpu_torch.models import make_task_config
+    from flexdm_tpu_torch.models.masking import draw_train
+    from flexdm_tpu_torch.models.mfp import draw_options
+    from flexdm_tpu_torch.ops import attention as attn
+    from flexdm_tpu_torch.train.optim import KerasAdam
+    from flexdm_tpu_torch.train.trainer import make_train_step
+
+    config = TrainConfig.from_args(args)
+    schema = spec.schema
+    task_config = make_task_config(schema, config.masking_method)
+    model = init_params(build_model(config, schema), 0).cuda()
+    step = make_train_step(model, task_config,
+                           KerasAdam(model.parameters(), config.learning_rate),
+                           config.l2)
+    generator = torch.Generator("cuda").manual_seed(0)
+    b = batch["length"].shape[0]
+    draws = draw_train(schema, b, task_config.task_probs, generator,
+                       **draw_options(model))
+    draws.dropout = draws.vae = generator
+    batch = {k: v.cuda() for k, v in batch.items()}
+    step(batch, draws)  # warm
+    torch.cuda.synchronize()
+    attn.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses, times = [], []
+    for _ in range(BASELINE_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(batch, draws)
+        stop.record()
+        stop.synchronize()
+        losses.append(metrics["loss"].item())
+        times.append(start.elapsed_time(stop))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), f"{label}: loss {losses}")
+    for name in F32_KERNELS:
+        check(counts[name] == per_step * BASELINE_STEPS,
+              f"{label}: {name} launched {counts[name]} times in "
+              f"{BASELINE_STEPS} steps, not {per_step} a step")
+    check_one_instance(counts, None, label)
+    step_ms = statistics.median(times)
+    log(f"[time] train step, {label}, batch {b} (fixed batch and draws, "
+        f"dropout and VAE normals on the card; CUDA events, median of "
+        f"{BASELINE_STEPS} warm steps): {step_ms:.2f} ms, "
+        f"{b / step_ms * 1e3:.0f} documents/s; min {min(times):.2f} max "
+        f"{max(times):.2f} ms; peak memory {peak / 2**20:.1f} MiB "
+        f"(+{(peak - base) / 2**20:.1f} MiB over the weights, Adam state and "
+        f"batch); launches {per_step} of each kernel a step; losses "
+        f"{losses[0]:.3f} ... {losses[-1]:.3f} [{card}]")
+    device, attention, kernels, top = profile_steps(
+        lambda: step(batch, draws), steps=1)
+    log(f"[time] train step, {label}, torch.profiler over 1 more step: "
+        f"device kernel time {device:.3f} ms per step ({device / step_ms:.1%}"
+        f" of the median step), attention kernels {attention:.3f} ms, "
+        f"{kernels:.0f} device kernels per step; most time: {top} [{card}]")
+    return step_ms, counts
+
+
+def baseline_cli(root, data_dir, card, name, per_step, per_forward):
+    """``python -m flexdm_tpu_torch --preset crello_{name}`` for one epoch
+    in device mode (8 steps of 64, validation and test on 64 documents
+    each, one batch each): ``best``, ``last`` and ``final`` written, the
+    history finite, the launches exact."""
+    import torch
+
+    from flexdm_tpu_torch.cli import main as train_main
+
+    job = os.path.join(root, f"{name}_job")
+    argv = ["--preset", f"crello_{name}", "--data_dir", data_dir,
+            "--job-dir", job, "--num_epochs", "1", "--validation_freq", "1",
+            "--input_mode", "device", "--log_level", "WARNING"]
+    attn_reset()
+    t0 = time.perf_counter()
+    train_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    with open(os.path.join(job, "logs", "history.jsonl")) as f:
+        history = [json.loads(line) for line in f]
+    steps = history[-1]["step"]
+    check(len(history) == 1 and steps == 2 * TRAIN_BATCH // BASELINE_BATCH,
+          f"crello_{name} CLI history {history}")
+    check(all(finite(h) for h in history), f"crello_{name}: non-finite "
+          "history")
+    for ckpt in ("best", "last", "final"):
+        check(os.path.exists(os.path.join(job, "checkpoints",
+                                          f"{ckpt}.torch.npz")),
+              f"crello_{name}: no {ckpt} checkpoint")
+    # Validation and test: one batch of 64 documents each, decoded.
+    want_fwd = steps * per_step + 2 * per_forward
+    check(counts["fwd"] == want_fwd and counts["dq"] == steps * per_step
+          and counts["dkv"] == steps * per_step,
+          f"crello_{name} CLI launches {counts}: want forward {want_fwd}, "
+          f"dq and dk/dv {steps * per_step}")
+    check_one_instance(counts, None, f"crello_{name} CLI")
+    h = history[0]
+    log(f"[baselines] CLI --preset crello_{name} --num_epochs 1 --input_mode "
+        f"device: {steps} steps, validation and test in {seconds:.1f} s "
+        f"[{card}]; loss {h['loss']:.3f}, val_loss {h['val_loss']:.3f}, "
+        f"val_total_score {h['val_total_score']:.4f}; launches {counts} "
+        f"(= {steps} x {per_step} + 2 x {per_forward} forwards)")
+    return job, counts
+
+
+def attn_reset():
+    import torch
+
+    from flexdm_tpu_torch.ops import attention as attn
+
+    torch.cuda.synchronize()
+    attn.reset_launch_counts()
+
+
+def baseline_eval(card, label, job, per_forward):
+    """``random`` and ``elem`` over the job's 64-document test split with
+    the harness on the card, every forward launching the kernel exactly
+    ``per_forward`` times (timed); card against the CPU on that split
+    (``elem``: its first ``BASELINE_ELEM_DOCS`` documents), sums as
+    :func:`compare_sums` compares them, whole rows near a tie allowed.
+    Returns the launches."""
+    import torch
+
+    from flexdm_tpu_torch.demo import load_model
+    from flexdm_tpu_torch.evaluation import harness
+
+    card_model, spec = load_model(job, batch_size=BASELINE_BATCH,
+                                  device="cuda")
+    cpu_model = copy.deepcopy(card_model).cpu()
+    schema = spec.schema
+    split = spec.make_dataset("test", batch_size=BASELINE_BATCH)
+    total = dict.fromkeys(launch_counts(), 0)
+    for mode in ("random", "elem"):
+        forwards = []
+        attn_reset()
+        t0 = time.perf_counter()
+        sums = harness.task_sums(
+            card_model, split, mode, None,
+            observe=lambda batch, *_: forwards.append(
+                batch["length"].shape[0]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        check(sums and finite(sums), f"{label} {mode}: sums {sums}")
+        check(counts["fwd"] == per_forward * len(forwards)
+              and not counts["dq"] and not counts["dkv"],
+              f"{label} {mode}: launches {counts} for {len(forwards)} "
+              f"forwards x {per_forward}")
+        check_one_instance(counts, None, f"{label} {mode}")
+        for k, n in counts.items():
+            total[k] += n
+        docs = split if mode == "random" else FirstDocs(spec,
+                                                        BASELINE_ELEM_DOCS)
+        on_card = sums if mode == "random" else harness.task_sums(
+            card_model, docs, mode, None)
+        ties = BaselineTies(schema, cpu_model)
+        t1 = time.perf_counter()
+        want = harness.task_sums(cpu_model, docs, mode, None, observe=ties)
+        cpu_s = time.perf_counter() - t1
+        rel, cat = compare_sums(f"{label} {mode}", schema, on_card, want,
+                                ties)
+        scores = harness._ratios(schema, sums)
+        log(f"[baselines] {label} eval {mode}: {len(forwards)} forwards "
+            f"({sum(forwards)} rows) on the card in {seconds:.3f} s "
+            f"[{card}], {counts['fwd']} forward launches ({per_forward} a "
+            f"forward); e.g. {dict(list(scores.items())[:3])}; card = CPU on "
+            + ("the whole 64-document split" if mode == "random" else
+               f"the first {BASELINE_ELEM_DOCS} documents")
+            + f" (numerical Σnum within {rel:.2e} relative, categorical Σnum "
+            f"apart by at most {cat:g}; {ties.rows} rows near a tie; the "
+            f"CPU took {cpu_s:.1f} s)")
+    return total
+
+
+def baseline_serve(card, label, job, spec, per_forward):
+    """One ``/predict`` of ``BASELINE_DOCS`` documents over HTTP on the
+    job's ``best``: the answers checked, one engine step's launches."""
+    from flexdm_tpu_torch.data import split_device_batch
+    from flexdm_tpu_torch.serve import InferenceEngine, _jsonable, serve
+
+    engine = InferenceEngine(job, batch_size=BASELINE_DOCS, device="cuda")
+    docs = _jsonable(spec.unbatch(split_device_batch(next(iter(
+        spec.make_dataset("test", batch_size=BASELINE_DOCS))))))
+    server = serve(engine, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        attn_reset()
+        body, secs = http(server.server_address[1], "/predict",
+                          dict(task="pos", documents=docs))
+        counts = launch_counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+    check_predictions(spec, "pos", docs, body["predictions"])
+    check(counts["fwd"] == per_forward and not counts["dq"],
+          f"{label} /predict launched {counts}, want {per_forward}")
+    log(f"[baselines] {label} served: /predict pos x{len(docs)} docs: 200 in "
+        f"{secs * 1e3:.1f} ms [{card}]; {counts['fwd']} forward launches")
+
+
+def causal_bound(shape, causal_fraction):
+    """:func:`forward_bound` and :func:`backward_bounds` with the products
+    cut to the causal band's share of the (query, key) pairs."""
+    b, h, s, dh = shape
+    rows = b * h * s
+    product = 2 * b * h * s * s * dh * causal_fraction
+    fwd_bytes = 4 * 4 * rows * dh + 4 * 3 * rows + b * s
+    bwd_bytes = 4 * 6 * rows * dh + 4 * 3 * rows + b * s
+    return (bound(fwd_bytes, 2 * product),
+            bound(bwd_bytes, 3 * product), bound(bwd_bytes, 4 * product))
+
+
+def phase_causal(card):
+    """The causal kernels alone at ``CAUSAL_SHAPE`` (the key mask of a
+    training batch: the tails of the rows masked): forward O and lse and
+    dq, dk, dv against the plain versions (the kernels' bars); then the
+    forward, dq, dk/dv and the plain and library calls timed, the library
+    with the same causal key mask as one float mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexdm_tpu_torch.ops import attention as attn
+
+    g = torch.Generator().manual_seed(5)
+    shape = CAUSAL_SHAPE
+    b, h, s, dh = shape
+    q, k, v, do = (torch.randn(shape, generator=g).cuda() for _ in range(4))
+    lengths = torch.randint(1, s + 1, (b,), generator=g)
+    mask = (torch.arange(s)[None, :] < lengths[:, None]).cuda()
+    bias = attn.key_bias(mask, b, s, q.device)
+    o, lse, m, l = attn._forward(q, k, v, mask, True)
+    ref_o = attn.attention_reference(q, k, v, bias, True)
+    err_o = max((o - ref_o).abs().max().item(),
+                (lse - attn.attention_reference_lse(q, k, bias, True)).abs()
+                .max().item())
+    check(torch.allclose(o, ref_o, **KERNEL_TOL), f"causal O at {shape}")
+    got = attn.flash_attention_backward(q, k, v, mask, o, m, l, do, True)
+    want = attn.attention_reference_backward(q, k, v, bias, ref_o, do, True)
+    err_b = {}
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        err_b[name] = (x - w).abs().max().item()
+        check(torch.allclose(x, w, **BACKWARD_TOL),
+              f"causal {name} at {shape}: {err_b[name]}")
+    _, delta = attn._backward_dq(q, k, v, mask, o, m, l, do, True)
+    band = torch.ones(s, s, dtype=torch.bool, device="cuda").triu(1)
+    sdpa_mask = bias[:, None, None, :].expand(b, 1, s, s).masked_fill(
+        band, attn.NEG_INF).contiguous()
+
+    def plain_fwd(backward=False, forward=None):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = forward(*leaves)
+        return torch.autograd.grad(out, leaves, do) if backward else out
+
+    def plain(*x):
+        return attn.attention_reference(*x, bias, True)
+
+    def library(*x):
+        return F.scaled_dot_product_attention(*x, attn_mask=sdpa_mask)
+
+    calls = {
+        "fwd": lambda: attn.flash_attention_forward(q, k, v, mask, True),
+        "dq": lambda: attn._backward_dq(q, k, v, mask, o, m, l, do, True),
+        "dkv": lambda: attn._backward_dkv(q, k, v, mask, m, l, delta, do,
+                                          True),
+        "plain_fwd": lambda: plain_fwd(forward=plain),
+        "plain_fwd_bwd": lambda: plain_fwd(True, plain),
+        "library_fwd": lambda: plain_fwd(forward=library),
+        "library_fwd_bwd": lambda: plain_fwd(True, library),
+    }
+    t = {name: device_ms(fn) for name, fn in calls.items()}
+    t["plain_bwd"] = t["plain_fwd_bwd"] - t["plain_fwd"]
+    t["library_bwd"] = t["library_fwd_bwd"] - t["library_fwd"]
+    fraction = (s + 1) / (2 * s)  # key tiles the band leaves per query row
+    fwd_bd, dq_bd, dkv_bd = causal_bound(shape, fraction)
+    log(f"[kernel] causal {shape}, the key mask of a training batch: "
+        f"max|d(O, lse)| {err_o:.2e} (bound 2e-5 abs + 2e-5 rel), max|dq| "
+        f"{err_b['dq']:.2e}, |dk| {err_b['dk']:.2e}, |dv| {err_b['dv']:.2e} "
+        f"(bound 1e-4 abs + 1e-4 rel)")
+    log(f"[time] causal attention {shape} device time (CUDA graph of 20 "
+        f"calls, median of 50): forward {t['fwd']:.4f} ms (plain "
+        f"{t['plain_fwd']:.4f}, library {t['library_fwd']:.4f}; bound "
+        f"{fwd_bd['bound_ms']:.4f} ms, {fwd_bd['bound_by']}); dq "
+        f"{t['dq']:.4f} ms (bound {dq_bd['bound_ms']:.4f}, "
+        f"{dq_bd['bound_by']}), dk/dv {t['dkv']:.4f} ms (bound "
+        f"{dkv_bd['bound_ms']:.4f}, {dkv_bd['bound_by']}); plain backward "
+        f"{t['plain_bwd']:.4f} ms, library backward {t['library_bwd']:.4f} "
+        f"ms ({sdpa_kernels(lambda: plain_fwd(True, library))}); the band "
+        f"keeps {fraction:.3f} of the products [{card}]")
+    return {
+        "fwd": {"shape": list(shape), "ms": t["fwd"],
+                "plain_ms": t["plain_fwd"], "library_ms": t["library_fwd"],
+                "bound_ms": fwd_bd["bound_ms"],
+                "bound_by": fwd_bd["bound_by"], "max_abs_err": err_o},
+        "dq": {"shape": list(shape), "ms": t["dq"],
+               "plain_ms": t["plain_bwd"], "library_ms": t["library_bwd"],
+               "bound_ms": dq_bd["bound_ms"], "bound_by": dq_bd["bound_by"],
+               "max_abs_err": err_b["dq"]},
+        "dkv": {"shape": list(shape), "ms": t["dkv"],
+                "plain_ms": t["plain_bwd"], "library_ms": t["library_bwd"],
+                "bound_ms": dkv_bd["bound_ms"],
+                "bound_by": dkv_bd["bound_by"],
+                "max_abs_err": max(err_b["dk"], err_b["dv"])},
+    }
+
+
+def phase_baselines(card, root, data_dir, spec, batch):
+    """15. The four baseline presets (crello CanvasVAE, LayoutVAE, AutoReg,
+    BART) at full width (D=256, 8 heads, 4 blocks, batch 64) on phase 8's
+    512/64/64 split: step parity, timed steps, one CLI epoch (validated,
+    ``best``/``last``/``final``), ``random`` and ``elem`` evaluation card
+    against CPU, one ``/predict``; every path's launches exact and no
+    plain attention on the card; then the causal kernels alone.  Returns
+    the launches per path and the causal kernels' figures."""
+    from flexdm_tpu_torch.config import TrainConfig
+
+    t0 = time.perf_counter()
+    batch = {k: v[:BASELINE_BATCH] for k, v in batch.items()}
+    by_path = {}
+    with PlainOnCard() as plain:
+        for name in BASELINES:
+            t1 = time.perf_counter()
+            label = f"crello_{name}"
+            args = load_args(f"configs/crello_{name}.json", data_dir)
+            config = TrainConfig.from_args(args)
+            per_step, per_forward = baseline_launches(
+                name, config.num_blocks, spec.schema.max_length)
+            check((per_step, per_forward) == (BASELINE_STEP_LAUNCHES[name],
+                                              BASELINE_EVAL_LAUNCHES[name]),
+                  f"{label}: the model launches {per_step} a step and "
+                  f"{per_forward} a forward")
+            baseline_parity(
+                args, spec,
+                {k: v[:BASELINE_PARITY_DOCS] for k, v in batch.items()},
+                f"{label} ({BASELINE_PARITY_DOCS} of the {BASELINE_BATCH} "
+                "documents)")
+            _, by_path[f"{label}_steps"] = baseline_steps(
+                args, spec, batch, card, label, per_step)
+            job, by_path[f"{label}_cli"] = baseline_cli(
+                root, data_dir, card, name, per_step, per_forward)
+            by_path[f"{label}_eval"] = baseline_eval(card, label, job,
+                                                     per_forward)
+            baseline_serve(card, label, job, spec, per_forward)
+            check(plain.calls == 0, f"{label}: the plain attention ran "
+                  f"{plain.calls} times on the card")
+            log(f"[baselines] {label} done in {time.perf_counter() - t1:.1f}"
+                " s; no plain attention call on the card")
+    causal = phase_causal(card)
+    log(f"[baselines] phase done in {time.perf_counter() - t0:.1f} s")
+    return by_path, causal
+
+
 def main():
     import torch
 
@@ -2590,6 +3157,8 @@ def main():
         rates, trainer_counts = phase_trainer(card, root, data_dir, spec,
                                               batch)
         decode_s, demo_counts = phase_decode_demo(card, root, data_dir, data)
+        baseline_counts, causal = phase_baselines(card, root, data_dir, spec,
+                                                  batch)
     log(f"[time] summary: train step crello Ours-EXP {step_ms:.2f} ms "
         f"(bf16 {bf16_ms:.2f} ms), rico Ours-EXP {rico_ms:.2f} ms (batch "
         f"{TRAIN_BATCH}), crello_flat {flat_ms:.2f} ms (bf16 "
@@ -2605,7 +3174,8 @@ def main():
                "crello_ours_exp_cli": train_counts,
                "rico_ours_exp_steps": rico_counts,
                "crello_flat_steps": flat_counts, **eval_counts,
-               **bf16_counts, **trainer_counts, "demo": demo_counts}
+               **bf16_counts, **trainer_counts, "demo": demo_counts,
+               **baseline_counts}
     # The training shape, which every kernel of the path runs at (the
     # forward also serves at (8, 8, 50, 32) and crello_flat runs
     # (64, 8, 500, 32): the log lines above).
@@ -2626,13 +3196,18 @@ def main():
                 "library_ms": t["library"], "shape": list(shape)}
 
     def entry(name, dtype, source, replaces, key, cli_counts, err, t):
-        """One kernel: ``launches`` from the CLI run of its dtype."""
-        return {"name": name, "route": "cuda", "dtype": dtype,
-                "source": csrc + source, "replaces": replaces,
-                "launches": cli_counts[key],
-                "launches_by_path": {path: counts[key]
-                                     for path, counts in by_path.items()},
-                "max_abs_err": err, **t}
+        """One kernel: ``launches`` from the CLI run of its dtype; a
+        float32 kernel also with its causal figures at ``CAUSAL_SHAPE``
+        (phase 15)."""
+        out = {"name": name, "route": "cuda", "dtype": dtype,
+               "source": csrc + source, "replaces": replaces,
+               "launches": cli_counts[key],
+               "launches_by_path": {path: counts[key]
+                                    for path, counts in by_path.items()},
+               "max_abs_err": err, **t}
+        if key in causal:
+            out["causal"] = causal[key]
+        return out
 
     fwd, bwd = timings[shape], backward_timings[shape]
     fwd16, bwd16 = bf16_fwd[shape], bf16_bwd[shape]

@@ -8,14 +8,17 @@ continues from ``checkpoints/last.torch.npz``, ``--checkpoint_every``
 sets how often ``last`` is written, ``--weights`` warm-starts from a
 ``*.torch.npz`` weight file (a JAX job's checkpoint is converted with
 ``tools/export_torch_weights.py``), ``--enable_profile`` writes a
-``torch.profiler`` trace to ``logs/trace``.  A flag that selects something
-the port does not have yet raises ``NotImplementedError``:
+``torch.profiler`` trace to ``logs/trace``.  Every ``--arch_type``
+trains: the oneshot model and the baselines (``--preset
+crello_{canvasvae,layoutvae,autoreg,bart}``).  A flag that selects
+something the port does not have yet raises ``NotImplementedError``:
 ``--num_devices``/``--model_parallel`` above 1, an ``--attention_impl``
-other than ``auto``, every ``--arch_type`` but the oneshot model and a
-``--dtype`` other than ``float32`` and ``bfloat16`` (``build_model``
-raises for those two).  ``--dtype bfloat16`` computes in
-bf16 where the JAX package does; parameters, gradients, the optimizer
-state and checkpoints stay float32.
+other than ``auto`` and, for the oneshot model, a ``--dtype`` other than
+``float32`` and ``bfloat16`` (``build_model`` raises).  ``--dtype
+bfloat16`` computes the oneshot model in bf16 where the JAX package does;
+parameters, gradients, the optimizer state and checkpoints stay float32.
+A baseline computes in float32 whatever ``--dtype`` says (logged), as in
+the JAX package.
 """
 
 from __future__ import annotations

@@ -2,22 +2,32 @@
 
 Counterpart of ``TrainConfig`` and ``build_model`` in
 ``flexdm_tpu/train/trainer.py``, for the fields the port has: the model
-(``remat`` included), the task mix, the optimizer, the schedule, the
-input mode, warm start, resuming and the ``last`` checkpoint's period,
-profiling and the device.  A job's ``args.json`` (written by either
-trainer) is read with :meth:`TrainConfig.from_args`; fields the port does
-not have (the mesh, the attention implementation, the baselines' KL
-weight, ...) are ignored there, and the CLI refuses the mesh and an
-attention implementation other than ``auto``.
+(``remat`` included), the baselines' KL weight, the task mix, the
+optimizer, the schedule, the input mode, warm start, resuming and the
+``last`` checkpoint's period, profiling and the device.  A job's
+``args.json`` (written by either trainer) is read with
+:meth:`TrainConfig.from_args`; fields the port does not have (the mesh,
+the attention implementation, ...) are ignored there, and the CLI refuses
+the mesh and an attention implementation other than ``auto``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Dict, Optional
 
+from torch import nn
+
 from .data.schema import Schema
+from .models.baselines import BART, AutoReg, CanvasVAE, LayoutVAE
 from .models.mfp import MFPModel
+
+logger = logging.getLogger(__name__)
+
+# arch_type -> the baseline class (flexdm_tpu/train/trainer.py:131-138).
+BASELINES = {"canvasvae": CanvasVAE, "layoutvae": LayoutVAE,
+             "autoreg": AutoReg, "bart_autoreg": BART}
 
 
 @dataclasses.dataclass
@@ -35,6 +45,7 @@ class TrainConfig:
     context: Optional[str] = None
     input_dtype: str = "set"
     dropout: float = 0.1
+    kl: float = 1.0  # the KL weight of the VAE baselines
     num_heads: int = 8
     dtype: Optional[str] = None
     remat: bool = False  # recompute each block's activations in the backward
@@ -66,21 +77,35 @@ class TrainConfig:
         return cls(**{k: v for k, v in args.items() if k in names})
 
 
-def build_model(config: TrainConfig, schema: Schema) -> MFPModel:
-    """The ``arch_type='oneshot'`` model, built as the JAX trainer builds it
-    (``flexdm_tpu/train/trainer.py:105-130``), in the compute ``dtype`` of
-    the job (None, ``"float32"`` or ``"bfloat16"``); a baseline or another
-    dtype raises ``NotImplementedError``."""
-    if config.arch_type != "oneshot":
-        raise NotImplementedError(
-            f"arch_type={config.arch_type!r} is not in this port yet")
-    return MFPModel(
-        schema,
+def build_model(config: TrainConfig, schema: Schema) -> nn.Module:
+    """The model ``arch_type`` names, built as the JAX trainer builds it
+    (``flexdm_tpu/train/trainer.py:105-139``).  The oneshot model computes
+    in the job's ``dtype`` (None, ``"float32"`` or ``"bfloat16"``; another
+    raises ``NotImplementedError``) and takes ``remat``.  A baseline takes
+    neither, as in JAX: it computes in float32 whatever ``dtype`` says
+    (logged), and its ``input_dtype`` is its own."""
+    common = dict(
         latent_dim=config.latent_dim,
         num_blocks=config.num_blocks,
         block_type=config.block_type,
         num_heads=config.num_heads,
         dropout=config.dropout,
+    )
+    if config.arch_type in BASELINES:
+        if config.dtype not in (None, "float32"):
+            logger.info("arch_type %s computes in float32: dtype %s applies "
+                        "to the oneshot model only, as in the JAX package",
+                        config.arch_type, config.dtype)
+        cls = BASELINES[config.arch_type]
+        if cls in (CanvasVAE, LayoutVAE):
+            common["kl"] = config.kl
+        return cls(schema, **common)
+    if config.arch_type != "oneshot":
+        raise ValueError(f"arch_type {config.arch_type!r} not in "
+                         f"{('oneshot',) + tuple(BASELINES)}")
+    return MFPModel(
+        schema,
+        **common,
         context=config.context,
         input_dtype=config.input_dtype,
         seq_type=config.seq_type,

@@ -74,15 +74,20 @@ def load_jax_params(model: nn.Module, flat: Flat) -> nn.Module:
 
 @torch.no_grad()
 def init_params(model: nn.Module, seed: int) -> nn.Module:
-    """The JAX package's keras initialisers, drawn from a seeded generator:
+    """The JAX package's initialisers, drawn from a seeded generator:
     Dense kernels glorot-uniform with zero bias, LayerNorm 1 / 0, embedding
-    tables U(-0.05, 0.05).  Draws are made on the CPU, so the weights do not
-    depend on the model's device."""
+    tables U(-0.05, 0.05), and the autoregressive baselines' ``bos``
+    N(0, 0.05^2) (autoreg.py:122-124).  Draws are made on the CPU, so the
+    weights do not depend on the model's device."""
     generator = torch.Generator().manual_seed(seed)
 
     def uniform(param, limit):
         draw = torch.empty(param.shape, dtype=param.dtype)
         param.copy_(draw.uniform_(-limit, limit, generator=generator))
+
+    def normal(param, std):
+        draw = torch.empty(param.shape, dtype=param.dtype)
+        param.copy_(draw.normal_(0.0, std, generator=generator))
 
     for module in model.modules():
         if isinstance(module, nn.Linear):
@@ -93,8 +98,11 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
             module.weight.fill_(1.0)
             module.bias.zero_()
         else:
-            for param in module.parameters(recurse=False):
-                uniform(param, 0.05)
+            for name, param in module.named_parameters(recurse=False):
+                if name == "bos":
+                    normal(param, 0.05)
+                else:
+                    uniform(param, 0.05)
     return model
 
 

@@ -171,7 +171,7 @@ def run_demo(
         masks = build_task_masks(schema, batch, task, element=elem_idx)
         view = masked_input_view(schema, batch, masks)
         tasks = None
-        if model.context == "id":
+        if getattr(model, "context", None) == "id":
             # Condition the task embedding on the demoed task
             # (reference eval.py:99-101; notebooks pass demo_args["tasks"]).
             tasks = torch.full((n,), task_id_for_mode(schema, task),

@@ -1,5 +1,5 @@
 """The MFP model of the port: encoder, transformer blocks, decoder heads,
-the task layer and the loss."""
+the task layer and the loss; the baselines in :mod:`.baselines`."""
 
 from .mfp import MFPModel, TaskConfig, forward_eval, forward_train, make_task_config
 

@@ -1,7 +1,7 @@
 """Per-field decoder heads (PyTorch).
 
-Counterpart of ``Decoder`` in ``flexdm_tpu/models/decoder.py`` for the
-oneshot model.  Every valid sequence column has a Dense head
+Counterpart of ``Decoder`` in ``flexdm_tpu/models/decoder.py``.  Every
+valid sequence column has a Dense head
 ``decoder_{name}``; categorical heads give ``(B, S, C, input_dim)``
 logits, numerical heads the ``(B, S, C)`` vector.
 
@@ -12,24 +12,34 @@ logits, numerical heads the ``(B, S, C)`` vector.
   ``decoder_{canvas column}`` on that token, ``(B, C, input_dim)`` each.
 * ``detachment='flat'``: the ``(B, S * F, D)`` stream is cut back into
   one ``(B, S, D)`` sequence per field, each read by its own head.
+* ``detachment='none'``: the input is already a dict of per-field
+  ``(B, S, in_dim)`` features (LayoutVAE's CVAE decoders, ``in_dim`` 64),
+  each read by its own head.  flax infers a head's input width from its
+  input; here it is ``in_dim`` (default ``latent_dim``).
+
+``length_head=True`` adds the ``decoder_length`` Dense that
+:meth:`Decoder.predict_mask` reads: the validity mask of the argmax of
+its length logits (decoder.py:41-46).  No model of the JAX package calls
+it (flax refuses the Dense it makes outside ``setup``/``@compact``), so
+no model here builds it.
 
 Every head is a Dense in the compute ``dtype`` when one is given (input,
 kernel and bias cast at apply time, flexdm_tpu/models/decoder.py:100-132),
 so the outputs are bf16 under ``--dtype bfloat16``.
-
-The baselines' ``detachment='none'`` and ``predict_mask`` are not in this
-port yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
 
 from ..data.schema import ColumnSpec, Schema
+from .masking import get_seq_mask
 from .transformer import dense
+
+DETACHMENTS = ("default", "flat", "none")
 
 
 def head_shape(column: ColumnSpec):
@@ -43,14 +53,15 @@ def head_shape(column: ColumnSpec):
 class Decoder(nn.Module):
     def __init__(self, schema: Schema, latent_dim: int = 256,
                  context: Optional[str] = None, detachment: str = "default",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 in_dim: Optional[int] = None, length_head: bool = False):
         super().__init__()
-        if detachment not in ("default", "flat"):
-            raise NotImplementedError(
-                f"detachment {detachment!r} (a baseline's) is not in this "
-                "port yet")
+        if detachment not in DETACHMENTS:
+            raise ValueError(f"detachment {detachment!r} not in "
+                             f"{DETACHMENTS}")
         if context is not None and detachment != "default":
             raise ValueError(f"context {context!r} needs detachment 'default'")
+        self.schema = schema
         self.context = context
         self.detachment = detachment
         self.latent_dim = latent_dim
@@ -59,15 +70,29 @@ class Decoder(nn.Module):
         self.columns = [c for c in columns if c.is_sequence]
         self.canvas_columns = [c for c in columns if not c.is_sequence]
         for c in columns:
-            self.add_module(
-                f"decoder_{c.name}", nn.Linear(latent_dim, head_shape(c)[0])
-            )
+            self.add_module(f"decoder_{c.name}", nn.Linear(
+                in_dim or latent_dim, head_shape(c)[0]))
+        if length_head:
+            self.decoder_length = nn.Linear(latent_dim,
+                                            schema["length"].input_dim)
 
     def _head(self, column: ColumnSpec, h: torch.Tensor) -> torch.Tensor:
         head = getattr(self, f"decoder_{column.name}")
         return dense(h, head.weight, head.bias, self.dtype)
 
-    def forward(self, h: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def predict_mask(self, z: torch.Tensor) -> torch.Tensor:
+        """``(B, S)`` validity mask of the length the ``decoder_length``
+        head predicts from ``z`` (B, D)."""
+        logits = dense(z, self.decoder_length.weight,
+                       self.decoder_length.bias)
+        return get_seq_mask(logits, self.schema.max_length, from_logits=True)
+
+    def forward(self, h: Union[torch.Tensor, Dict[str, torch.Tensor]]
+                ) -> Dict[str, torch.Tensor]:
+        if self.detachment == "none":
+            return {c.name: self._head(c, h[c.name]).view(
+                        h[c.name].shape[:2] + head_shape(c)[1])
+                    for c in self.columns}
         b = h.shape[0]
         canvas_h = None
         if self.context in ("id", "length", "canvas"):

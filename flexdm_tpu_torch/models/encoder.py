@@ -1,8 +1,10 @@
 """Schema-driven multi-attribute encoder (PyTorch).
 
-Counterpart of ``Encoder`` in ``flexdm_tpu/models/encoder.py`` for the
-fusions of the oneshot model: ``add`` (one token per element, the default)
-and ``flat`` (one token per (element, field), the VanillaTransformer).
+Counterpart of ``Encoder`` in ``flexdm_tpu/models/encoder.py``.  Fusions:
+``add`` (one token per element, the default), ``flat`` (one token per
+(element, field), the VanillaTransformer), ``concat`` (the fields'
+embeddings concatenated and projected back to D) and ``none`` (a dict of
+the fields' embeddings, LayoutVAE's ground-truth encoder).
 
 * categorical column: the sum over channels of rows of an
   ``(input_dim + 2, D)`` table (two extra rows for ``[MASK]``/``[NULL]``);
@@ -15,12 +17,16 @@ and ``flat`` (one token per (element, field), the VanillaTransformer).
 ``add`` sums the sequence columns' embeddings: all tables are gathered in
 one lookup, and all numerical columns go through ONE matmul of
 ``[x * normal, normal, is_masked, is_unused]`` against
-``[kernel; bias; special[0]; special[1]]`` (encoder.py:98-149).  ``flat``
-and the canvas columns embed each column on its own (encoder.py:151-180):
-a table lookup, or the Dense with the special rows put in by
-``torch.where``.  ``flat`` stacks the fields to ``(B, S * F, D)``, repeats
-the mask F times and adds the position embedding ``emb_seq_pos``
-(encoder.py:198-210).
+``[kernel; bias; special[0]; special[1]]`` (encoder.py:98-149).  The other
+fusions and the canvas columns embed each column on its own
+(encoder.py:151-180): a table lookup, or the Dense with the special rows
+put in by ``torch.where``.  ``flat`` stacks the fields to
+``(B, S * F, D)``, repeats the mask F times and adds the position
+embedding ``emb_seq_pos`` (encoder.py:198-210).  ``concat`` applies
+``fusion_fc`` (``F * D -> D``), the LayerNorm ``fusion_norm`` and dropout
+to the concatenated fields (encoder.py:190-197); ``none`` returns
+``({name: (B, S, D)}, mask)`` before any context or position embedding
+(encoder.py:211-212).
 
 Under a compute ``dtype`` (bf16) the rounding points are JAX's.  The
 ``add`` contraction rounds every operand (one-hot counts, table rows,
@@ -37,13 +43,13 @@ adds the canvas embedding to every token.  ``input_dtype != 'set'`` adds
 the ``input_const`` position embedding (encoder.py:243-249), and
 ``use_elemwise_noise`` adds ``Dense(D)`` of a ``(B, S', 4)`` standard
 normal draw that the caller passes in (encoder.py:251-260).  Dropout of
-the position embeddings draws from the caller's generator.  The
-baselines' ``concat`` and ``none`` fusions are not in this port yet.
+the position embeddings (and of ``concat``) draws from the caller's
+generator.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -51,10 +57,11 @@ from torch import nn
 
 from ..data.schema import MASK_VALUE, NULL_VALUE, ColumnSpec, Schema
 from .masking import NOISE_SIZE, get_seq_mask
-from .transformer import PositionEmbedding, dense
+from ..ops.rng import FastDropout
+from .transformer import LAYER_NORM_EPS, PositionEmbedding, dense
 
 CONTEXTS = (None, "id", "canvas", "length", "canvas_add")
-FUSIONS = ("add", "flat")
+FUSIONS = ("add", "flat", "concat", "none")
 
 
 class Encoder(nn.Module):
@@ -67,8 +74,7 @@ class Encoder(nn.Module):
         if context not in CONTEXTS:
             raise ValueError(f"encoder context {context!r} not in {CONTEXTS}")
         if fusion not in FUSIONS:
-            raise NotImplementedError(
-                f"fusion {fusion!r} (a baseline's) is not in this port yet")
+            raise ValueError(f"fusion {fusion!r} not in {FUSIONS}")
         if fusion != "add" and context is not None:
             raise ValueError(f"context {context!r} needs fusion 'add'")
         if fusion != "add" and use_elemwise_noise:
@@ -85,6 +91,8 @@ class Encoder(nn.Module):
         self.canvas_columns = [c for c in columns if not c.is_sequence]
         if use_canvas and not self.canvas_columns:
             raise ValueError(f"context {context!r} needs canvas columns")
+        if fusion != "add" and self.canvas_columns:
+            raise ValueError(f"fusion {fusion!r} takes no canvas columns")
         self.cat_columns = [c for c in self.seq_columns if c.is_categorical]
         self.num_columns = [c for c in self.seq_columns
                             if not c.is_categorical]
@@ -112,7 +120,12 @@ class Encoder(nn.Module):
                 latent_dim, schema.max_length * len(self.seq_columns) + 1,
                 dropout,
             )
-        elif input_dtype != "set":
+        elif fusion == "concat":
+            self.fusion_fc = nn.Linear(len(self.seq_columns) * latent_dim,
+                                       latent_dim)
+            self.fusion_norm = nn.LayerNorm(latent_dim, eps=LAYER_NORM_EPS)
+            self.fusion_dropout = FastDropout(dropout)
+        if fusion not in ("flat", "none") and input_dtype != "set":
             self.input_const = PositionEmbedding(
                 latent_dim, schema["length"].input_dim, dropout
             )
@@ -184,9 +197,11 @@ class Encoder(nn.Module):
     def forward(self, inputs: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[torch.Tensor] = None,
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(seq, seq_mask)``.  ``generator``: dropout of the position
-        embeddings (none: off); ``noise``: the ``(B, S', 4)`` normal draw a
+                ) -> Tuple[Union[torch.Tensor, Dict[str, torch.Tensor]],
+                           torch.Tensor]:
+        """``(seq, seq_mask)`` (``seq`` a dict per field under fusion
+        ``none``).  ``generator``: dropout of the position embeddings and of
+        ``concat`` (none: off); ``noise``: the ``(B, S', 4)`` normal draw a
         ``use_elemwise_noise`` encoder needs."""
         max_length = self.schema.max_length
         b = inputs["length"].shape[0]
@@ -200,9 +215,20 @@ class Encoder(nn.Module):
             seq = self._result(sum(parts[1:], parts[0]))
         else:
             fields = [self._column(inputs, c) for c in self.seq_columns]
-            seq = torch.stack(fields, dim=2).reshape(b, -1, self.latent_dim)
-            seq_mask = seq_mask.repeat_interleave(len(fields), dim=1)
-            seq = seq + self.emb_seq_pos(seq.shape[1], b, generator)
+            if self.fusion == "none":
+                return ({c.name: f for c, f in zip(self.seq_columns, fields)},
+                        seq_mask)
+            if self.fusion == "concat":
+                seq = dense(torch.cat(fields, -1), self.fusion_fc.weight,
+                            self.fusion_fc.bias, self.dtype)
+                # flax's fusion_norm has no dtype: it computes in float32.
+                seq = self.fusion_dropout(self.fusion_norm(seq.float()),
+                                          generator)
+            else:
+                seq = torch.stack(fields, dim=2).reshape(b, -1,
+                                                         self.latent_dim)
+                seq_mask = seq_mask.repeat_interleave(len(fields), dim=1)
+                seq = seq + self.emb_seq_pos(seq.shape[1], b, generator)
 
         canvas = None
         if self.canvas_columns:

@@ -18,8 +18,11 @@ argmax exact.
 
 ``sort_flag`` is the rico position protocol: for the flagged samples both
 the ground truth and the (argmaxed) predictions are sorted element-wise
-before scoring.  ``predict_context`` (scoring canvas heads) is not in this
-port yet; nothing in the trainer, the server or the evaluation sets it.
+before scoring.  ``predict_context`` also scores the canvas columns that
+have a prediction (a ``context='canvas'`` model's canvas heads), one
+weight per document (its canvas mask times the ``loss_condition``,
+losses.py:261-303); nothing in the trainer, the server or the evaluation
+sets it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -108,11 +111,13 @@ def compute_mfp_loss(schema: Schema, y_true: Tensors, y_pred: Tensors,
                      masks: Tensors, sort_flag: Optional[torch.Tensor] = None,
                      ignore_sort: Optional[str] = None,
                      sample_weight: Optional[torch.Tensor] = None,
+                     predict_context: bool = False,
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss and the metrics ``{field}_loss``, ``{field}_score``,
     ``{field}_score_num``, ``{field}_score_den``, ``total_score`` and
     ``loss`` (all 0-dim tensors).  ``sort_flag`` (B,) bool: score those
-    samples on sorted elements (see :func:`_apply_sorting`)."""
+    samples on sorted elements (see :func:`_apply_sorting`);
+    ``predict_context``: score the predicted canvas columns too."""
     if sort_flag is not None:
         y_true, y_pred = _apply_sorting(schema, y_true, y_pred, sort_flag,
                                         ignore_sort)
@@ -178,6 +183,33 @@ def compute_mfp_loss(schema: Schema, y_true: Tensors, y_pred: Tensors,
         col_den[name] = w
         loss_vec = loss_vec + col_loss[name].reshape(mse.shape[0], -1).sum(1)
 
+    canvas_cols = []
+    if predict_context:
+        canvas_cols = [c for c in schema.columns
+                       if not c.is_sequence and not c.demo_only
+                       and c.name in y_pred]
+    for column in canvas_cols:
+        name = column.name
+        w = masks[name].to(torch.float32).reshape(-1)  # (B,)
+        if column.loss_condition is not None:
+            # The condition key is a canvas column too: its channel 0.
+            cond = column.loss_condition
+            table = torch.tensor(cond.mask, dtype=torch.float32,
+                                 device=w.device)
+            ids = y_true[cond.key].reshape(w.shape[0], -1)[:, 0].long()
+            w = w * table[ids.clamp(0, len(cond.mask) - 1)]
+        pred = y_pred[name].to(torch.float32)
+        if column.is_categorical:
+            ce, hit = categorical_loss_and_score(y_true[name], pred)
+            wc = w.reshape((-1,) + (1,) * (ce.dim() - 1)).expand(ce.shape)
+            col_loss[name], col_score[name], col_den[name] = \
+                wc * ce, wc * hit, wc
+        else:
+            mse, score = continuous_loss_and_score(y_true[name], pred)
+            col_loss[name] = mse * float(column.shape[-1]) * w
+            col_score[name], col_den[name] = score * w, w
+        loss_vec = loss_vec + col_loss[name].reshape(w.shape[0], -1).sum(1)
+
     sw = None if sample_weight is None else sample_weight.to(torch.float32)
     if sw is not None:
         loss_vec = loss_vec * sw
@@ -189,7 +221,7 @@ def compute_mfp_loss(schema: Schema, y_true: Tensors, y_pred: Tensors,
 
     total = torch.zeros((), dtype=torch.float32, device=loss.device)
     metrics: Dict[str, torch.Tensor] = {}
-    for column in modeled:
+    for column in modeled + canvas_cols:
         name = column.name
         num = per_sample(col_score[name]).sum()
         den = per_sample(col_den[name]).sum()

@@ -15,8 +15,11 @@ Every random draw is an argument (task ids, the fused ``(B, 3, n_seq, S)``
 uniforms, the element-pick uniforms, the replacement values, and where the
 model needs them the shuffle uniforms and the element-wise noise), so a
 caller decides the generator and a test can hand both packages the same
-numbers.  :func:`draw_train` draws them all from one ``torch.Generator``.
-The autoregressive baselines' last-element pick is not in this port yet.
+numbers.  :func:`draw_train` draws them all from one ``torch.Generator``;
+the dropout masks and the VAE baselines' reparameterisation normals come
+from the generators :class:`TrainDraws` carries.  An autoregressive
+baseline (``is_autoreg``) picks the LAST valid element for the elem task
+(:func:`select_single_element` with ``select_last``).
 """
 
 from __future__ import annotations
@@ -179,7 +182,10 @@ class TrainDraws:
     input); ``dropout`` the generator the dropout masks come from (None:
     no dropout); ``shuffle`` the (B, S) uniforms that order the elements
     of an ``input_dtype='shuffled_set'`` model; ``noise`` the (B, S', 4)
-    standard normals of a ``use_elemwise_noise`` encoder."""
+    standard normals of a ``use_elemwise_noise`` encoder; ``vae`` the
+    generator of a VAE baseline's reparameterisation normals (None: they
+    are 0, so ``z`` is the posterior mean), drawn on its device and moved
+    to the model's."""
 
     tasks: torch.Tensor
     uniforms: torch.Tensor
@@ -188,6 +194,7 @@ class TrainDraws:
     dropout: Optional[torch.Generator] = None
     shuffle: Optional[torch.Tensor] = None
     noise: Optional[torch.Tensor] = None
+    vae: Optional[torch.Generator] = None
 
     def to(self, device) -> "TrainDraws":
         def move(x):
@@ -197,7 +204,7 @@ class TrainDraws:
             self.tasks.to(device), self.uniforms.to(device),
             self.element.to(device),
             {k: v.to(device) for k, v in self.values.items()}, self.dropout,
-            move(self.shuffle), move(self.noise),
+            move(self.shuffle), move(self.noise), self.vae,
         )
 
 
@@ -286,22 +293,40 @@ def select_single_element(seq_mask: torch.Tensor,
     return one_hot(index, seq_mask.shape[1], torch.bool) & (length > 0)[:, None]
 
 
+def elem_masking(inputs: Tensors, schema: Schema, seq_mask: torch.Tensor,
+                 u: Optional[torch.Tensor] = None,
+                 select_last: bool = False) -> Tuple[Tensors, Tensors]:
+    """[MASK] on every field of one element per sample, picked by the
+    uniforms ``u`` (B,) or, with ``select_last``, the last valid one
+    (masking.py:212-230); returns ``(inputs, masks)``."""
+    masks = get_initial_masks(schema, seq_mask)
+    selected = select_single_element(seq_mask, u, select_last)
+    out: Tensors = {}
+    for column in schema.modeled:
+        x = inputs[column.name]
+        if column.is_sequence:
+            x = apply_token(x, column, selected, "masked")
+            masks[column.name] = selected
+        out[column.name] = x
+    return out, masks
+
+
 def preprocess_for_train(inputs: Tensors, schema: Schema,
                          tasks: torch.Tensor, uniforms: torch.Tensor,
-                         element: torch.Tensor, values: Tensors):
+                         element: torch.Tensor, values: Tensors,
+                         is_autoreg: bool = False):
     """Per-sample task masking; returns ``(targets, modified_inputs,
     masks)``, and ``modified_inputs`` gains a ``"task"`` entry.
 
     Task 0 (random) is the MLM corruption from ``uniforms`` and
     ``values``; task 1 (elem) masks every field of the element picked by
-    ``element``; task ``g + 2`` masks attribute group ``g`` across all
-    elements.  Only the (B, S) bool masks are muxed per sample; each
-    column's data is rewritten twice ([MASK] slots, then random slots).
-    (The autoregressive baselines' last-element elem pick is not in this
-    port yet.)"""
+    ``element`` (``is_autoreg``: of the last valid element, whatever
+    ``element`` holds); task ``g + 2`` masks attribute group ``g`` across
+    all elements.  Only the (B, S) bool masks are muxed per sample; each
+    column's data is rewritten twice ([MASK] slots, then random slots)."""
     seq_mask = get_seq_mask(inputs["length"], schema.max_length)
     filtered = filter_padding(inputs, schema, seq_mask)
-    elem_sel = select_single_element(seq_mask, element)
+    elem_sel = select_single_element(seq_mask, element, is_autoreg)
 
     groups = list(schema.attribute_groups.values())
     is_random = (tasks == 0)[:, None]  # (B, 1)

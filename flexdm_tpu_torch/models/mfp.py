@@ -1,6 +1,6 @@
 """The MFP model, its training forward and its eval forward (PyTorch).
 
-Counterpart of ``flexdm_tpu/models/mfp.py`` for the oneshot model:
+Counterpart of ``flexdm_tpu/models/mfp.py``:
 
 * :class:`MFPModel` is Encoder -> Blocks -> Decoder, over one token per
   element (``seq_type='default'``) or one token per (element, field)
@@ -24,7 +24,16 @@ the threshold is committed.
 ``remat=True`` recomputes each block in the backward
 (:class:`~.transformer.Blocks`), as JAX's ``MFPModel(remat=True)`` does.
 
-The baselines are not in this port yet.
+The baselines (:mod:`.baselines`) go through the same two functions, by
+way of :func:`apply_model`: they also take the targets (teacher forcing)
+and the masks (the decode's ground-truth merge) and return auxiliary
+losses, which :func:`forward_train` adds to the loss.  An autoregressive
+baseline (``is_autoreg``) has its elements shuffled and the elem task pick
+the last element; their deterministic forward is a sequential decode
+(validation runs it too, as in JAX), and ``forward_eval`` ignores
+``num_iter`` for them, as JAX's does.  Attributes a baseline lacks are
+read with the JAX package's defaults (``input_dtype`` ``"set"``,
+``is_autoreg`` and ``use_elemwise_noise`` False).
 """
 
 from __future__ import annotations
@@ -117,14 +126,20 @@ class MFPModel(nn.Module):
         return self.decoder(self.blocks(seq, seq_mask, generator))
 
     def draw_options(self) -> Dict:
-        """The :func:`~.masking.draw_train` options of this model: the
-        shuffle uniforms and the noise's sequence length, where needed."""
-        noise_length = None
-        if self.use_elemwise_noise:
-            token = self.context in ("id", "length", "canvas")
-            noise_length = self.schema.max_length + int(token)
-        return dict(shuffle=self.input_dtype == "shuffled_set",
-                    noise_length=noise_length)
+        return draw_options(self)
+
+
+def draw_options(model: nn.Module) -> Dict:
+    """The :func:`~.masking.draw_train` options of ``model`` (the oneshot
+    model or a baseline): the shuffle uniforms and the noise's sequence
+    length, where needed."""
+    noise_length = None
+    if getattr(model, "use_elemwise_noise", False):
+        token = model.context in ("id", "length", "canvas")
+        noise_length = model.schema.max_length + int(token)
+    shuffle = (getattr(model, "is_autoreg", False)
+               or getattr(model, "input_dtype", "set") == "shuffled_set")
+    return dict(shuffle=shuffle, noise_length=noise_length)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,48 +159,81 @@ def make_task_config(schema: Schema, masking_method: str) -> TaskConfig:
     )
 
 
-def forward_train(model: MFPModel, inputs: Tensors, draws: TrainDraws,
+def forward_train(model: nn.Module, inputs: Tensors, draws: TrainDraws,
                   task_config: TaskConfig, train: bool = True,
                   sample_weight: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One training forward: order the elements, mask per task, predict,
     score.  Returns ``(loss, metrics)``.  ``train=False`` keeps the random
     task masking (that is how the reference validates) but turns dropout
-    off; ``sample_weight`` (B,) zeroes batch-padding rows."""
+    off (and runs a baseline deterministically); ``sample_weight`` (B,)
+    zeroes batch-padding rows.  A baseline's auxiliary terms join the
+    metrics, and those named ``*_loss`` join the loss."""
     schema = model.schema
-    if model.input_dtype == "shuffled_set":
+    is_autoreg = getattr(model, "is_autoreg", False)
+    input_dtype = getattr(model, "input_dtype", "set")
+    if is_autoreg or input_dtype == "shuffled_set":
         if draws.shuffle is None:
-            raise ValueError("input_dtype 'shuffled_set' needs draws.shuffle")
+            raise ValueError("a shuffled model needs draws.shuffle")
         inputs = shuffle_inputs(inputs, schema, draws.shuffle)
-    elif model.input_dtype == "sorted_set":
+    elif input_dtype == "sorted_set":
         inputs = sort_inputs(inputs, schema)
     sort_flag = None
     if task_config.sort_pos:
         sort_flag = draws.tasks == task_config.pos_task_id
     targets, modified, masks = preprocess_for_train(
         inputs, schema, draws.tasks, draws.uniforms, draws.element,
-        draws.values,
+        draws.values, is_autoreg=is_autoreg,
     )
-    outputs = model(modified, draws.dropout if train else None, draws.noise)
-    return compute_mfp_loss(
+    outputs, aux = apply_model(
+        model, modified, targets, masks, deterministic=not train,
+        dropout=draws.dropout if train else None, vae=draws.vae,
+        noise=draws.noise)
+    loss, metrics = compute_mfp_loss(
         schema, targets, outputs, masks, sort_flag=sort_flag,
         sample_weight=sample_weight,
     )
+    for name, value in aux.items():
+        metrics[name] = value
+        if name.endswith("_loss"):
+            loss = loss + value
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def apply_model(model: nn.Module, modified: Tensors, targets: Tensors,
+                masks: Tensors, deterministic: bool,
+                dropout: Optional[torch.Generator] = None,
+                vae: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None
+                ) -> Tuple[Tensors, Dict[str, torch.Tensor]]:
+    """``(outputs, aux)`` of the oneshot model (which reads only the
+    masked inputs, and ``noise``; ``aux`` is empty) or of a baseline (which
+    also reads the targets, the masks and the ``vae`` generator)
+    (flexdm_tpu/models/mfp.py:198-222)."""
+    if isinstance(model, MFPModel):
+        return model(modified, dropout, noise), {}
+    return model(modified, targets, masks, deterministic, dropout, vae)
 
 
 @torch.no_grad()
-def forward_eval(model: MFPModel, inputs: Tensors, masks: Tensors,
+def forward_eval(model: nn.Module, inputs: Tensors, masks: Tensors,
                  tasks: Optional[torch.Tensor] = None, num_iter: int = 1,
                  rounds: Optional[List[Dict]] = None) -> Tensors:
     """Masked inputs -> predictions with ground truth merged back.
-    ``num_iter > 1`` decodes with :func:`iterative_decode` (``rounds``
-    collects its rounds); below 2 it is one pass."""
-    if model.use_elemwise_noise:
+    ``num_iter > 1`` decodes the oneshot model with
+    :func:`iterative_decode` (``rounds`` collects its rounds); below 2 it
+    is one pass.  A baseline runs its deterministic forward (a sequential
+    decode for the autoregressive ones) whatever ``num_iter`` is."""
+    if getattr(model, "use_elemwise_noise", False):
         # JAX's forward_eval gives such a model no noise rng either.
         raise ValueError("forward_eval: a use_elemwise_noise model has no "
                          "eval behaviour (it draws noise only in training)")
     modified = preprocess_for_test(inputs, model.schema, masks, tasks)
-    if num_iter > 1:
+    if not isinstance(model, MFPModel):
+        outputs = apply_model(model, modified, inputs, masks,
+                              deterministic=True)[0]
+    elif num_iter > 1:
         outputs = iterative_decode(model, masks, inputs, modified, num_iter,
                                    rounds)
     else:

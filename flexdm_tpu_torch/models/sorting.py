@@ -12,13 +12,15 @@ in ``flexdm_tpu/models/sorting.py``.
   leaves the padding in place.  Its ``(B, S)`` uniforms are an argument,
   so a caller decides the generator.
 
-``merge_dicts``, ``split_dict`` and ``reorganize_indices`` serve only the
-autoregressive baselines and are not in this port yet.
+:func:`reorganize_indices` moves one element of each row to a given
+position (the autoregressive ``elem`` evaluation puts the queried element
+last); :func:`merge_dicts` and :func:`split_dict` concatenate and split
+dicts of tensors (sorting.py:107-148).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -90,3 +92,40 @@ def shuffle_inputs(inputs: Tensors, schema: Schema,
         else x
         for name, x in inputs.items()
     }
+
+
+def merge_dicts(batches: Sequence[Tensors], axis: int = 0) -> Tensors:
+    """Concatenate a list of tensor dicts key by key (sorting.py:107-112)."""
+    return {k: torch.cat([b[k] for b in batches], dim=axis)
+            for k in batches[0]}
+
+
+def split_dict(inputs: Tensors, num_splits: int,
+               axis: int = 0) -> List[Tensors]:
+    """Split a tensor dict into ``num_splits`` equal parts along ``axis``;
+    a length that does not divide raises, as ``jnp.split`` does
+    (sorting.py:115-123)."""
+    out: List[Tensors] = [{} for _ in range(num_splits)]
+    for k, v in inputs.items():
+        if v.shape[axis] % num_splits:
+            raise ValueError(f"{k}: length {v.shape[axis]} does not split "
+                             f"into {num_splits} equal parts")
+        for i, piece in enumerate(torch.chunk(v, num_splits, dim=axis)):
+            out[i][k] = piece
+    return out
+
+
+def reorganize_indices(from_inds: torch.Tensor, n_elems: torch.Tensor,
+                       maxlen: int) -> torch.Tensor:
+    """``(B, maxlen)`` int64 gather indices that move element
+    ``from_inds[i, 0]`` of row ``i`` to position ``n_elems[i, 0]`` and shift
+    the others to keep their order (sorting.py:126-148): position ``p``
+    reads ``f`` where ``p == n``, else entry ``q`` (``p`` before ``n``,
+    ``p - 1`` after) of the row without ``f``, which is ``q`` below ``f``
+    and ``q + 1`` from it on."""
+    f = from_inds[:, :1].long()
+    n = n_elems[:, :1].long()
+    pos = torch.arange(maxlen, device=f.device)[None, :]
+    q = torch.where(pos < n, pos, pos - 1)
+    val = torch.where(q < f, q, q + 1)
+    return torch.where(pos == n, f, val)

@@ -31,8 +31,14 @@ not the explicit one the blocks draw from, so :func:`_remat_block` saves
 that generator's state before the block, sets it back for the
 recomputation and then restores the state the generator had.
 
-Cross-attention and the conditional input are used only by the
-baselines; they are not in this port yet.
+The baselines add two things (transformer.py:80-149, :151-210):
+cross-attention, ``MultiHeadAttention(x, key_mask, kv=memory)``, whose
+queries come from ``x`` and keys and values from ``memory`` (the key and
+value projections of ``memory`` are applied as one ``(D, 2D)`` matmul),
+and conditional blocks (``conditional=True``), which add a ``conditional``
+Dense of a per-document vector ``z`` to every token after the attention
+residual (DeepSVG) or before a third LayerNorm ``norm3`` (post-norm).
+:func:`masked_average_pool` is the mean over the valid tokens.
 """
 
 from __future__ import annotations
@@ -87,7 +93,11 @@ class PositionEmbedding(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Self-attention: one fused ``(D, 3D)`` QKV matmul, the attention core,
     then the ``out`` projection.  ``query``/``key``/``value`` stay separate
-    parameters (the flax layout) and are concatenated at apply time."""
+    parameters (the flax layout) and are concatenated at apply time.  With
+    ``kv`` (cross-attention) the queries are ``query(x)`` and the keys and
+    values one fused ``(D, 2D)`` matmul of ``kv``; ``key_mask`` masks the
+    keys of ``kv``, which must have the length of ``x`` (the kernels take
+    one S)."""
 
     def __init__(self, emb_size: int, num_heads: int = 8,
                  lookahead: bool = True, dtype: Optional[torch.dtype] = None):
@@ -104,22 +114,33 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(emb_size, emb_size)
         self.out = nn.Linear(emb_size, emb_size)
 
-    def forward(self, x: torch.Tensor,
-                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _project(self, x: torch.Tensor, projections) -> torch.Tensor:
+        """``x`` through ``projections`` as one matmul, split into heads:
+        ``(len(projections), B, H, S, Dh)`` in one copy, so each slice is a
+        contiguous ``(B, H, S, Dh)`` tensor."""
         b, s, d = x.shape
-        h = self.num_heads
-        projections = (self.query, self.key, self.value)
-        qkv = dense(
+        out = dense(
             x,
             torch.cat([p.weight for p in projections]),
             torch.cat([p.bias for p in projections]),
             self.dtype,
         )
-        # (B, S, 3, H, Dh) -> (3, B, H, S, Dh) in one copy; each of q, k, v
-        # is then a contiguous (B, H, S, Dh) slice.
-        q, k, v = (
-            qkv.view(b, s, 3, h, d // h).permute(2, 0, 3, 1, 4).contiguous()
-        )
+        return out.view(b, s, len(projections), self.num_heads,
+                        d // self.num_heads).permute(2, 0, 3, 1, 4).contiguous()
+
+    def forward(self, x: torch.Tensor,
+                key_mask: Optional[torch.Tensor] = None,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, s, d = x.shape
+        if kv is None:
+            q, k, v = self._project(x, (self.query, self.key, self.value))
+        else:
+            if kv.shape != x.shape:
+                raise ValueError(
+                    f"cross-attention memory {tuple(kv.shape)} must have "
+                    f"the shape of its queries {tuple(x.shape)}")
+            q = self._project(x, (self.query,))[0]
+            k, v = self._project(kv, (self.key, self.value))
         o = dot_product_attention(
             q, k, v, key_mask=key_mask, causal=not self.lookahead
         )
@@ -130,7 +151,8 @@ class MultiHeadAttention(nn.Module):
 class _BlockBase(nn.Module):
     def __init__(self, emb_size: int = 64, num_heads: int = 8,
                  ff_dim: Optional[int] = None, dropout: float = 0.1,
-                 lookahead: bool = True, dtype: Optional[torch.dtype] = None):
+                 lookahead: bool = True, dtype: Optional[torch.dtype] = None,
+                 conditional: bool = False):
         super().__init__()
         ff_dim = ff_dim or 2 * emb_size
         self.dtype = dtype
@@ -140,6 +162,8 @@ class _BlockBase(nn.Module):
         self.mlp_0 = nn.Linear(emb_size, ff_dim)
         self.mlp_1 = nn.Linear(ff_dim, emb_size)
         self.dropout = FastDropout(dropout)
+        if conditional:
+            self.conditional = nn.Linear(emb_size, emb_size)
 
     def _mlp(self, x):
         h = F.relu(dense(x, self.mlp_0.weight, self.mlp_0.bias, self.dtype))
@@ -148,13 +172,28 @@ class _BlockBase(nn.Module):
     def _norm(self, norm, x):
         return layer_norm(norm, x, self.dtype)
 
+    def _condition(self, z):
+        """``conditional(z)`` as a ``(B, 1, D)`` term of every token."""
+        if z is None:
+            raise ValueError("a conditional block needs z")
+        return dense(z, self.conditional.weight, self.conditional.bias,
+                     self.dtype)[:, None, :]
+
 
 class TransformerBlock(_BlockBase):
     """Post-norm block (flexdm_tpu/models/transformer.py:180-193)."""
 
-    def forward(self, x, key_mask=None, generator=None):
+    def __init__(self, emb_size: int = 64, *args, conditional: bool = False,
+                 **kwargs):
+        super().__init__(emb_size, *args, conditional=conditional, **kwargs)
+        if conditional:
+            self.norm3 = nn.LayerNorm(emb_size, eps=LAYER_NORM_EPS)
+
+    def forward(self, x, key_mask=None, generator=None, z=None):
         x = self._norm(self.norm1,
                        x + self.dropout(self.attn(x, key_mask), generator))
+        if hasattr(self, "conditional"):
+            x = self._norm(self.norm3, x + self._condition(z))
         return self._norm(self.norm2,
                           x + self.dropout(self._mlp(x), generator))
 
@@ -162,9 +201,11 @@ class TransformerBlock(_BlockBase):
 class DeepSVGBlock(_BlockBase):
     """Pre-norm block, the default (transformer.py:196-210)."""
 
-    def forward(self, x, key_mask=None, generator=None):
+    def forward(self, x, key_mask=None, generator=None, z=None):
         y = self.attn(self._norm(self.norm1, x), key_mask)
         x = x + self.dropout(y, generator)
+        if hasattr(self, "conditional"):
+            x = x + self._condition(z)
         return x + self.dropout(self._mlp(self._norm(self.norm2, x)),
                                 generator)
 
@@ -177,51 +218,62 @@ BLOCK_TYPES = {
 
 def _remat_block(block: nn.Module, seq: torch.Tensor,
                  key_mask: Optional[torch.Tensor],
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
-    """``block(seq, key_mask, generator)`` under ``torch.utils.checkpoint``,
+                 generator: Optional[torch.Generator],
+                 z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``block(seq, key_mask, generator, z)`` under ``torch.utils.checkpoint``,
     its recomputation drawing the same dropout masks as its forward.  The
     recomputation may stop early, by an exception, once it has rebuilt the
     saved tensors: the generator's state is restored in a ``finally``."""
     start = None if generator is None else generator.get_state()
     calls = []
 
-    def run(x, mask):
+    def run(x, mask, z):
         if start is None or not calls:  # the forward
             calls.append(True)
-            return block(x, mask, generator)
+            return block(x, mask, generator, z)
         resume = generator.get_state()  # the recomputation: replay
         generator.set_state(start)
         try:
-            return block(x, mask, generator)
+            return block(x, mask, generator, z)
         finally:
             generator.set_state(resume)
 
-    return checkpoint(run, seq, key_mask, use_reentrant=False,
+    return checkpoint(run, seq, key_mask, z, use_reentrant=False,
                       preserve_rng_state=False)
 
 
 class Blocks(nn.Module):
     """Stack of N blocks named ``seq2seq_{i}`` (transformer.py:219-252);
-    ``remat`` recomputes each block in the backward."""
+    ``remat`` recomputes each block in the backward; ``conditional`` blocks
+    take the ``(B, D)`` vector ``z``."""
 
     def __init__(self, latent_dim: int = 128, num_blocks: int = 1,
                  block_type: str = "deepsvg", num_heads: int = 8,
                  lookahead: bool = True, dropout: float = 0.1,
-                 dtype: Optional[torch.dtype] = None, remat: bool = False):
+                 dtype: Optional[torch.dtype] = None, remat: bool = False,
+                 conditional: bool = False):
         super().__init__()
         self.remat = remat
         block_cls = BLOCK_TYPES[block_type]
         for i in range(num_blocks):
             self.add_module(f"seq2seq_{i}", block_cls(
                 emb_size=latent_dim, num_heads=num_heads, dropout=dropout,
-                lookahead=lookahead, dtype=dtype,
+                lookahead=lookahead, dtype=dtype, conditional=conditional,
             ))
 
-    def forward(self, seq, key_mask=None, generator=None):
+    def forward(self, seq, key_mask=None, generator=None, z=None):
         remat = self.remat and torch.is_grad_enabled()
         for block in self.children():
             if remat:
-                seq = _remat_block(block, seq, key_mask, generator)
+                seq = _remat_block(block, seq, key_mask, generator, z)
             else:
-                seq = block(seq, key_mask, generator)
+                seq = block(seq, key_mask, generator, z)
         return seq
+
+
+def masked_average_pool(seq: torch.Tensor,
+                        key_mask: torch.Tensor) -> torch.Tensor:
+    """Mean of ``seq`` (B, S, D) over the valid positions of ``key_mask``
+    (B, S); a row with none divides by 1 (transformer.py:255-258)."""
+    w = key_mask.to(seq.dtype)[..., None]
+    return (seq * w).sum(1) / w.sum(1).clamp_min(1.0)

@@ -110,7 +110,7 @@ class InferenceEngine:
         self.schema = self.spec.schema
         self.batch_size = batch_size
         self._task_ids = {}
-        if self.model.context == "id":
+        if getattr(self.model, "context", None) == "id":
             self._task_ids = {
                 t: task_id_for_mode(self.schema, t) for t in self.tasks
             }

@@ -1,11 +1,13 @@
 """Training loop (PyTorch): one eager step per batch, epochs on the host.
 
-Counterpart of ``flexdm_tpu/train/trainer.py`` for the oneshot model on one
-device.  A step draws its task ids, MLM uniforms, element picks,
-replacement values, dropout masks and, where the model needs them, the
-shuffle uniforms and the element-wise noise from one ``torch.Generator``
-on the device, masks the batch per task, runs the model (attention
-through the CUDA kernels on a card), adds the L2 penalty,
+Counterpart of ``flexdm_tpu/train/trainer.py`` on one device, for the
+oneshot model and the four baselines.  A step draws its task ids, MLM
+uniforms, element picks, replacement values, dropout masks and, where the
+model needs them, the shuffle uniforms, the element-wise noise and a VAE
+baseline's reparameterisation normals from one ``torch.Generator`` on the
+device, masks the batch per task, runs the model (attention through the
+CUDA kernels on a card), adds the baseline's auxiliary losses and the L2
+penalty,
 back-propagates, clips each gradient to norm 1 and takes a keras-Adam
 step.
 
@@ -60,6 +62,7 @@ from ..data import NUM_VALID_KEY, DatasetSpec, split_device_batch
 from ..data.pipeline import DeviceDataCache, Prefetcher
 from ..models import forward_train, make_task_config
 from ..models.masking import draw_train, record_draws
+from ..models.mfp import draw_options
 from ..utils.profiling import trace_context
 from ..utils.tboard import SummaryWriter
 from .checkpoint import checkpoint_path, load_last, save_checkpoint, \
@@ -191,7 +194,7 @@ def evaluate_split(model, loader, schema, task_config, seed: int,
         # Padded rows take the next indices; their weight is 0.
         draws = record_draws(
             schema, task_config.task_probs, seed,
-            range(weights_total, weights_total + b), **model.draw_options(),
+            range(weights_total, weights_total + b), **draw_options(model),
         ).to(device)
         sample_weight = torch.zeros(b, device=device)
         sample_weight[:num_valid] = 1.0
@@ -283,8 +286,8 @@ def train(config: TrainConfig) -> Dict[str, Any]:
 
     def take_step(batch):
         draws = draw_train(schema, config.batch_size, task_config.task_probs,
-                           generator, **model.draw_options())
-        draws.dropout = generator
+                           generator, **draw_options(model))
+        draws.dropout = draws.vae = generator
         return train_step(batch, draws)
 
     if config.input_mode == "device":

@@ -142,3 +142,36 @@ def test_weight_file_round_trip(crello_spec, tmp_path):
     for (name, a), b in zip(model.state_dict().items(),
                             loaded.state_dict().values()):
         assert torch.equal(a, b), name
+
+
+def test_exported_baseline_weights_load(tmp_path):
+    """A JAX baseline's parameters, written as ``tools/export_torch_weights.py``
+    writes them (``flatten_params``, ``np.savez``), load into the port's
+    model through ``load_weights`` bit for bit: BART's tree holds ``bos``
+    (rank 3), the cross-attention blocks and the encoder blocks."""
+    import jax
+
+    from flexdm_tpu.models.baselines import BART
+    from flexdm_tpu_torch.models.baselines import BART as PortBART
+    from tests.test_masking import tiny_inputs, tiny_schema
+    from tools.export_torch_weights import flatten_params
+
+    schema = tiny_schema()
+    x = tiny_inputs(schema=schema)
+    masks = {c.name: x["left"][..., 0] >= 0 if c.is_sequence
+             else np.ones(4, bool) for c in schema.modeled}
+    model = BART(schema=schema, latent_dim=16, num_blocks=2, num_heads=2,
+                 attention_impl="xla")
+    rngs = {k: jax.random.PRNGKey(i) for i, k in enumerate(("params",
+                                                            "dropout"))}
+    flat = flatten_params(jax.jit(lambda: model.init(
+        rngs, x, x, masks, deterministic=False))())
+    path = str(tmp_path / "best.torch.npz")
+    with open(path, "wb") as f:
+        np.savez(f, **flat)
+    port = load_weights(path, PortBART(schema, latent_dim=16, num_blocks=2,
+                                       num_heads=2))
+    back = params_to_jax(port.state_dict())
+    assert set(back) == set(flat) and back["params/bos"].shape == (1, 1, 16)
+    for k in flat:
+        np.testing.assert_array_equal(back[k], flat[k], err_msg=k)

@@ -323,7 +323,7 @@ def test_cli_refuses_what_the_port_lacks(flags, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--arch_type", "canvasvae"], ["--arch_type", "layoutvae"],
+    ["--dtype", "float64"], ["--dtype", "int8"],
     ["--dtype", "float16"],
 ])
 def test_cli_refuses_unported_models(crello_dir, flags, tmp_path):
