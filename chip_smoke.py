@@ -141,6 +141,35 @@ Phases, each of which must pass (any failure exits non-zero):
     runs on the card.  Then the causal kernels alone at (64, 8, 50, 32),
     against their plain versions and timed beside them, the library call
     with the same causal key mask, and the bounds of the causal band.
+16. more than one device (crello Ours-EXP, D=256, 4 blocks, 8 heads,
+    global batch 256, float32, random weights from seed 0, dropout on, on
+    the 512/64/64 split of 8): (a) ``python -m flexdm_tpu_torch
+    --num_devices 1`` (NCCL, world size 1) for 2 epochs: its history and
+    best/final/last bitwise the run without a process group, both under
+    ``torch.use_deterministic_algorithms`` (``CUBLAS_WORKSPACE_CONFIG``
+    is set for the whole script), where two runs alone are bitwise each
+    other too; (b) 2
+    data-parallel ranks on ``cuda:0`` under gloo, 3 steps on one fixed
+    batch, against the single-process run of the same global batch: loss
+    within 1e-5 relative, step 1's clipped gradients and every step's
+    parameters within 1e-5 + 1e-3 of the leaf's largest entry (the
+    attention key biases, zero-gradient in exact arithmetic: noise below
+    1e-3, parameters within 2 lr a step); the ranks' parameters bitwise
+    equal after every step; forward, dq and dk/dv launched exactly 4
+    times per rank per step at (128, 8, 50, 32); (c) one data rank by 2
+    model ranks (tensor-parallel), held to (b) at the same gate, launches
+    4/4/4 per rank at (256, 4, 50, 32); each rank's step median (CUDA
+    events, 20 steps), peak memory and one all-reduce's time; (d) a
+    data-parallel job through ``train(..., devices=["cuda:0"] * 2,
+    backend="gloo")``, scored with ``all_feat`` over phase 11's
+    2048-document split by ``python -m flexdm_tpu_torch.evaluation
+    --num_devices 2`` and alone (timed), the 2 ranks' sums against the
+    sums alone (near ties counted), its ``best`` served alone; (e) on a
+    machine with 2 cards, data parallelism under NCCL held to (b), else a
+    line saying why not; then the kernels timed at the per-rank shapes
+    (128, 8, 50, 32), (256, 4, 50, 32) and crello_flat's (32, 8, 500, 32)
+    beside their bounds.  Every spawned group has a hard time limit; a
+    failing rank fails the phase.
 Each step phase ends with a ``torch.profiler`` window: device kernel time
 per step, its attention share and the busiest kernels.
 
@@ -149,8 +178,10 @@ The last lines are one JSON object per kernel, float32 and bf16 instances
 figures at (64, 8, 50, 32) under ``causal``; ``launches`` from the
 training CLI run of the instance's dtype and ``launches_by_path`` from
 each training path's 30 steps, each eval path's CLI runs, each
-trainer path of phase 13, the demo runs of phase 14 and each baseline's
-steps, CLI run and evaluation of phase 15), the card's
+trainer path of phase 13, the demo runs of phase 14, each baseline's
+steps, CLI run and evaluation of phase 15 and one rank's step of phase
+16's two layouts; a float32 kernel's ``multi_device`` times at phase 16's
+per-rank shapes), the card's
 name
 and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 """
@@ -337,7 +368,6 @@ def ptxas_summary(report):
 
 def phase_kernel(card):
     import torch
-    import torch.nn.functional as F
 
     from flexdm_tpu_torch.ops import attention as attn
 
@@ -389,34 +419,45 @@ def phase_kernel(card):
         check(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
               f"two forward calls differ at {shape} causal={causal}")
 
-    timings = {}
-    for shape in ((8, 8, 50, 32), (256, 8, 50, 32), (8, 8, 650, 32),
-                  FLAT_SHAPE, EVAL_FLAT_SHAPE):
-        b, h, s, dh = shape
-        q, k, v = (torch.randn(shape, generator=g).cuda() for _ in range(3))
-        mask = torch.ones(b, s, dtype=torch.bool)
-        mask[:, s - s // 5:] = False
-        mask = mask.cuda()
-        bias = attn.key_bias(mask, b, s, q.device)
-        sdpa_mask = bias[:, None, None, :]
-        kernel = lambda: attn.flash_attention_forward(q, k, v, mask)  # noqa: E731
-        plain = lambda: attn.attention_reference(q, k, v, bias)  # noqa: E731
-        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q, k, v, attn_mask=sdpa_mask)
-        t = {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
-             "library_ms": device_ms(library)}
-        t.update(forward_bound(shape))
-        timings[shape] = t
-        log(f"[time] attention {shape} device time (CUDA graph of 20 calls, "
-            f"median of 50): kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, library (scaled_dot_product_attention"
-            f", O only; {sdpa_kernels(library)}) {t['library_ms']:.4f} ms; "
-            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; FP32 pipes "
-            f"{t['fp32_bound_ms']:.4f} ms) [{card}]")
-        log(f"[time] attention {shape} per call from Python (median of "
-            f"50 x 20): kernel {time_ms(kernel):.4f} ms, plain "
-            f"{time_ms(plain):.4f} ms [{card}]")
+    timings = {shape: forward_times(shape, g, card)
+               for shape in ((8, 8, 50, 32), (256, 8, 50, 32), (8, 8, 650, 32),
+                             FLAT_SHAPE, EVAL_FLAT_SHAPE)}
     return worst, timings
+
+
+def forward_times(shape, g, card):
+    """The forward kernel, its plain version and the library call at
+    ``shape`` (a key mask dropping the last fifth of the keys), device
+    time from CUDA graphs, beside the bound; logged."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexdm_tpu_torch.ops import attention as attn
+
+    b, h, s, dh = shape
+    q, k, v = (torch.randn(shape, generator=g).cuda() for _ in range(3))
+    mask = torch.ones(b, s, dtype=torch.bool)
+    mask[:, s - s // 5:] = False
+    mask = mask.cuda()
+    bias = attn.key_bias(mask, b, s, q.device)
+    sdpa_mask = bias[:, None, None, :]
+    kernel = lambda: attn.flash_attention_forward(q, k, v, mask)  # noqa: E731
+    plain = lambda: attn.attention_reference(q, k, v, bias)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=sdpa_mask)
+    t = {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
+         "library_ms": device_ms(library)}
+    t.update(forward_bound(shape))
+    log(f"[time] attention {shape} device time (CUDA graph of 20 calls, "
+        f"median of 50): kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, library (scaled_dot_product_attention"
+        f", O only; {sdpa_kernels(library)}) {t['library_ms']:.4f} ms; "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; FP32 pipes "
+        f"{t['fp32_bound_ms']:.4f} ms) [{card}]")
+    log(f"[time] attention {shape} per call from Python (median of "
+        f"50 x 20): kernel {time_ms(kernel):.4f} ms, plain "
+        f"{time_ms(plain):.4f} ms [{card}]")
+    return t
 
 
 # Peaks of one NVIDIA H100 SXM (data sheet, dense): HBM bytes/s, TF32 and
@@ -679,7 +720,6 @@ def phase_backward(card):
     """The backward kernels against the plain backward; returns the worst
     error per kernel and the timings."""
     import torch
-    import torch.nn.functional as F
 
     from flexdm_tpu_torch.ops import attention as attn
 
@@ -739,75 +779,86 @@ def phase_backward(card):
             f"{errs[1]:.2e} {errs[3]:.2e} {errs[5]:.2e} (bound 1e-4 abs + "
             f"1e-4 rel); a second call bitwise equal")
 
-    timings = {}
-    for shape in ((256, 8, 50, 32), (1, 2, 4096, 64), FLAT_SHAPE):
-        b, h, s, dh = shape
-        q, k, v, do = (torch.randn(shape, generator=g).cuda()
-                       for _ in range(4))
-        mask = torch.ones(b, s, dtype=torch.bool)
-        mask[:, s - s // 5:] = False
-        mask = mask.cuda()
-        o, _, m, l = attn._forward(q, k, v, mask, False)
-        _, delta = attn._backward_dq(q, k, v, mask, o, m, l, do)
-        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-        bias = attn.key_bias(mask, b, s, q.device)
-        ref_o = attn.attention_reference(qg, kg, vg, bias)
-
-        sdpa_mask = bias[:, None, None, :]
-
-        def plain_fwd(backward=False, forward=attn.attention_reference):
-            # Autograd runs a backward op on the stream of its forward op
-            # and of its leaves, so a graph captures the plain backward
-            # only with its forward and leaves made inside the capture.
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = forward(*leaves)
-            return torch.autograd.grad(out, leaves, do) if backward else out
-
-        def library(*leaves):
-            return F.scaled_dot_product_attention(*leaves,
-                                                  attn_mask=sdpa_mask)
-
-        calls = {
-            "dq": lambda: attn._backward_dq(q, k, v, mask, o, m, l, do),
-            "dkv": lambda: attn._backward_dkv(q, k, v, mask, m, l, delta, do),
-            "kernels": lambda: attn.flash_attention_backward(
-                q, k, v, mask, o, m, l, do),
-            "plain_fwd": lambda: plain_fwd(
-                forward=lambda *x: attn.attention_reference(*x, bias)),
-            "plain_fwd_bwd": lambda: plain_fwd(
-                True, lambda *x: attn.attention_reference(*x, bias)),
-            "library_fwd": lambda: plain_fwd(forward=library),
-            "library_fwd_bwd": lambda: plain_fwd(True, library),
-        }
-        t = {name: device_ms(fn) for name, fn in calls.items()}
-        t["plain"] = t["plain_fwd_bwd"] - t["plain_fwd"]
-        t["library"] = t["library_fwd_bwd"] - t["library_fwd"]
-        t["bounds"] = dict(zip(("dq", "dkv"), backward_bounds(shape)))
-        timings[shape] = t
-        per_call = {
-            "kernels": time_ms(calls["kernels"]),
-            "plain": time_ms(lambda: torch.autograd.grad(
-                ref_o, (qg, kg, vg), do, retain_graph=True)),
-        }
-        log(f"[time] attention backward {shape} device time (CUDA graph of "
-            f"20 calls, median of 50): dq {t['dq']:.4f} ms, dkv "
-            f"{t['dkv']:.4f} ms, kernels (dq + dkv) {t['kernels']:.4f} ms; "
-            f"plain autograd backward {t['plain']:.4f} ms (forward + "
-            f"backward {t['plain_fwd_bwd']:.4f} ms less forward "
-            f"{t['plain_fwd']:.4f} ms); library backward "
-            f"(scaled_dot_product_attention, forward + backward "
-            f"{t['library_fwd_bwd']:.4f} ms less forward "
-            f"{t['library_fwd']:.4f} ms; "
-            f"{sdpa_kernels(lambda: plain_fwd(True, library))}) "
-            f"{t['library']:.4f} ms [{card}]")
-        for name, bd in t["bounds"].items():
-            log(f"[time] attention backward {shape} {name}: bound "
-                f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}; FP32 pipes "
-                f"{bd['fp32_bound_ms']:.4f} ms), kernel {t[name]:.4f} ms")
-        log(f"[time] attention backward {shape} per call from Python "
-            f"(median of 50 x 20): kernels {per_call['kernels']:.4f} ms, "
-            f"plain autograd backward {per_call['plain']:.4f} ms [{card}]")
+    timings = {shape: backward_times(shape, g, card)
+               for shape in ((256, 8, 50, 32), (1, 2, 4096, 64), FLAT_SHAPE)}
     return worst, timings
+
+
+def backward_times(shape, g, card):
+    """The dq and dk/dv kernels, the plain autograd backward and the
+    library call's backward at ``shape`` (the last fifth of the keys
+    masked), device time from CUDA graphs, beside their bounds; logged."""
+    import torch
+    import torch.nn.functional as F
+
+    from flexdm_tpu_torch.ops import attention as attn
+
+    b, h, s, dh = shape
+    q, k, v, do = (torch.randn(shape, generator=g).cuda()
+                   for _ in range(4))
+    mask = torch.ones(b, s, dtype=torch.bool)
+    mask[:, s - s // 5:] = False
+    mask = mask.cuda()
+    o, _, m, l = attn._forward(q, k, v, mask, False)
+    _, delta = attn._backward_dq(q, k, v, mask, o, m, l, do)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    bias = attn.key_bias(mask, b, s, q.device)
+    ref_o = attn.attention_reference(qg, kg, vg, bias)
+
+    sdpa_mask = bias[:, None, None, :]
+
+    def plain_fwd(backward=False, forward=attn.attention_reference):
+        # Autograd runs a backward op on the stream of its forward op
+        # and of its leaves, so a graph captures the plain backward
+        # only with its forward and leaves made inside the capture.
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = forward(*leaves)
+        return torch.autograd.grad(out, leaves, do) if backward else out
+
+    def library(*leaves):
+        return F.scaled_dot_product_attention(*leaves,
+                                              attn_mask=sdpa_mask)
+
+    calls = {
+        "dq": lambda: attn._backward_dq(q, k, v, mask, o, m, l, do),
+        "dkv": lambda: attn._backward_dkv(q, k, v, mask, m, l, delta, do),
+        "kernels": lambda: attn.flash_attention_backward(
+            q, k, v, mask, o, m, l, do),
+        "plain_fwd": lambda: plain_fwd(
+            forward=lambda *x: attn.attention_reference(*x, bias)),
+        "plain_fwd_bwd": lambda: plain_fwd(
+            True, lambda *x: attn.attention_reference(*x, bias)),
+        "library_fwd": lambda: plain_fwd(forward=library),
+        "library_fwd_bwd": lambda: plain_fwd(True, library),
+    }
+    t = {name: device_ms(fn) for name, fn in calls.items()}
+    t["plain"] = t["plain_fwd_bwd"] - t["plain_fwd"]
+    t["library"] = t["library_fwd_bwd"] - t["library_fwd"]
+    t["bounds"] = dict(zip(("dq", "dkv"), backward_bounds(shape)))
+    per_call = {
+        "kernels": time_ms(calls["kernels"]),
+        "plain": time_ms(lambda: torch.autograd.grad(
+            ref_o, (qg, kg, vg), do, retain_graph=True)),
+    }
+    log(f"[time] attention backward {shape} device time (CUDA graph of "
+        f"20 calls, median of 50): dq {t['dq']:.4f} ms, dkv "
+        f"{t['dkv']:.4f} ms, kernels (dq + dkv) {t['kernels']:.4f} ms; "
+        f"plain autograd backward {t['plain']:.4f} ms (forward + "
+        f"backward {t['plain_fwd_bwd']:.4f} ms less forward "
+        f"{t['plain_fwd']:.4f} ms); library backward "
+        f"(scaled_dot_product_attention, forward + backward "
+        f"{t['library_fwd_bwd']:.4f} ms less forward "
+        f"{t['library_fwd']:.4f} ms; "
+        f"{sdpa_kernels(lambda: plain_fwd(True, library))}) "
+        f"{t['library']:.4f} ms [{card}]")
+    for name, bd in t["bounds"].items():
+        log(f"[time] attention backward {shape} {name}: bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}; FP32 pipes "
+            f"{bd['fp32_bound_ms']:.4f} ms), kernel {t[name]:.4f} ms")
+    log(f"[time] attention backward {shape} per call from Python "
+        f"(median of 50 x 20): kernels {per_call['kernels']:.4f} ms, "
+        f"plain autograd backward {per_call['plain']:.4f} ms [{card}]")
+    return t
 
 
 def profile_steps(fn, steps=5):
@@ -1053,11 +1104,8 @@ def phase_train_cli(root, data_dir, card, dtype=None):
     then serve its best."""
     import torch
 
-    from flexdm_tpu_torch.data import DatasetSpec, split_device_batch
-
     from flexdm_tpu_torch.cli import main as train_main
     from flexdm_tpu_torch.ops import attention as attn
-    from flexdm_tpu_torch.serve import InferenceEngine, _jsonable, serve
 
     job = os.path.join(root, "train_job" + (f"_{dtype}" if dtype else ""))
     argv = ["--preset", "crello_ours_exp", "--data_dir", data_dir,
@@ -1087,6 +1135,18 @@ def phase_train_cli(root, data_dir, card, dtype=None):
     check(counts[fwd] >= 4 * steps, f"forward launched {counts}")
     check_one_instance(counts, dtype, "CLI training")
 
+    serve_best(job, data_dir, dtype, "[train] the trained job's best")
+    return counts, seconds, steps, job
+
+
+def serve_best(job, data_dir, dtype, label):
+    """The job's ``best`` served on the card by one engine: ``/predict``
+    of 4 documents over HTTP, the answers checked, the forward of the
+    job's dtype launched."""
+    from flexdm_tpu_torch.data import DatasetSpec, split_device_batch
+    from flexdm_tpu_torch.ops import attention as attn
+    from flexdm_tpu_torch.serve import InferenceEngine, _jsonable, serve
+
     engine = InferenceEngine(job, batch_size=BATCH, device="cuda")
     check(engine.model.dtype == dtype, f"served {engine.model.dtype}")
     spec = DatasetSpec("crello", data_dir, BATCH)
@@ -1104,11 +1164,11 @@ def phase_train_cli(root, data_dir, card, dtype=None):
         server.shutdown()
         server.server_close()
     check_predictions(spec, "pos", docs, body["predictions"])
-    check(serve_counts[fwd] >= 4, f"/predict launched {serve_counts}")
-    check_one_instance(serve_counts, dtype, "serving the CLI's best")
-    log(f"[train] the trained job's best served: /predict pos x{len(docs)} "
-        f"docs: 200 in {secs * 1e3:.1f} ms; launches {serve_counts}")
-    return counts, seconds, steps, job
+    check(serve_counts[kernel_names(dtype)[0]] >= 4,
+          f"/predict launched {serve_counts}")
+    check_one_instance(serve_counts, dtype, f"{label} served")
+    log(f"{label} served: /predict pos x{len(docs)} docs: 200 in "
+        f"{secs * 1e3:.1f} ms; launches {serve_counts}")
 
 
 def phase_train(card, root, data_dir, spec, batch):
@@ -1301,7 +1361,8 @@ class NearTies:
         live = (get_seq_mask(batch["length"], self.schema.max_length)
                 & (weight > 0)[:, None])
         masked = {c.name: masks[c.name] & live for c in self.columns}
-        near_rows = torch.zeros(live.shape[0], dtype=torch.bool)
+        near_rows = torch.zeros(live.shape[0], dtype=torch.bool,
+                                device=live.device)
         for c in self.columns:
             if not c.is_categorical:
                 continue
@@ -2149,10 +2210,12 @@ def trainer_remat(args, flat_args, spec, batch, card):
 class SerialHostBatches:
     """The parent's host loop, as ``HostBatches``'s stand-in: each batch
     decoded, stacked and copied on the main thread when the step asks for
-    it (``to_device(next(batches))``)."""
+    it (``to_device(next(batches))``); one process, so no ``rows``."""
 
-    def __init__(self, loader, device):
+    def __init__(self, loader, device, rows=None):
         from flexdm_tpu_torch.train.trainer import to_device
+
+        check(rows is None, f"SerialHostBatches takes no rows ({rows})")
 
         self._batches, self._device, self._copy = iter(loader), device, \
             to_device
@@ -3121,7 +3184,508 @@ def phase_baselines(card, root, data_dir, spec, batch):
     return by_path, causal
 
 
+# Phase 16: more than one device.
+RANKS = 2
+MULTI_STEPS = 3
+MULTI_TIMED = 20
+MULTI_TIMEOUT = 300  # each spawned group's hard limit, seconds
+DP_SHAPE = (TRAIN_BATCH // RANKS, 8, 50, 32)
+TP_SHAPE = (TRAIN_BATCH, 8 // RANKS, 50, 32)
+FLAT_DP_SHAPE = (FLAT_BATCH // RANKS, 8, 500, 32)
+ON_ONE_CARD = dict(devices=["cuda:0"] * RANKS, backend="gloo")
+ON_TWO_CARDS = dict(devices=[f"cuda:{r}" for r in range(RANKS)],
+                    backend="nccl")
+
+
+def _grid_steps(args, batch, grid=None):
+    """``MULTI_STEPS`` keras-Adam steps of crello Ours-EXP (seed 0, dropout
+    on) on one fixed global batch, the draws of every step from one card
+    generator (seed 5), on ``grid`` (None: this process alone).  Per step:
+    the loss over the global batch, the forward, dq and dk/dv launches and
+    the forward's q shapes, a digest of the whole parameters and, from
+    rank 0 (or alone), the whole parameters and, after step 1, the clipped
+    gradients (``mu / 0.1``).  Then ``MULTI_TIMED`` steps timed one by one
+    with CUDA events after 3 warm ones, the peak memory, and one
+    collective's time: the gradient bucket's all-reduce over the data
+    ranks, or a block output's over the model ranks."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from flexdm_tpu_torch.config import TrainConfig, build_model
+    from flexdm_tpu_torch.convert import init_params, params_to_jax
+    from flexdm_tpu_torch.data import DatasetSpec
+    from flexdm_tpu_torch.models import make_task_config
+    from flexdm_tpu_torch.ops import attention as attn
+    from flexdm_tpu_torch.parallel import mesh
+    from flexdm_tpu_torch.train.optim import KerasAdam
+    from flexdm_tpu_torch.train.trainer import global_metrics, \
+        make_train_step, step_draws
+
+    config = TrainConfig.from_args(args)
+    schema = DatasetSpec(config.dataset_name, config.data_dir).schema
+    task_config = make_task_config(schema, config.masking_method)
+    model = init_params(build_model(config, schema), 0).cuda()
+    adam = KerasAdam(model.parameters(), config.learning_rate)
+    b = batch["length"].shape[0]
+    rows = None
+    if grid is not None:
+        mesh.shard_params(model, grid, adam)
+        rows = grid.rows(b)
+    step = make_train_step(model, task_config, adam, config.l2, grid=grid)
+    device_batch = {k: torch.from_numpy(v[slice(None) if rows is None
+                                          else rows]).cuda()
+                    for k, v in batch.items()}
+    generator = torch.Generator("cuda").manual_seed(5)
+    primary = grid is None or grid.is_primary
+    shapes = []
+    forward = attn._forward
+
+    def counted(q, *rest):
+        shapes.append(tuple(q.shape))
+        return forward(q, *rest)
+
+    def one_step():
+        return step(device_batch, step_draws(model, schema, task_config, b,
+                                             generator, rows))
+
+    def whole(tensors):
+        names, params = zip(*model.named_parameters())
+        return params_to_jax(dict(zip(names,
+                                      mesh.gather_tensors(params, tensors))))
+
+    out = {"steps": []}
+    attn._forward = counted
+    try:
+        for i in range(MULTI_STEPS):
+            shapes.clear()
+            attn.reset_launch_counts()
+            metrics = one_step()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            loss = (metrics["loss"].item() if grid is None else
+                    global_metrics(metrics, grid, b,
+                                   len(schema.columns))["loss"])
+            params = whole(list(model.parameters()))
+            digest = hashlib.sha256(b"".join(
+                params[k].tobytes() for k in sorted(params))).hexdigest()
+            record = {"loss": loss, "counts": counts,
+                      "shapes": sorted(set(shapes)), "digest": digest}
+            # Every rank gathers (a collective), rank 0 keeps.
+            grads = ({k: v / 0.1 for k, v in whole(adam.mu).items()}
+                     if i == 0 else None)
+            if primary:
+                record["params"] = params
+                if grads is not None:
+                    record["grads"] = grads
+            out["steps"].append(record)
+    finally:
+        attn._forward = forward
+    for _ in range(3):
+        one_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(MULTI_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        one_step()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    out["step_ms"] = statistics.median(times)
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    if grid is not None:
+        if grid.data_size > 1:
+            what, group = "gradient bucket over the data ranks", \
+                grid.data_group
+            n = sum(p.numel() for p in model.parameters())
+        else:
+            what, group = "block output over the model ranks", \
+                grid.model_group
+            n = b * schema.max_length * config.latent_dim
+        flat = torch.ones(n, device="cuda")
+        coll = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dist.all_reduce(flat, group=group)
+            stop.record()
+            stop.synchronize()
+            coll.append(start.elapsed_time(stop))
+        out["collective"] = (what, n * 4, statistics.median(coll))
+    return out
+
+
+def multi_rank(rank, store, args, batch, layouts, devices, backend):
+    """Rank ``rank`` of ``RANKS`` on ``devices[rank]``: :func:`_grid_steps`
+    on a grid of each ``model_parallel`` of ``layouts`` in turn."""
+    from flexdm_tpu_torch.parallel import mesh
+
+    device = devices[rank]
+    grid = mesh.init_grid(rank, RANKS, layouts[0], device, backend, store)
+    try:
+        return [_grid_steps(args, batch, grid if i == 0 else
+                            mesh.new_grid(m, device))
+                for i, m in enumerate(layouts)]
+    finally:
+        mesh.teardown()
+
+
+def multi_eval_rank(rank, store, job, data_dir, tasks):
+    """Rank ``rank`` of ``RANKS`` data ranks on ``cuda:0`` under gloo:
+    the harness's sums of ``tasks`` over the test split of ``data_dir``
+    at ``EVAL_BATCH`` rows (``EVAL_BATCH / RANKS`` a rank)."""
+    from flexdm_tpu_torch.demo import load_model
+    from flexdm_tpu_torch.evaluation import harness
+    from flexdm_tpu_torch.parallel import mesh
+
+    grid = mesh.init_grid(rank, RANKS, 1, "cuda:0", "gloo", store)
+    try:
+        model, spec = load_model(job, batch_size=EVAL_BATCH, device="cuda",
+                                 data_dir=data_dir)
+        loader = spec.make_dataset("test", batch_size=EVAL_BATCH)
+        return {task: harness.task_sums(model, loader, task, group,
+                                        grid=grid)
+                for task, group in tasks}
+    finally:
+        mesh.teardown()
+
+
+def step_gate(label, got, want, lr):
+    """``got``'s steps against ``want``'s: the loss within 1e-5 relative;
+    the clipped gradients of step 1 and the parameters after each step
+    within 1e-5 + 1e-3 of the leaf's largest entry, but the attention key
+    biases, whose gradient is zero in exact arithmetic: their gradients
+    noise below ``KEY_BIAS_NOISE`` on both sides, their parameters within
+    2 lr a step (a noise gradient's sign decides a +-lr keras-Adam step).
+    Returns the largest differences."""
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0, "noise": 0.0}
+    for i, (g, w) in enumerate(zip(got["steps"], want["steps"])):
+        rel = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+        worst["loss"] = max(worst["loss"], rel)
+        check(rel <= 1e-5, f"{label} step {i + 1}: loss {g['loss']} vs "
+              f"{w['loss']}")
+        pairs = [("param", g["params"], w["params"], 2 * lr * (i + 1))]
+        if i == 0:
+            pairs.append(("grad", g["grads"], w["grads"], None))
+        for kind, a, b, noise_bound in pairs:
+            check(set(a) == set(b), f"{label}: leaves {set(a) ^ set(b)}")
+            for k in b:
+                err = float(abs(a[k] - b[k]).max())
+                if k.endswith("/key/bias"):
+                    worst["noise"] = max(worst["noise"], err)
+                    big = max(float(abs(a[k]).max()), float(abs(b[k]).max()))
+                    check(err <= noise_bound + 1e-6 if kind == "param"
+                          else big <= KEY_BIAS_NOISE,
+                          f"{label} step {i + 1}: {kind} {k} {err:.2e}")
+                    continue
+                worst[kind] = max(worst[kind], err)
+                check(err <= 1e-5 + 1e-3 * float(abs(b[k]).max()),
+                      f"{label} step {i + 1}: {kind} {k} differs by "
+                      f"{err:.2e}")
+    return worst
+
+
+def check_ranks(label, results, shape):
+    """Every rank ends each step with the same parameters, bit for bit,
+    and launched the forward, dq and dk/dv 4 times at ``shape``."""
+    for i in range(MULTI_STEPS):
+        digests = {r["steps"][i]["digest"] for r in results}
+        check(len(digests) == 1, f"{label} step {i + 1}: the ranks' "
+              f"parameters differ")
+        for rank, r in enumerate(results):
+            step = r["steps"][i]
+            counts = {k: step["counts"][k] for k in F32_KERNELS}
+            check(counts == {"fwd": 4, "dq": 4, "dkv": 4}
+                  and step["shapes"] == [shape],
+                  f"{label} rank {rank} step {i + 1}: launches {counts} "
+                  f"at {step['shapes']}, not 4/4/4 at {shape}")
+
+
+def _same_job(a, b):
+    """Two jobs' histories (wall times aside) and best/final/last arrays
+    are equal, bit for bit; returns what differs."""
+    import numpy as np
+
+    from flexdm_tpu_torch.train.checkpoint import checkpoint_path
+
+    differ = []
+    histories = []
+    for job in (a, b):
+        with open(os.path.join(job, "logs", "history.jsonl")) as f:
+            histories.append([{k: v for k, v in json.loads(line).items()
+                               if k != "wall_time"} for line in f])
+    if histories[0] != histories[1]:
+        differ.append("history")
+    for ckpt in ("best", "final", "last"):
+        with np.load(checkpoint_path(a, ckpt)) as x, \
+                np.load(checkpoint_path(b, ckpt)) as y:
+            if sorted(x.files) != sorted(y.files) or not all(
+                    np.array_equal(x[k], y[k]) for k in x.files):
+                differ.append(ckpt)
+    return differ
+
+
+def multi_world1(card, root, data_dir):
+    """16(a): ``--num_devices 1`` (NCCL, world 1) against two runs without
+    a process group, all three under ``torch.use_deterministic_algorithms``
+    (with ``CUBLAS_WORKSPACE_CONFIG``, set at the start of the script): the
+    two runs alone must agree bit for bit, and the NCCL run with them."""
+    import warnings
+
+    import torch
+
+    jobs, runs = {}, {}
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for name, extra in (("alone", ()), ("alone_again", ()),
+                                ("nccl1", ("--num_devices", "1"))):
+                jobs[name] = os.path.join(root, f"multi_{name}")
+                runs[name] = _cli(
+                    ["--num_epochs", "2", "--validation_freq", "1"],
+                    data_dir, jobs[name], extra)
+    finally:
+        torch.use_deterministic_algorithms(before)
+    nondeterministic = sorted({str(w.message).split(" does not have")[0]
+                               for w in caught
+                               if "deterministic" in str(w.message)})
+    log(f"[multi] (a) deterministic algorithms: ops without a deterministic "
+        f"implementation on this card: {nondeterministic or 'none'}")
+    again = _same_job(jobs["alone"], jobs["alone_again"])
+    check(not again, f"two runs alone differ in {again} under deterministic "
+          "algorithms")
+    nccl = _same_job(jobs["alone"], jobs["nccl1"])
+    check(not nccl, f"NCCL world 1 differs from the run alone in {nccl}")
+    log(f"[multi] (a) python -m flexdm_tpu_torch --num_devices 1 (NCCL, "
+        f"world 1), 2 epochs: history and best/final/last bitwise the run "
+        f"without a process group (and two runs alone bitwise each other); "
+        f"{runs['nccl1'][2]:.1f} s vs {runs['alone'][2]:.1f} s; launches "
+        f"{runs['nccl1'][1]}")
+
+
+def multi_layouts(card, data_dir, batch):
+    """16(b), (c): data-parallel 2, then tensor-parallel 2, on cuda:0 under
+    gloo, against the single-process run of the same global batch.
+    Returns the ranks' results, the run alone and the learning rate."""
+    from flexdm_tpu_torch.config import TrainConfig
+    from flexdm_tpu_torch.parallel import mesh
+
+    args = load_args(CONFIG, data_dir)
+    host_batch = {k: v.numpy() for k, v in batch.items()}
+    alone = _grid_steps(args, host_batch)
+    t0 = time.perf_counter()
+    dp, tp = zip(*mesh.spawn(
+        multi_rank, RANKS, (args, host_batch, (1, RANKS),
+                            ON_ONE_CARD["devices"], ON_ONE_CARD["backend"]),
+        timeout=MULTI_TIMEOUT))
+    spawned_s = time.perf_counter() - t0
+    lr = TrainConfig.from_args(args).learning_rate
+    check_ranks("data-parallel 2", dp, DP_SHAPE)
+    check_ranks("tensor-parallel 2", tp, TP_SHAPE)
+    dp_gap = step_gate("data-parallel 2", dp[0], alone, lr)
+    tp_gap = step_gate("tensor-parallel 2", tp[0], dp[0], lr)
+    for label, gap, results, shape in (
+            ("(b) data-parallel 2 vs alone", dp_gap, dp, DP_SHAPE),
+            ("(c) tensor-parallel 2 vs data-parallel 2", tp_gap, tp,
+             TP_SHAPE)):
+        log(f"[multi] {label}, crello Ours-EXP batch {TRAIN_BATCH}, dropout "
+            f"on, {MULTI_STEPS} steps: loss within {gap['loss']:.2e} "
+            f"relative, max |dg| {gap['grad']:.2e}, max |dp| "
+            f"{gap['param']:.2e} (key biases {gap['noise']:.2e}); the ranks' "
+            f"parameters bitwise equal after every step; launches "
+            f"fwd/dq/dkv 4/4/4 per rank per step at {shape}")
+        for rank, r in enumerate(results):
+            what, nbytes, ms = r["collective"]
+            log(f"[time] multi {label.split(' vs')[0]} rank {rank}: step "
+                f"median {r['step_ms']:.3f} ms ({MULTI_TIMED} steps, CUDA "
+                f"events, both ranks on one card), peak memory "
+                f"{r['peak_mib']:.1f} MiB; one all-reduce of the {what} "
+                f"({nbytes / 2**20:.2f} MiB, gloo) {ms:.3f} ms [{card}]")
+    log(f"[time] multi alone: step median {alone['step_ms']:.3f} ms "
+        f"({MULTI_TIMED} steps, CUDA events), peak memory "
+        f"{alone['peak_mib']:.1f} MiB; the 2-rank spawn (start, groups, "
+        f"both layouts) {spawned_s:.1f} s [{card}]")
+    return args, dp, tp, lr
+
+
+def multi_host(card, root, args):
+    """16(d): ``train()`` on 2 data ranks in host mode, the trainer's own
+    rank loop (its draws and rows, the gradient bucket, ``global_metrics``,
+    the validation and test sums over the ranks), against the same run
+    alone: both see the same batches, so the training fields agree to the
+    step's loss bar and the validation fields and test metrics to the eval
+    sums' bar (PERF.md section 2)."""
+    from flexdm_tpu_torch.config import TrainConfig
+    from flexdm_tpu_torch.train import trainer
+
+    runs, seconds = {}, {}
+    for name, extra, where in (("alone", {}, {}),
+                               ("ranks", {"num_devices": RANKS}, ON_ONE_CARD)):
+        t0 = time.perf_counter()
+        runs[name] = trainer.train(TrainConfig.from_args(dict(
+            args, job_dir=os.path.join(root, f"multi_host_{name}"),
+            num_epochs=2, validation_freq=1, input_mode="host", **extra)),
+            **where)
+        seconds[name] = time.perf_counter() - t0
+    got, want = runs["ranks"], runs["alone"]
+    check(len(got["history"]) == 2
+          and all(finite(h) for h in got["history"]),
+          f"history {got['history']}")
+    gap = _history_gap(got["history"], want["history"])
+    check(set(got["test_metrics"]) == set(want["test_metrics"]),
+          f"test metrics {got['test_metrics']} vs {want['test_metrics']}")
+    test = max(abs(v - got["test_metrics"][k]) / max(abs(v), 1e-30)
+               for k, v in want["test_metrics"].items())
+    check(gap["train"] <= 1e-5 and gap["val"] <= EVAL_RTOL
+          and test <= EVAL_RTOL,
+          f"2 ranks in host mode against the run alone: history {gap}, "
+          f"test metrics {test:.2e} (relative): {got} vs {want}")
+    log(f"[multi] (d) train(num_devices={RANKS}, input_mode='host', "
+        f"devices=cuda:0 x{RANKS}, gloo), 2 epochs, against the run alone: "
+        f"largest relative difference {gap['train']:.3e} in the training "
+        f"fields (bar 1e-5), {gap['val']:.3e} in the validation ones and "
+        f"{test:.3e} in the test metrics (bar {EVAL_RTOL:g}); "
+        f"{seconds['ranks']:.1f} s (spawn included) vs "
+        f"{seconds['alone']:.1f} s [{card}]")
+
+
+def multi_eval(card, root, data_dir, args, data):
+    """16(d): a data-parallel job through ``train()``, scored on 2 data
+    ranks and alone over phase 11's test split, its best served alone."""
+    from flexdm_tpu_torch.config import TrainConfig
+    from flexdm_tpu_torch.data import DatasetSpec
+    from flexdm_tpu_torch.demo import load_model
+    from flexdm_tpu_torch.evaluation import harness
+    from flexdm_tpu_torch.parallel import mesh
+    from flexdm_tpu_torch.train import trainer
+
+    job = os.path.join(root, "multi_dp_job")
+    t0 = time.perf_counter()
+    results = trainer.train(TrainConfig.from_args(dict(
+        args, job_dir=job, num_epochs=2, validation_freq=1, num_devices=RANKS)),
+        **ON_ONE_CARD)
+    train_s = time.perf_counter() - t0
+    history = results["history"]
+    check(len(history) == 2 and history[-1]["step"] == 4
+          and all(finite(h) for h in history), f"history {history}")
+    argv = ["--job-dir", job, "--batch_size", str(EVAL_BATCH),
+            "--task_mode", "all_feat", "--data_dir", data["crello"]]
+    t0 = time.perf_counter()
+    final = harness.main(argv + ["--num_devices", str(RANKS)], **ON_ONE_CARD)
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    final_alone = harness.main(argv)
+    alone_s = time.perf_counter() - t0
+    model, spec = load_model(job, batch_size=EVAL_BATCH, device="cuda",
+                             data_dir=data["crello"])
+    schema = spec.schema
+    tasks = eval_tasks(schema, "all_feat")
+    spread = mesh.spawn(multi_eval_rank, RANKS,
+                        (job, data["crello"], tasks),
+                        timeout=MULTI_TIMEOUT)
+    check(spread[0] == spread[1], "the data ranks' eval sums differ")
+    loader = DatasetSpec("crello", data["crello"], EVAL_BATCH).make_dataset(
+        "test", batch_size=EVAL_BATCH)
+    ans, worst, worst_cat, fields = {}, 0.0, 0.0, 0
+    for task, group in tasks:
+        ties = NearTies(schema, False)
+        want = harness.task_sums(model, loader, task, group, observe=ties)
+        rel, cat = compare_sums(f"2 data ranks {task}", schema,
+                                spread[0][task], want, ties)
+        worst, worst_cat = max(worst, rel), max(worst_cat, cat)
+        fields += ties.fields
+        ans[task] = harness._ratios(schema, spread[0][task])
+    check(harness.merge_results(ans) == final,
+          f"the 2-rank CLI gave {final}, its sums {ans}")
+    serve_best(job, data_dir, None, "[multi] (d) the data-parallel job's best")
+    log(f"[multi] (d) train(num_devices={RANKS}, devices=cuda:0 x{RANKS}, "
+        f"gloo), 2 epochs in {train_s:.1f} s; python -m "
+        f"flexdm_tpu_torch.evaluation --task_mode all_feat --num_devices "
+        f"{RANKS} over {EVAL_DOCS} documents: {final}; the ranks' sums "
+        f"against the sums alone: Σden within {EVAL_RTOL}, numerical Σnum "
+        f"within {worst:.2e} relative, categorical Σnum apart by at most "
+        f"{worst_cat:g} ({fields} masked fields within {NEAR_TIE} of a tie); "
+        f"the CLI alone {final_alone}")
+    log(f"[time] multi eval all_feat, {EVAL_DOCS} documents at batch "
+        f"{EVAL_BATCH}: {RANKS} data ranks on one card {eval_s:.2f} s "
+        f"(spawn included), alone {alone_s:.2f} s [{card}]")
+
+
+def multi_nccl(card, args, batch, dp, lr):
+    """16(e): data-parallel 2 under NCCL on two cards, held to (b) (the
+    ranks bitwise equal, launches as there, each rank's step and
+    all-reduce timed); or why not."""
+    import torch
+
+    from flexdm_tpu_torch.parallel import mesh
+
+    if torch.cuda.device_count() >= RANKS:
+        host_batch = {k: v.numpy() for k, v in batch.items()}
+        nccl = [r[0] for r in mesh.spawn(
+            multi_rank, RANKS, (args, host_batch, (1,),
+                                ON_TWO_CARDS["devices"],
+                                ON_TWO_CARDS["backend"]),
+            timeout=MULTI_TIMEOUT)]
+        check_ranks("NCCL data-parallel 2", nccl, DP_SHAPE)
+        gap = step_gate("NCCL data-parallel 2", nccl[0], dp[0], lr)
+        log(f"[multi] (e) data-parallel 2 under NCCL on 2 cards vs (b): "
+            f"loss within {gap['loss']:.2e}, max |dg| {gap['grad']:.2e}, "
+            f"max |dp| {gap['param']:.2e}; the ranks bitwise equal")
+        for rank, r in enumerate(nccl):
+            what, nbytes, ms = r["collective"]
+            log(f"[time] multi (e) NCCL data-parallel 2 rank {rank}: step "
+                f"median {r['step_ms']:.3f} ms ({MULTI_TIMED} steps, one "
+                f"card each), peak memory {r['peak_mib']:.1f} MiB; one "
+                f"all-reduce of the {what} ({nbytes / 2**20:.2f} MiB, NCCL) "
+                f"{ms:.3f} ms [{card}]")
+    else:
+        log(f"[multi] (e) skipped: data-parallel 2 under NCCL needs 2 cards, "
+            f"this machine has {torch.cuda.device_count()} (NCCL refuses "
+            f"two ranks on one card; (b) ran them under gloo)")
+
+
+def multi_kernels(card):
+    """The kernels at the per-rank shapes, beside their bounds."""
+    import torch
+
+    g = torch.Generator().manual_seed(16)
+    return {shape: (forward_times(shape, g, card),
+                    backward_times(shape, g, card))
+            for shape in (DP_SHAPE, TP_SHAPE, FLAT_DP_SHAPE)}
+
+
+def phase_multi(card, root, data_dir, batch, data):
+    """16: crello Ours-EXP at published width on more than one rank."""
+    import torch
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    log(f"[multi] torch {torch.__version__}, distributed backends: gloo "
+        f"{dist.is_gloo_available()}, nccl {dist.is_nccl_available()}; "
+        f"{torch.cuda.device_count()} card(s) [{card}]")
+    multi_world1(card, root, data_dir)
+    args, dp, tp, lr = multi_layouts(card, data_dir, batch)
+    multi_host(card, root, args)
+    multi_eval(card, root, data_dir, args, data)
+    multi_nccl(card, args, batch, dp, lr)
+    kernels = multi_kernels(card)
+    log(f"[time] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return {"multi_dp_step": dp[0]["steps"][0]["counts"],
+            "multi_tp_step": tp[0]["steps"][0]["counts"]}, kernels
+
+
 def main():
+    # cuBLAS repeats its results only with a fixed workspace (16(a) runs
+    # under torch.use_deterministic_algorithms); read when its first
+    # handle is made.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3159,6 +3723,8 @@ def main():
         decode_s, demo_counts = phase_decode_demo(card, root, data_dir, data)
         baseline_counts, causal = phase_baselines(card, root, data_dir, spec,
                                                   batch)
+        multi_counts, multi_kernels = phase_multi(card, root, data_dir,
+                                                  batch, data)
     log(f"[time] summary: train step crello Ours-EXP {step_ms:.2f} ms "
         f"(bf16 {bf16_ms:.2f} ms), rico Ours-EXP {rico_ms:.2f} ms (batch "
         f"{TRAIN_BATCH}), crello_flat {flat_ms:.2f} ms (bf16 "
@@ -3175,7 +3741,7 @@ def main():
                "rico_ours_exp_steps": rico_counts,
                "crello_flat_steps": flat_counts, **eval_counts,
                **bf16_counts, **trainer_counts, "demo": demo_counts,
-               **baseline_counts}
+               **baseline_counts, **multi_counts}
     # The training shape, which every kernel of the path runs at (the
     # forward also serves at (8, 8, 50, 32) and crello_flat runs
     # (64, 8, 500, 32): the log lines above).
@@ -3195,10 +3761,18 @@ def main():
                 "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
                 "library_ms": t["library"], "shape": list(shape)}
 
+    def multi_times(key):
+        """A float32 kernel's times at phase 16's per-rank shapes."""
+        out = {}
+        for s, (f, b) in multi_kernels.items():
+            t = fwd_times(f) if key == "fwd" else bwd_times(b, key)
+            out[str(s)] = dict(t, shape=list(s))
+        return out
+
     def entry(name, dtype, source, replaces, key, cli_counts, err, t):
         """One kernel: ``launches`` from the CLI run of its dtype; a
         float32 kernel also with its causal figures at ``CAUSAL_SHAPE``
-        (phase 15)."""
+        (phase 15) and its times at the per-rank shapes of phase 16."""
         out = {"name": name, "route": "cuda", "dtype": dtype,
                "source": csrc + source, "replaces": replaces,
                "launches": cli_counts[key],
@@ -3207,6 +3781,8 @@ def main():
                "max_abs_err": err, **t}
         if key in causal:
             out["causal"] = causal[key]
+        if key in F32_KERNELS:
+            out["multi_device"] = multi_times(key)
         return out
 
     fwd, bwd = timings[shape], backward_timings[shape]

@@ -10,11 +10,16 @@ sets how often ``last`` is written, ``--weights`` warm-starts from a
 ``tools/export_torch_weights.py``), ``--enable_profile`` writes a
 ``torch.profiler`` trace to ``logs/trace``.  Every ``--arch_type``
 trains: the oneshot model and the baselines (``--preset
-crello_{canvasvae,layoutvae,autoreg,bart}``).  A flag that selects
-something the port does not have yet raises ``NotImplementedError``:
-``--num_devices``/``--model_parallel`` above 1, an ``--attention_impl``
-other than ``auto`` and, for the oneshot model, a ``--dtype`` other than
-``float32`` and ``bfloat16`` (``build_model`` raises).  ``--dtype
+crello_{canvasvae,layoutvae,autoreg,bart}``).  ``--num_devices N
+[--model_parallel M]`` trains on N ranks, ``N / M`` data-parallel by
+``M`` tensor-parallel (the oneshot model only): spawned from this process
+(one card each, ``cuda:r`` with ``nccl``; ``--device cpu``: N CPU ranks
+with ``gloo``), or, under ``torchrun``, joined to its group; rank 0
+prints.  A flag that selects something the port does not have yet raises
+``NotImplementedError``: an ``--attention_impl`` other than ``auto``,
+``--model_parallel`` above 1 for a baseline and, for the oneshot model, a
+``--dtype`` other than ``float32`` and ``bfloat16`` (``build_model``
+raises).  ``--dtype
 bfloat16`` computes the oneshot model in bf16 where the JAX package does;
 parameters, gradients, the optimizer state and checkpoints stay float32.
 A baseline computes in float32 whatever ``--dtype`` says (logged), as in
@@ -99,14 +104,9 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    unported = {
-        "--num_devices > 1": (args.num_devices or 1) > 1,
-        "--model_parallel > 1": args.model_parallel > 1,
-        f"--attention_impl {args.attention_impl}": args.attention_impl != "auto",
-    }
-    for flag, given in unported.items():
-        if given:
-            raise NotImplementedError(f"{flag} is not in this port yet")
+    if args.attention_impl != "auto":
+        raise NotImplementedError(
+            f"--attention_impl {args.attention_impl} is not in this port yet")
 
 
 def main(argv=None) -> None:
@@ -123,6 +123,8 @@ def main(argv=None) -> None:
         if k in TrainConfig.__dataclass_fields__
     })
     results = train(config)
+    if results is None:  # a rank other than 0 under torchrun
+        return
     print("test metrics:")
     for k, v in sorted(results["test_metrics"].items()):
         print(f"  {k}: {v:.4f}")

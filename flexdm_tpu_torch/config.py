@@ -4,11 +4,13 @@ Counterpart of ``TrainConfig`` and ``build_model`` in
 ``flexdm_tpu/train/trainer.py``, for the fields the port has: the model
 (``remat`` included), the baselines' KL weight, the task mix, the
 optimizer, the schedule, the input mode, warm start, resuming and the
-``last`` checkpoint's period, profiling and the device.  A job's
-``args.json`` (written by either trainer) is read with
-:meth:`TrainConfig.from_args`; fields the port does not have (the mesh,
-the attention implementation, ...) are ignored there, and the CLI refuses
-the mesh and an attention implementation other than ``auto``.
+``last`` checkpoint's period, profiling, the device and the grid of
+ranks (``num_devices``, ``model_parallel``).  A job's ``args.json``
+(written by either trainer) is read with :meth:`TrainConfig.from_args`;
+fields the port does not have (the attention implementation, ...) are
+ignored there, and the CLI refuses an attention implementation other
+than ``auto``.  A job is served, evaluated and resumed on any number of
+ranks, whatever its ``num_devices`` says.
 """
 
 from __future__ import annotations
@@ -67,6 +69,10 @@ class TrainConfig:
     input_mode: str = "device"
     enable_profile: bool = False  # a torch.profiler trace in logs/trace
     device: str = "cuda"  # the torch device the job trains on
+    # None: one process, no process group; N: N ranks in a grid of
+    # N / model_parallel data ranks by model_parallel model ranks.
+    num_devices: Optional[int] = None
+    model_parallel: int = 1
 
     def to_json(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)

@@ -19,9 +19,15 @@ The port's own copy of ``flexdm_tpu/data/pipeline.py``:
   passes it, so the two packages' device-mode batches are the same
   records.  The two modes' batch orders differ, as in JAX.
 
-The JAX package's per-host record sharding (``num_hosts``, ``host_id``)
-and its mesh-sharded cache are not carried over: the port runs on one
-device (ROADMAP Queue A #11).
+More than one device, as in JAX: ``DataLoader(num_hosts, host_id)``
+gives host ``host_id`` the records ``host_id, host_id + num_hosts, ...``
+and keeps the pre-shard ``global_num_records``, from which every host
+derives the same number of steps; ``DeviceDataCache(loader, device,
+data_size, data_rank)`` holds data rank ``d``'s records ``d, d + D, ...``
+only, and its :meth:`~DeviceDataCache.epoch_indices` is JAX's stratified,
+device-aligned shuffle: columns ``[d k, (d+1) k)`` of every ``(B,)`` row
+are data rank ``d``'s local indices, so the ranks' batches are the
+records JAX's mesh of the same size takes.
 """
 
 from __future__ import annotations
@@ -51,6 +57,8 @@ class DataLoader:
         repeat: bool = False,
         seed: int = 0,
         drop_remainder: bool = False,
+        num_hosts: int = 1,
+        host_id: int = 0,
         verify_crc: bool = False,
     ):
         self.spec = spec
@@ -60,6 +68,8 @@ class DataLoader:
         self.repeat = repeat
         self.seed = seed
         self.drop_remainder = drop_remainder
+        self.num_hosts = num_hosts
+        self.host_id = host_id
         self.verify_crc = verify_crc
 
         shards = tfrecord.list_shards(spec.path, split)
@@ -71,6 +81,11 @@ class DataLoader:
         for shard in shards:
             payloads.extend(tfrecord.read_records(
                 shard, verify_crc=verify_crc, native=spec.native))
+        # The pre-shard count, from which every host derives the same
+        # number of steps per epoch (its shard may be one record short).
+        self.global_num_records = len(payloads)
+        if num_hosts > 1:
+            payloads = payloads[host_id::num_hosts]
         self._payloads = payloads
         self._decoded: List[Optional[Dict[str, np.ndarray]]] = [None] * len(
             payloads
@@ -192,11 +207,25 @@ class DeviceDataCache:
     then gathers its batch with ``index_select`` on a ``(B,)`` index
     tensor, so the only per-step traffic is the indices.  A failed upload
     raises: there is no host fallback.
+
+    With ``data_size`` D > 1 the split is spread over the data ranks
+    (JAX's mesh mode, flexdm_tpu/data/pipeline.py:171-442): data rank
+    ``data_rank`` holds records ``d, d + D, ...`` (``local_counts[d]`` of
+    them; the shard's tail repeats its last record), and a batch gathers
+    this rank's local indices.
     """
 
-    def __init__(self, loader: DataLoader, device):
+    def __init__(self, loader: DataLoader, device, data_size: int = 1,
+                 data_rank: int = 0):
         records = [loader._record(i) for i in range(loader.num_records)]
         self.num_records = len(records)
+        self.data_size = data_size
+        self.shard_size = -(-len(records) // data_size)
+        self.local_counts = np.array(
+            [len(range(d, len(records), data_size))
+             for d in range(data_size)], dtype=np.int64)
+        records = [records[min(i * data_size + data_rank, len(records) - 1)]
+                   for i in range(self.shard_size)]
         self.data: Dict[str, torch.Tensor] = {}
         for k, v in records[0].items():
             if isinstance(v, np.ndarray) and v.dtype == object:
@@ -211,11 +240,21 @@ class DeviceDataCache:
     def epoch_indices(self, batch_size: int, seed: int,
                       epoch: int) -> np.ndarray:
         """The epoch's ``(steps, batch_size)`` int64 index block:
-        ``default_rng(seed + epoch).permutation``, remainder dropped."""
-        order = np.random.default_rng(seed + epoch).permutation(
-            self.num_records)
+        ``default_rng(seed + epoch).permutation``, remainder dropped.
+        Spread over D data ranks: columns ``[d k, (d+1) k)`` (``k = B /
+        D``) are a permutation of data rank ``d``'s ``local_counts[d]``
+        records, cut to ``steps * k`` (each record at most once an
+        epoch), drawn for ``d = 0, 1, ...`` in turn from the one
+        generator, as JAX's mesh mode draws them."""
+        rng = np.random.default_rng(seed + epoch)
         steps = self.num_records // batch_size
-        return order[:steps * batch_size].reshape(steps, batch_size)
+        if batch_size % self.data_size:
+            raise ValueError(f"batch {batch_size} does not divide the "
+                             f"{self.data_size} data ranks")
+        k = batch_size // self.data_size
+        cols = [rng.permutation(int(c))[:steps * k].reshape(steps, k)
+                for c in self.local_counts]
+        return np.concatenate(cols, axis=1).astype(np.int64)
 
 
 def split_device_batch(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:

@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.rng import normal
+
 Tensors = Dict[str, torch.Tensor]
 
 HEAD_DIM = 32  # Head / Prior latent_dim, VAEEncoder dim_out
@@ -40,8 +42,7 @@ def normal_like(x: torch.Tensor,
     device), on ``x``'s device; zeros without a generator."""
     if generator is None:
         return torch.zeros_like(x)
-    return torch.randn(x.shape, generator=generator,
-                       device=generator.device).to(x.device)
+    return normal(x.shape, generator, generator.device).to(x.device)
 
 
 class Head(nn.Module):

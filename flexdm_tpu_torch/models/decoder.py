@@ -30,12 +30,13 @@ so the outputs are bf16 under ``--dtype bfloat16``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 from torch import nn
 
 from ..data.schema import ColumnSpec, Schema
+from ..parallel.layers import copy_to_model, gather_from_model, split_of
 from .masking import get_seq_mask
 from .transformer import dense
 
@@ -77,8 +78,36 @@ class Decoder(nn.Module):
                                             schema["length"].input_dim)
 
     def _head(self, column: ColumnSpec, h: torch.Tensor) -> torch.Tensor:
-        head = getattr(self, f"decoder_{column.name}")
-        return dense(h, head.weight, head.bias, self.dtype)
+        return self._heads(h, [getattr(self, f"decoder_{column.name}")])[0]
+
+    def _heads(self, h: torch.Tensor, heads) -> List[torch.Tensor]:
+        """Each Dense head of ``heads`` applied to ``h``, as one matmul of
+        the concatenated kernels.  Tensor-parallel, the split heads are
+        column-parallel, one matmul of this rank's slices whose outputs
+        are gathered once over the model group; the heads whose width does
+        not divide it run whole on every rank."""
+        split = [m for m in heads if split_of(m.weight) is not None]
+        whole = [m for m in heads if split_of(m.weight) is None]
+
+        def apply(x, group):
+            return dense(x, torch.cat([m.weight for m in group]),
+                         torch.cat([m.bias for m in group]), self.dtype)
+
+        def widths(group):
+            return [m.weight.shape[0] for m in group]
+
+        out = {}
+        if whole:
+            out.update(zip(map(id, whole),
+                           apply(h, whole).split(widths(whole), -1)))
+        if split:
+            model = split_of(split[0].weight)
+            y = gather_from_model(apply(copy_to_model(h, model), split),
+                                  model)
+            for m, part in zip(split, y.split(widths(split), -1)):
+                # (M, ..., units / M) -> (..., units)
+                out[id(m)] = part.movedim(0, -2).flatten(-2)
+        return [out[id(m)] for m in heads]
 
     def predict_mask(self, z: torch.Tensor) -> torch.Tensor:
         """``(B, S)`` validity mask of the length the ``decoder_length``
@@ -104,20 +133,10 @@ class Decoder(nn.Module):
                 outputs[c.name] = self._head(c, fields[:, :, i]).view(
                     (b, -1) + head_shape(c)[1])
             return outputs
-        heads = [getattr(self, f"decoder_{c.name}") for c in self.columns]
-        fused = dense(
-            h,
-            torch.cat([m.weight for m in heads]),
-            torch.cat([m.bias for m in heads]),
-            self.dtype,
-        )
-        offset = 0
-        for c in self.columns:
-            units, shape = head_shape(c)
-            outputs[c.name] = fused[..., offset:offset + units].view(
-                (b, -1) + shape
-            )
-            offset += units
+        heads = self._heads(h, [getattr(self, f"decoder_{c.name}")
+                                for c in self.columns])
+        for c, y in zip(self.columns, heads):
+            outputs[c.name] = y.view((b, -1) + head_shape(c)[1])
         for c in self.canvas_columns:
             outputs[c.name] = self._head(c, canvas_h).view(
                 (b,) + head_shape(c)[1])

@@ -58,6 +58,7 @@ from torch import nn
 from ..data.schema import MASK_VALUE, NULL_VALUE, ColumnSpec, Schema
 from .masking import NOISE_SIZE, get_seq_mask
 from ..ops.rng import FastDropout
+from ..parallel.layers import full
 from .transformer import LAYER_NORM_EPS, PositionEmbedding, dense
 
 CONTEXTS = (None, "id", "canvas", "length", "canvas_add")
@@ -145,7 +146,7 @@ class Encoder(nn.Module):
         """The sum over ``columns`` and their channels of the table rows
         of their ids, as one lookup in the concatenated tables (float32;
         rows rounded to the compute dtype first)."""
-        tables = [self._operand(getattr(self, f"input_{c.name}"))
+        tables = [self._operand(full(getattr(self, f"input_{c.name}")))
                   for c in columns]
         # One zero row after the tables takes every out-of-range id.
         table = torch.cat(tables + [tables[0].new_zeros(1, self.latent_dim)])
@@ -177,8 +178,8 @@ class Encoder(nn.Module):
             feats.append(
                 torch.stack([normal, is_masked, is_unused], -1).to(x.dtype)
             )
-            rows.append(layer.weight.t())
-            rows.append(torch.cat([layer.bias[None], special]))
+            rows.append(full(layer.weight).t())
+            rows.append(torch.cat([layer.bias[None], full(special)]))
         return (self._operand(torch.cat(feats, -1))
                 @ self._operand(torch.cat(rows)))
 
@@ -189,8 +190,8 @@ class Encoder(nn.Module):
             return self._result(self._categorical(inputs, [column]))
         x = inputs[column.name]
         layer = getattr(self, f"input_{column.name}")
-        special = getattr(self, f"input_{column.name}_special")
-        h = dense(x, layer.weight, layer.bias, self.dtype)
+        special = full(getattr(self, f"input_{column.name}_special"))
+        h = dense(x, full(layer.weight), layer.bias, self.dtype)
         h = torch.where((x == MASK_VALUE).all(-1)[..., None], special[0], h)
         return torch.where((x == NULL_VALUE).all(-1)[..., None], special[1], h)
 
@@ -237,12 +238,13 @@ class Encoder(nn.Module):
             seq = seq + canvas[:, None, :]
         elif self.context is not None:
             if self.context == "id":
-                token = self.input_task[inputs["task"].reshape(-1).long()]
+                token = full(self.input_task)[
+                    inputs["task"].reshape(-1).long()]
             elif self.context == "length":
                 # Clamped like a jnp gather.
                 length = inputs["length"].reshape(-1).long().clamp(
                     0, self.input_length.shape[0] - 1)
-                token = self.input_length[length]
+                token = full(self.input_length)[length]
             else:
                 token = canvas
             seq = torch.cat([token[:, None], seq], dim=1)
@@ -256,6 +258,7 @@ class Encoder(nn.Module):
                     "use_elemwise_noise: the encoder needs its (B, S', "
                     f"{NOISE_SIZE}) normal draw, and none was given"
                 )
-            seq = seq + dense(noise.to(seq.dtype), self.input_noise.weight,
+            seq = seq + dense(noise.to(seq.dtype),
+                              full(self.input_noise.weight),
                               self.input_noise.bias, self.dtype)
         return seq, seq_mask

@@ -207,6 +207,18 @@ class TrainDraws:
             move(self.shuffle), move(self.noise), self.vae,
         )
 
+    def rows(self, rows: slice) -> "TrainDraws":
+        """The draws of rows ``rows`` of the batch (a data-parallel rank's
+        share of the global batch's draws); the generators as they are."""
+        def take(x):
+            return None if x is None else x[rows]
+
+        return TrainDraws(
+            self.tasks[rows], self.uniforms[rows], self.element[rows],
+            {k: v[rows] for k, v in self.values.items()}, self.dropout,
+            take(self.shuffle), take(self.noise), self.vae,
+        )
+
 
 def draw_train(schema: Schema, batch_size: int, task_probs: Sequence[float],
                generator: torch.Generator, shuffle: bool = False,

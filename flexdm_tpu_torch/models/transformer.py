@@ -52,6 +52,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention
 from ..ops.rng import FastDropout
+from ..parallel.layers import (copy_to_model, gather_from_model,
+                               row_parallel, split_of)
 
 LAYER_NORM_EPS = 1e-3
 
@@ -117,16 +119,24 @@ class MultiHeadAttention(nn.Module):
     def _project(self, x: torch.Tensor, projections) -> torch.Tensor:
         """``x`` through ``projections`` as one matmul, split into heads:
         ``(len(projections), B, H, S, Dh)`` in one copy, so each slice is a
-        contiguous ``(B, H, S, Dh)`` tensor."""
+        contiguous ``(B, H, S, Dh)`` tensor.  Column-parallel (split
+        projections), ``H`` is this rank's ``num_heads / M`` heads: the
+        heads are contiguous in the output features, so a rank's slice is
+        whole heads."""
         b, s, d = x.shape
+        split = split_of(projections[0].weight)
+        if split is not None:
+            x = copy_to_model(x, split)
+        width = projections[0].weight.shape[0]
+        head_dim = d // self.num_heads
         out = dense(
             x,
             torch.cat([p.weight for p in projections]),
             torch.cat([p.bias for p in projections]),
             self.dtype,
         )
-        return out.view(b, s, len(projections), self.num_heads,
-                        d // self.num_heads).permute(2, 0, 3, 1, 4).contiguous()
+        return out.view(b, s, len(projections), width // head_dim,
+                        head_dim).permute(2, 0, 3, 1, 4).contiguous()
 
     def forward(self, x: torch.Tensor,
                 key_mask: Optional[torch.Tensor] = None,
@@ -144,8 +154,10 @@ class MultiHeadAttention(nn.Module):
         o = dot_product_attention(
             q, k, v, key_mask=key_mask, causal=not self.lookahead
         )
-        return dense(o.transpose(1, 2).reshape(b, s, d), self.out.weight,
-                     self.out.bias, self.dtype)
+        o = o.transpose(1, 2).reshape(b, s, -1)
+        if split_of(self.out.weight) is not None:
+            return row_parallel(o, self.out.weight, self.out.bias, self.dtype)
+        return dense(o, self.out.weight, self.out.bias, self.dtype)
 
 
 class _BlockBase(nn.Module):
@@ -166,7 +178,13 @@ class _BlockBase(nn.Module):
             self.conditional = nn.Linear(emb_size, emb_size)
 
     def _mlp(self, x):
+        split = split_of(self.mlp_0.weight)
+        if split is not None:  # column- then row-parallel
+            x = copy_to_model(x, split)
         h = F.relu(dense(x, self.mlp_0.weight, self.mlp_0.bias, self.dtype))
+        if split_of(self.mlp_1.weight) is not None:
+            return row_parallel(h, self.mlp_1.weight, self.mlp_1.bias,
+                                self.dtype)
         return dense(h, self.mlp_1.weight, self.mlp_1.bias, self.dtype)
 
     def _norm(self, norm, x):
@@ -176,8 +194,15 @@ class _BlockBase(nn.Module):
         """``conditional(z)`` as a ``(B, 1, D)`` term of every token."""
         if z is None:
             raise ValueError("a conditional block needs z")
-        return dense(z, self.conditional.weight, self.conditional.bias,
-                     self.dtype)[:, None, :]
+        split = split_of(self.conditional.weight)
+        if split is None:
+            return dense(z, self.conditional.weight, self.conditional.bias,
+                         self.dtype)[:, None, :]
+        # Column-parallel, the output features gathered.
+        y = dense(copy_to_model(z, split), self.conditional.weight,
+                  self.conditional.bias, self.dtype)
+        return torch.cat(gather_from_model(y, split).unbind(0),
+                         -1)[:, None, :]
 
 
 class TransformerBlock(_BlockBase):

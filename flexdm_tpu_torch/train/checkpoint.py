@@ -17,6 +17,13 @@ archives:
 
 Every file is written to a temporary name and then renamed, so a reader
 never sees a half-written one.
+
+On more than one rank, every rank calls the writers (a tensor-parallel
+model's split parameters and moments are gathered whole over its model
+group, a collective) and only the primary rank writes: the files are the
+single-device ones, so a job trained on N ranks serves, evaluates and
+resumes on one, and the reverse.  ``last`` holds the one generator state
+every rank's generator is at.
 """
 
 from __future__ import annotations
@@ -28,8 +35,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..convert import load_jax_params, params_from_jax, params_to_jax, \
-    save_weights
+from ..convert import load_jax_params, params_from_jax, params_to_jax
+from ..parallel.mesh import gather_params, gather_tensors
 from .optim import KerasAdam
 
 PARAMS, MU, NU = "params/", "adam/mu/", "adam/nu/"
@@ -39,34 +46,41 @@ def checkpoint_path(job_dir: str, name: str) -> str:
     return os.path.join(job_dir, "checkpoints", f"{name}.torch.npz")
 
 
-def _write(job_dir: str, name: str, write) -> str:
+def _write(job_dir: str, name: str, arrays: Dict[str, np.ndarray],
+           primary: bool) -> str:
     path = checkpoint_path(job_dir, name)
+    if not primary:
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    write(tmp)
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
     os.replace(tmp, path)
     return path
 
 
-def save_checkpoint(job_dir: str, name: str, model: nn.Module) -> str:
-    """Write ``model``'s weights as checkpoint ``name``."""
-    return _write(job_dir, name, lambda tmp: save_weights(tmp, model))
+def save_checkpoint(job_dir: str, name: str, model: nn.Module,
+                    primary: bool = True) -> str:
+    """Write ``model``'s weights (whole) as checkpoint ``name``; only
+    ``primary`` writes."""
+    return _write(job_dir, name, params_to_jax(gather_params(model)),
+                  primary)
 
 
 def _moments(model: nn.Module, moments, prefix: str) -> Dict[str, np.ndarray]:
-    names = [n for n, _ in model.named_parameters()]
-    flat = params_to_jax(dict(zip(names, moments)))
+    names, params = zip(*model.named_parameters())
+    flat = params_to_jax(dict(zip(names, gather_tensors(params, moments))))
     return {prefix + k: v for k, v in flat.items()}
 
 
 def save_last(job_dir: str, model: nn.Module, optimizer: KerasAdam,
               step: int, generator: torch.Generator,
-              best_score: float) -> str:
+              best_score: float, primary: bool = True) -> str:
     """Write the ``last`` checkpoint: weights, Adam state, step, generator
-    state and best-score watermark."""
+    state and best-score watermark (whole; only ``primary`` writes)."""
     state = optimizer.state_dict()
     arrays = {
-        **params_to_jax(model.state_dict()),
+        **params_to_jax(gather_params(model)),
         **_moments(model, state["mu"], MU),
         **_moments(model, state["nu"], NU),
         "adam/count": np.int64(state["count"]),
@@ -74,12 +88,7 @@ def save_last(job_dir: str, model: nn.Module, optimizer: KerasAdam,
         "generator": generator.get_state().numpy(),
         "best_score": np.float64(best_score),
     }
-
-    def write(tmp):
-        with open(tmp, "wb") as f:
-            np.savez(f, **arrays)
-
-    return _write(job_dir, "last", write)
+    return _write(job_dir, "last", arrays, primary)
 
 
 def load_last(job_dir: str, model: nn.Module, optimizer: KerasAdam,

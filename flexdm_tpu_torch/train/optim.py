@@ -13,6 +13,12 @@ Counterpart of ``flexdm_tpu/train/optim.py``, which replicates keras
   LayerNorm ones; it enters the loss, so it is clipped and adapted like
   any other gradient.
 
+Tensor-parallel, a split parameter's gradient clips by the norm of the
+whole tensor and its L2 term is the whole tensor's ``sum(w^2)``: each
+takes its shards' squared sums summed over the model group (a shard's own
+norm would clip differently, and only when clipping binds).  The moments
+live with the shard.
+
 Updates are in place on the parameters and on the moment buffers.
 :meth:`KerasAdam.state_dict` and :meth:`KerasAdam.load_state_dict` carry
 the moments and the iteration count in and out of the ``last``
@@ -25,14 +31,25 @@ from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from ..parallel.layers import reduce_from_model, split_of
 
 
 @torch.no_grad()
-def clip_by_per_leaf_norm(grads: Sequence[torch.Tensor],
-                          max_norm: float) -> None:
-    """Scale each gradient in place to a norm of at most ``max_norm``."""
+def clip_by_per_leaf_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                          params: Sequence[torch.Tensor] = ()) -> None:
+    """Scale each gradient in place to a norm of at most ``max_norm``; the
+    gradient of a split parameter of ``params`` (the gradients' own
+    parameters, in order) by the norm of the whole tensor."""
     norms = torch.stack(torch._foreach_norm(list(grads)))
+    split = [i for i, p in enumerate(params) if split_of(p) is not None]
+    if split:
+        index = torch.tensor(split, device=norms.device)
+        squares = norms[index].square()
+        dist.all_reduce(squares, group=split_of(params[split[0]]).group)
+        norms = norms.index_copy(0, index, squares.sqrt())
     scales = (max_norm / norms.clamp_min(1e-12)).clamp(max=1.0)
     torch._foreach_mul_(list(grads), list(scales.unbind()))
 
@@ -109,6 +126,13 @@ def regularized(model: nn.Module) -> List[torch.Tensor]:
 
 def l2_penalty(model: nn.Module) -> torch.Tensor:
     """``sum(w^2)`` over :func:`regularized`, as one reduction over the
-    concatenated parameters."""
-    flat = torch.cat([p.reshape(-1) for p in regularized(model)])
-    return flat.square().sum()
+    concatenated parameters; split parameters' squared sums are summed
+    over the model group (the backward keeps each rank's own)."""
+    params = regularized(model)
+    split = [p for p in params if split_of(p) is not None]
+    whole = [p for p in params if split_of(p) is None]
+    penalty = torch.cat([p.reshape(-1) for p in whole]).square().sum()
+    if split:
+        shards = torch.cat([p.reshape(-1) for p in split]).square().sum()
+        penalty = penalty + reduce_from_model(shards, split_of(split[0]))
+    return penalty

@@ -308,7 +308,7 @@ def test_main_writes_the_csv_of_evaluate_all(crello_dir, tmp_path):
         want.values())
 
 
-@pytest.mark.parametrize("flags", [["--num_devices", "2"],
+@pytest.mark.parametrize("flags", [["--attention_impl", "xla"],
                                    ["--attention_impl", "pallas"]])
 def test_main_refuses_what_the_port_lacks(flags):
     with pytest.raises(NotImplementedError, match="not in this port"):

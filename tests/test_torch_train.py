@@ -312,7 +312,10 @@ def test_nan_stops_without_saving(crello_dir, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--num_devices", "2"], ["--model_parallel", "2"],
+    # Tensor parallelism for the baselines (ROADMAP Queue A #11(b)).
+    ["--num_devices", "2", "--model_parallel", "2", "--arch_type", "autoreg"],
+    ["--num_devices", "4", "--model_parallel", "2",
+     "--arch_type", "canvasvae"],
     ["--attention_impl", "pallas"],
 ])
 def test_cli_refuses_what_the_port_lacks(flags, tmp_path):

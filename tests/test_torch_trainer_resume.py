@@ -94,8 +94,8 @@ def _first_step(monkeypatch):
     seen = {}
     real_step = port_trainer.make_train_step
 
-    def capture(model, *args):
-        step = real_step(model, *args)
+    def capture(model, *args, **kwargs):
+        step = real_step(model, *args, **kwargs)
 
         def run(batch, draws):
             if "params" not in seen:
@@ -166,7 +166,7 @@ def test_resume_in_host_mode_restarts_the_loader(crello_dir, tmp_path,
 
 def _scripted_scores(monkeypatch, scores):
     """``evaluate_split`` returns the next of ``scores`` on the val split."""
-    def fake(model, loader, schema, task_config, seed, device):
+    def fake(model, loader, schema, task_config, seed, device, grid=None):
         return {"total_score": scores.pop(0) if loader.split == "val"
                 else 0.0}
 
@@ -203,8 +203,8 @@ def test_nan_epoch_leaves_last_intact(crello_dir, tmp_path, monkeypatch):
             files[name] = f.read()
     real_step = port_trainer.make_train_step
 
-    def poisoned(model, *args):
-        step = real_step(model, *args)
+    def poisoned(model, *args, **kwargs):
+        step = real_step(model, *args, **kwargs)
 
         def run(batch, draws):
             metrics = step(batch, draws)
@@ -234,9 +234,11 @@ def test_checkpoint_every(crello_dir, tmp_path, monkeypatch, every,
     saved = []
     real = port_trainer.save_last
 
-    def spy(job_dir, model, optimizer, step, generator, best_score):
+    def spy(job_dir, model, optimizer, step, generator, best_score,
+            primary=True):
         saved.append(step // STEPS)
-        return real(job_dir, model, optimizer, step, generator, best_score)
+        return real(job_dir, model, optimizer, step, generator, best_score,
+                    primary)
 
     monkeypatch.setattr(port_trainer, "save_last", spy)
     port_trainer.train(_config(crello_dir, tmp_path / "job", num_epochs=3,
