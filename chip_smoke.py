@@ -61,13 +61,19 @@ Phases, each of which must pass (any failure exits non-zero):
     batches): the job of 8(iii) with ``all_feat``, ``elem``, ``random`` and
     ``pos --num_iter 3``, the rico job of 9 with ``pos`` (sorted) and the
     crello_flat job of 10 with ``elem`` (forwards at (256, 8, 500, 32)).
-    Each run: timed on the host clock, its CSV read back, the harness's
-    sums on the card over the same split give the CLI's scores, the
-    forward launched at least once per block per forward; then card vs
-    CPU on the jobs' 64-document test split (crello_flat its first 4
-    documents), the card at the CLI's batch of 256 rows: every Σden and
-    numerical Σnum within 1e-4 relative and every categorical Σnum equal,
-    apart from rows or fields near a tie (counted).
+    Each run: timed on the host clock, its CSV read back; the harness on
+    the card over the same split, resident (the split decoded, stacked
+    and uploaded once into one cache, its MiB and build seconds logged;
+    every task a loop over the cache's index blocks with one host fetch)
+    and streaming (``resident=False``: each batch stacked and copied),
+    both timed, their sums within 2e-5 relative, the resident ones giving
+    the CLI's scores, and the forward launched exactly ``num_blocks x
+    blocks x num_iter`` times by the harness and by the CLI, as the index
+    blocks predict; then card vs CPU on the jobs' 64-document test split
+    (crello_flat its first 4 documents), the card at the CLI's batch of
+    256 rows: every Σden and numerical Σnum within 1e-4 relative and every
+    categorical Σnum equal, apart from rows or fields near a tie
+    (counted).
 12. bf16 (``--dtype bfloat16``): (a) the bf16 kernel instances against
     their plain bf16 versions at the serving, training and crello_flat
     shapes, S=650, the tile edges (causal, a fully masked row) and, for the
@@ -163,12 +169,23 @@ Phases, each of which must pass (any failure exits non-zero):
     data-parallel job through ``train(..., devices=["cuda:0"] * 2,
     backend="gloo")``, scored with ``all_feat`` over phase 11's
     2048-document split by ``python -m flexdm_tpu_torch.evaluation
-    --num_devices 2`` and alone (timed), the 2 ranks' sums against the
+    --num_devices 2`` and alone (timed), the 2 ranks' sums (each from a
+    cache of its own 1024 records, the only ones it decoded) against the
     sums alone (near ties counted), its ``best`` served alone; (e) on a
     machine with 2 cards, data parallelism under NCCL held to (b), else a
-    line saying why not; then the kernels timed at the per-rank shapes
-    (128, 8, 50, 32), (256, 4, 50, 32) and crello_flat's (32, 8, 500, 32)
-    beside their bounds.  Every spawned group has a hard time limit; a
+    line saying why not; (f) each baseline (CanvasVAE, LayoutVAE, AutoReg,
+    BART at their presets, batch 64, dropout and VAE noise on)
+    tensor-parallel on one data rank by 2 model ranks (gloo on one card,
+    NCCL on two where there are two), all four in one spawn: 3 steps held
+    to the run alone at (c)'s gate, the ranks bitwise equal, the
+    forward, dq and dk/dv launched 4 / 200 / 4 / 6 times a rank a step at
+    (64, 4, 50, 32), as alone; then AutoReg's ``elem`` over 8 documents
+    of phase 15's job on the grid against alone (near ties counted, the
+    ranks equal, 200 launches a forward a rank); then the kernels timed
+    at the per-rank shapes (128, 8, 50, 32), (256, 4, 50, 32),
+    crello_flat's (32, 8, 500, 32) and the baselines' (64, 4, 50, 32)
+    beside their bounds, and the causal kernels checked and timed at
+    (64, 4, 50, 32).  Every spawned group has a hard time limit; a
     failing rank fails the phase.
 Each step phase ends with a ``torch.profiler`` window: device kernel time
 per step, its attention share and the busiest kernels.
@@ -180,8 +197,9 @@ training CLI run of the instance's dtype and ``launches_by_path`` from
 each training path's 30 steps, each eval path's CLI runs, each
 trainer path of phase 13, the demo runs of phase 14, each baseline's
 steps, CLI run and evaluation of phase 15 and one rank's step of phase
-16's two layouts; a float32 kernel's ``multi_device`` times at phase 16's
-per-rank shapes), the card's
+16's layouts and of each baseline's tensor-parallel step; a float32
+kernel's ``multi_device`` times at phase 16's per-rank shapes, the
+baselines' causal one too), the card's
 name
 and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 """
@@ -220,6 +238,8 @@ EVAL_BATCH = 256  # the eval CLI's default batch
 EVAL_FLAT_SHAPE = (EVAL_BATCH, 8, 500, 32)  # a crello_flat ``elem`` chunk
 EVAL_DOCS = 2048  # the timed eval split: 8 full batches of EVAL_BATCH
 EVAL_RTOL = 1e-4  # card vs CPU: Σden and numerical Σnum of the eval sums
+PATHS_RTOL = 2e-5  # resident vs streaming sums (JAX's bar for its paths)
+ELEM_CHUNK = 256  # the harness's default replicas an ``elem`` forward
 FLAT_EVAL_DOCS = 4  # crello_flat eval compared on 4 documents (S=500 on CPU)
 BF16 = "bfloat16"
 BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative
@@ -1396,7 +1416,8 @@ class FirstDocs:
 
     def __init__(self, spec, n):
         self.loader = spec.make_dataset("test", batch_size=n)
-        self.num_records = n
+        self.num_records = self.batch_size = n
+        self._record = self.loader._record
 
     def __iter__(self):
         yield next(iter(self.loader))
@@ -1468,16 +1489,27 @@ def eval_data(root):
 EVAL_SECONDS = {}
 
 
+def eval_blocks(cache, task, seq_len):
+    """The number of index blocks (forwards) a resident task runs at
+    ``EVAL_BATCH`` documents or ``ELEM_CHUNK`` replicas a block."""
+    blocks = (cache.elem_index_blocks(ELEM_CHUNK, seq_len) if task == "elem"
+              else cache.eval_index_blocks(EVAL_BATCH))
+    return blocks[0].shape[0]
+
+
 def eval_run(card, root, label, job, mode, timed_dir, num_iter=1,
              compare_docs=None, compare_chunk=EVAL_BATCH):
     """``python -m flexdm_tpu_torch.evaluation`` on the card at batch
     ``EVAL_BATCH`` over the test split of ``timed_dir`` (timed, launches
-    counted, its CSV read back); the harness's sums on the card over that
-    split equal to the CLI's scores; then the card against the CPU on the
-    job's own test split (the whole of it, or its first ``compare_docs``
-    documents, the CPU in ``elem`` chunks of ``compare_chunk``), near ties
-    counted; a bf16 job with bf16's bars (``BF16_ULP``, ``BF16_TIE``).
-    Returns the forward's launch counts."""
+    counted, its CSV read back); the harness on the card over that split,
+    resident (one cache for every task, the split's blocks predicting the
+    forward launches exactly: ``num_blocks x blocks x num_iter``, the CLI's
+    too) and streaming (``resident=False``), the two paths' sums within
+    ``PATHS_RTOL`` and the resident ones giving the CLI's scores; then the
+    card against the CPU on the job's own test split (the whole of it, or
+    its first ``compare_docs`` documents, the CPU in ``elem`` chunks of
+    ``compare_chunk``), near ties counted; a bf16 job with bf16's bars
+    (``BF16_ULP``, ``BF16_TIE``).  Returns the forward's launch counts."""
     import torch
 
     from flexdm_tpu_torch.data import DatasetSpec
@@ -1515,28 +1547,52 @@ def eval_run(card, root, label, job, mode, timed_dir, num_iter=1,
         "test", batch_size=EVAL_BATCH)
     check(timed.num_records == EVAL_DOCS,
           f"{label}: {timed.num_records} timed test documents")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = harness._make_cache(timed, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     split = spec.make_dataset("test", batch_size=EVAL_BATCH)
     whole_rows = bool(schema.sort_pos and mode == "pos") or num_iter > 1
     ans, forwards, units, worst, worst_cat = {}, 0, 0, 0.0, 0.0
     fields = rows_near = 0
-    t_harness = 0.0
+    t_resident = t_streaming = paths_gap = 0.0
     for task, group in eval_tasks(schema, mode):
         real = []  # rows of weight > 0 per forward: documents or replicas
         timed_rows = set()
 
-        def observe(batch, masks, w, *_):
-            real.append(int((w > 0).sum()))
+        def observe(batch, masks, w, *_):  # no host fetch
+            real.append((w > 0).sum())
             timed_rows.add(batch["length"].shape[0])
 
-        torch.cuda.synchronize()
+        blocks = eval_blocks(cache, task, schema.max_length)
+        attn_reset()
         t0 = time.perf_counter()
         sums = harness.task_sums(card_model, timed, task, group, num_iter,
-                                 observe=observe)
+                                 observe=observe, cache=cache)
         torch.cuda.synchronize()
-        t_harness += time.perf_counter() - t0
+        t_resident += time.perf_counter() - t0
+        launched = launch_counts()[fwd]
+        check(len(real) == blocks
+              and launched == num_blocks * blocks * max(num_iter, 1),
+              f"{label} {task}: {len(real)} forwards and {launched} forward "
+              f"launches, not {blocks} and {num_blocks} x {blocks} x "
+              f"{max(num_iter, 1)} as the index blocks predict")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streamed = harness.task_sums(card_model, timed, task, group,
+                                     num_iter, resident=False)
+        torch.cuda.synchronize()
+        t_streaming += time.perf_counter() - t0
+        check(set(streamed) == set(sums), f"{label} {task}: metrics")
+        for k, v in streamed.items():
+            gap = abs(sums[k] - v) / max(abs(v), 1e-30)
+            paths_gap = max(paths_gap, gap)
+            check(gap <= PATHS_RTOL, f"{label} {task}: {k} resident "
+                  f"{sums[k]} vs streaming {v}")
         ans[task] = harness._ratios(schema, sums)
-        forwards += len(real) * max(num_iter, 1)
-        units += sum(real)
+        forwards += blocks * max(num_iter, 1)
+        units += int(torch.stack(real).sum())
 
         ties = NearTies(schema, whole_rows, BF16_TIE if bf16 else 0.0)
         docs = split if compare_docs is None else FirstDocs(spec, compare_docs)
@@ -1558,9 +1614,9 @@ def eval_run(card, root, label, job, mode, timed_dir, num_iter=1,
     check(harness.merge_results(ans) == final,
           f"{label} {mode}: the harness on the card gave "
           f"{harness.merge_results(ans)}, the CLI {final}")
-    check(counts[fwd] >= num_blocks * forwards,
-          f"{label} {mode}: forward launched {counts[fwd]} times for "
-          f"{forwards} forwards x {num_blocks} blocks")
+    check(counts[fwd] == num_blocks * forwards,
+          f"{label} {mode}: the CLI launched the forward {counts[fwd]} "
+          f"times for {forwards} forwards x {num_blocks} blocks")
     check(not any(counts[n] for n in ("dq", "dkv", "dq_bf16", "dkv_bf16")),
           f"{label} {mode}: a backward kernel ran in evaluation: {counts}")
     check_one_instance(counts, card_model.dtype, f"{label} {mode}")
@@ -1569,20 +1625,28 @@ def eval_run(card, root, label, job, mode, timed_dir, num_iter=1,
                 else f"the first {compare_docs} documents")
     log(f"[eval] {label} --task_mode {mode} --num_iter {num_iter}: "
         f"{len(final)} fields, e.g. {dict(list(final.items())[:3])}; forward "
-        f"launches {counts[fwd]} (>= {forwards} forwards x {num_blocks} "
-        f"blocks); card (the CLI's {sorted(timed_rows)} rows a forward) = "
-        f"CPU on {compared} (numerical Σnum within {worst:.2e} relative, "
-        f"categorical Σnum apart by at most {worst_cat:g}); {fields} masked "
+        f"launches {counts[fwd]} (= {forwards} forwards x {num_blocks} "
+        f"blocks, as the index blocks predict); resident = streaming sums "
+        f"within {paths_gap:.2e} relative (bar {PATHS_RTOL:g}); card (the "
+        f"CLI's {sorted(timed_rows)} rows a forward) = CPU on {compared} "
+        f"(numerical Σnum within {worst:.2e} relative, categorical Σnum "
+        f"apart by at most {worst_cat:g}); {fields} masked "
         f"fields within {NEAR_TIE}{' + 4 bf16 ulps' if bf16 else ''} of a "
         f"tie or a threshold"
         + (f" on {rows_near} rows" if whole_rows else ""))
+    t_harness = build_s + t_resident
     EVAL_SECONDS[label, mode, num_iter] = (seconds, t_harness)
     log(f"[time] eval {label} --task_mode {mode} --num_iter {num_iter}, "
         f"{EVAL_DOCS} documents at batch {EVAL_BATCH}: CLI {seconds:.3f} s "
-        f"(model load, decode and CSV included), {seconds / len(ans):.3f} s "
-        f"per task, {units} {what}, {units / seconds:.1f} {what}/s; harness "
-        f"alone {t_harness:.3f} s (decode of the split included), "
-        f"{units / t_harness:.1f} {what}/s, {forwards} forwards [{card}]")
+        f"(model load, decode, cache and CSV included), "
+        f"{seconds / len(ans):.3f} s per task, {units} {what}, "
+        f"{units / seconds:.1f} {what}/s; harness resident {t_harness:.3f} "
+        f"s = cache {build_s:.3f} s ({cache.nbytes / 2**20:.2f} MiB: decode, "
+        f"stack, upload) + {len(ans)} task(s) {t_resident:.3f} s "
+        f"({t_resident / len(ans):.3f} s a task), {units / t_harness:.1f} "
+        f"{what}/s; streaming (resident=False, the records decoded "
+        f"already) {t_streaming:.3f} s ({t_streaming / len(ans):.3f} s a "
+        f"task); {forwards} forwards [{card}]")
     return counts
 
 
@@ -1610,6 +1674,13 @@ def phase_eval(card, root, data):
                                    dict.fromkeys(counts, 0))
         for name, n in counts.items():
             total[name] += n
+    label = "crello Ours-EXP"
+    (cli_all, all_feat), (cli_random, random_s) = (
+        EVAL_SECONDS[label, "all_feat", 1], EVAL_SECONDS[label, "random", 1])
+    log(f"[time] eval {label} all_feat (4 tasks) against random (1 task), "
+        f"{EVAL_DOCS} documents: harness resident {all_feat:.3f} s against "
+        f"{random_s:.3f} s (cache build included), CLI {cli_all:.3f} s "
+        f"against {cli_random:.3f} s [{card}]")
     by_path["rico_ours_exp_eval"] = eval_run(
         card, root, "rico Ours-EXP", os.path.join(root, "rico_job"), "pos",
         data["rico"])
@@ -3045,19 +3116,18 @@ def causal_bound(shape, causal_fraction):
             bound(bwd_bytes, 3 * product), bound(bwd_bytes, 4 * product))
 
 
-def phase_causal(card):
-    """The causal kernels alone at ``CAUSAL_SHAPE`` (the key mask of a
-    training batch: the tails of the rows masked): forward O and lse and
-    dq, dk, dv against the plain versions (the kernels' bars); then the
-    forward, dq, dk/dv and the plain and library calls timed, the library
-    with the same causal key mask as one float mask."""
+def phase_causal(card, shape=CAUSAL_SHAPE):
+    """The causal kernels alone at ``shape`` (the key mask of a training
+    batch: the tails of the rows masked): forward O and lse and dq, dk, dv
+    against the plain versions (the kernels' bars); then the forward, dq,
+    dk/dv and the plain and library calls timed, the library with the same
+    causal key mask as one float mask."""
     import torch
     import torch.nn.functional as F
 
     from flexdm_tpu_torch.ops import attention as attn
 
     g = torch.Generator().manual_seed(5)
-    shape = CAUSAL_SHAPE
     b, h, s, dh = shape
     q, k, v, do = (torch.randn(shape, generator=g).cuda() for _ in range(4))
     lengths = torch.randint(1, s + 1, (b,), generator=g)
@@ -3192,22 +3262,29 @@ MULTI_TIMEOUT = 300  # each spawned group's hard limit, seconds
 DP_SHAPE = (TRAIN_BATCH // RANKS, 8, 50, 32)
 TP_SHAPE = (TRAIN_BATCH, 8 // RANKS, 50, 32)
 FLAT_DP_SHAPE = (FLAT_BATCH // RANKS, 8, 500, 32)
+TP_BASELINE_SHAPE = (BASELINE_BATCH, 8 // RANKS, 50, 32)
+TP_BASELINE_STEPS = 3
+TP_ELEM_DOCS = 8  # 16(f)'s AutoReg elem: one chunk of replicas
+TP_ELEM_CHUNK = 64
 ON_ONE_CARD = dict(devices=["cuda:0"] * RANKS, backend="gloo")
 ON_TWO_CARDS = dict(devices=[f"cuda:{r}" for r in range(RANKS)],
                     backend="nccl")
 
 
-def _grid_steps(args, batch, grid=None):
-    """``MULTI_STEPS`` keras-Adam steps of crello Ours-EXP (seed 0, dropout
+def _grid_steps(args, batch, grid=None, steps=MULTI_STEPS,
+                timed=MULTI_TIMED, kinks=False):
+    """``steps`` keras-Adam steps of the preset ``args`` (seed 0, dropout
     on) on one fixed global batch, the draws of every step from one card
     generator (seed 5), on ``grid`` (None: this process alone).  Per step:
     the loss over the global batch, the forward, dq and dk/dv launches and
-    the forward's q shapes, a digest of the whole parameters and, from
-    rank 0 (or alone), the whole parameters and, after step 1, the clipped
-    gradients (``mu / 0.1``).  Then ``MULTI_TIMED`` steps timed one by one
+    the forward's q shapes, the step's seconds (host clock, synchronised),
+    a digest of the whole parameters and, from rank 0 (or alone), the
+    whole parameters and, after step 1, the clipped gradients (``mu /
+    0.1``).  Then, unless ``timed`` is 0, ``timed`` steps timed one by one
     with CUDA events after 3 warm ones, the peak memory, and one
     collective's time: the gradient bucket's all-reduce over the data
-    ranks, or a block output's over the model ranks."""
+    ranks, or a block output's over the model ranks.  ``kinks``: the
+    :class:`ReluPatterns` of those steps under ``"relu"``."""
     import hashlib
 
     import torch
@@ -3256,13 +3333,18 @@ def _grid_steps(args, batch, grid=None):
                                       mesh.gather_tensors(params, tensors))))
 
     out = {"steps": []}
+    relu = ReluPatterns(model) if kinks else None
     attn._forward = counted
     try:
-        for i in range(MULTI_STEPS):
+        for i in range(steps):
+            if relu is not None and i:
+                relu.next_step()
             shapes.clear()
             attn.reset_launch_counts()
+            t0 = time.perf_counter()
             metrics = one_step()
             torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
             counts = launch_counts()
             loss = (metrics["loss"].item() if grid is None else
                     global_metrics(metrics, grid, b,
@@ -3270,7 +3352,7 @@ def _grid_steps(args, batch, grid=None):
             params = whole(list(model.parameters()))
             digest = hashlib.sha256(b"".join(
                 params[k].tobytes() for k in sorted(params))).hexdigest()
-            record = {"loss": loss, "counts": counts,
+            record = {"loss": loss, "counts": counts, "seconds": seconds,
                       "shapes": sorted(set(shapes)), "digest": digest}
             # Every rank gathers (a collective), rank 0 keeps.
             grads = ({k: v / 0.1 for k, v in whole(adam.mu).items()}
@@ -3282,12 +3364,16 @@ def _grid_steps(args, batch, grid=None):
             out["steps"].append(record)
     finally:
         attn._forward = forward
+        if relu is not None:
+            out["relu"] = relu.close()
+    if not timed:
+        return out
     for _ in range(3):
         one_step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(MULTI_TIMED):
+    for _ in range(timed):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3338,7 +3424,9 @@ def multi_rank(rank, store, args, batch, layouts, devices, backend):
 def multi_eval_rank(rank, store, job, data_dir, tasks):
     """Rank ``rank`` of ``RANKS`` data ranks on ``cuda:0`` under gloo:
     the harness's sums of ``tasks`` over the test split of ``data_dir``
-    at ``EVAL_BATCH`` rows (``EVAL_BATCH / RANKS`` a rank)."""
+    at ``EVAL_BATCH`` rows (``EVAL_BATCH / RANKS`` a rank), from one cache
+    spread over the ranks; with the cache's records, bytes and build
+    seconds, and the records this rank decoded."""
     from flexdm_tpu_torch.demo import load_model
     from flexdm_tpu_torch.evaluation import harness
     from flexdm_tpu_torch.parallel import mesh
@@ -3348,23 +3436,110 @@ def multi_eval_rank(rank, store, job, data_dir, tasks):
         model, spec = load_model(job, batch_size=EVAL_BATCH, device="cuda",
                                  data_dir=data_dir)
         loader = spec.make_dataset("test", batch_size=EVAL_BATCH)
-        return {task: harness.task_sums(model, loader, task, group,
-                                        grid=grid)
+        cache = harness._make_cache(loader, "cuda:0", grid)
+        decoded = sum(r is not None for r in loader._decoded)
+        sums = {task: harness.task_sums(model, loader, task, group,
+                                        grid=grid, cache=cache)
                 for task, group in tasks}
+        return sums, (cache.shard_size, cache.nbytes, cache.build_seconds,
+                      decoded)
     finally:
         mesh.teardown()
 
 
-def step_gate(label, got, want, lr):
+# The Dense layers of the CVAE parts that a ReLU follows
+# (models/baselines/cvae.py), by the class that holds them.
+RELU_DENSE = {"VAEDecoder": ("fc1", "fc2"), "VAEEncoder": ("fc2",),
+              "Prior": ("fc",)}
+
+
+class ReluPatterns:
+    """Forward hooks on the Dense layers a ReLU follows in the CVAE parts:
+    for every call, each unit's (output feature's) fingerprint of which
+    rows it let through, ``sum_r [x_rj > 0] u_r`` with fixed random
+    float64 weights ``u``.  Two runs whose summation orders differ put a
+    row on the other side of a kink where a pre-activation lies within
+    their rounding of 0; the unit's gradient (its kernel column and bias
+    entry) then takes that row's term in one run and not in the other.
+    :func:`relu_flips` finds those units, as near ties are counted."""
+
+    def __init__(self, model):
+        self.steps = [[]]  # per step: [(leaf prefix, fingerprints)]
+        self.weights = {}
+        self.handles = []
+        for name, m in model.named_modules():
+            for attr in RELU_DENSE.get(type(m).__name__, ()):
+                key = "/".join(["params", *name.split("."), attr])
+                self.handles.append(getattr(m, attr).register_forward_hook(
+                    self._hook(key)))
+
+    def _hook(self, key):
+        import torch
+
+        def hook(_module, _inputs, out):
+            x = out.detach().flatten(0, -2)
+            rows = x.shape[0]
+            if rows not in self.weights:
+                self.weights[rows] = torch.rand(
+                    rows, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(rows)).to(
+                        x.device)
+            self.steps[-1].append((key, ((x > 0).double()
+                                         * self.weights[rows][:, None])
+                                   .sum(0)))
+        return hook
+
+    def next_step(self):
+        self.steps.append([])
+
+    def close(self):
+        """Remove the hooks; per step, ``[(leaf prefix, fingerprints)]``
+        as numpy."""
+        for h in self.handles:
+            h.remove()
+        return [[(k, fp.cpu().numpy()) for k, fp in calls]
+                for calls in self.steps]
+
+
+def relu_flips(a, b):
+    """Per step, ``{leaf: bool mask}`` (flax layout, kernel ``(in, out)``)
+    of the entries of the units whose ReLU let other rows through in the
+    two runs' :meth:`ReluPatterns.close`, in that step or an earlier
+    one."""
+    import numpy as np
+
+    out, units = [], {}
+    for calls_a, calls_b in zip(a, b):
+        check(len(calls_a) == len(calls_b)
+              and [k for k, _ in calls_a] == [k for k, _ in calls_b],
+              "the two runs called the CVAE layers otherwise")
+        for (key, x), (_, y) in zip(calls_a, calls_b):
+            units[key] = units.get(key, False) | (x != y)
+        step = {}
+        for key, flipped in units.items():
+            step[key + "/bias"] = flipped
+            step[key + "/kernel"] = flipped[None, :]
+        out.append(step)
+    return out
+
+
+def step_gate(label, got, want, lr, flips=None):
     """``got``'s steps against ``want``'s: the loss within 1e-5 relative;
     the clipped gradients of step 1 and the parameters after each step
     within 1e-5 + 1e-3 of the leaf's largest entry, but the attention key
     biases, whose gradient is zero in exact arithmetic: their gradients
     noise below ``KEY_BIAS_NOISE`` on both sides, their parameters within
-    2 lr a step (a noise gradient's sign decides a +-lr keras-Adam step).
-    Returns the largest differences."""
-    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0, "noise": 0.0}
+    2 lr a step (a noise gradient's sign decides a +-lr keras-Adam step);
+    and, per step, the entries of ``flips`` (:func:`relu_flips`), held as
+    the key biases' parameters and their gradients not compared.  Returns
+    the largest differences and ``"kinks"``, the entries past the bar that
+    ``flips`` excused."""
+    import numpy as np
+
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0, "noise": 0.0,
+             "kinks": 0}
     for i, (g, w) in enumerate(zip(got["steps"], want["steps"])):
+        kinks = flips[i] if flips else {}
         rel = abs(g["loss"] - w["loss"]) / abs(w["loss"])
         worst["loss"] = max(worst["loss"], rel)
         check(rel <= 1e-5, f"{label} step {i + 1}: loss {g['loss']} vs "
@@ -3383,27 +3558,38 @@ def step_gate(label, got, want, lr):
                           else big <= KEY_BIAS_NOISE,
                           f"{label} step {i + 1}: {kind} {k} {err:.2e}")
                     continue
+                diff = abs(a[k] - b[k])
+                bar = 1e-5 + 1e-3 * float(abs(b[k]).max())
+                if k in kinks:
+                    excused = np.broadcast_to(kinks[k], diff.shape)
+                    worst["kinks"] += int((diff[excused] > bar).sum())
+                    near = float(diff[excused].max(initial=0.0))
+                    check(kind == "grad" or near <= noise_bound + 1e-6,
+                          f"{label} step {i + 1}: {kind} {k} near a ReLU "
+                          f"kink differs by {near:.2e}")
+                    diff = diff[~excused]
+                err = float(diff.max(initial=0.0))
                 worst[kind] = max(worst[kind], err)
-                check(err <= 1e-5 + 1e-3 * float(abs(b[k]).max()),
-                      f"{label} step {i + 1}: {kind} {k} differs by "
-                      f"{err:.2e}")
+                check(err <= bar, f"{label} step {i + 1}: {kind} {k} "
+                      f"differs by {err:.2e}")
     return worst
 
 
-def check_ranks(label, results, shape):
+def check_ranks(label, results, shape, per_step=4):
     """Every rank ends each step with the same parameters, bit for bit,
-    and launched the forward, dq and dk/dv 4 times at ``shape``."""
-    for i in range(MULTI_STEPS):
+    and launched the forward, dq and dk/dv ``per_step`` times at
+    ``shape``."""
+    for i in range(len(results[0]["steps"])):
         digests = {r["steps"][i]["digest"] for r in results}
         check(len(digests) == 1, f"{label} step {i + 1}: the ranks' "
               f"parameters differ")
         for rank, r in enumerate(results):
             step = r["steps"][i]
             counts = {k: step["counts"][k] for k in F32_KERNELS}
-            check(counts == {"fwd": 4, "dq": 4, "dkv": 4}
+            check(counts == dict.fromkeys(F32_KERNELS, per_step)
                   and step["shapes"] == [shape],
                   f"{label} rank {rank} step {i + 1}: launches {counts} "
-                  f"at {step['shapes']}, not 4/4/4 at {shape}")
+                  f"at {step['shapes']}, not {per_step} each at {shape}")
 
 
 def _same_job(a, b):
@@ -3587,10 +3773,16 @@ def multi_eval(card, root, data_dir, args, data):
                              data_dir=data["crello"])
     schema = spec.schema
     tasks = eval_tasks(schema, "all_feat")
-    spread = mesh.spawn(multi_eval_rank, RANKS,
-                        (job, data["crello"], tasks),
-                        timeout=MULTI_TIMEOUT)
+    t0 = time.perf_counter()
+    spread, caches = zip(*mesh.spawn(multi_eval_rank, RANKS,
+                                     (job, data["crello"], tasks),
+                                     timeout=MULTI_TIMEOUT))
+    spread_s = time.perf_counter() - t0
     check(spread[0] == spread[1], "the data ranks' eval sums differ")
+    for rank, (records, _, _, decoded) in enumerate(caches):
+        check(records == decoded == EVAL_DOCS // RANKS,
+              f"rank {rank}: a cache of {records} records, {decoded} "
+              f"decoded, not the {EVAL_DOCS // RANKS} of its shard")
     loader = DatasetSpec("crello", data["crello"], EVAL_BATCH).make_dataset(
         "test", batch_size=EVAL_BATCH)
     ans, worst, worst_cat, fields = {}, 0.0, 0.0, 0
@@ -3615,7 +3807,11 @@ def multi_eval(card, root, data_dir, args, data):
         f"the CLI alone {final_alone}")
     log(f"[time] multi eval all_feat, {EVAL_DOCS} documents at batch "
         f"{EVAL_BATCH}: {RANKS} data ranks on one card {eval_s:.2f} s "
-        f"(spawn included), alone {alone_s:.2f} s [{card}]")
+        f"(spawn included; PR 14's streaming ranks: 11.23-12.69 s), alone "
+        f"{alone_s:.2f} s; the harness's ranks {spread_s:.2f} s (spawn "
+        f"included), each rank's cache "
+        + ", ".join(f"{n} records, {b / 2**20:.2f} MiB in {t:.3f} s"
+                    for n, b, t, _ in caches) + f" [{card}]")
 
 
 def multi_nccl(card, args, batch, dp, lr):
@@ -3651,6 +3847,150 @@ def multi_nccl(card, args, batch, dp, lr):
             f"two ranks on one card; (b) ran them under gloo)")
 
 
+def multi_baseline_rank(rank, store, data_dir, batch, job, devices,
+                        backend):
+    """Rank ``rank`` of one data rank by ``RANKS`` model ranks: each
+    baseline's :func:`_grid_steps` (``TP_BASELINE_STEPS`` steps, no timed
+    ones), then :func:`tp_elem` of the AutoReg ``job``."""
+    from flexdm_tpu_torch.parallel import mesh
+
+    grid = mesh.init_grid(rank, RANKS, RANKS, devices[rank], backend, store)
+    try:
+        out = {name: _grid_steps(load_args(f"configs/crello_{name}.json",
+                                           data_dir),
+                                 batch, grid, TP_BASELINE_STEPS, timed=0,
+                                 kinks=grid.is_primary)
+               for name in BASELINES}
+        out["elem"] = tp_elem(job, data_dir, grid)
+        return out
+    finally:
+        mesh.teardown()
+
+
+def tp_elem(job, data_dir, grid=None):
+    """``elem`` of the job's model over its first ``TP_ELEM_DOCS`` test
+    documents in chunks of ``TP_ELEM_CHUNK`` replicas, on ``grid`` (its
+    parameters split) or alone (near ties counted): the sums, the forward
+    launches and the forwards."""
+    from flexdm_tpu_torch.demo import load_model
+    from flexdm_tpu_torch.evaluation import harness
+    from flexdm_tpu_torch.parallel import mesh
+
+    model, spec = load_model(job, batch_size=BASELINE_BATCH, device="cuda",
+                             data_dir=data_dir)
+    ties = None
+    if grid is not None:
+        mesh.shard_params(model, grid)
+    else:
+        ties = BaselineTies(spec.schema, model)
+    forwards = []
+
+    def observe(*args):
+        forwards.append(args[0]["length"].shape[0])
+        if ties is not None:
+            ties(*args)
+
+    attn_reset()
+    sums = harness.task_sums(model, FirstDocs(spec, TP_ELEM_DOCS), "elem",
+                             None, elem_chunk=TP_ELEM_CHUNK, grid=grid,
+                             observe=observe)
+    return {"sums": sums, "fwd": launch_counts()["fwd"],
+            "forwards": len(forwards), "ties": ties}
+
+
+def multi_baselines(card, root, data_dir, batch):
+    """16(f): each baseline tensor-parallel (one data rank by ``RANKS``
+    model ranks; gloo on one card, NCCL on two where there are two), all
+    four in one spawn: ``TP_BASELINE_STEPS`` steps held to the run alone
+    at 16(c)'s step gate, the ranks bitwise equal, the launches a rank a
+    step those alone (4 / 200 / 4 / 6) at ``TP_BASELINE_SHAPE``; then
+    AutoReg's ``elem`` (phase 15's job) on the grid against alone.
+    Returns the launches per path."""
+    import torch
+
+    from flexdm_tpu_torch.config import TrainConfig
+    from flexdm_tpu_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    batch = {k: v[:BASELINE_BATCH].numpy() for k, v in batch.items()}
+    job = os.path.join(root, "autoreg_job")
+    where = ON_TWO_CARDS if torch.cuda.device_count() >= RANKS \
+        else ON_ONE_CARD
+    t0 = time.perf_counter()
+    results = mesh.spawn(multi_baseline_rank, RANKS,
+                         (data_dir, batch, job, where["devices"],
+                          where["backend"]), timeout=MULTI_TIMEOUT)
+    spawned_s = time.perf_counter() - t0
+    by_path = {}
+    for name in BASELINES:
+        args = load_args(f"configs/crello_{name}.json", data_dir)
+        lr = TrainConfig.from_args(args).learning_rate
+        per_step = BASELINE_STEP_LAUNCHES[name]
+        t0 = time.perf_counter()
+        alone = _grid_steps(args, batch, None, TP_BASELINE_STEPS, timed=0,
+                            kinks=True)
+        alone_s = time.perf_counter() - t0
+        label = f"(f) crello_{name} tensor-parallel {RANKS}"
+        ranks = [r[name] for r in results]
+        check_ranks(label, ranks, TP_BASELINE_SHAPE, per_step)
+        check(all(st["counts"]["fwd"] == per_step for st in alone["steps"]),
+              f"{label}: alone launched {alone['steps'][0]['counts']}")
+        flips = relu_flips(ranks[0]["relu"], alone["relu"])
+        gap = step_gate(label, ranks[0], alone, lr, flips)
+        biases = [m for k, m in flips[-1].items() if k.endswith("/bias")]
+        flipped = sum(int(m.sum()) for m in biases)
+        units = sum(m.size for m in biases)
+        by_path[f"multi_tp_crello_{name}_step"] = ranks[0]["steps"][0][
+            "counts"]
+        step_s = [[st["seconds"] for st in r["steps"]] for r in ranks]
+        log(f"[multi] {label} ({where['backend']}, "
+            f"{len(set(where['devices']))} card(s)) vs alone, batch "
+            f"{BASELINE_BATCH}, dropout and VAE noise on, "
+            f"{TP_BASELINE_STEPS} steps: loss within {gap['loss']:.2e} "
+            f"relative, max |dg| {gap['grad']:.2e}, max |dp| "
+            f"{gap['param']:.2e} (key biases {gap['noise']:.2e}); "
+            f"{flipped} of {units} CVAE units' ReLUs let other rows "
+            f"through, {gap['kinks']} of their entries past the bar; the ranks "
+            f"bitwise equal after every step; launches fwd/dq/dkv "
+            f"{per_step} each a rank a step at {TP_BASELINE_SHAPE}")
+        log(f"[time] multi {label}: steps (host clock) "
+            + "; ".join(f"rank {r} " + ", ".join(f"{x:.3f}" for x in t)
+                        for r, t in enumerate(step_s))
+            + " s; alone "
+            + ", ".join(f"{st['seconds']:.3f}" for st in alone["steps"])
+            + f" s ({alone_s:.1f} s with the setup) [{card}]")
+    per_forward = BASELINE_EVAL_LAUNCHES["autoreg"]
+    want = tp_elem(job, data_dir)
+    ties = want["ties"]
+    check(want["fwd"] == per_forward * want["forwards"],
+          f"(f) AutoReg elem alone: {want['fwd']} forward launches for "
+          f"{want['forwards']} forwards x {per_forward}")
+    for rank, r in enumerate(results):
+        got = r["elem"]
+        check(got["sums"] == results[0]["elem"]["sums"],
+              f"(f) AutoReg elem: rank {rank}'s sums differ from rank 0's")
+        check(got["forwards"] == want["forwards"]
+              and got["fwd"] == per_forward * got["forwards"],
+              f"(f) AutoReg elem rank {rank}: {got['fwd']} forward launches "
+              f"for {got['forwards']} forwards x {per_forward}")
+    rel, cat = compare_sums("(f) AutoReg elem tensor-parallel",
+                            ties.schema, results[0]["elem"]["sums"],
+                            want["sums"], ties)
+    by_path["multi_tp_crello_autoreg_elem"] = {
+        **dict.fromkeys(launch_counts(), 0),
+        "fwd": results[0]["elem"]["fwd"]}
+    log(f"[multi] (f) AutoReg elem over {TP_ELEM_DOCS} documents "
+        f"({want['forwards']} forward(s) of {TP_ELEM_CHUNK} replicas) on "
+        f"the 1 x {RANKS} grid = alone: numerical Σnum within {rel:.2e} "
+        f"relative, categorical Σnum apart by at most {cat:g} ({ties.rows} "
+        f"rows near a tie); the ranks' sums equal; {per_forward} forward "
+        f"launches a forward a rank")
+    log(f"[time] multi (f) the {RANKS}-rank spawn (start, the four "
+        f"baselines' steps, AutoReg elem) {spawned_s:.1f} s; 16(f) "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return by_path
+
+
 def multi_kernels(card):
     """The kernels at the per-rank shapes, beside their bounds."""
     import torch
@@ -3658,7 +3998,8 @@ def multi_kernels(card):
     g = torch.Generator().manual_seed(16)
     return {shape: (forward_times(shape, g, card),
                     backward_times(shape, g, card))
-            for shape in (DP_SHAPE, TP_SHAPE, FLAT_DP_SHAPE)}
+            for shape in (DP_SHAPE, TP_SHAPE, FLAT_DP_SHAPE,
+                          TP_BASELINE_SHAPE)}
 
 
 def phase_multi(card, root, data_dir, batch, data):
@@ -3675,10 +4016,13 @@ def phase_multi(card, root, data_dir, batch, data):
     multi_host(card, root, args)
     multi_eval(card, root, data_dir, args, data)
     multi_nccl(card, args, batch, dp, lr)
+    baseline_counts = multi_baselines(card, root, data_dir, batch)
     kernels = multi_kernels(card)
+    causal = phase_causal(card, TP_BASELINE_SHAPE)
     log(f"[time] phase 16 took {time.perf_counter() - t_phase:.1f} s")
     return {"multi_dp_step": dp[0]["steps"][0]["counts"],
-            "multi_tp_step": tp[0]["steps"][0]["counts"]}, kernels
+            "multi_tp_step": tp[0]["steps"][0]["counts"],
+            **baseline_counts}, kernels, causal
 
 
 def main():
@@ -3723,8 +4067,8 @@ def main():
         decode_s, demo_counts = phase_decode_demo(card, root, data_dir, data)
         baseline_counts, causal = phase_baselines(card, root, data_dir, spec,
                                                   batch)
-        multi_counts, multi_kernels = phase_multi(card, root, data_dir,
-                                                  batch, data)
+        multi_counts, multi_kernels, multi_causal = phase_multi(
+            card, root, data_dir, batch, data)
     log(f"[time] summary: train step crello Ours-EXP {step_ms:.2f} ms "
         f"(bf16 {bf16_ms:.2f} ms), rico Ours-EXP {rico_ms:.2f} ms (batch "
         f"{TRAIN_BATCH}), crello_flat {flat_ms:.2f} ms (bf16 "
@@ -3783,6 +4127,8 @@ def main():
             out["causal"] = causal[key]
         if key in F32_KERNELS:
             out["multi_device"] = multi_times(key)
+            out["multi_device"][f"{TP_BASELINE_SHAPE} causal"] = \
+                multi_causal[key]
         return out
 
     fwd, bwd = timings[shape], backward_timings[shape]

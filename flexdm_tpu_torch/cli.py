@@ -12,14 +12,13 @@ sets how often ``last`` is written, ``--weights`` warm-starts from a
 trains: the oneshot model and the baselines (``--preset
 crello_{canvasvae,layoutvae,autoreg,bart}``).  ``--num_devices N
 [--model_parallel M]`` trains on N ranks, ``N / M`` data-parallel by
-``M`` tensor-parallel (the oneshot model only): spawned from this process
+``M`` tensor-parallel (every arch type): spawned from this process
 (one card each, ``cuda:r`` with ``nccl``; ``--device cpu``: N CPU ranks
 with ``gloo``), or, under ``torchrun``, joined to its group; rank 0
 prints.  A flag that selects something the port does not have yet raises
-``NotImplementedError``: an ``--attention_impl`` other than ``auto``,
-``--model_parallel`` above 1 for a baseline and, for the oneshot model, a
-``--dtype`` other than ``float32`` and ``bfloat16`` (``build_model``
-raises).  ``--dtype
+``NotImplementedError``: an ``--attention_impl`` other than ``auto``
+and, for the oneshot model, a ``--dtype`` other than ``float32`` and
+``bfloat16`` (``build_model`` raises).  ``--dtype
 bfloat16`` computes the oneshot model in bf16 where the JAX package does;
 parameters, gradients, the optimizer state and checkpoints stay float32.
 A baseline computes in float32 whatever ``--dtype`` says (logged), as in

@@ -34,7 +34,9 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict, Iterable, Iterator, List, Optional
+import time
+from typing import (Any, Callable, Dict, Iterable, Iterator, List,
+                    Optional)
 
 import numpy as np
 import torch
@@ -211,27 +213,50 @@ class DeviceDataCache:
     With ``data_size`` D > 1 the split is spread over the data ranks
     (JAX's mesh mode, flexdm_tpu/data/pipeline.py:171-442): data rank
     ``data_rank`` holds records ``d, d + D, ...`` (``local_counts[d]`` of
-    them; the shard's tail repeats its last record), and a batch gathers
-    this rank's local indices.
+    them; the shard's tail repeats its last record), decodes only those,
+    and a batch gathers this rank's local indices.
+
+    Evaluation (flexdm_tpu/data/pipeline.py:249-258, :320-424) walks the
+    cache through index blocks built on the host from the records'
+    lengths: :meth:`eval_index_blocks` (every real record once) and
+    :meth:`elem_index_blocks` (every real (record, element) pair once), on
+    a spread cache this rank's columns of JAX's device-aligned blocks.
+    :meth:`on_device` uploads such a block once per key.
     """
 
     def __init__(self, loader: DataLoader, device, data_size: int = 1,
                  data_rank: int = 0):
-        records = [loader._record(i) for i in range(loader.num_records)]
-        self.num_records = len(records)
+        t0 = time.perf_counter()
+        n = loader.num_records
+        self.num_records = n
         self.data_size = data_size
-        self.shard_size = -(-len(records) // data_size)
+        self.data_rank = data_rank
+        self.device = torch.device(device)
+        self.shard_size = -(-n // data_size)
         self.local_counts = np.array(
-            [len(range(d, len(records), data_size))
-             for d in range(data_size)], dtype=np.int64)
-        records = [records[min(i * data_size + data_rank, len(records) - 1)]
-                   for i in range(self.shard_size)]
+            [len(range(d, n, data_size)) for d in range(data_size)],
+            dtype=np.int64)
+        mine = list(range(data_rank, n, data_size)) or [n - 1]
+        # The global id of the record each slot holds.
+        self.record_ids = np.array(
+            mine + [mine[-1]] * (self.shard_size - len(mine)), np.int64)
+        records = [loader._record(int(g)) for g in mine]
+        records += [records[-1]] * (self.shard_size - len(records))
+        # Host lengths per slot (zero-based: L + 1 elements), for the
+        # ``elem`` blocks.
+        self.host_lengths = (
+            np.array([int(np.asarray(r["length"]).reshape(-1)[0])
+                      for r in records], np.int64)
+            if "length" in records[0] else None)
         self.data: Dict[str, torch.Tensor] = {}
         for k, v in records[0].items():
             if isinstance(v, np.ndarray) and v.dtype == object:
                 continue
             stacked = np.stack([r[k] for r in records], axis=0)
-            self.data[k] = torch.from_numpy(stacked).to(device)
+            self.data[k] = torch.from_numpy(stacked).to(self.device)
+        self.nbytes = sum(v.nbytes for v in self.data.values())
+        self._on_device: Dict[Any, Any] = {}
+        self.build_seconds = time.perf_counter() - t0
 
     def gather(self, indices: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Batch = dataset[indices], computed on the cache's device."""
@@ -255,6 +280,70 @@ class DeviceDataCache:
         cols = [rng.permutation(int(c))[:steps * k].reshape(steps, k)
                 for c in self.local_counts]
         return np.concatenate(cols, axis=1).astype(np.int64)
+
+    def _per_rank(self, chunk: int) -> int:
+        if chunk % self.data_size:
+            raise ValueError(f"chunk {chunk} does not divide the "
+                             f"{self.data_size} data ranks")
+        return chunk // self.data_size
+
+    def eval_index_blocks(self, chunk: int):
+        """``(blk, w, gid)``, each ``(T, chunk / D)``: local indices
+        covering every real record of this rank once, their weights (0 on
+        the padding) and the global ids of the records they hold, this
+        rank's columns of JAX's ``(T, chunk)`` blocks."""
+        k = self._per_rank(chunk)
+        T = -(-self.shard_size // k)
+        rows = np.arange(T * k).reshape(T, k)
+        blk = np.minimum(rows, self.shard_size - 1)
+        w = (rows < self.local_counts[self.data_rank]).astype(np.float32)
+        return blk, w, self.record_ids[blk]
+
+    def elem_index_blocks(self, chunk: int, seq_len: int):
+        """``(doc, elem, w)``, each ``(T, chunk / D)``: one replica per
+        real (record, element) pair of this rank (``length`` is
+        zero-based: L + 1 elements), its local record index, element and
+        weight; the tail padded with zero-weight ``(0, 0)`` replicas.
+        This rank's columns of JAX's blocks, cut to the rows that hold
+        its replicas (at least one): ranks may run different numbers of
+        blocks."""
+        k = self._per_rank(chunk)
+        slots = np.arange(self.shard_size)
+        if self.host_lengths is None:
+            lengths = np.full(self.shard_size, seq_len, np.int64)
+        else:
+            lengths = np.clip(self.host_lengths + 1, 0, seq_len)
+        lengths = lengths * (slots < self.local_counts[self.data_rank])
+        n = int(lengths.sum())
+        T = max(1, -(-n // k))
+        doc = np.zeros(T * k, np.int64)
+        elem = np.zeros(T * k, np.int64)
+        w = np.zeros(T * k, np.float32)
+        doc[:n] = np.repeat(slots, lengths)
+        elem[:n] = np.arange(n) - (np.cumsum(lengths) - lengths)[doc[:n]]
+        w[:n] = 1.0
+        return doc.reshape(T, k), elem.reshape(T, k), w.reshape(T, k)
+
+    def on_device(self, key, make: Callable):
+        """``make()`` (a tensor or a tuple of arrays or tensors) on the
+        cache's device, made and uploaded once per ``key``."""
+        if key not in self._on_device:
+            value = make()
+            parts = value if isinstance(value, tuple) else (value,)
+            parts = tuple(torch.as_tensor(p).to(self.device) for p in parts)
+            self._on_device[key] = parts if isinstance(value, tuple) \
+                else parts[0]
+        return self._on_device[key]
+
+    def device_eval_blocks(self, chunk: int):
+        """:meth:`eval_index_blocks` on the device, uploaded once."""
+        return self.on_device(("eval", chunk),
+                              lambda: self.eval_index_blocks(chunk))
+
+    def device_elem_blocks(self, chunk: int, seq_len: int):
+        """:meth:`elem_index_blocks` on the device, uploaded once."""
+        return self.on_device(("elem", chunk, seq_len),
+                              lambda: self.elem_index_blocks(chunk, seq_len))
 
 
 def split_device_batch(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:

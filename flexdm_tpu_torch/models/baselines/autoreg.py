@@ -20,6 +20,15 @@ decoder blocks attend twice each).
 :class:`CrossBlock` is JAX's working pre-norm decoder block: causal
 self-attention, cross-attention over the encoder memory (same length S),
 MLP.  Dropout draws from the ``dropout`` generator (None: off).
+
+Tensor-parallel (JAX's partition rules, :mod:`...parallel.mesh`), both
+attentions split their heads and the MLP is column- then row-parallel
+(:func:`..transformer.mlp`); the encoder memory, whole on every model
+rank, enters the model group as the cross-attention's ``kv`` through
+``copy_to_model``, so its gradient is summed over the group.  The decode
+runs in lockstep on every model rank: each step makes the same
+collectives (the blocks', the decoder heads' gather, the encoder's
+gathered tables) in the same order.
 """
 
 from __future__ import annotations
@@ -27,7 +36,6 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ...data.schema import Schema
@@ -35,14 +43,15 @@ from ...ops.rng import FastDropout
 from ..decoder import Decoder
 from ..encoder import Encoder
 from ..masking import get_seq_mask
-from ..transformer import LAYER_NORM_EPS, Blocks, MultiHeadAttention
+from ..transformer import LAYER_NORM_EPS, Blocks, MultiHeadAttention, mlp
 
 Tensors = Dict[str, torch.Tensor]
 
 
 class CrossBlock(nn.Module):
     """Pre-norm decoder block: causal self-attention, cross-attention over
-    ``memory``, MLP (autoreg.py:45-72)."""
+    ``memory``, MLP (autoreg.py:45-72); tensor-parallel as the module
+    docstring says."""
 
     def __init__(self, emb_size: int, num_heads: int = 8,
                  dropout: float = 0.1):
@@ -62,8 +71,8 @@ class CrossBlock(nn.Module):
                              generator)
         x = x + self.dropout(
             self.cross_attn(self.norm2(x), memory_mask, kv=memory), generator)
-        y = self.mlp_1(F.relu(self.mlp_0(self.norm3(x))))
-        return x + self.dropout(y, generator)
+        return x + self.dropout(mlp(self.norm3(x), self.mlp_0, self.mlp_1),
+                                generator)
 
 
 class CrossBlocks(nn.Module):

@@ -77,6 +77,20 @@ def layer_norm(norm: nn.LayerNorm, x: torch.Tensor,
                         norm.bias, norm.eps).to(dtype)
 
 
+def mlp(x: torch.Tensor, mlp_0: nn.Linear, mlp_1: nn.Linear,
+        dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``mlp_1(relu(mlp_0(x)))``; tensor-parallel (split ``mlp_0`` and
+    ``mlp_1``), column- then row-parallel: ``x`` enters the model group
+    and the partial products are summed over it once."""
+    split = split_of(mlp_0.weight)
+    if split is not None:
+        x = copy_to_model(x, split)
+    h = F.relu(dense(x, mlp_0.weight, mlp_0.bias, dtype))
+    if split_of(mlp_1.weight) is not None:
+        return row_parallel(h, mlp_1.weight, mlp_1.bias, dtype)
+    return dense(h, mlp_1.weight, mlp_1.bias, dtype)
+
+
 class PositionEmbedding(nn.Module):
     """Learned ``(maxlen + 1, D)`` position table, broadcast over the batch,
     then dropout on the caller's generator (transformer.py:63-77)."""
@@ -178,14 +192,7 @@ class _BlockBase(nn.Module):
             self.conditional = nn.Linear(emb_size, emb_size)
 
     def _mlp(self, x):
-        split = split_of(self.mlp_0.weight)
-        if split is not None:  # column- then row-parallel
-            x = copy_to_model(x, split)
-        h = F.relu(dense(x, self.mlp_0.weight, self.mlp_0.bias, self.dtype))
-        if split_of(self.mlp_1.weight) is not None:
-            return row_parallel(h, self.mlp_1.weight, self.mlp_1.bias,
-                                self.dtype)
-        return dense(h, self.mlp_1.weight, self.mlp_1.bias, self.dtype)
+        return mlp(x, self.mlp_0, self.mlp_1, self.dtype)
 
     def _norm(self, norm, x):
         return layer_norm(norm, x, self.dtype)

@@ -23,7 +23,11 @@ of one model rank its *data group*.
   column-parallel (output features split over ``model``), ``out`` and
   ``mlp_1`` row-parallel (contraction split), the ``decoder_*`` heads and
   the encoder's ``input_*`` tables and Dense kernels split their feature
-  axis, and a dimension that does not divide ``M`` stays whole.
+  axis, and a dimension that does not divide ``M`` stays whole.  The same
+  rules cover the baselines: BART's ``CrossBlock`` attentions and MLP and
+  CanvasVAE's ``conditional`` Dense split, and the CVAE layers
+  (``enc_*``, ``dec_*``, ``prior_*``), ``prior_head``, ``length_fc``,
+  ``bos`` and the position tables stay whole.
   :func:`shard_params` keeps a rank's slice of each split parameter (and
   of its Adam moments, so optimizer memory falls with ``M``), marked with
   a :class:`~.layers.Split`; :func:`gather_params` puts the whole tensors

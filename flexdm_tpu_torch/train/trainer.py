@@ -360,12 +360,6 @@ def check_config(config: TrainConfig) -> None:
             "one with python tools/export_torch_weights.py --job-dir <job> "
             "--checkpoint <name>, then pass "
             "<job>/checkpoints/<name>.torch.npz")
-    if config.model_parallel > 1 and config.arch_type != "oneshot":
-        raise NotImplementedError(
-            f"--model_parallel {config.model_parallel} with arch_type "
-            f"{config.arch_type!r}: tensor parallelism for the baselines is "
-            "not in this port yet (ROADMAP Queue A #11(b)); they train "
-            "data-parallel")
     if config.num_devices is None:
         if config.model_parallel > 1:
             raise ValueError("--model_parallel needs --num_devices")

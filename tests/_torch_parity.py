@@ -95,3 +95,48 @@ def tf32_matmul(a, b, split):
         return ah @ bh
     al, bl = tf32(a - ah), tf32(b - bh)
     return al @ bh + ah @ bl + ah @ bh
+
+
+def assert_partition_specs_match_jax(args, spec, data_dir, model_size):
+    """Every parameter of the model a preset's ``args`` build, at its
+    published widths: the port's ``partition_spec`` of its torch name and
+    shape is JAX's spec of the flax leaf (reversed for a Dense kernel,
+    which the port stores transposed).  Returns the names of the split
+    parameters."""
+    from flexdm_tpu.parallel import mesh as jax_mesh
+    from flexdm_tpu.train import trainer as jax_trainer
+    from flexdm_tpu_torch.config import TrainConfig, build_model
+    from flexdm_tpu_torch.data import DatasetSpec
+    from flexdm_tpu_torch.parallel import mesh
+
+    jax_config = jax_trainer.TrainConfig(**{
+        k: v for k, v in args.items()
+        if k in jax_trainer.TrainConfig.__dataclass_fields__})
+    jax_model = jax_trainer.build_model(jax_config, spec.schema)
+    sample = split_device_batch(next(iter(spec.make_dataset(
+        "train", batch_size=2))))
+    shapes = jax_trainer.init_params(jax_model, sample, 0, abstract=True)
+    port_model = build_model(TrainConfig.from_args(args), DatasetSpec(
+        args["dataset_name"], data_dir).schema)
+    port_shapes = {n: tuple(p.shape) for n, p in
+                   port_model.named_parameters()}
+    leaves = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    assert len(leaves) == len(port_shapes)
+    split = []
+    for path, leaf in leaves:
+        keys = tuple(getattr(e, "key", None) or getattr(e, "name", None)
+                     for e in path)
+        want = tuple(jax_mesh.partition_spec(path, leaf.shape, model_size))
+        modules, name = list(keys[1:-1]), keys[-1]
+        if name == "kernel":
+            port_name, want = ".".join(modules + ["weight"]), want[::-1]
+        elif name == "scale":
+            port_name = ".".join(modules + ["weight"])
+        else:
+            port_name = ".".join(modules + [name])
+        got = mesh.partition_spec(port_name, port_shapes[port_name],
+                                  model_size)
+        assert got == want, (port_name, got, want)
+        if got:
+            split.append(port_name)
+    return split

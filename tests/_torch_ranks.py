@@ -11,10 +11,18 @@ import torch
 
 from flexdm_tpu_torch.convert import load_jax_params, params_to_jax
 from flexdm_tpu_torch.data import DatasetSpec
-from flexdm_tpu_torch.evaluation.harness import task_sums
-from flexdm_tpu_torch.models import mfp
+from flexdm_tpu_torch.data.schema import (
+    CATEGORICAL,
+    NUMERICAL,
+    ColumnSpec,
+    LossCondition,
+    Schema,
+)
+from flexdm_tpu_torch.evaluation.harness import evaluate_all, task_sums
+from flexdm_tpu_torch.models import baselines, losses, mfp
 from flexdm_tpu_torch.models.masking import TrainDraws
 from flexdm_tpu_torch.parallel import mesh
+from flexdm_tpu_torch.train.optim import clip_by_per_leaf_norm, l2_penalty
 from flexdm_tpu_torch.train.trainer import global_metrics, make_train_step
 
 TIMEOUT_S = 240  # every spawned group's hard limit
@@ -82,6 +90,90 @@ def step_on_grid(grid, spec, weights, batch, draws, method, lr, l2,
     return out
 
 
+def tiny_schema(max_length=6):
+    """The port's copy of ``tests/test_masking.py``'s ``tiny_schema``."""
+    return Schema("crello", (
+        ColumnSpec("length", CATEGORICAL, (1,), False, input_dim=max_length),
+        ColumnSpec("type", CATEGORICAL, (1,), True, input_dim=3,
+                   primary_label=0),
+        ColumnSpec("left", CATEGORICAL, (1,), True, input_dim=8),
+        ColumnSpec("width", CATEGORICAL, (1,), True, input_dim=8),
+        ColumnSpec("top", CATEGORICAL, (1,), True, input_dim=8),
+        ColumnSpec("height", CATEGORICAL, (1,), True, input_dim=8),
+        ColumnSpec("emb", NUMERICAL, (4,), True,
+                   loss_condition=LossCondition("type", (False, True, False))),
+    ), max_length=max_length)
+
+
+class RecordsLoader:
+    """The rows of a numpy batch as a split: the records and batch size
+    the resident harness reads."""
+
+    def __init__(self, batch, batch_size):
+        self.batch_size = batch_size
+        self.num_records = len(batch["length"])
+        self._batch = batch
+
+    def _record(self, i):
+        return {k: v[i] for k, v in self._batch.items()}
+
+
+def baseline_step(grid, schema, name, weights, inputs, lr, l2,
+                  model_kwargs, elem_chunk=None):
+    """One SGD step of the baseline ``name`` (a class of
+    :mod:`flexdm_tpu_torch.models.baselines`) on ``grid`` (None: alone):
+    its training branch on ``inputs`` (numpy ``modified``, ``targets``,
+    ``masks``) without VAE noise, the ``*_loss`` terms and L2 added, the
+    per-tensor clip; returns the loss, the whole parameters after the
+    step and the split parameters' names and, with ``elem_chunk``, the
+    ``elem`` sums over the targets' records, ``elem_chunk`` replicas a
+    chunk, before the step."""
+    model = load_jax_params(getattr(baselines, name)(schema, **model_kwargs),
+                            weights)
+    if grid is not None:
+        mesh.shard_params(model, grid)
+    out = {"split": sorted(n for n, p in model.named_parameters()
+                           if getattr(p, "tp_split", None) is not None)}
+    if elem_chunk is not None:
+        out["eval"] = task_sums(model, RecordsLoader(inputs["targets"], 4),
+                                "elem", None, elem_chunk=elem_chunk,
+                                grid=grid)
+    t = {k: {c: torch.from_numpy(v.copy()) for c, v in d.items()}
+         for k, d in inputs.items()}
+    outputs, aux = mfp.apply_model(model, t["modified"], t["targets"],
+                                   t["masks"], deterministic=False)
+    loss, _ = losses.compute_mfp_loss(schema, t["targets"], outputs,
+                                      t["masks"])
+    for k, v in aux.items():
+        if k.endswith("_loss"):
+            loss = loss + v
+    loss = loss + l2 * l2_penalty(model)
+    params = list(model.parameters())
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+        params, torch.autograd.grad(loss, params, allow_unused=True))]
+    clip_by_per_leaf_norm(grads, 1.0, params)
+    SGD(params, lr).step(grads)
+    out["loss"] = loss.item()
+    out["params"] = params_to_jax(mesh.gather_params(model))
+    return out
+
+
+def baseline_step_worker(rank, store, world, model_parallel, cases, lr, l2,
+                         model_kwargs, elem_chunk):
+    """Rank ``rank`` of ``world`` CPU ranks in a grid of
+    ``model_parallel`` model ranks: :func:`baseline_step` of each
+    ``(name, weights, inputs)`` of ``cases`` on :func:`tiny_schema`,
+    ``{name: result}``; the first case also scores ``elem``."""
+    grid = mesh.init_grid(rank, world, model_parallel, "cpu", "gloo", store)
+    try:
+        return {name: baseline_step(grid, tiny_schema(), name, weights,
+                                    inputs, lr, l2, model_kwargs,
+                                    elem_chunk if i == 0 else None)
+                for i, (name, weights, inputs) in enumerate(cases)}
+    finally:
+        mesh.teardown()
+
+
 def step_worker(rank, store, world, layouts, data_dir, dataset, weights,
                 batch, draws, method, lr, l2, model_kwargs, eval_task):
     """Rank ``rank`` of ``world`` CPU ranks: :func:`step_on_grid` on a
@@ -112,6 +204,32 @@ def eval_worker(rank, store, world, data_dir, dataset, weights,
                     model, spec.make_dataset("test", batch_size=b), name,
                     group, grid=grid)
                 for name, group in tasks for b in batch_sizes}
+    finally:
+        mesh.teardown()
+
+
+def evaluate_all_worker(rank, store, world, data_dir, dataset, weights,
+                        model_kwargs, modes, batch_size):
+    """``[(scores, records decoded)]`` of ``evaluate_all`` for each task
+    mode of ``modes`` over the test split on ``world`` CPU data ranks."""
+    spec = DatasetSpec(dataset, data_dir, 16)
+    decode = spec.decode_record
+    decoded = []
+
+    def counted(payload):
+        decoded.append(payload)
+        return decode(payload)
+
+    spec.decode_record = counted
+    grid = mesh.init_grid(rank, world, 1, "cpu", "gloo", store)
+    try:
+        model = build(spec, weights, model_kwargs)
+        out = []
+        for mode in modes:
+            decoded.clear()
+            out.append((evaluate_all(model, spec, mode, batch_size,
+                                     grid=grid), len(decoded)))
+        return out
     finally:
         mesh.teardown()
 

@@ -1,5 +1,6 @@
-"""The baselines on two data ranks, on the CPU (gloo), at a tiny size (D=16,
-1 block, batch 32, one epoch on the crello fixture, dropout on).
+"""The baselines on two ranks, on the CPU (gloo), at a tiny size (D=16,
+1 block, batch 32, one epoch on the crello fixture, dropout on): two data
+ranks, and one data rank by two model ranks (tensor-parallel).
 
 ``train()`` in host mode on 2 data ranks gives the single-process history
 (training loss and scores, validation and test) to 1e-5 relative, and both
@@ -8,7 +9,9 @@ global batch's task draws, AutoReg's and BART's element shuffle, dropout
 and the VAE noise (CanvasVAE's ``Head``, LayoutVAE's per-element
 posteriors and priors) and keeps its rows, so any draw that is not
 batch-first, or that a rank draws for its own rows only, breaks one of the
-two.  Every spawned group has a hard time limit.
+two.  Tensor-parallel, both model ranks draw the same (whole) batch's
+draws; the split parameters are gathered whole at the end.  Every spawned
+group has a hard time limit.
 """
 
 import json
@@ -44,21 +47,47 @@ def _history(job):
         return [json.loads(line) for line in f]
 
 
-@pytest.mark.parametrize("preset", PRESETS)
-def test_baseline_trains_on_two_data_ranks(preset, crello_dir, tmp_path):
-    alone = trainer.train(_config(preset, crello_dir, tmp_path / "alone"))
+@pytest.fixture(scope="module")
+def alone(crello_dir, tmp_path_factory):
+    """Each preset's history alone, trained once for both layouts."""
+    runs = {}
+
+    def run(preset):
+        if preset not in runs:
+            job = tmp_path_factory.mktemp(f"{preset}_alone")
+            runs[preset] = trainer.train(_config(preset, crello_dir, job))
+        return runs[preset]
+
+    return run
+
+
+def _trains_as_alone(preset, model_parallel, crello_dir, tmp_path, alone):
+    want = alone(preset)
     job = tmp_path / "ranks"
     params = mesh.spawn(ranks.train_worker, 2,
-                        (2, 1, _config(preset, crello_dir, job)),
+                        (2, model_parallel, _config(preset, crello_dir, job)),
                         timeout=ranks.TIMEOUT_S, cpu=True)
     assert set(params[0]) == set(params[1])
     for k, v in params[0].items():
         np.testing.assert_array_equal(params[1][k], v, err_msg=k)
-    got, want = _history(str(job)), alone["history"]
-    assert [h["step"] for h in got] == [h["step"] for h in want] == [3]
-    for a, b in zip(got, want):
+    got = _history(str(job))
+    assert [h["step"] for h in got] == [h["step"] for h in want["history"]] \
+        == [3]
+    for a, b in zip(got, want["history"]):
         assert set(a) == set(b)
         for k, v in b.items():
             if k != "wall_time" and isinstance(v, float):
                 np.testing.assert_allclose(a[k], v, rtol=1e-5, err_msg=k)
-    assert alone["test_metrics"]
+    assert want["test_metrics"]
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_baseline_trains_on_two_data_ranks(preset, crello_dir, tmp_path,
+                                           alone):
+    _trains_as_alone(preset, 1, crello_dir, tmp_path, alone)
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_baseline_trains_tensor_parallel(preset, crello_dir, tmp_path,
+                                         alone):
+    _trains_as_alone(preset, 2, crello_dir, tmp_path, alone)

@@ -8,7 +8,9 @@ package's.
   JAX's mesh shard ``d`` (records ``d, d + D, ...``), its gather of local
   indices is bit-exact, and ``epoch_indices`` gives, column block by
   column block, the records JAX's mesh-mode shuffle gives device ``d``,
-  each record at most once an epoch.
+  each record at most once an epoch; it decodes only its own records, and
+  its real rows are bitwise those of a cache stacked from the whole
+  split's records (its padding repeats its own last record).
 * Evaluation sums on 2 CPU data ranks equal 1 rank's for ``random``,
   ``elem`` and a group task, at a batch that splits (16 rows, 8 a rank)
   and at one that does not (7 rows: every rank takes the whole batch).
@@ -74,6 +76,32 @@ def test_spread_cache_matches_jax_mesh(rico_spec, port_spec, data_size):
         records = np.concatenate(seen[epoch * data_size:
                                       (epoch + 1) * data_size])
         assert len(set(records.tolist())) == len(records) == 96 // 16 * 16
+
+
+@pytest.mark.parametrize("data_size", [1, 3, 5])
+def test_spread_cache_decodes_only_its_records(port_spec, monkeypatch,
+                                               data_size):
+    """96 records over 5 ranks leave ranks 1-4 a padded slot."""
+    decode = port_spec.decode_record
+    for d in range(data_size):
+        decoded = []
+        monkeypatch.setattr(port_spec, "decode_record",
+                            lambda p: decoded.append(p) or decode(p))
+        loader = port_spec.make_dataset("train", batch_size=16)
+        cache = DeviceDataCache(loader, "cpu", data_size, d)
+        monkeypatch.undo()
+        assert len(decoded) == cache.local_counts[d]
+        whole = port_spec.make_dataset("train", batch_size=16)
+        n = cache.local_counts[d]
+        for k, v in cache.data.items():
+            want = np.stack([whole._record(g)[k]
+                             for g in range(d, whole.num_records, data_size)])
+            np.testing.assert_array_equal(v[:n].numpy(), want, err_msg=k)
+            np.testing.assert_array_equal(
+                v[n:].numpy(), np.broadcast_to(want[-1], v[n:].shape),
+                err_msg=k)
+        np.testing.assert_array_equal(
+            cache.record_ids[:n], np.arange(d, whole.num_records, data_size))
 
 
 def test_spread_gather_is_bit_exact(port_spec):

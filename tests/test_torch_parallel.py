@@ -40,7 +40,6 @@ from flexdm_tpu.parallel import mesh as jax_mesh  # noqa: E402
 from flexdm_tpu.train import optim as jax_optim  # noqa: E402
 from flexdm_tpu.train import trainer as jax_trainer  # noqa: E402
 from flexdm_tpu_torch.config import TrainConfig as PortConfig  # noqa: E402
-from flexdm_tpu_torch.config import build_model as port_build  # noqa: E402
 from flexdm_tpu_torch.convert import init_params, params_to_jax  # noqa: E402
 from flexdm_tpu_torch.data import DatasetSpec as PortSpec  # noqa: E402
 from flexdm_tpu_torch.models import masking as port_masking  # noqa: E402
@@ -48,7 +47,10 @@ from flexdm_tpu_torch.models import mfp as port_mfp  # noqa: E402
 from flexdm_tpu_torch.parallel import mesh  # noqa: E402
 from flexdm_tpu_torch.train.trainer import check_config  # noqa: E402
 from tests import _torch_ranks as ranks  # noqa: E402
-from tests._torch_parity import flat_params  # noqa: E402
+from tests._torch_parity import (  # noqa: E402
+    assert_partition_specs_match_jax,
+    flat_params,
+)
 
 LR, L2, B = 1e-2, 1e-2, 16
 METHOD = "elem_pos_attr"
@@ -56,11 +58,6 @@ SIZES = dict(latent_dim=32, num_blocks=1, num_heads=4, dropout=0.0)
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs")
 PRESETS = ("crello_ours_exp", "rico_ours_exp", "crello_flat")
-
-
-def _jax_path_keys(path):
-    return tuple(getattr(e, "key", None) or getattr(e, "name", None)
-                 for e in path)
 
 
 @pytest.mark.parametrize("model_size", [2, 4])
@@ -72,37 +69,9 @@ def test_partition_spec_matches_jax(request, preset, model_size):
     with open(os.path.join(CONFIGS, preset + ".json")) as f:
         args = json.load(f)
     dataset = args["dataset_name"]
-    spec = request.getfixturevalue(f"{dataset}_spec")
-    jax_config = jax_trainer.TrainConfig(**{
-        k: v for k, v in args.items()
-        if k in jax_trainer.TrainConfig.__dataclass_fields__})
-    jax_model = jax_trainer.build_model(jax_config, spec.schema)
-    sample = split_device_batch(next(iter(spec.make_dataset("train",
-                                                            batch_size=2))))
-    shapes = jax_trainer.init_params(jax_model, sample, 0, abstract=True)
-    port_model = port_build(PortConfig.from_args(args),
-                            PortSpec(dataset, request.getfixturevalue(
-                                f"{dataset}_dir")).schema)
-    port_shapes = {"/".join(["params"] + n.split(".")): tuple(p.shape)
-                   for n, p in port_model.named_parameters()}
-    leaves = jax.tree_util.tree_flatten_with_path(shapes)[0]
-    assert len(leaves) == len(port_shapes)
-    split = 0
-    for path, leaf in leaves:
-        keys = _jax_path_keys(path)
-        want = tuple(jax_mesh.partition_spec(path, leaf.shape, model_size))
-        modules, name = list(keys[1:-1]), keys[-1]
-        if name == "kernel":
-            port_name, want = ".".join(modules + ["weight"]), want[::-1]
-        elif name == "scale":
-            port_name = ".".join(modules + ["weight"])
-        else:
-            port_name = ".".join(modules + [name])
-        shape = port_shapes["/".join(["params"] + port_name.split("."))]
-        got = mesh.partition_spec(port_name, shape, model_size)
-        assert got == want, (port_name, got, want)
-        split += bool(got)
-    assert split > 0
+    assert assert_partition_specs_match_jax(
+        args, request.getfixturevalue(f"{dataset}_spec"),
+        request.getfixturevalue(f"{dataset}_dir"), model_size)
 
 
 def test_split_attention_needs_whole_heads(crello_dir):

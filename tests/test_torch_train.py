@@ -312,10 +312,6 @@ def test_nan_stops_without_saving(crello_dir, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    # Tensor parallelism for the baselines (ROADMAP Queue A #11(b)).
-    ["--num_devices", "2", "--model_parallel", "2", "--arch_type", "autoreg"],
-    ["--num_devices", "4", "--model_parallel", "2",
-     "--arch_type", "canvasvae"],
     ["--attention_impl", "pallas"],
 ])
 def test_cli_refuses_what_the_port_lacks(flags, tmp_path):
@@ -323,6 +319,24 @@ def test_cli_refuses_what_the_port_lacks(flags, tmp_path):
         cli.main(["--dataset_name", "crello", "--data_dir", "d",
                   "--job-dir", str(tmp_path / "job"), *flags])
     assert not os.path.exists(tmp_path / "job")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--num_devices", "2", "--model_parallel", "2", "--arch_type", "autoreg"],
+    ["--num_devices", "4", "--model_parallel", "2",
+     "--arch_type", "canvasvae"],
+])
+def test_check_config_accepts_baseline_tensor_parallelism(flags, tmp_path):
+    """A baseline trains tensor-parallel, as the oneshot model does: the
+    CLI's flags pass ``check_config``."""
+    from flexdm_tpu_torch.config import TrainConfig
+
+    args = cli.make_parser().parse_args(
+        ["--dataset_name", "crello", "--data_dir", "d",
+         "--job-dir", str(tmp_path / "job"), *flags])
+    port_trainer.check_config(TrainConfig(**{
+        k: v for k, v in vars(args).items()
+        if k in TrainConfig.__dataclass_fields__}))
 
 
 @pytest.mark.parametrize("flags", [
