@@ -187,6 +187,34 @@ Phases, each of which must pass (any failure exits non-zero):
     beside their bounds, and the causal kernels checked and timed at
     (64, 4, 50, 32).  Every spawned group has a hard time limit; a
     failing rank fails the phase.
+17. the rest of the entry points (crello Ours-EXP at full width, batch
+    256): (a) ``--attention_impl``: one step with ``xla`` (the plain
+    attention on the card) against one with ``pallas`` (the kernels) on
+    the same batch and draws, dropout 0, at 8(i)'s gate (loss 1e-5
+    relative, gradients 1e-5 + 1e-3 of the leaf's largest entry, the key
+    biases noise below 1e-3): ``pallas`` launches 4 forward, 4 dq and 4
+    dk/dv a step and never the plain version, ``xla`` no kernel; a
+    ``--dtype bfloat16`` ``pallas`` step only bf16 kernels; a 1-epoch CLI
+    job trained with ``xla`` (no launch; ``args.json`` records it), its
+    ``/predict`` (no launch), and ``all_feat`` over phase 11's split as
+    recorded and with ``--attention_impl pallas``: the second launches the
+    forward exactly ``num_blocks x blocks`` times, the sums as in 11 at
+    ``EVAL_RTOL`` (near ties counted); (b) two "nodes" sharing the card
+    under gloo (processes with the variables of ``torchrun --nnodes 2``,
+    ``tests/_torch_node_worker.py``): ``python -m flexdm_tpu_torch
+    --num_devices 2`` for 2 epochs on 8's split (device mode falls back to
+    host mode, warned), then the eval CLI's ``all_feat`` over phase 11's
+    split, streaming: the ranks' histories, test metrics and sums bitwise
+    equal, only rank 0 writes, the run against one process fed the same
+    global batches (training fields 1e-5, validation and test metrics
+    ``EVAL_RTOL``) and the sums against the harness alone (``PATHS_RTOL``,
+    near ties counted); each rank's step ms and seconds to its group and
+    first step; (c) the tools at full width: ``torch_profile_step`` in
+    float32 and bf16, ``torch_bench_attention`` at (256, 8, 50, 32) and
+    (64, 8, 500, 32) in both dtypes, ``torch_bench_serve`` and
+    ``torch_profile_demo`` on 8(iii)'s job, ``torch_train_baselines``
+    for CanvasVAE, AutoReg and BART (1 epoch on 512 documents; LayoutVAE
+    runs in 15).
 Each step phase ends with a ``torch.profiler`` window: device kernel time
 per step, its attention share and the busiest kernels.
 
@@ -199,9 +227,9 @@ trainer path of phase 13, the demo runs of phase 14, each baseline's
 steps, CLI run and evaluation of phase 15 and one rank's step of phase
 16's layouts and of each baseline's tensor-parallel step; a float32
 kernel's ``multi_device`` times at phase 16's per-rank shapes, the
-baselines' causal one too), the card's
-name
-and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
+baselines' causal one too; the launches of phase 17's paths too), the
+card's name and power limit from nvidia-smi, and ``{"ok": true,
+"device": {...}}``.
 """
 
 import copy
@@ -1159,16 +1187,16 @@ def phase_train_cli(root, data_dir, card, dtype=None):
     return counts, seconds, steps, job
 
 
-def serve_best(job, data_dir, dtype, label):
+def serve_once(job, data_dir):
     """The job's ``best`` served on the card by one engine: ``/predict``
-    of 4 documents over HTTP, the answers checked, the forward of the
-    job's dtype launched."""
+    of 4 documents over HTTP, the answers checked.  Returns the engine,
+    the launches, the plain attention's calls on the card, the seconds
+    and the documents sent."""
     from flexdm_tpu_torch.data import DatasetSpec, split_device_batch
     from flexdm_tpu_torch.ops import attention as attn
     from flexdm_tpu_torch.serve import InferenceEngine, _jsonable, serve
 
     engine = InferenceEngine(job, batch_size=BATCH, device="cuda")
-    check(engine.model.dtype == dtype, f"served {engine.model.dtype}")
     spec = DatasetSpec("crello", data_dir, BATCH)
     docs = _jsonable(spec.unbatch(split_device_batch(
         next(iter(spec.make_dataset("test", batch_size=4))))))
@@ -1177,13 +1205,21 @@ def serve_best(job, data_dir, dtype, label):
     thread.start()
     try:
         attn.reset_launch_counts()
-        body, secs = http(server.server_address[1], "/predict",
-                          dict(task="pos", documents=docs))
-        serve_counts = launch_counts()
+        with PlainOnCard() as plain:
+            body, secs = http(server.server_address[1], "/predict",
+                              dict(task="pos", documents=docs))
+        counts = launch_counts()
     finally:
         server.shutdown()
         server.server_close()
     check_predictions(spec, "pos", docs, body["predictions"])
+    return engine, counts, plain.calls, secs, docs
+
+
+def serve_best(job, data_dir, dtype, label):
+    """:func:`serve_once`, the forward of the job's dtype launched."""
+    engine, serve_counts, _, secs, docs = serve_once(job, data_dir)
+    check(engine.model.dtype == dtype, f"served {engine.model.dtype}")
     check(serve_counts[kernel_names(dtype)[0]] >= 4,
           f"/predict launched {serve_counts}")
     check_one_instance(serve_counts, dtype, f"{label} served")
@@ -4025,6 +4061,363 @@ def phase_multi(card, root, data_dir, batch, data):
             **baseline_counts}, kernels, causal
 
 
+# Phase 17: --attention_impl, two nodes, the tools.
+NODES = 2
+NODES_TIMEOUT = 300  # the two nodes' hard limit, seconds
+TOOL_BASELINES = ("canvasvae", "autoreg", "bart_autoreg")  # LayoutVAE: 15
+
+
+def node_worker():
+    """``tests/_torch_node_worker.py`` (imports no JAX), loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "_torch_node_worker.py")
+    spec = importlib.util.spec_from_file_location("_torch_node_worker", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def impl_names(model):
+    """The ``attention_impl`` of every attention of ``model``."""
+    from flexdm_tpu_torch.models.transformer import MultiHeadAttention
+
+    return {m.attention_impl for m in model.modules()
+            if isinstance(m, MultiHeadAttention)}
+
+
+def impl_step(args, batch, impl, dtype=None):
+    """One crello Ours-EXP step on the card (dropout 0, draws from seed 5)
+    with ``attention_impl=impl``: the loss, each leaf's clipped gradient
+    (``mu / 0.1``), the launches and the plain attention's calls on the
+    card."""
+    import torch
+
+    overrides = dict(attention_impl=impl)
+    if dtype:
+        overrides["dtype"] = dtype
+    model, adam, step, task_config, schema = _step_model(
+        dict(args, **overrides), dropout=0.0)
+    check(impl_names(model) == {impl}, f"attentions {impl_names(model)}")
+    b = batch["length"].shape[0]
+    draws = _draws(model, schema, task_config, b,
+                   torch.Generator("cuda").manual_seed(5))
+    attn_reset()
+    with PlainOnCard() as plain:
+        metrics = step({k: v.cuda() for k, v in batch.items()}, draws)
+        torch.cuda.synchronize()
+    names = [n for n, _ in model.named_parameters()]
+    return (metrics["loss"].item(),
+            dict(zip(names, (mu.cpu() / 0.1 for mu in adam.mu))),
+            launch_counts(), plain.calls)
+
+
+def impl_steps(args, batch):
+    """17(a): the step with ``xla`` against the step with ``pallas``; the
+    bf16 step with ``pallas``."""
+    loss, grads, counts, plain = impl_step(args, batch, "xla")
+    p_loss, p_grads, p_counts, p_plain = impl_step(args, batch, "pallas")
+    check(abs(p_loss - loss) <= 1e-5 * abs(loss),
+          f"pallas loss {p_loss} vs xla {loss}")
+    worst = noise = 0.0
+    for name, g in grads.items():
+        err = (p_grads[name] - g).abs().max().item()
+        if name.endswith(KEY_BIAS):
+            noise = max(noise, g.abs().max().item(),
+                        p_grads[name].abs().max().item())
+            check(noise <= KEY_BIAS_NOISE, f"{name}: gradient {noise:.2e}")
+            continue
+        worst = max(worst, err)
+        check(err <= 1e-5 + 1e-3 * g.abs().max().item(),
+              f"pallas gradient of {name} differs from xla's by {err:.2e}")
+    check(not any(counts.values()) and plain == 4,
+          f"xla step: launches {counts}, plain attention {plain} times")
+    check(p_counts == dict(fwd=4, dq=4, dkv=4, fwd_bf16=0, dq_bf16=0,
+                           dkv_bf16=0) and p_plain == 0,
+          f"pallas step: launches {p_counts}, plain attention {p_plain}")
+    _, _, b_counts, b_plain = impl_step(args, batch, "pallas", BF16)
+    check(b_counts == dict(fwd=0, dq=0, dkv=0, fwd_bf16=4, dq_bf16=4,
+                           dkv_bf16=4) and b_plain == 0,
+          f"bf16 pallas step: launches {b_counts}, plain {b_plain}")
+    log(f"[impl] (a) crello Ours-EXP step, batch {TRAIN_BATCH}, dropout 0, "
+        f"the same draws: attention_impl pallas against xla: loss "
+        f"{p_loss:.6f} vs {loss:.6f}, max |dg| {worst:.2e} (key biases "
+        f"noise {noise:.2e}); launches xla {counts} (the plain attention "
+        f"{plain} times on the card), pallas {p_counts}, --dtype bfloat16 "
+        f"pallas {b_counts}")
+    return {"impl_xla_step": counts, "impl_pallas_step": p_counts,
+            "impl_pallas_bf16_step": b_counts}
+
+
+def impl_cli(card, root, data_dir, data):
+    """17(a): a 1-epoch CLI job trained with ``--attention_impl xla``:
+    it and its ``/predict`` launch no kernel; ``all_feat`` over phase 11's
+    split as recorded (xla) and with ``--attention_impl pallas``, the
+    second launching the forward once a block a forward, the sums within
+    ``EVAL_RTOL`` (near ties counted)."""
+    import torch
+
+    from flexdm_tpu_torch.demo import load_model
+    from flexdm_tpu_torch.evaluation import harness
+
+    worker = node_worker()
+    job = os.path.join(root, "impl_xla_job")
+    with PlainOnCard() as trained:
+        history, counts, seconds = _cli(
+            ["--num_epochs", "1", "--validation_freq", "1",
+             "--attention_impl", "xla"], data_dir, job)
+    with open(os.path.join(job, "args.json")) as f:
+        check(json.load(f)["attention_impl"] == "xla", "args.json")
+    check(not any(counts.values()) and trained.calls > 0,
+          f"xla CLI launches {counts}, plain attention {trained.calls}")
+
+    engine, serve_counts, served, secs, docs = serve_once(job, data_dir)
+    check(impl_names(engine.model) == {"xla"}, "served impl")
+    check(not any(serve_counts.values()) and served == 4,
+          f"/predict of the xla job: launches {serve_counts}, plain "
+          f"{served}")
+
+    argv = ["--job-dir", job, "--batch_size", str(EVAL_BATCH),
+            "--task_mode", "all_feat", "--data_dir", data["crello"]]
+    sums, eval_counts, eval_s = {}, {}, {}
+    for impl, extra in (("xla", []), ("pallas", ["--attention_impl",
+                                                 "pallas"])):
+        attn_reset()
+        t0 = time.perf_counter()
+        with worker.recorded_sums() as sums[impl], PlainOnCard() as plain:
+            harness.main(argv + extra)
+            torch.cuda.synchronize()
+        eval_s[impl] = time.perf_counter() - t0
+        eval_counts[impl] = dict(launch_counts(), plain=plain.calls)
+    model, spec = load_model(job, batch_size=EVAL_BATCH, device="cuda",
+                             data_dir=data["crello"])
+    schema = spec.schema
+    timed = spec.make_dataset("test", batch_size=EVAL_BATCH)
+    cache = harness._make_cache(timed, "cuda")
+    forwards = worst = worst_cat = 0
+    for task, group in eval_tasks(schema, "all_feat"):
+        ties = NearTies(schema, False)
+        harness.task_sums(model, timed, task, group, observe=ties,
+                          cache=cache)
+        rel, cat = compare_sums(f"all_feat {task} pallas vs xla", schema,
+                                sums["pallas"][task], sums["xla"][task],
+                                ties)
+        worst, worst_cat = max(worst, rel), max(worst_cat, cat)
+        forwards += eval_blocks(cache, task, schema.max_length)
+    num_blocks = len(list(model.blocks.children()))
+    check(eval_counts["xla"]["fwd"] == 0 and eval_counts["xla"]["plain"]
+          == num_blocks * forwards,
+          f"xla eval: {eval_counts['xla']} for {forwards} forwards")
+    check(eval_counts["pallas"]["fwd"] == num_blocks * forwards
+          and eval_counts["pallas"]["plain"] == 0
+          and not any(eval_counts["pallas"][k] for k in
+                      ("dq", "dkv", "fwd_bf16", "dq_bf16", "dkv_bf16")),
+          f"pallas eval: {eval_counts['pallas']}, not {num_blocks} x "
+          f"{forwards} forwards")
+    log(f"[impl] (a) python -m flexdm_tpu_torch --attention_impl xla, 1 "
+        f"epoch in {seconds:.1f} s: loss {history[-1]['loss']:.3f}, "
+        f"args.json records xla, launches {counts} (the plain attention "
+        f"{trained.calls} times on the card); its /predict of {len(docs)} "
+        f"documents in {secs * 1e3:.1f} ms: launches none, plain "
+        f"{served}; all_feat over {EVAL_DOCS} documents as recorded "
+        f"(xla, {eval_s['xla']:.2f} s, launches {eval_counts['xla']}) and "
+        f"with --attention_impl pallas ({eval_s['pallas']:.2f} s, forward "
+        f"launches {eval_counts['pallas']['fwd']} = {num_blocks} x "
+        f"{forwards} forwards): numerical Σnum within {worst:.2e} "
+        f"relative (bar {EVAL_RTOL:g}), categorical Σnum apart by at most "
+        f"{worst_cat:g} [{card}]")
+    return {"impl_xla_cli": counts,
+            "impl_pallas_eval": {k: v for k, v in
+                                 eval_counts["pallas"].items()
+                                 if k != "plain"}}
+
+
+def phase_nodes(card, root, data_dir, data):
+    """17(b): crello Ours-EXP at full width, global batch 256, on two
+    "nodes" sharing the card under gloo (``tests/_torch_node_worker.py``,
+    the variables ``torchrun --nnodes 2`` sets): ``python -m
+    flexdm_tpu_torch --num_devices 2`` for 2 epochs on phase 8's split,
+    then the eval CLI's ``all_feat`` over phase 11's split; held to the
+    one-process run on the same global batches and the harness alone."""
+    import torch
+
+    from flexdm_tpu_torch.config import TrainConfig
+    from flexdm_tpu_torch.data import DatasetSpec
+    from flexdm_tpu_torch.demo import load_model
+    from flexdm_tpu_torch.evaluation import harness
+    from flexdm_tpu_torch.train import trainer
+
+    worker = node_worker()
+    eval_port = worker.free_port()
+    jobs = [os.path.join(root, f"node_job_{r}") for r in range(NODES)]
+    specs = [{"train_argv": ["--preset", "crello_ours_exp", "--data_dir",
+                             data_dir, "--job-dir", jobs[r], "--num_epochs",
+                             "2", "--validation_freq", "1", "--num_devices",
+                             str(NODES), "--log_level", "WARNING"],
+              "eval_argv": ["--job-dir", jobs[0], "--task_mode", "all_feat",
+                            "--batch_size", str(EVAL_BATCH), "--data_dir",
+                            data["crello"], "--num_devices", str(NODES)],
+              "eval_port": eval_port, "backend": "gloo", "threads": 4,
+              "out": os.path.join(root, f"node_{r}.json")}
+             for r in range(NODES)]
+    t0 = time.perf_counter()
+    nodes = worker.wait_nodes(worker.start_nodes(specs, root), specs,
+                              NODES_TIMEOUT)
+    nodes_s = time.perf_counter() - t0
+    for r, node in enumerate(nodes):
+        check((node["num_hosts"], node["host_id"], node["world_size"])
+              == (NODES, r, NODES), f"node {r}: grid {node}")
+        check(any("input_mode='device' is one host's" in w
+                  for w in node["warnings"]),
+              f"node {r}: no host-mode fallback warning: {node['warnings']}")
+        check(sorted(node["streamed"]) == sorted(node["sums"]),
+              f"node {r}: streamed {node['streamed']}")
+        steps = node["result"]["history"][-1]["step"]
+        check(node["launches"]["dq"] == node["launches"]["dkv"] == 4 * steps
+              and node["launches"]["fwd"] >= 4 * steps,
+              f"node {r}: launches {node['launches']} for {steps} steps")
+    one, two = (node["result"] for node in nodes)
+    strip = [[{k: v for k, v in h.items() if k != "wall_time"}
+              for h in run["history"]] for run in (one, two)]
+    check(strip[0] == strip[1] and one["test_metrics"] ==
+          two["test_metrics"] and nodes[0]["sums"] == nodes[1]["sums"],
+          "the two nodes' histories, test metrics or eval sums differ")
+    check(os.path.exists(os.path.join(jobs[0], "args.json")) and not any(
+        os.path.exists(os.path.join(jobs[1], n))
+        for n in ("args.json", "checkpoints",
+                  os.path.join("logs", "history.jsonl"))),
+          "a node other than rank 0 wrote to its job")
+
+    args = load_args(CONFIG, data_dir)
+    t0 = time.perf_counter()
+    with worker.hosts_as_one(NODES):
+        same = trainer.train(TrainConfig.from_args(dict(
+            args, job_dir=os.path.join(root, "nodes_as_one"), num_epochs=2,
+            validation_freq=1, input_mode="host")))
+    same_s = time.perf_counter() - t0
+    gap = _history_gap(one["history"], same["history"])
+    test = max(abs(v - one["test_metrics"][k]) / max(abs(v), 1e-30)
+               for k, v in same["test_metrics"].items())
+    check(gap["train"] <= 1e-5 and gap["val"] <= EVAL_RTOL
+          and test <= EVAL_RTOL,
+          f"two nodes against one process on their global batches: "
+          f"history {gap}, test metrics {test:.2e}")
+
+    model, spec = load_model(jobs[0], batch_size=EVAL_BATCH, device="cuda",
+                             data_dir=data["crello"])
+    schema = spec.schema
+    loader = DatasetSpec("crello", data["crello"], EVAL_BATCH).make_dataset(
+        "test", batch_size=EVAL_BATCH)
+    worst = worst_cat = 0.0
+    t0 = time.perf_counter()
+    for task, group in eval_tasks(schema, "all_feat"):
+        ties = NearTies(schema, False)
+        want = harness.task_sums(model, loader, task, group, observe=ties,
+                                 resident=False)
+        rel, cat = compare_sums(f"two nodes all_feat {task}", schema,
+                                nodes[0]["sums"][task], want, ties,
+                                PATHS_RTOL)
+        worst, worst_cat = max(worst, rel), max(worst_cat, cat)
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t0
+    log(f"[nodes] (b) two nodes (RANK 0/1, WORLD_SIZE 2, LOCAL_WORLD_SIZE "
+        f"1) on cuda:0 under gloo, crello Ours-EXP batch {TRAIN_BATCH}, 2 "
+        f"epochs: from_env gives 2 hosts, device mode fell back to host "
+        f"mode (warned), the ranks' histories, test metrics and eval sums "
+        f"bitwise equal, only rank 0 wrote; against one process on the "
+        f"same global batches ({same_s:.1f} s): largest relative "
+        f"difference {gap['train']:.3e} in the training fields (bar 1e-5), "
+        f"{gap['val']:.3e} in validation, {test:.3e} in the test metrics "
+        f"(bar {EVAL_RTOL:g}); eval all_feat over {EVAL_DOCS} documents "
+        f"streamed on both nodes: numerical Σnum within {worst:.2e} of the "
+        f"harness alone (bar {PATHS_RTOL:g}), categorical apart by at most "
+        f"{worst_cat:g}")
+    for r, node in enumerate(nodes):
+        log(f"[time] nodes rank {r}: step median "
+            f"{statistics.median(node['step_ms'][1:]):.3f} ms (the first "
+            f"{node['step_ms'][0]:.1f} ms; {len(node['step_ms'])} steps, "
+            f"synchronised host clock, both nodes on one card); from the "
+            f"process start: imports {node['import_s']:.1f} s, group joined "
+            f"{node['joined_s']:.1f} s, first step {node['first_step_s']:.1f}"
+            f" s; eval CLI {node['eval_s']:.2f} s [{card}]")
+    log(f"[time] nodes: the two nodes {nodes_s:.1f} s (start to end, "
+        f"training and eval); the harness alone, streaming, "
+        f"{alone_s:.2f} s [{card}]")
+    return {f"nodes_rank{r}_cli": node["launches"]
+            for r, node in enumerate(nodes)}
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept apart; returns its value
+    and that output's last line."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        value = fn(*args)
+    return value, out.getvalue().strip().splitlines()[-1]
+
+
+def phase_tools(card, root):
+    """17(c): the port's tools at full width on the card."""
+    from tools import (
+        torch_bench_attention,
+        torch_bench_serve,
+        torch_profile_demo,
+        torch_profile_step,
+        torch_train_baselines,
+    )
+
+    for dtype in (None, BF16):
+        out, line = quiet(torch_profile_step.main, [
+            "--batch-size", str(TRAIN_BATCH), "--iters", "20"]
+            + (["--dtype", dtype] if dtype else []))
+        fwd, dq, dkv = kernel_names(dtype)
+        check(out["launches"][fwd] > 0 and out["launches"][dq] > 0
+              and out["launches"][dkv] > 0, f"profile_step {out}")
+        check_one_instance(out["launches"], dtype, "profile_step")
+        log(f"[tools] torch_profile_step --batch-size {TRAIN_BATCH}"
+            f"{' --dtype ' + dtype if dtype else ''}: {line}")
+    for dtype in ("float32", BF16):
+        for shape in ((TRAIN_BATCH, 8, 50, 32), FLAT_SHAPE):
+            row = torch_bench_attention.measure(*shape, dtype)
+            check(all(row["launches"].values()) and finite(row),
+                  f"bench_attention {row}")
+            log(f"[tools] torch_bench_attention {shape} {dtype}: "
+                f"{json.dumps(row)} [{card}]")
+    job = os.path.join(root, "train_job")
+    out, line = quiet(torch_bench_serve.main, [
+        "--job-dir", job, "--requests", "20", "--num_iter",
+        str(MASKGIT_ITERS), "--concurrency", "4"])
+    check(out["pos_1doc"]["p50_ms"] > 0 and out["launches"]["fwd"] > 0,
+          f"bench_serve {out}")
+    log(f"[tools] torch_bench_serve (phase 8's job): {line}")
+    out, line = quiet(torch_profile_demo.main, [
+        "--job-dir", job, "--num-examples", str(DEMO_DOCS)])
+    check(out["launches"]["fwd"] > 0, f"profile_demo {out}")
+    log(f"[tools] torch_profile_demo (phase 8's job): {line}")
+    for arch in TOOL_BASELINES:
+        out, line = quiet(torch_train_baselines.main, [
+            "--arch", arch, "--docs", str(2 * TRAIN_BATCH), "--epochs", "1"])
+        row = out["baselines"][arch]
+        check(not row["stopped_on_nan"] and finite(row), f"{arch}: {row}")
+        log(f"[tools] torch_train_baselines --arch {arch}: {line}")
+
+
+def phase_entry_points(card, root, data_dir, batch, data):
+    """17: ``--attention_impl``, two nodes, the tools."""
+    t_phase = time.perf_counter()
+    args = load_args(CONFIG, data_dir)
+    counts = impl_steps(args, batch)
+    counts.update(impl_cli(card, root, data_dir, data))
+    counts.update(phase_nodes(card, root, data_dir, data))
+    phase_tools(card, root)
+    log(f"[time] phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main():
     # cuBLAS repeats its results only with a fixed workspace (16(a) runs
     # under torch.use_deterministic_algorithms); read when its first
@@ -4069,6 +4462,7 @@ def main():
                                                   batch)
         multi_counts, multi_kernels, multi_causal = phase_multi(
             card, root, data_dir, batch, data)
+        entry_counts = phase_entry_points(card, root, data_dir, batch, data)
     log(f"[time] summary: train step crello Ours-EXP {step_ms:.2f} ms "
         f"(bf16 {bf16_ms:.2f} ms), rico Ours-EXP {rico_ms:.2f} ms (batch "
         f"{TRAIN_BATCH}), crello_flat {flat_ms:.2f} ms (bf16 "
@@ -4085,7 +4479,7 @@ def main():
                "rico_ours_exp_steps": rico_counts,
                "crello_flat_steps": flat_counts, **eval_counts,
                **bf16_counts, **trainer_counts, "demo": demo_counts,
-               **baseline_counts, **multi_counts}
+               **baseline_counts, **multi_counts, **entry_counts}
     # The training shape, which every kernel of the path runs at (the
     # forward also serves at (8, 8, 50, 32) and crello_flat runs
     # (64, 8, 500, 32): the log lines above).

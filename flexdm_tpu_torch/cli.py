@@ -14,13 +14,16 @@ crello_{canvasvae,layoutvae,autoreg,bart}``).  ``--num_devices N
 [--model_parallel M]`` trains on N ranks, ``N / M`` data-parallel by
 ``M`` tensor-parallel (every arch type): spawned from this process
 (one card each, ``cuda:r`` with ``nccl``; ``--device cpu``: N CPU ranks
-with ``gloo``), or, under ``torchrun``, joined to its group; rank 0
-prints.  A flag that selects something the port does not have yet raises
-``NotImplementedError``: an ``--attention_impl`` other than ``auto``
-and, for the oneshot model, a ``--dtype`` other than ``float32`` and
-``bfloat16`` (``build_model`` raises).  ``--dtype
-bfloat16`` computes the oneshot model in bf16 where the JAX package does;
-parameters, gradients, the optimizer state and checkpoints stay float32.
+with ``gloo``), or, under ``torchrun``, joined to its group (also over
+more than one node); rank 0 prints.  ``--attention_impl`` is JAX's:
+``auto`` (the kernels on a card, the plain version on the CPU), ``xla``
+(the plain version on any device) or ``pallas`` (the kernels; with
+``--device cpu`` it raises before anything is written); ``args.json``
+records it.  For the oneshot model a ``--dtype`` other than ``float32``
+and ``bfloat16`` raises ``NotImplementedError`` (``build_model``).
+``--dtype bfloat16`` computes the oneshot model in bf16 where the JAX
+package does; parameters, gradients, the optimizer state and checkpoints
+stay float32.
 A baseline computes in float32 whatever ``--dtype`` says (logged), as in
 the JAX package.
 """
@@ -102,17 +105,10 @@ def make_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _refuse_unported(args) -> None:
-    if args.attention_impl != "auto":
-        raise NotImplementedError(
-            f"--attention_impl {args.attention_impl} is not in this port yet")
-
-
 def main(argv=None) -> None:
     parser = make_parser()
     argv = _apply_preset(sys.argv[1:] if argv is None else argv, parser)
     args = parser.parse_args(argv)
-    _refuse_unported(args)
     logging.basicConfig(level=getattr(logging, args.log_level.upper()))
 
     from .train.trainer import train

@@ -2,15 +2,16 @@
 
 Counterpart of ``TrainConfig`` and ``build_model`` in
 ``flexdm_tpu/train/trainer.py``, for the fields the port has: the model
-(``remat`` included), the baselines' KL weight, the task mix, the
+(``remat`` and ``attention_impl`` included), the baselines' KL weight,
+the task mix, the
 optimizer, the schedule, the input mode, warm start, resuming and the
 ``last`` checkpoint's period, profiling, the device and the grid of
 ranks (``num_devices``, ``model_parallel``).  A job's ``args.json``
 (written by either trainer) is read with :meth:`TrainConfig.from_args`;
-fields the port does not have (the attention implementation, ...) are
-ignored there, and the CLI refuses an attention implementation other
-than ``auto``.  A job is served, evaluated and resumed on any number of
-ranks, whatever its ``num_devices`` says.
+fields the port does not have are ignored there, and a field an older
+``args.json`` lacks takes its default (``attention_impl`` ``"auto"``).
+A job is served, evaluated and resumed on any number of ranks, whatever
+its ``num_devices`` says.
 """
 
 from __future__ import annotations
@@ -49,6 +50,9 @@ class TrainConfig:
     dropout: float = 0.1
     kl: float = 1.0  # the KL weight of the VAE baselines
     num_heads: int = 8
+    # 'auto' (the kernels on a card, the plain version on the CPU), 'xla'
+    # (the plain version) or 'pallas' (the kernels; a card only).
+    attention_impl: str = "auto"
     dtype: Optional[str] = None
     remat: bool = False  # recompute each block's activations in the backward
     use_elemwise_noise: bool = False
@@ -89,13 +93,15 @@ def build_model(config: TrainConfig, schema: Schema) -> nn.Module:
     in the job's ``dtype`` (None, ``"float32"`` or ``"bfloat16"``; another
     raises ``NotImplementedError``) and takes ``remat``.  A baseline takes
     neither, as in JAX: it computes in float32 whatever ``dtype`` says
-    (logged), and its ``input_dtype`` is its own."""
+    (logged), and its ``input_dtype`` is its own.  Every model takes
+    ``attention_impl``."""
     common = dict(
         latent_dim=config.latent_dim,
         num_blocks=config.num_blocks,
         block_type=config.block_type,
         num_heads=config.num_heads,
         dropout=config.dropout,
+        attention_impl=config.attention_impl,
     )
     if config.arch_type in BASELINES:
         if config.dtype not in (None, "float32"):

@@ -47,13 +47,17 @@ from .train.trainer import to_device
 
 
 def load_model(job_dir: str, checkpoint: str = "best", batch_size: int = 8,
-               device="cuda", data_dir: Optional[str] = None):
+               device="cuda", data_dir: Optional[str] = None,
+               attention_impl: Optional[str] = None):
     """Rebuild a job's model from ``args.json`` and its port weights file;
     returns ``(model, spec)`` with the model on ``device`` in eval mode.
     ``data_dir`` overrides the data dir that ``args.json`` records (a job
-    moved to another machine)."""
+    moved to another machine), ``attention_impl`` its attention
+    implementation (the eval CLI's flag)."""
     with open(os.path.join(job_dir, "args.json")) as f:
         config = TrainConfig.from_args(json.load(f))
+    if attention_impl:
+        config.attention_impl = attention_impl
     spec = DatasetSpec(config.dataset_name, data_dir or config.data_dir,
                        batch_size)
     model = build_model(config, spec.schema)

@@ -84,6 +84,7 @@ from ..models.masking import (
 )
 from ..models.mfp import forward_eval
 from ..models.sorting import gather_elements, reorganize_indices
+from ..ops.attention import check_impl
 from ..parallel import mesh
 from ..train.trainer import take_rows, to_device
 
@@ -510,18 +511,13 @@ def merge_results(ans_all: Dict[str, Dict[str, float]]) -> Dict[str, float]:
     return final
 
 
-def _refuse_unported(args) -> None:
-    if args.attention_impl != "auto":
-        raise NotImplementedError(
-            f"--attention_impl {args.attention_impl} is not in this port yet")
-
-
 def _evaluate(args, grid: Optional[mesh.Grid] = None) -> Dict[str, float]:
     from ..demo import load_model
 
     device = args.device if grid is None else grid.device
     model, spec = load_model(args.job_dir, args.checkpoint, args.batch_size,
-                             device, data_dir=args.data_dir)
+                             device, data_dir=args.data_dir,
+                             attention_impl=args.attention_impl)
     return merge_results(evaluate_all(
         model, spec, args.task_mode, batch_size=args.batch_size,
         num_iter=args.num_iter, split=args.split, grid=grid,
@@ -532,7 +528,10 @@ def main(argv=None, devices=None,
          backend: Optional[str] = None) -> Dict[str, float]:
     """``python -m flexdm_tpu_torch.evaluation``: score a job per task.
     The flags of the JAX package's CLI, plus ``--device`` (default
-    ``cuda``; ``cpu`` only on request).  ``--num_devices N`` scores on N
+    ``cuda``; ``cpu`` only on request).  ``--attention_impl`` overrides
+    the job's ``args.json`` (default: as recorded), as JAX's does;
+    ``pallas`` off a card raises before the job is read.
+    ``--num_devices N`` scores on N
     data ranks (spawned, or joined under ``torchrun``) as
     :func:`..train.trainer.train` places them; ``devices`` and
     ``backend`` as there (several ranks on one card under ``gloo``)."""
@@ -546,14 +545,16 @@ def main(argv=None, devices=None,
     add("--result_csv", default="", type=str)
     add("--checkpoint", default="best", type=str)
     add("--split", default="test", type=str)
-    add("--attention_impl", default="auto", type=str)
+    add("--attention_impl", default=None, type=str,
+        help="override the attention implementation args.json records")
     add("--num_devices", default=None, type=int,
         help="shard evaluation batches over this many data ranks")
     add("--data_dir", default=None, type=str,
         help="override the data dir recorded in args.json")
     add("--device", default="cuda", help="torch device to evaluate on")
     args = parser.parse_args(argv)
-    _refuse_unported(args)
+    if args.attention_impl:
+        check_impl(args.attention_impl, args.device)
 
     if args.num_devices is None:
         final = _evaluate(args)

@@ -54,13 +54,15 @@ class CrossBlock(nn.Module):
     docstring says."""
 
     def __init__(self, emb_size: int, num_heads: int = 8,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, attention_impl: str = "auto"):
         super().__init__()
         self.norm1 = nn.LayerNorm(emb_size, eps=LAYER_NORM_EPS)
         self.self_attn = MultiHeadAttention(emb_size, num_heads,
-                                            lookahead=False)
+                                            lookahead=False,
+                                            attention_impl=attention_impl)
         self.norm2 = nn.LayerNorm(emb_size, eps=LAYER_NORM_EPS)
-        self.cross_attn = MultiHeadAttention(emb_size, num_heads)
+        self.cross_attn = MultiHeadAttention(emb_size, num_heads,
+                                             attention_impl=attention_impl)
         self.norm3 = nn.LayerNorm(emb_size, eps=LAYER_NORM_EPS)
         self.mlp_0 = nn.Linear(emb_size, 2 * emb_size)
         self.mlp_1 = nn.Linear(2 * emb_size, emb_size)
@@ -80,11 +82,13 @@ class CrossBlocks(nn.Module):
     (autoreg.py:75-92)."""
 
     def __init__(self, latent_dim: int, num_blocks: int = 2,
-                 num_heads: int = 8, dropout: float = 0.1):
+                 num_heads: int = 8, dropout: float = 0.1,
+                 attention_impl: str = "auto"):
         super().__init__()
         for i in range(num_blocks):
             self.add_module(f"cross_{i}",
-                            CrossBlock(latent_dim, num_heads, dropout))
+                            CrossBlock(latent_dim, num_heads, dropout,
+                                       attention_impl))
 
     def forward(self, x, memory, tgt_mask, memory_mask, generator=None):
         for block in self.children():
@@ -123,11 +127,13 @@ class _ARBase(nn.Module):
     def __init__(self, schema: Schema, latent_dim: int = 256,
                  num_blocks: int = 4, block_type: str = "deepsvg",
                  num_heads: int = 8, dropout: float = 0.1,
-                 input_dtype: str = "shuffled_set"):
+                 input_dtype: str = "shuffled_set",
+                 attention_impl: str = "auto"):
         super().__init__()
         self.schema = schema
         self.latent_dim = latent_dim
         self.input_dtype = input_dtype
+        self.attention_impl = attention_impl
         self.encoder = Encoder(schema, latent_dim, input_dtype=input_dtype,
                                dropout=dropout)
         self.decoder = Decoder(schema, latent_dim)
@@ -162,11 +168,13 @@ class AutoReg(_ARBase):
     def __init__(self, schema: Schema, latent_dim: int = 256,
                  num_blocks: int = 4, block_type: str = "deepsvg",
                  num_heads: int = 8, dropout: float = 0.1,
-                 input_dtype: str = "shuffled_set"):
+                 input_dtype: str = "shuffled_set",
+                 attention_impl: str = "auto"):
         super().__init__(schema, latent_dim, num_blocks, block_type,
-                         num_heads, dropout, input_dtype)
+                         num_heads, dropout, input_dtype, attention_impl)
         self.blocks = Blocks(latent_dim, num_blocks, block_type, num_heads,
-                             lookahead=False, dropout=dropout)
+                             lookahead=False, dropout=dropout,
+                             attention_impl=attention_impl)
 
     def forward(self, inputs: Tensors, targets: Tensors, masks: Tensors,
                 deterministic: bool = True,
@@ -191,13 +199,16 @@ class BART(_ARBase):
     def __init__(self, schema: Schema, latent_dim: int = 256,
                  num_blocks: int = 4, block_type: str = "deepsvg",
                  num_heads: int = 8, dropout: float = 0.1,
-                 input_dtype: str = "shuffled_set"):
+                 input_dtype: str = "shuffled_set",
+                 attention_impl: str = "auto"):
         super().__init__(schema, latent_dim, num_blocks, block_type,
-                         num_heads, dropout, input_dtype)
+                         num_heads, dropout, input_dtype, attention_impl)
         half = max(num_blocks // 2, 1)
         self.enc_blocks = Blocks(latent_dim, half, block_type, num_heads,
-                                 dropout=dropout)
-        self.dec_blocks = CrossBlocks(latent_dim, half, num_heads, dropout)
+                                 dropout=dropout,
+                                 attention_impl=attention_impl)
+        self.dec_blocks = CrossBlocks(latent_dim, half, num_heads, dropout,
+                                      attention_impl)
 
     def forward(self, inputs: Tensors, targets: Tensors, masks: Tensors,
                 deterministic: bool = True,

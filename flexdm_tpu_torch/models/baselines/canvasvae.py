@@ -48,24 +48,28 @@ class CanvasVAE(nn.Module):
     def __init__(self, schema: Schema, latent_dim: int = 256,
                  num_blocks: int = 4, block_type: str = "deepsvg",
                  num_heads: int = 8, dropout: float = 0.1, kl: float = 1.0,
-                 input_dtype: str = "sorted_set"):
+                 input_dtype: str = "sorted_set",
+                 attention_impl: str = "auto"):
         super().__init__()
         self.schema = schema
         self.kl = kl
         self.input_dtype = input_dtype
+        self.attention_impl = attention_impl
         half = max(num_blocks // 2, 1)
         length_dim = schema["length"].input_dim
         self.encoder = Encoder(schema, latent_dim, context="length",
                                input_dtype="sorted_set", dropout=dropout)
         self.enc_blocks = Blocks(latent_dim, half, block_type, num_heads,
-                                 dropout=dropout, conditional=True)
+                                 dropout=dropout, conditional=True,
+                                 attention_impl=attention_impl)
         self.pool_norm = nn.LayerNorm(latent_dim, eps=LAYER_NORM_EPS)
         self.prior_head = Head(latent_dim, latent_dim, compute_kl=True)
         self.length_fc = nn.Linear(latent_dim, length_dim)
         self.embedding_const = PositionEmbedding(latent_dim, length_dim,
                                                  dropout)
         self.blocks = Blocks(latent_dim, half, block_type, num_heads,
-                             dropout=dropout, conditional=True)
+                             dropout=dropout, conditional=True,
+                             attention_impl=attention_impl)
         self.decoder = Decoder(schema, latent_dim)
 
     def forward(self, inputs: Tensors, targets: Optional[Tensors] = None,

@@ -52,16 +52,18 @@ class LayoutVAE(nn.Module):
 
     def __init__(self, schema: Schema, latent_dim: int = 256,
                  num_blocks: int = 4, block_type: str = "deepsvg",
-                 num_heads: int = 8, dropout: float = 0.1, kl: float = 1.0):
+                 num_heads: int = 8, dropout: float = 0.1, kl: float = 1.0,
+                 attention_impl: str = "auto"):
         super().__init__()
         self.schema = schema
         self.kl = kl
+        self.attention_impl = attention_impl
         self.keys = tuple(c.name for c in schema.valid_columns())
         self.encoder = Encoder(schema, latent_dim, dropout=dropout)
         self.encoder_gt = Encoder(schema, latent_dim, dropout=dropout,
                                   fusion="none")
         self.blocks = Blocks(latent_dim, num_blocks, block_type, num_heads,
-                             dropout=dropout)
+                             dropout=dropout, attention_impl=attention_impl)
         self.encoder_cvae = MACVAEEncoder(self.keys, latent_dim, latent_dim)
         self.decoder_cvae = MACVAEDecoder(self.keys, latent_dim)
         self.prior = MAPrior(self.keys, latent_dim)

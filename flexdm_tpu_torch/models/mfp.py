@@ -22,7 +22,8 @@ dtype, as in JAX, so bf16 confidences can tie exactly; every tied field at
 the threshold is committed.
 
 ``remat=True`` recomputes each block in the backward
-(:class:`~.transformer.Blocks`), as JAX's ``MFPModel(remat=True)`` does.
+(:class:`~.transformer.Blocks`), as JAX's ``MFPModel(remat=True)`` does;
+``attention_impl`` goes to every block's attention, as JAX's does.
 
 The baselines (:mod:`.baselines`) go through the same two functions, by
 way of :func:`apply_model`: they also take the targets (teacher forcing)
@@ -86,7 +87,8 @@ class MFPModel(nn.Module):
                  num_heads: int = 8, dropout: float = 0.1,
                  context: Optional[str] = None, input_dtype: str = "set",
                  seq_type: str = "default", use_elemwise_noise: bool = False,
-                 dtype: Optional[str] = None, remat: bool = False):
+                 dtype: Optional[str] = None, remat: bool = False,
+                 attention_impl: str = "auto"):
         super().__init__()
         compute = compute_dtype(dtype)
         if input_dtype not in INPUT_DTYPES:
@@ -112,7 +114,7 @@ class MFPModel(nn.Module):
         self.blocks = Blocks(
             latent_dim=latent_dim, num_blocks=num_blocks,
             block_type=block_type, num_heads=num_heads, dropout=dropout,
-            dtype=compute, remat=remat,
+            dtype=compute, remat=remat, attention_impl=attention_impl,
         )
         self.decoder = Decoder(schema, latent_dim, context, detachment,
                                compute)

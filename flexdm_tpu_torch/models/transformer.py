@@ -15,6 +15,11 @@ no generator it is off (JAX ``deterministic=True``).
 LayerNorm epsilon is 1e-3 (keras), not PyTorch's 1e-5; the MLP is ``2 * D``
 wide with ReLU.
 
+``attention_impl`` (``"auto"``, ``"xla"`` or ``"pallas"``) is a module
+attribute, as in JAX, passed from the blocks to every attention call
+(:func:`~..ops.attention.dot_product_attention`'s ``impl``); parameter
+names do not depend on it.
+
 ``dtype`` (None or ``torch.bfloat16``) is the compute dtype of flax's
 ``dtype=`` (``--dtype bfloat16``); parameters stay float32.  A Dense layer
 casts its input, kernel and bias to it at apply time (:func:`dense`), as
@@ -50,7 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import dot_product_attention
+from ..ops.attention import check_impl, dot_product_attention
 from ..ops.rng import FastDropout
 from ..parallel.layers import (copy_to_model, gather_from_model,
                                row_parallel, split_of)
@@ -116,15 +121,18 @@ class MultiHeadAttention(nn.Module):
     one S)."""
 
     def __init__(self, emb_size: int, num_heads: int = 8,
-                 lookahead: bool = True, dtype: Optional[torch.dtype] = None):
+                 lookahead: bool = True, dtype: Optional[torch.dtype] = None,
+                 attention_impl: str = "auto"):
         super().__init__()
         if emb_size % num_heads != 0:
             raise ValueError(
                 f"emb_size {emb_size} not divisible by num_heads {num_heads}"
             )
+        check_impl(attention_impl)
         self.num_heads = num_heads
         self.lookahead = lookahead
         self.dtype = dtype
+        self.attention_impl = attention_impl
         self.query = nn.Linear(emb_size, emb_size)
         self.key = nn.Linear(emb_size, emb_size)
         self.value = nn.Linear(emb_size, emb_size)
@@ -166,7 +174,8 @@ class MultiHeadAttention(nn.Module):
             q = self._project(x, (self.query,))[0]
             k, v = self._project(kv, (self.key, self.value))
         o = dot_product_attention(
-            q, k, v, key_mask=key_mask, causal=not self.lookahead
+            q, k, v, key_mask=key_mask, causal=not self.lookahead,
+            impl=self.attention_impl,
         )
         o = o.transpose(1, 2).reshape(b, s, -1)
         if split_of(self.out.weight) is not None:
@@ -178,11 +187,12 @@ class _BlockBase(nn.Module):
     def __init__(self, emb_size: int = 64, num_heads: int = 8,
                  ff_dim: Optional[int] = None, dropout: float = 0.1,
                  lookahead: bool = True, dtype: Optional[torch.dtype] = None,
-                 conditional: bool = False):
+                 conditional: bool = False, attention_impl: str = "auto"):
         super().__init__()
         ff_dim = ff_dim or 2 * emb_size
         self.dtype = dtype
-        self.attn = MultiHeadAttention(emb_size, num_heads, lookahead, dtype)
+        self.attn = MultiHeadAttention(emb_size, num_heads, lookahead, dtype,
+                                       attention_impl)
         self.norm1 = nn.LayerNorm(emb_size, eps=LAYER_NORM_EPS)
         self.norm2 = nn.LayerNorm(emb_size, eps=LAYER_NORM_EPS)
         self.mlp_0 = nn.Linear(emb_size, ff_dim)
@@ -283,7 +293,7 @@ class Blocks(nn.Module):
                  block_type: str = "deepsvg", num_heads: int = 8,
                  lookahead: bool = True, dropout: float = 0.1,
                  dtype: Optional[torch.dtype] = None, remat: bool = False,
-                 conditional: bool = False):
+                 conditional: bool = False, attention_impl: str = "auto"):
         super().__init__()
         self.remat = remat
         block_cls = BLOCK_TYPES[block_type]
@@ -291,6 +301,7 @@ class Blocks(nn.Module):
             self.add_module(f"seq2seq_{i}", block_cls(
                 emb_size=latent_dim, num_heads=num_heads, dropout=dropout,
                 lookahead=lookahead, dtype=dtype, conditional=conditional,
+                attention_impl=attention_impl,
             ))
 
     def forward(self, seq, key_mask=None, generator=None, z=None):

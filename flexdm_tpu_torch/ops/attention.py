@@ -30,9 +30,13 @@ the JAX layout: ``q, k, v`` are ``(B, H, S, Dh)`` and ``key_mask`` is a
   is never upcast to reuse the float32 kernels.
 * :class:`FlashAttention` wires the two into autograd (the JAX package's
   ``jax.custom_vjp``); the key mask gets no gradient.
-* :func:`dot_product_attention` dispatches on the device of its inputs: a
-  CPU tensor takes the plain version, a CUDA tensor launches the kernels or
-  raises.  There is no fallback between the two.
+* :func:`dot_product_attention` takes JAX's ``impl``: ``"xla"`` is the
+  plain version on any device (the caller's choice: no kernel launches),
+  ``"pallas"`` the kernels, which need CUDA tensors (a CPU tensor raises,
+  as JAX's ``pallas`` without ``interpret`` does off the TPU), and
+  ``"auto"`` dispatches on the device of its inputs: a CPU tensor takes the
+  plain version, a CUDA tensor launches the kernels or raises.  There is no
+  fallback between the two.
 
 The backward rebuilds probabilities as ``exp(s - m) / l`` from the
 forward's row max and row sum, not from the logsumexp: in a fully masked
@@ -53,8 +57,9 @@ bf16 a fully masked row's lse there is -998244352 + log S, here
 -1e9 + log S (O is the same).
 
 The TPU path's tile padding (``_pad_len``, ``_block_size``) and its
-XLA-vs-Pallas rule (``_prefer_pallas``) are not carried over: the kernels
-mask the ragged sequence end themselves.
+XLA-vs-Pallas rule (``_prefer_pallas``, kernels from S >= 512, a TPU
+measurement) are not carried over: the kernels mask the ragged sequence
+end themselves, and ``"auto"`` on the card takes them at every S.
 """
 
 from __future__ import annotations
@@ -71,6 +76,9 @@ NEG_INF = -1e9
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+# The ``impl`` values of :func:`dot_product_attention` (JAX's names).
+ATTENTION_IMPLS = ("auto", "xla", "pallas")
 
 # Launches of each CUDA kernel: the forward, and the backward's dq (with
 # delta) and dk/dv kernels; the BF16_ counts are the bf16 instances'.
@@ -378,19 +386,33 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def check_impl(impl: str, device=None) -> None:
+    """Raise ``ValueError`` for an ``impl`` not in :data:`ATTENTION_IMPLS`
+    and, when ``device`` is given, for ``"pallas"`` off a CUDA device."""
+    if impl not in ATTENTION_IMPLS:
+        raise ValueError(f"attention impl {impl!r} not in {ATTENTION_IMPLS}")
+    if impl == "pallas" and device is not None and \
+            torch.device(device).type != "cuda":
+        raise ValueError(
+            f"attention impl 'pallas' runs the CUDA kernels, which need a "
+            f"CUDA device, got {device}; 'xla' is the plain version there")
+
+
 def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     key_mask: Optional[torch.Tensor] = None,
     causal: bool = False,
+    impl: str = "auto",
 ) -> torch.Tensor:
     """Masked scaled-dot-product attention, ``(B, H, S, Dh)`` in and out,
-    float32 or bfloat16."""
+    float32 or bfloat16; ``impl`` as the module docstring says."""
     _check_dtypes(q, k, v)
-    if q.device.type == "cuda":
+    check_impl(impl, q.device)
+    if impl == "pallas" or (impl == "auto" and q.device.type == "cuda"):
         return FlashAttention.apply(q, k, v, key_mask, causal)
-    if q.device.type == "cpu":
+    if impl == "xla" or q.device.type == "cpu":
         b, _, s, _ = q.shape
         bias = key_bias(key_mask, b, s, q.device)
         return attention_reference(q, k, v, bias, causal)

@@ -1,0 +1,237 @@
+"""``attention_impl`` in the port, against the JAX package on the CPU.
+
+* ``dot_product_attention(impl="xla")`` is the plain version, bit for bit
+  (and so is ``auto`` on a CPU tensor); ``impl="pallas"`` on a CPU tensor
+  and an unknown ``impl`` raise.
+* The port's ``MFPModel`` and BART (causal self-attention and
+  cross-attention in its decoder), each built by ``build_model`` with
+  ``attention_impl="xla"``, give JAX's ``build_model`` outputs with
+  ``xla`` and with ``pallas`` (the Pallas kernels in interpret mode, their
+  CPU form), on the same weights moved through ``convert.py``, within
+  1e-5 (abs).  BART's decode commits argmaxes: each leads its runner-up by
+  at least 1e-3 in JAX's outputs, so a near tie cannot pass as a match.
+* The training CLI takes ``--attention_impl xla --device cpu`` and records
+  it in ``args.json``; serving, the demo and the eval harness rebuild it
+  from there; the eval CLI's flag overrides it; an ``args.json`` without
+  the field reads as ``auto``.
+"""
+
+import functools
+import json
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from flexdm_tpu.models import transformer as jax_transformer  # noqa: E402
+from flexdm_tpu.ops import attention as jax_attn  # noqa: E402
+from flexdm_tpu.train import trainer as jax_trainer  # noqa: E402
+from flexdm_tpu_torch import cli, demo  # noqa: E402
+from flexdm_tpu_torch.config import TrainConfig, build_model  # noqa: E402
+from flexdm_tpu_torch.convert import (  # noqa: E402
+    init_params,
+    load_jax_params,
+    params_to_jax,
+    save_weights,
+)
+from flexdm_tpu_torch.evaluation import harness  # noqa: E402
+from flexdm_tpu_torch.models import mfp as port_mfp  # noqa: E402
+from flexdm_tpu_torch.models.transformer import (  # noqa: E402
+    MultiHeadAttention,
+)
+from flexdm_tpu_torch.ops import attention as port_attn  # noqa: E402
+from flexdm_tpu_torch.serve import InferenceEngine  # noqa: E402
+from tests._torch_baselines import (  # noqa: E402
+    MARGIN,
+    _argmax_margins,
+    _unflatten,
+    schema_inputs,
+)
+from tests._torch_parity import (  # noqa: E402
+    numpy_batch,
+    random_masks,
+    to_jax,
+    to_numpy,
+    to_torch,
+)
+
+TOL = dict(rtol=0, atol=1e-5)
+TINY = ["--latent_dim", "32", "--num_blocks", "1", "--batch_size", "16",
+        "--validation_freq", "1", "--num_epochs", "1", "--device", "cpu",
+        "--log_level", "WARNING"]
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """JAX's attention through the Pallas kernels in interpret mode, for
+    models built with ``attention_impl="pallas"``."""
+    monkeypatch.setattr(jax_transformer, "dot_product_attention",
+                        functools.partial(jax_attn.dot_product_attention,
+                                          interpret=True))
+
+
+def _qkv(dtype, b=2, h=2, s=9, dh=32, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, dh),
+                                                    np.float32)).to(dtype)
+               for _ in range(3))
+    mask = torch.from_numpy(rng.random((b, s)) < 0.7)
+    mask[:, 0] = True
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xla_is_the_plain_version(dtype, causal):
+    q, k, v, mask = _qkv(dtype)
+    bias = port_attn.key_bias(mask, q.shape[0], q.shape[2], q.device)
+    want = port_attn.attention_reference(q, k, v, bias, causal)
+    for impl in ("xla", "auto"):
+        got = port_attn.dot_product_attention(q, k, v, mask, causal,
+                                              impl=impl)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_pallas_on_a_cpu_tensor_raises():
+    q, k, v, mask = _qkv(torch.float32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        port_attn.dot_product_attention(q, k, v, mask, impl="pallas")
+
+
+def test_unknown_impl_raises(crello_spec):
+    q, k, v, mask = _qkv(torch.float32)
+    with pytest.raises(ValueError, match="attention impl 'flash'"):
+        port_attn.dot_product_attention(q, k, v, mask, impl="flash")
+    with pytest.raises(ValueError, match="attention impl 'flash'"):
+        MultiHeadAttention(32, 4, attention_impl="flash")
+    with pytest.raises(ValueError, match="attention impl 'flash'"):
+        build_model(TrainConfig(latent_dim=32, num_blocks=1, num_heads=4,
+                                attention_impl="flash"), crello_spec.schema)
+
+
+def _impls(model):
+    return {m.attention_impl for m in model.modules()
+            if isinstance(m, MultiHeadAttention)}
+
+
+def _jax_params(flat):
+    """Flat flax parameters as the tree JAX's ``apply`` takes."""
+    return {"params": _unflatten({k: jax.numpy.asarray(v)
+                                  for k, v in flat.items()})}
+
+
+def _configs(impl, **kwargs):
+    """The same job as a port and a JAX ``TrainConfig``."""
+    sizes = dict(latent_dim=32, num_blocks=2, num_heads=4, dropout=0.0,
+                 attention_impl=impl)
+    sizes.update(kwargs)
+    return TrainConfig(**sizes), jax_trainer.TrainConfig(**sizes)
+
+
+def test_mfp_model_matches_jax_xla_and_pallas(crello_spec, pallas_interpret):
+    schema = crello_spec.schema
+    batch = numpy_batch(crello_spec, 4)
+    masks = random_masks(schema, batch)
+    port_config, _ = _configs("xla")
+    port_model = init_params(build_model(port_config, schema), 0).eval()
+    assert _impls(port_model) == {"xla"}
+    inputs = {k: np.asarray(v) for k, v in port_mfp.preprocess_for_test(
+        to_torch(batch), schema, to_torch(masks)).items()}
+    with torch.no_grad():
+        got = to_numpy(port_model(to_torch(inputs)))
+    params = _jax_params(params_to_jax(port_model.state_dict()))
+    for impl in ("xla", "pallas"):
+        jax_model = jax_trainer.build_model(_configs(impl)[1], schema)
+        want = to_numpy(jax.jit(jax_model.apply)(params, to_jax(inputs)))
+        assert set(got) == set(want)
+        for k in sorted(want):
+            np.testing.assert_allclose(got[k], want[k], **TOL,
+                                       err_msg=f"{impl}: {k}")
+
+
+def test_bart_matches_jax_xla_and_pallas(pallas_interpret):
+    schema, x, masks, modified = schema_inputs()
+    bart = dict(arch_type="bart_autoreg", latent_dim=16, num_heads=2)
+    port_config, _ = _configs("xla", **bart)
+    flat = params_to_jax(init_params(build_model(port_config, schema),
+                                     0).state_dict())
+    port_model = load_jax_params(build_model(port_config, schema), flat)
+    assert _impls(port_model) == {"xla"}
+    with torch.no_grad():
+        got, _ = port_mfp.apply_model(port_model.eval(), to_torch(modified),
+                                      to_torch(x), to_torch(masks), True)
+    got = to_numpy(got)
+    params = _jax_params(flat)
+    for impl in ("xla", "pallas"):
+        jax_model = jax_trainer.build_model(_configs(impl, **bart)[1],
+                                            schema)
+        want, _ = jax.jit(lambda p: jax_model.apply(
+            p, to_jax(modified), to_jax(x), to_jax(masks), True))(params)
+        want = to_numpy(want)
+        assert _argmax_margins(schema, want, masks,
+                               schema.max_length - 1) >= MARGIN
+        assert set(got) == set(want)
+        for k in sorted(want):
+            np.testing.assert_allclose(got[k], want[k], **TOL,
+                                       err_msg=f"{impl}: {k}")
+
+
+@pytest.fixture(scope="module")
+def xla_job(crello_dir, tmp_path_factory):
+    job = str(tmp_path_factory.mktemp("impl") / "job")
+    cli.main(["--preset", "crello_ours_exp", "--data_dir", crello_dir,
+              "--job-dir", job, "--attention_impl", "xla", *TINY])
+    return job
+
+
+def test_cli_records_the_impl(xla_job):
+    with open(os.path.join(xla_job, "args.json")) as f:
+        assert json.load(f)["attention_impl"] == "xla"
+    assert os.path.exists(os.path.join(xla_job, "checkpoints",
+                                       "best.torch.npz"))
+
+
+def test_serve_and_demo_rebuild_the_impl(xla_job):
+    engine = InferenceEngine(xla_job, batch_size=2, device="cpu")
+    assert _impls(engine.model) == {"xla"}
+    model, _ = demo.load_model(xla_job, device="cpu")
+    assert _impls(model) == {"xla"}
+    model, _ = demo.load_model(xla_job, device="cpu", attention_impl="auto")
+    assert _impls(model) == {"auto"}
+
+
+def test_eval_cli_rebuilds_and_overrides_the_impl(xla_job, monkeypatch):
+    built = []
+
+    def recording(*args, **kwargs):
+        model, spec = load(*args, **kwargs)
+        built.append(_impls(model))
+        return model, spec
+
+    load = demo.load_model
+    monkeypatch.setattr(demo, "load_model", recording)
+    argv = ["--job-dir", xla_job, "--device", "cpu", "--task_mode", "pos",
+            "--batch_size", "8"]
+    recorded = harness.main(argv)
+    overridden = harness.main(argv + ["--attention_impl", "auto"])
+    assert built == [{"xla"}, {"auto"}]
+    assert recorded == overridden  # on the CPU both are the plain version
+
+
+def test_old_args_json_reads_as_auto(xla_job, tmp_path):
+    job = tmp_path / "old"
+    os.makedirs(job / "checkpoints")
+    with open(os.path.join(xla_job, "args.json")) as f:
+        args = json.load(f)
+    del args["attention_impl"]
+    (job / "args.json").write_text(json.dumps(args))
+    assert TrainConfig.from_args(args).attention_impl == "auto"
+    model, spec = demo.load_model(xla_job, device="cpu")
+    save_weights(str(job / "checkpoints" / "best.torch.npz"), model)
+    old, _ = demo.load_model(str(job), device="cpu")
+    assert _impls(old) == {"auto"}

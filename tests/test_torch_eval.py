@@ -308,10 +308,12 @@ def test_main_writes_the_csv_of_evaluate_all(crello_dir, tmp_path):
         want.values())
 
 
-@pytest.mark.parametrize("flags", [["--attention_impl", "xla"],
+@pytest.mark.parametrize("flags", [["--attention_impl", "flash"],
                                    ["--attention_impl", "pallas"]])
 def test_main_refuses_what_the_port_lacks(flags):
-    with pytest.raises(NotImplementedError, match="not in this port"):
+    """An unknown ``--attention_impl``, and the kernels (``pallas``) off a
+    card, raise before the job is read."""
+    with pytest.raises(ValueError, match="attention impl"):
         harness.main(["--job-dir", "no_such_job", "--device", "cpu", *flags])
 
 

@@ -1,0 +1,167 @@
+"""The port's tools (``tools/torch_*.py``) and ``bin/*_torch.sh`` on the CPU,
+at tiny widths: they run end to end and print what they promise (not
+speed).  Every tool runs in a subprocess where ``jax``, ``flax``,
+``optax``, ``orbax`` and ``flexdm_tpu`` cannot be imported.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from flexdm_tpu_torch import cli  # noqa: E402
+from tools import torch_bench_attention  # noqa: E402
+from tools.torch_train_baselines import PRESETS  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT_S = 180  # each tool run's hard limit
+TINY = ["--latent_dim", "32", "--num_blocks", "1", "--batch_size", "16",
+        "--validation_freq", "1", "--num_epochs", "1", "--device", "cpu",
+        "--log_level", "WARNING"]
+
+# Runs ``argv[1]`` as ``__main__`` with the JAX package and JAX blocked.
+_BLOCKED = r"""
+import importlib.abc, runpy, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "flexdm_tpu")
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked")
+
+sys.meta_path.insert(0, Block())
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def run_tool(name, *args):
+    """``tools/<name>`` with ``args``, JAX blocked; its process."""
+    return subprocess.run(
+        [sys.executable, "-c", _BLOCKED, os.path.join(ROOT, "tools", name),
+         *args], cwd=ROOT, capture_output=True, text=True,
+        timeout=TIMEOUT_S, env=dict(os.environ, FLEXDM_PLATFORM="cpu"))
+
+
+def tool_json(name, *args):
+    """The JSON object of the tool's last line of output."""
+    proc = run_tool(name, *args)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def job(crello_dir, tmp_path_factory):
+    job = str(tmp_path_factory.mktemp("tools") / "job")
+    cli.main(["--preset", "crello_ours_exp", "--data_dir", crello_dir,
+              "--job-dir", job, *TINY])
+    return job
+
+
+def test_profile_step_prints_its_segments():
+    out = tool_json("torch_profile_step.py", "--batch-size", "8",
+                    "--latent-dim", "32", "--num-blocks", "1", "--iters",
+                    "2", "--device", "cpu")
+    for key in ("masking_ms", "forward_ms", "forward_backward_ms",
+                "optimizer_ms", "full_step_ms"):
+        assert out[key] > 0, key
+    assert (out["device"], out["clock"], out["card"]) == ("cpu", "host",
+                                                          "cpu")
+    assert out["config"]["batch_size"] == 8
+    assert set(out["launches"].values()) == {0}  # the CPU runs no kernel
+
+
+def test_bench_serve_runs_on_a_tiny_job(job, tmp_path):
+    out = tool_json("torch_bench_serve.py", "--job-dir", job,
+                    "--batch-size", "2", "--requests", "2", "--num_iter",
+                    "2", "--concurrency", "2", "--device", "cpu", "--out",
+                    str(tmp_path / "serve.json"))
+    assert out["first_pos_iter1_sec"] > 0
+    for key in ("pos_1doc", "pos_2doc", "pos_2doc_changed",
+                "elem_1doc_iter2"):
+        assert out[key]["n"] == 2
+        assert out[key]["p95_ms"] >= out[key]["p50_ms"] > 0, key
+    for key in ("load_serial", "load_coalesced"):
+        assert out[key]["docs_per_sec"] > 0, key
+    with open(tmp_path / "serve.json") as f:
+        assert json.load(f)["requests"] == 2
+
+
+def test_profile_demo_runs_on_a_tiny_job(job):
+    out = tool_json("torch_profile_demo.py", "--job-dir", job,
+                    "--num-examples", "2", "--device", "cpu")
+    assert [r["run"] for r in out["runs"]] == ["cold", "warm1"]
+    for run in out["runs"]:
+        assert set(run["timings"]) == {"load_model", "load_batch",
+                                       "forward_eval", "unbatch",
+                                       "svg_html", "total"}
+
+
+@pytest.mark.parametrize("arch", ["canvasvae", "layoutvae", "autoreg",
+                                  "bart_autoreg"])
+def test_train_baselines_row(arch):
+    out = tool_json("torch_train_baselines.py", "--arch", arch, "--docs",
+                    "32", "--epochs", "1", "--latent-dim", "16",
+                    "--num-blocks", "1", "--batch-size", "16", "--device",
+                    "cpu")
+    row = out["baselines"][arch]
+    assert row["preset"] == PRESETS[arch]
+    assert row["epochs"] == 1 and not row["stopped_on_nan"]
+    assert row["loss_last"] == row["loss_last"]  # not NaN
+    assert row["num_params"] > 0 and row["wall_sec"] > 0
+
+
+def test_bench_attention_refuses_the_cpu():
+    proc = run_tool("torch_bench_attention.py", "--device", "cpu")
+    assert proc.returncode != 0
+    assert "only on a CUDA device" in proc.stderr
+
+
+@pytest.mark.parametrize("dtype, causal", [("float32", False),
+                                           ("bfloat16", True)])
+def test_bench_attention_bounds_are_a_hand_count(dtype, causal):
+    """(2, 2, 64, 32): q, k, v, O of 8192 elements each; lse, m, l 256
+    float32 rows; a 128-byte mask.  The forward moves 4 tensors + 3 rows +
+    the mask, the backward 12 tensors + 6 rows + 2 masks; 2 + 3 + 4
+    products of 2 * 4 * 64 * 64 * 32 FLOPs (the causal band's 65/128)."""
+    item, peak = (4, 495e12) if dtype == "float32" else (2, 989.4e12)
+    band = 65 / 128 if causal else 1.0
+    product = 2 * 4 * 64 * 64 * 32 * band
+    fwd_bytes = 4 * 8192 * item + 3 * 256 * 4 + 128
+    bwd_bytes = 12 * 8192 * item + 6 * 256 * 4 + 2 * 128
+    want = {"fwd": (fwd_bytes, 2 * product),
+            "fwd_bwd": (fwd_bytes + bwd_bytes, 9 * product)}
+    got = torch_bench_attention.bounds(2, 2, 64, 32, dtype, causal)
+    for part, (nbytes, flops) in want.items():
+        t_bytes, t_ops = nbytes / 3.35e12 * 1e3, flops / peak * 1e3
+        assert got[part]["bound_ms"] == pytest.approx(max(t_bytes, t_ops),
+                                                      rel=1e-12)
+        assert got[part]["bound_by"] == ("bytes" if t_bytes >= t_ops
+                                         else "operations")
+
+
+def test_bin_scripts_train_and_evaluate(crello_dir, tmp_path):
+    job = str(tmp_path / "job")
+    env = dict(os.environ, DATA_DIR=crello_dir, JOB_DIR=job)
+    train = subprocess.run(
+        ["bash", os.path.join(ROOT, "bin", "train_flexdm_torch.sh"),
+         "crello", "--preset", "crello_ours_exp", *TINY], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=TIMEOUT_S)
+    assert train.returncode == 0, train.stderr[-4000:]
+    assert f"JOB_DIR={job}" in train.stdout and "test metrics:" in \
+        train.stdout
+    with open(os.path.join(job, "args.json")) as f:
+        assert json.load(f)["data_dir"] == crello_dir
+    scores = str(tmp_path / "scores.csv")
+    evaluate = subprocess.run(
+        ["bash", os.path.join(ROOT, "bin", "eval_flexdm_torch.sh"),
+         "--job-dir", job, "--task_mode", "pos", "--batch_size", "8",
+         "--device", "cpu", "--result_csv", scores], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=TIMEOUT_S)
+    assert evaluate.returncode == 0, evaluate.stderr[-4000:]
+    assert os.path.exists(scores)

@@ -312,10 +312,12 @@ def test_nan_stops_without_saving(crello_dir, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--attention_impl", "pallas"],
+    ["--attention_impl", "pallas", "--device", "cpu"],
 ])
 def test_cli_refuses_what_the_port_lacks(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="not in this port"):
+    """The kernels (``pallas``) need a card: on the CPU the CLI raises
+    before it writes anything."""
+    with pytest.raises(ValueError, match="CUDA device"):
         cli.main(["--dataset_name", "crello", "--data_dir", "d",
                   "--job-dir", str(tmp_path / "job"), *flags])
     assert not os.path.exists(tmp_path / "job")
