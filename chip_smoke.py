@@ -110,11 +110,12 @@ Phases, each of which must pass (any failure exits non-zero):
     CLI's documents per second from ``history.jsonl`` wall times, host
     mode without the prefetch thread (the parent's loop), host mode with
     it, and device mode, in turns.
-14. decode and demo: (a) in phase 2; (b) every record of phase 11's
-    2048-document crello and rico test splits decoded by the native
-    decoder equals its pure-Python decode, column by column (same dtype
-    and shape), and the native scan gives the Python scan's payloads with
-    the CRCs verified; (c) one pass of a fresh loader over each split, the
+14. decode and demo: (a) in phase 2; (b) every record of the first of
+    the two shards of phase 11's 2048-document crello and rico test splits
+    (1024 records each) decoded by the native decoder equals its
+    pure-Python decode, column by column (same dtype and shape), and the
+    native scan gives the Python scan's payloads with the CRCs verified;
+    (c) one pass of a fresh loader over each split, the
     crello ``random`` harness (decode included) and the ``DeviceDataCache``
     build over phase 8's 512-record train split, native and pure Python
     in turns A B B A, where a native pass goes (scan, the C++ passes, the
@@ -131,12 +132,13 @@ Phases, each of which must pass (any failure exits non-zero):
 15. baselines (crello CanvasVAE, LayoutVAE, AutoReg, BART; D=256, 8
     heads, 4 blocks, batch 64, float32, on the 512/64/64 split of 8): for
     each, (a) one training step on the card against the same step on a
-    CPU copy, 16 documents (dropout 0, the same draws and VAE normals):
-    the loss and its KL and length terms within 1e-5 relative, gradients
-    as in 8(i); (b) 5 timed steps with CUDA events, the peak memory and a
-    ``torch.profiler`` window; (c) ``python -m flexdm_tpu_torch --preset
-    crello_<name>`` for one epoch in device mode (validated; ``best``,
-    ``last``, ``final``); (d) ``random`` and ``elem`` (AutoReg, BART,
+    CPU copy, 16 documents (LayoutVAE 8; dropout 0, the same draws and VAE
+    normals): the loss and its KL and length terms within 1e-5 relative,
+    gradients as in 8(i); (b) 5 timed steps (LayoutVAE 2) with CUDA
+    events, the peak memory and a ``torch.profiler`` window; (c) ``python
+    -m flexdm_tpu_torch --preset crello_<name>`` for one epoch in device
+    mode (validated; ``best``, ``last``, ``final``; LayoutVAE on a
+    128/64/64 split of its own, 2 steps); (d) ``random`` and ``elem`` (AutoReg, BART,
     LayoutVAE: the queried element moved last) over the job's 64 test
     documents on the card against the CPU (``elem`` on the first 2), sums
     as in 11, whole rows near a tie allowed (a decode commits its
@@ -176,8 +178,8 @@ Phases, each of which must pass (any failure exits non-zero):
     line saying why not; (f) each baseline (CanvasVAE, LayoutVAE, AutoReg,
     BART at their presets, batch 64, dropout and VAE noise on)
     tensor-parallel on one data rank by 2 model ranks (gloo on one card,
-    NCCL on two where there are two), all four in one spawn: 3 steps held
-    to the run alone at (c)'s gate, the ranks bitwise equal, the
+    NCCL on two where there are two), all four in one spawn: 3 steps
+    (LayoutVAE 2) held to the run alone at (c)'s gate, the ranks bitwise equal, the
     forward, dq and dk/dv launched 4 / 200 / 4 / 6 times a rank a step at
     (64, 4, 50, 32), as alone; then AutoReg's ``elem`` over 8 documents
     of phase 15's job on the grid against alone (near ties counted, the
@@ -215,6 +217,28 @@ Phases, each of which must pass (any failure exits non-zero):
     ``torch_profile_demo`` on 8(iii)'s job, ``torch_train_baselines``
     for CanvasVAE, AutoReg and BART (1 epoch on 512 documents; LayoutVAE
     runs in 15).
+18. raw crello ingestion to jobs (20000 raw templates from
+    ``tools/torch_scale_drill.make_raw_dump``, release scale): (a)
+    ``tools/torch_build_crello_dataset.py`` builds them: every template
+    kept and counted in ``count.json``, each split non-empty,
+    ``vocabulary.json`` naming every element type of the dump, a batch of
+    256 from the port's ``DatasetSpec`` with ``left`` of shape (256, 50, 1),
+    no position column with one value across 64 documents; (b)
+    ``tools/torch_scale_drill.py`` at full width (D=256, 4 blocks, batch
+    256, bf16) for 1 epoch: its dump and its build (the builder's second
+    run) byte-equal to (a)'s, resident ``pos`` sums equal to streaming
+    ones, the bf16 dq and dk/dv launched 4 times a step and the forward at
+    least as often, no float32 kernel, the demo page written; (c)
+    ``tools/torch_capstone.py`` on that corpus (reused) at full width,
+    batch 256, float32: IMP, EXP and EXP-FT (warm-started from IMP's
+    ``best``: its ``args.json`` names it and its first loss is not EXP's)
+    for 2 epochs each, every loss finite, dq and dk/dv 4 a step; the seven
+    eval runs of each with finite scores in [0, 1], MaskGIT ``elem``
+    (``--num_iter 4``) launching the forward 4 times as often as
+    ``elem``; (d) ``notebooks/demo_{crello,rico}_torch.ipynb`` through
+    ``flexdm_tpu_torch.utils.notebook`` on the card (a toy job trained
+    there first): at least 2 HTML outputs each, the forward launched.
+    Each part prints its seconds.
 Each step phase ends with a ``torch.profiler`` window: device kernel time
 per step, its attention share and the busiest kernels.
 
@@ -227,7 +251,8 @@ trainer path of phase 13, the demo runs of phase 14, each baseline's
 steps, CLI run and evaluation of phase 15 and one rank's step of phase
 16's layouts and of each baseline's tensor-parallel step; a float32
 kernel's ``multi_device`` times at phase 16's per-rank shapes, the
-baselines' causal one too; the launches of phase 17's paths too), the
+baselines' causal one too; the launches of phase 17's and 18's paths
+too), the
 card's name and power limit from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -941,10 +966,7 @@ def profile_steps(fn, steps=5):
 def launch_counts():
     from flexdm_tpu_torch.ops import attention as attn
 
-    return {"fwd": attn.KERNEL_LAUNCHES, "dq": attn.BWD_DQ_LAUNCHES,
-            "dkv": attn.BWD_DKV_LAUNCHES, "fwd_bf16": attn.BF16_FWD_LAUNCHES,
-            "dq_bf16": attn.BF16_DQ_LAUNCHES,
-            "dkv_bf16": attn.BF16_DKV_LAUNCHES}
+    return attn.launch_counts()
 
 
 def kernel_names(dtype):
@@ -2411,10 +2433,11 @@ def _records_equal(got, want):
 
 
 def decode_parity(data):
-    """14(b): every test record of phase 11's splits decoded natively
-    equals its pure-Python decode, column by column (dtype and shape
-    included); the native scan gives the Python scan's payloads, with the
-    CRCs verified by each."""
+    """14(b): every record of the first of the two shards of phase 11's
+    test splits (1024 records each; the pure-Python CRC of a crello shard
+    takes ~20 s) decoded natively equals its pure-Python decode, column by
+    column (dtype and shape included); the native scan gives the Python
+    scan's payloads, with the CRCs verified by each."""
     from flexdm_tpu_torch.data import DatasetSpec, tfrecord
 
     t0 = time.perf_counter()
@@ -2425,7 +2448,9 @@ def decode_parity(data):
               and native._native_layout is not None,
               f"{dataset}: the native decoder is not in use")
         records = columns = 0
-        for shard in tfrecord.list_shards(data_dir, "test"):
+        shards = tfrecord.list_shards(data_dir, "test")
+        check(len(shards) == 2, f"{dataset}: test shards {shards}")
+        for shard in shards[:1]:
             payloads = tfrecord.read_records(shard, verify_crc=True)
             check(payloads == tfrecord.read_records(
                 shard, verify_crc=True, native=False),
@@ -2436,8 +2461,9 @@ def decode_parity(data):
                       f"{shard} record {i}: native decode != Python decode")
                 records += 1
                 columns += len(got)
-        check(records == EVAL_DOCS, f"{dataset}: {records} test records")
-        log(f"[decode] {dataset}: {records} records, {columns} columns "
+        check(records == EVAL_DOCS // 2, f"{dataset}: {records} records")
+        log(f"[decode] {dataset}: {records} records of the first test "
+            f"shard, {columns} columns "
             f"decoded natively = pure Python (np.array_equal, same dtype "
             f"and shape); native scan = Python scan with verify_crc=True")
     log(f"[decode] parity in {time.perf_counter() - t0:.1f} s")
@@ -2751,6 +2777,12 @@ BASELINES = ("canvasvae", "layoutvae", "autoreg", "bart")
 BASELINE_BATCH = 64  # the presets' batch
 BASELINE_PARITY_DOCS = 16  # the CPU copy's 50-pass LayoutVAE step is slow
 BASELINE_STEPS = 5
+# LayoutVAE's step runs the blocks 50 times (~3.5 s on the card, slower on
+# the CPU): its parity takes fewer documents, its timing fewer steps and
+# its CLI epoch a smaller train split, to keep the script inside its time.
+LAYOUTVAE_PARITY_DOCS = 8
+LAYOUTVAE_STEPS = 2
+LAYOUTVAE_TRAIN_DOCS = 2 * BASELINE_BATCH
 BASELINE_ELEM_DOCS = 2  # the CPU's elem decodes: one replica per element
 BASELINE_DOCS = 8  # one /predict
 CAUSAL_SHAPE = (64, 8, 50, 32)  # AutoReg's and BART's training attention
@@ -2927,8 +2959,9 @@ def baseline_parity(args, spec, batch, label):
         "|g| > 1e-3")
 
 
-def baseline_steps(args, spec, batch, card, label, per_step):
-    """``BASELINE_STEPS`` timed steps on the card (fixed batch and draws,
+def baseline_steps(args, spec, batch, card, label, per_step,
+                   steps=BASELINE_STEPS):
+    """``steps`` timed steps on the card (fixed batch and draws,
     dropout and VAE normals drawn on the card) after one warm step: each
     kernel launched exactly ``per_step`` times a step, the loss finite;
     CUDA-event step times, the peak memory and a ``torch.profiler``
@@ -2963,7 +2996,7 @@ def baseline_steps(args, spec, batch, card, label, per_step):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     losses, times = [], []
-    for _ in range(BASELINE_STEPS):
+    for _ in range(steps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2976,14 +3009,14 @@ def baseline_steps(args, spec, batch, card, label, per_step):
     peak = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses), f"{label}: loss {losses}")
     for name in F32_KERNELS:
-        check(counts[name] == per_step * BASELINE_STEPS,
+        check(counts[name] == per_step * steps,
               f"{label}: {name} launched {counts[name]} times in "
-              f"{BASELINE_STEPS} steps, not {per_step} a step")
+              f"{steps} steps, not {per_step} a step")
     check_one_instance(counts, None, label)
     step_ms = statistics.median(times)
     log(f"[time] train step, {label}, batch {b} (fixed batch and draws, "
         f"dropout and VAE normals on the card; CUDA events, median of "
-        f"{BASELINE_STEPS} warm steps): {step_ms:.2f} ms, "
+        f"{steps} warm steps): {step_ms:.2f} ms, "
         f"{b / step_ms * 1e3:.0f} documents/s; min {min(times):.2f} max "
         f"{max(times):.2f} ms; peak memory {peak / 2**20:.1f} MiB "
         f"(+{(peak - base) / 2**20:.1f} MiB over the weights, Adam state and "
@@ -3000,9 +3033,10 @@ def baseline_steps(args, spec, batch, card, label, per_step):
 
 def baseline_cli(root, data_dir, card, name, per_step, per_forward):
     """``python -m flexdm_tpu_torch --preset crello_{name}`` for one epoch
-    in device mode (8 steps of 64, validation and test on 64 documents
-    each, one batch each): ``best``, ``last`` and ``final`` written, the
-    history finite, the launches exact."""
+    in device mode (a step for each 64 train documents of ``data_dir``,
+    validation and test on 64 documents each, one batch each): ``best``,
+    ``last`` and ``final`` written, the history finite, the launches
+    exact."""
     import torch
 
     from flexdm_tpu_torch.cli import main as train_main
@@ -3020,7 +3054,9 @@ def baseline_cli(root, data_dir, card, name, per_step, per_forward):
     with open(os.path.join(job, "logs", "history.jsonl")) as f:
         history = [json.loads(line) for line in f]
     steps = history[-1]["step"]
-    check(len(history) == 1 and steps == 2 * TRAIN_BATCH // BASELINE_BATCH,
+    with open(os.path.join(data_dir, "count.json")) as f:
+        train_docs = json.load(f)["train"]
+    check(len(history) == 1 and steps == train_docs // BASELINE_BATCH,
           f"crello_{name} CLI history {history}")
     check(all(finite(h) for h in history), f"crello_{name}: non-finite "
           "history")
@@ -3253,9 +3289,13 @@ def phase_baselines(card, root, data_dir, spec, batch):
     plain attention on the card; then the causal kernels alone.  Returns
     the launches per path and the causal kernels' figures."""
     from flexdm_tpu_torch.config import TrainConfig
+    from flexdm_tpu_torch.data import synthetic
 
     t0 = time.perf_counter()
     batch = {k: v[:BASELINE_BATCH] for k, v in batch.items()}
+    layoutvae_dir = synthetic.generate(
+        "crello", os.path.join(root, "layoutvae_data"), LAYOUTVAE_TRAIN_DOCS,
+        BASELINE_BATCH, BASELINE_BATCH, seed=0)
     by_path = {}
     with PlainOnCard() as plain:
         for name in BASELINES:
@@ -3269,15 +3309,18 @@ def phase_baselines(card, root, data_dir, spec, batch):
                                               BASELINE_EVAL_LAUNCHES[name]),
                   f"{label}: the model launches {per_step} a step and "
                   f"{per_forward} a forward")
+            layoutvae = name == "layoutvae"
+            docs = LAYOUTVAE_PARITY_DOCS if layoutvae else \
+                BASELINE_PARITY_DOCS
             baseline_parity(
-                args, spec,
-                {k: v[:BASELINE_PARITY_DOCS] for k, v in batch.items()},
-                f"{label} ({BASELINE_PARITY_DOCS} of the {BASELINE_BATCH} "
-                "documents)")
+                args, spec, {k: v[:docs] for k, v in batch.items()},
+                f"{label} ({docs} of the {BASELINE_BATCH} documents)")
             _, by_path[f"{label}_steps"] = baseline_steps(
-                args, spec, batch, card, label, per_step)
+                args, spec, batch, card, label, per_step,
+                LAYOUTVAE_STEPS if layoutvae else BASELINE_STEPS)
             job, by_path[f"{label}_cli"] = baseline_cli(
-                root, data_dir, card, name, per_step, per_forward)
+                root, layoutvae_dir if layoutvae else data_dir, card, name,
+                per_step, per_forward)
             by_path[f"{label}_eval"] = baseline_eval(card, label, job,
                                                      per_forward)
             baseline_serve(card, label, job, spec, per_forward)
@@ -3300,6 +3343,12 @@ TP_SHAPE = (TRAIN_BATCH, 8 // RANKS, 50, 32)
 FLAT_DP_SHAPE = (FLAT_BATCH // RANKS, 8, 500, 32)
 TP_BASELINE_SHAPE = (BASELINE_BATCH, 8 // RANKS, 50, 32)
 TP_BASELINE_STEPS = 3
+TP_LAYOUTVAE_STEPS = 2  # ~9 s a tensor-parallel LayoutVAE step on one card
+
+
+def tp_steps(name):
+    """16(f)'s steps of baseline ``name``."""
+    return TP_LAYOUTVAE_STEPS if name == "layoutvae" else TP_BASELINE_STEPS
 TP_ELEM_DOCS = 8  # 16(f)'s AutoReg elem: one chunk of replicas
 TP_ELEM_CHUNK = 64
 ON_ONE_CARD = dict(devices=["cuda:0"] * RANKS, backend="gloo")
@@ -3886,7 +3935,7 @@ def multi_nccl(card, args, batch, dp, lr):
 def multi_baseline_rank(rank, store, data_dir, batch, job, devices,
                         backend):
     """Rank ``rank`` of one data rank by ``RANKS`` model ranks: each
-    baseline's :func:`_grid_steps` (``TP_BASELINE_STEPS`` steps, no timed
+    baseline's :func:`_grid_steps` (:func:`tp_steps` steps, no timed
     ones), then :func:`tp_elem` of the AutoReg ``job``."""
     from flexdm_tpu_torch.parallel import mesh
 
@@ -3894,7 +3943,7 @@ def multi_baseline_rank(rank, store, data_dir, batch, job, devices,
     try:
         out = {name: _grid_steps(load_args(f"configs/crello_{name}.json",
                                            data_dir),
-                                 batch, grid, TP_BASELINE_STEPS, timed=0,
+                                 batch, grid, tp_steps(name), timed=0,
                                  kinks=grid.is_primary)
                for name in BASELINES}
         out["elem"] = tp_elem(job, data_dir, grid)
@@ -3937,7 +3986,7 @@ def tp_elem(job, data_dir, grid=None):
 def multi_baselines(card, root, data_dir, batch):
     """16(f): each baseline tensor-parallel (one data rank by ``RANKS``
     model ranks; gloo on one card, NCCL on two where there are two), all
-    four in one spawn: ``TP_BASELINE_STEPS`` steps held to the run alone
+    four in one spawn: :func:`tp_steps` steps held to the run alone
     at 16(c)'s step gate, the ranks bitwise equal, the launches a rank a
     step those alone (4 / 200 / 4 / 6) at ``TP_BASELINE_SHAPE``; then
     AutoReg's ``elem`` (phase 15's job) on the grid against alone.
@@ -3963,7 +4012,7 @@ def multi_baselines(card, root, data_dir, batch):
         lr = TrainConfig.from_args(args).learning_rate
         per_step = BASELINE_STEP_LAUNCHES[name]
         t0 = time.perf_counter()
-        alone = _grid_steps(args, batch, None, TP_BASELINE_STEPS, timed=0,
+        alone = _grid_steps(args, batch, None, tp_steps(name), timed=0,
                             kinks=True)
         alone_s = time.perf_counter() - t0
         label = f"(f) crello_{name} tensor-parallel {RANKS}"
@@ -3982,7 +4031,7 @@ def multi_baselines(card, root, data_dir, batch):
         log(f"[multi] {label} ({where['backend']}, "
             f"{len(set(where['devices']))} card(s)) vs alone, batch "
             f"{BASELINE_BATCH}, dropout and VAE noise on, "
-            f"{TP_BASELINE_STEPS} steps: loss within {gap['loss']:.2e} "
+            f"{tp_steps(name)} steps: loss within {gap['loss']:.2e} "
             f"relative, max |dg| {gap['grad']:.2e}, max |dp| "
             f"{gap['param']:.2e} (key biases {gap['noise']:.2e}); "
             f"{flipped} of {units} CVAE units' ReLUs let other rows "
@@ -4418,6 +4467,258 @@ def phase_entry_points(card, root, data_dir, batch, data):
     return counts
 
 
+# --- 18. Raw crello ingestion to jobs ---------------------------------------
+
+RAW_DOCS = 20000  # release scale (~23k templates), the JAX drill's default
+DRILL_EPOCHS = 1  # 70 steps of 256
+CAPSTONE_EPOCHS = 2  # the last validates, so ``best`` exists
+CAPSTONE_ITERS = 4
+NOTEBOOK_DIRS = {"demo_crello_torch.ipynb": ("FLEXDM_JOB_DIR",
+                                             "FLEXDM_DATA_DIR"),
+                 "demo_rico_torch.ipynb": ("FLEXDM_RICO_JOB_DIR",
+                                           "FLEXDM_RICO_DATA_DIR")}
+
+
+def _dir_bytes(path):
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def _summed(counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def ingest_build(card, root):
+    """18(a): ``tools/torch_build_crello_dataset.py`` on a raw dump of
+    ``RAW_DOCS`` templates: every template kept and counted, each split
+    non-empty, every element type of the dump in ``vocabulary.json``, a
+    batch of the port's ``DatasetSpec`` of shape (B, 50, 1) for ``left``,
+    no degenerate position column.  Returns the dump and the data dir."""
+    import numpy as np
+
+    from flexdm_tpu_torch.data import DatasetSpec
+    from tools.torch_build_crello_dataset import main as build_main
+    from tools.torch_scale_drill import make_raw_dump
+
+    raw = os.path.join(root, "ingest_dump.jsonl")
+    make_raw_dump(raw, RAW_DOCS)
+    data_dir = os.path.join(root, "ingest_data")
+    t0 = time.perf_counter()
+    _, line = quiet(build_main, ["--input", raw, "--out", data_dir,
+                                 "--shards", "8", "--val-frac", "0.05",
+                                 "--test-frac", "0.05"])
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(data_dir, "count.json")) as f:
+        counts = json.load(f)
+    with open(os.path.join(data_dir, "vocabulary.json")) as f:
+        vocab = json.load(f)
+    check(line.startswith(f"wrote {sum(counts.values())} documents")
+          and line.endswith("skipped 0") and sum(counts.values()) == RAW_DOCS,
+          f"the builder kept {counts} of {RAW_DOCS}: {line}")
+    check(all(counts[s] > 0 for s in ("train", "val", "test")),
+          f"an empty split: {counts}")
+    types = set()
+    with open(raw) as f:
+        for row in f:
+            types.update(e["type"] for e in
+                         json.loads(row)["template"][0]["elements"])
+    check(set(vocab["type"]) == types,
+          f"vocabulary types {sorted(vocab['type'])}, dump types "
+          f"{sorted(types)}")
+    spec = DatasetSpec("crello", data_dir, TRAIN_BATCH)
+    batch = next(iter(spec.make_dataset("train")))
+    check(batch["left"].shape == (TRAIN_BATCH, 50, 1),
+          f"left {batch['left'].shape}")
+    for col in ("left", "top", "width", "height"):
+        check(len(np.unique(batch[col][:64])) >= 2,
+              f"built dataset is degenerate: {col} has one value across "
+              "64 documents")
+    log(f"[ingest] (a) tools/torch_build_crello_dataset.py: {RAW_DOCS} raw "
+        f"templates -> {counts}, {len(vocab['type'])} element types "
+        f"{sorted(types)}; a batch of {TRAIN_BATCH} decodes, left "
+        f"{batch['left'].shape}, no degenerate position column")
+    log(f"[time] ingest (a) build of {RAW_DOCS} templates: {seconds:.1f} s "
+        f"on the host [{card}]")
+    return raw, data_dir
+
+
+def ingest_drill(card, root, raw, data_dir):
+    """18(b): ``tools/torch_scale_drill.py`` at full width (D=256, 4 blocks,
+    batch 256, bf16) for ``DRILL_EPOCHS``: its dump and its build (the
+    builder's second run) byte-equal to 18(a)'s, resident = streaming
+    ``pos``, the bf16 dq and dk/dv launched 4 times a step, the forward
+    at least as often, no float32 kernel; the demo page written.
+    Returns the drill's root (its corpus) and the launches per path."""
+    from tools import torch_scale_drill
+
+    drill_root = os.path.join(root, "ingest_drill")
+    t0 = time.perf_counter()
+    row, _ = quiet(torch_scale_drill.main, [
+        "--docs", str(RAW_DOCS), "--epochs", str(DRILL_EPOCHS), "--root",
+        drill_root])
+    seconds = time.perf_counter() - t0
+    with open(raw, "rb") as a, \
+            open(os.path.join(drill_root, "dump.jsonl"), "rb") as b:
+        check(a.read() == b.read(), "the drill's dump differs from 18(a)'s")
+    check(_dir_bytes(os.path.join(drill_root, "data")) ==
+          _dir_bytes(data_dir), "a second build differs from the first")
+    check(row["native_decoder"] and not row["stopped_on_nan"]
+          and finite(row), f"drill row {row}")
+    check(row["eval_paths_equal"], "drill: resident and streaming pos "
+          f"sums differ by {row['eval_paths_max_rel_gap']:.2e} relative")
+    train = row["launches"]["train"]
+    check(train["dq_bf16"] == train["dkv_bf16"] == 4 * row["steps"] > 0
+          and train["fwd_bf16"] >= 4 * row["steps"],
+          f"drill: {row['steps']} steps launched {train}")
+    by_path = {"ingest_drill_train": train,
+               "ingest_drill_eval": _summed([row["launches"]["eval_resident"],
+                                            row["launches"]["eval_streaming"]]),
+               "ingest_drill_demo": row["launches"]["demo"]}
+    for path, counts in by_path.items():
+        check_one_instance(counts, BF16, path)
+        check(counts["fwd_bf16"] > 0, f"{path}: {counts}")
+    for stage in ("eval_resident", "eval_streaming", "demo"):
+        check(row["launches"][stage]["dq_bf16"] == 0,
+              f"drill {stage}: {row['launches'][stage]}")
+    check(row["demo_html_bytes"] > 0 and os.path.exists(
+        os.path.join(drill_root, "demo.html")), "drill: no demo page")
+    log(f"[ingest] (b) tools/torch_scale_drill.py --docs {RAW_DOCS} --epochs "
+        f"{DRILL_EPOCHS} (D=256, 4 blocks, batch 256, bf16): dump and build "
+        f"byte-equal to (a)'s; {row['train_records']} train records, "
+        f"{row['steps']} steps, loss {row['loss_first']:.3f} -> "
+        f"{row['loss_last']:.3f}, best val {row['best_val_total_score']:.4f};"
+        f" pos on {row['test_records']} test records {row['eval_pos_scores']}"
+        f", resident = streaming sums (Σnum and Σden equal); launches "
+        f"{row['launches']}")
+    log(f"[time] ingest (b) drill: {seconds:.1f} s; build "
+        f"{row['build_sec']:.1f} s, first-epoch decode "
+        f"{row['first_epoch_decode_sec']:.2f} s "
+        f"({row['decode_docs_per_sec']:.0f} documents/s, native decoder), "
+        f"train {row['train_sec']:.1f} s (first epoch {row['startup_sec']:.1f}"
+        f" s), eval pos resident {row['eval_resident_sec']:.2f} s, streaming "
+        f"{row['eval_streaming_sec']:.2f} s, demo {row['demo_sec']:.2f} s "
+        f"[{card}]")
+    return drill_root, by_path
+
+
+def ingest_capstone(card, drill_root):
+    """18(c): ``tools/torch_capstone.py`` on the drill's corpus (reused) at
+    full width, batch 256, float32, IMP -> EXP -> EXP-FT for
+    ``CAPSTONE_EPOCHS`` and the seven eval runs (MaskGIT ``--num_iter
+    CAPSTONE_ITERS``): every loss finite, EXP-FT warm-started from IMP's
+    ``best`` (its first loss not EXP's), every score finite in [0, 1],
+    dq and dk/dv 4 a step, MaskGIT ``elem`` launching the forward
+    ``CAPSTONE_ITERS`` times as often as ``elem``.  Returns the launches
+    per path."""
+    from tools import torch_capstone
+
+    t0 = time.perf_counter()
+    result, _ = quiet(torch_capstone.main, [
+        "--root", drill_root, "--docs", str(RAW_DOCS), "--epochs",
+        str(CAPSTONE_EPOCHS), "--num_iter", str(CAPSTONE_ITERS)])
+    seconds = time.perf_counter() - t0
+    by_path = {}
+    for name in torch_capstone.RECIPES:
+        train, scores = result[name]["train"], result[name]["eval"]
+        check(not train.get("skipped") and not train["stopped_on_nan"]
+              and finite(train) and train["epochs_run"] == CAPSTONE_EPOCHS
+              and train["n_best_saves"] == 1, f"capstone {name}: {train}")
+        counts = train["launches"]
+        check(counts["dq"] == counts["dkv"] == 4 * train["steps"] > 0
+              and counts["fwd"] >= 4 * train["steps"],
+              f"capstone {name}: {train['steps']} steps launched {counts}")
+        check_one_instance(counts, None, f"capstone {name}")
+        launches = scores.pop("_launches")
+        wall = scores.pop("_eval_wall_sec")
+        check(len(scores) == 7, f"capstone {name}: {sorted(scores)}")
+        for task, got in scores.items():
+            check(got and all(0 <= v <= 1 for v in got.values())
+                  and finite(got), f"capstone {name} {task}: {got}")
+            check(launches[task]["fwd"] > 0 and launches[task]["dq"] == 0,
+                  f"capstone {name} {task}: {launches[task]}")
+            check_one_instance(launches[task], None, f"capstone {task}")
+        maskgit = launches[f"elem_maskgit{CAPSTONE_ITERS}"]["fwd"]
+        check(maskgit == CAPSTONE_ITERS * launches["elem"]["fwd"],
+              f"capstone {name}: MaskGIT elem launched {maskgit}, elem "
+              f"{launches['elem']['fwd']}")
+        by_path[f"capstone_{name}_train"] = counts
+        by_path[f"capstone_{name}_eval"] = _summed(list(launches.values()))
+        log(f"[ingest] (c) capstone {name}: {train['steps']} steps, loss "
+            f"{train['loss_first']:.3f} -> {train['loss_last']:.3f}, best val "
+            f"{train['best_val_total_score']:.4f}, test "
+            f"{train['test_total_score']:.4f}; elem "
+            f"{scores['elem']}, pos {scores['pos']}; MaskGIT elem "
+            f"{maskgit} forward launches = {CAPSTONE_ITERS} x elem's "
+            f"{launches['elem']['fwd']}")
+        log(f"[time] ingest (c) capstone {name}: train "
+            f"{train['train_wall_sec']:.1f} s, the seven eval runs "
+            f"{wall:.1f} s [{card}]")
+    with open(os.path.join(drill_root, "job_exp_ft", "args.json")) as f:
+        weights = json.load(f)["weights"]
+    check(weights == os.path.join(drill_root, "job_imp", "checkpoints",
+                                  "best.torch.npz"), f"EXP-FT from {weights}")
+    check(result["exp_ft"]["train"]["loss_first"]
+          != result["exp"]["train"]["loss_first"],
+          "EXP-FT's first loss is EXP's: no warm start")
+    log(f"[time] ingest (c) capstone ({CAPSTONE_EPOCHS} epochs a recipe, "
+        f"corpus reused): {seconds:.1f} s [{card}]")
+    return by_path
+
+
+def ingest_notebooks(card, root):
+    """18(d): both port notebooks through the port's runner on the card
+    (``FLEXDM_DEVICE`` unset: ``cuda``): at least 2 HTML outputs each, the
+    float32 forward launched (the toy job trained on the card too)."""
+    from flexdm_tpu_torch.utils import notebook
+
+    by_path = {}
+    for name, (job_var, data_var) in NOTEBOOK_DIRS.items():
+        check("FLEXDM_DEVICE" not in os.environ, "FLEXDM_DEVICE is set")
+        where = os.path.join(root, name.split(".")[0])
+        saved = {k: os.environ.get(k) for k in (job_var, data_var)}
+        os.environ.update({job_var: os.path.join(where, "job"),
+                           data_var: os.path.join(where, "data")})
+        attn_reset()
+        t0 = time.perf_counter()
+        try:
+            outputs, _ = quiet(notebook.run_notebook, os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "notebooks",
+                name))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        html = sum(1 for o in outputs if "text/html" in o)
+        check(html >= 2 and counts["fwd"] > 0 and counts["dq"] > 0,
+              f"{name}: {html} HTML outputs, launches {counts}")
+        check_one_instance(counts, None, name)
+        by_path[f"notebook_{name.split('_')[1]}"] = counts
+        log(f"[ingest] (d) notebooks/{name}: {len(outputs)} outputs, {html} "
+            f"HTML; launches {counts}")
+        log(f"[time] ingest (d) notebooks/{name} (toy bootstrap included): "
+            f"{seconds:.1f} s [{card}]")
+    return by_path
+
+
+def phase_ingestion(card, root):
+    """18: raw crello JSONL to trained, evaluated and rendered jobs."""
+    t_phase = time.perf_counter()
+    raw, data_dir = ingest_build(card, root)
+    drill_root, by_path = ingest_drill(card, root, raw, data_dir)
+    by_path.update(ingest_capstone(card, drill_root))
+    by_path.update(ingest_notebooks(card, root))
+    log(f"[time] phase 18 took {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    return by_path
+
+
 def main():
     # cuBLAS repeats its results only with a fixed workspace (16(a) runs
     # under torch.use_deterministic_algorithms); read when its first
@@ -4463,6 +4764,7 @@ def main():
         multi_counts, multi_kernels, multi_causal = phase_multi(
             card, root, data_dir, batch, data)
         entry_counts = phase_entry_points(card, root, data_dir, batch, data)
+        ingest_counts = phase_ingestion(card, root)
     log(f"[time] summary: train step crello Ours-EXP {step_ms:.2f} ms "
         f"(bf16 {bf16_ms:.2f} ms), rico Ours-EXP {rico_ms:.2f} ms (batch "
         f"{TRAIN_BATCH}), crello_flat {flat_ms:.2f} ms (bf16 "
@@ -4479,7 +4781,8 @@ def main():
                "rico_ours_exp_steps": rico_counts,
                "crello_flat_steps": flat_counts, **eval_counts,
                **bf16_counts, **trainer_counts, "demo": demo_counts,
-               **baseline_counts, **multi_counts, **entry_counts}
+               **baseline_counts, **multi_counts, **entry_counts,
+               **ingest_counts}
     # The training shape, which every kernel of the path runs at (the
     # forward also serves at (8, 8, 50, 32) and crello_flat runs
     # (64, 8, 500, 32): the log lines above).

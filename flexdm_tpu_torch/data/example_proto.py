@@ -254,7 +254,12 @@ def decode_sequence_example(
 # Encoding (for the synthetic-data writer and round-trip tests)
 # ---------------------------------------------------------------------------
 
+_ONE_BYTE = [bytes((v,)) for v in range(0x80)]
+
+
 def _varint(v: int) -> bytes:
+    if v < 0x80:  # tags and most lengths: one byte, no loop
+        return _ONE_BYTE[v]
     out = bytearray()
     while True:
         b = v & 0x7F

@@ -68,7 +68,7 @@ import ctypes
 import functools
 import math
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -362,6 +362,15 @@ def reset_launch_counts() -> None:
     with _launches_lock:
         KERNEL_LAUNCHES = BWD_DQ_LAUNCHES = BWD_DKV_LAUNCHES = 0
         BF16_FWD_LAUNCHES = BF16_DQ_LAUNCHES = BF16_DKV_LAUNCHES = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launch count, by the short names the tools print:
+    ``fwd``, ``dq``, ``dkv`` and their ``*_bf16`` instances."""
+    with _launches_lock:
+        return {"fwd": KERNEL_LAUNCHES, "dq": BWD_DQ_LAUNCHES,
+                "dkv": BWD_DKV_LAUNCHES, "fwd_bf16": BF16_FWD_LAUNCHES,
+                "dq_bf16": BF16_DQ_LAUNCHES, "dkv_bf16": BF16_DKV_LAUNCHES}
 
 
 class FlashAttention(torch.autograd.Function):

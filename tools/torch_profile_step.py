@@ -202,12 +202,7 @@ def main(argv=None):
         "clock": "cuda_events" if device.type == "cuda" else "host",
         **segments,
         "steps_per_sec": 1000.0 / segments["full_step_ms"],
-        "launches": {"fwd": attn.KERNEL_LAUNCHES,
-                     "dq": attn.BWD_DQ_LAUNCHES,
-                     "dkv": attn.BWD_DKV_LAUNCHES,
-                     "fwd_bf16": attn.BF16_FWD_LAUNCHES,
-                     "dq_bf16": attn.BF16_DQ_LAUNCHES,
-                     "dkv_bf16": attn.BF16_DKV_LAUNCHES},
+        "launches": attn.launch_counts(),
     }
     print(json.dumps(out))
     return out
