@@ -9,7 +9,8 @@ Phases, each of which must pass (any failure exits non-zero):
 2. build: compiles the CUDA libraries from ``flexdm_tpu_torch/csrc`` with
    nvcc for sm_90a, one nvcc per source, and the host record decoder
    (``csrc/tfrecord_io.cc``) with g++ at its first use, all at once
-   (seconds, printed with the ptxas report and g++'s version); fails if
+   (seconds, printed with the ptxas report and g++'s version, and the bf16
+   forward's and backward's registers, spills and C7520 lines); fails if
    the native decoder is not in use (14(a));
 3. kernel: the flash-attention forward kernel (split-TF32 tensor-core
    products) against its plain PyTorch version on the card (O and lse
@@ -92,8 +93,15 @@ Phases, each of which must pass (any failure exits non-zero):
     numerical Σnum within one bf16 ulp relative, categorical Σnum equal
     apart from fields whose top two logits lie within four bf16 ulps);
     (c) crello_flat at batch 64 in bf16: (b)'s parity on 16 documents and
-    30 timed steps.  Every bf16 path launches only bf16 kernels, every
-    float32 path only float32 ones.
+    30 timed steps, then ``elem`` over the first 512 documents of phase
+    11's split with the trained weights (forwards at (256, 8, 500, 32)),
+    resident: 4 bf16 forward launches a forward, the sums finite and equal
+    to ``--attention_impl xla`` on the card at bf16's bars.  Every bf16
+    path launches only bf16 kernels, every float32 path only float32 ones.
+    12(a)'s times: at (8, 8, 50, 32), (256, 8, 50, 32), (64, 8, 500, 32),
+    (256, 8, 500, 32) and crello_scaled's (2048, 8, 50, 64), each with the
+    last fifth of the keys masked and with every key attended (the
+    library with no mask then), beside the exponential floor.
 13. trainer (crello Ours-EXP, batch 256, the 512/64/64 split of 8): (a)
     the ``Prefetcher`` with the trainer's ``PinnedCopy`` (pinned host
     arrays, a side-stream copy, an event the main stream waits on) over
@@ -259,6 +267,7 @@ card's name and power limit from nvidia-smi, and ``{"ok": true,
 
 import copy
 import csv
+import functools
 import json
 import math
 import os
@@ -410,23 +419,32 @@ def phase_build():
         f" -> sm_90a in {time.perf_counter() - t0:.2f} s")
     for name, _ in attn.LIBRARIES:
         log(_build.BUILD_LOGS.get(name, f"{name}: (reused build)").strip())
-    log("[build] bf16 backward kernels (ptxas): " + "; ".join(
-        ptxas_summary(_build.BUILD_LOGS.get(attn.BWD_BF16_LIBRARY[0], ""))))
+    for label, lib in (("forward", attn.FWD_BF16_LIBRARY),
+                       ("backward", attn.BWD_BF16_LIBRARY)):
+        log(f"[build] bf16 {label} kernels (ptxas): " + "; ".join(
+            ptxas_summary(_build.BUILD_LOGS.get(lib[0], ""))))
 
 
 def ptxas_summary(report):
     """``kernel<args>: N registers, S bytes spilled`` per kernel of a ptxas
-    report (``-Xptxas -v``), spills as the larger of stores and loads."""
+    report (``-Xptxas -v``), spills as the larger of stores and loads, and
+    any C7520 line (wgmma serialised) with the end of its text."""
     import re
 
     out, name, spill = [], None, 0
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '\S*?\d(flash_\w+?"
-                          r"_kernel)(ILi\d+ELi\d+E)?", line)
+                          r"_kernel)(I(?:Li\d+E)+)?", line)
         if entry:
-            name = entry.group(1) + "".join(
-                f"<{a},{b}>" for a, b in re.findall(
-                    r"ILi(\d+)ELi(\d+)E", entry.group(2) or ""))
+            args = re.findall(r"Li(\d+)E", entry.group(2) or "")
+            name = entry.group(1) + (f"<{','.join(args)}>" if args else "")
+        if "C7520" in line:
+            fn = re.search(r"\d(flash_\w+?_kernel)(I(?:Li\d+E)+)?", line)
+            why = re.search(r"due to (.*?) in the function", line)
+            args = re.findall(r"Li(\d+)E", fn.group(2) or "") if fn else []
+            out.append(f"C7520 in {fn.group(1) if fn else '?'}"
+                       f"<{','.join(args)}>: "
+                       f"{why.group(1) if why else line.strip()}")
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                            r"loads", line)
         if spills:
@@ -552,25 +570,65 @@ def bound(nbytes, flops, peak=TF32_FLOPS):
             "fp32_bound_ms": max(t_bytes, flops / FP32_FLOPS * 1e3)}
 
 
+# Exponentials an SM of sm_90 returns a clock (MUFU.EX2: 16).
+EXPS_PER_SM_CLOCK = 16
+
+
+def attention_exps(shape, causal=False):
+    """Exponentials one pass over every (row, key) score of ``shape``
+    needs: B H S^2, the causal band's (S + 1) / 2S of them with
+    ``causal``."""
+    b, h, s, _ = shape
+    n = b * h * s * s
+    return n * (s + 1) // (2 * s) if causal else n
+
+
+@functools.lru_cache(maxsize=None)
+def card_sm_rate():
+    """(SMs, the largest SM clock in MHz) of card 0: ``torch`` and
+    ``nvidia-smi --query-gpu=clocks.max.sm``."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count, mhz
+
+
+def exp_floor_ms(n_exps, sms=None, mhz=None):
+    """The least time (ms) for ``n_exps`` exponentials on the SFUs: 16 a
+    clock an SM, over the card's SMs at its largest SM clock (those of
+    card 0 unless given)."""
+    if sms is None:
+        sms, mhz = card_sm_rate()
+    return n_exps / (EXPS_PER_SM_CLOCK * sms * mhz * 1e6) * 1e3
+
+
 def forward_bound(shape, itemsize=4, peak=TF32_FLOPS):
     """Reads q, k, v and the (B, S) byte mask; writes O and (float32) lse,
     m, l.  Two products of 2 S^2 Dh FLOPs per (batch, head).  ``itemsize``:
-    bytes per element of q, k, v and O (2 for bf16, with ``BF16_FLOPS``)."""
+    bytes per element of q, k, v and O (2 for bf16, with ``BF16_FLOPS``).
+    Beside the bound, ``exp_floor_ms``: one exponential a score."""
     b, h, s, dh = shape
     rows = b * h * s
-    return bound(itemsize * 4 * rows * dh + 4 * 3 * rows + b * s,
-                 4 * b * h * s * s * dh, peak)
+    return dict(bound(itemsize * 4 * rows * dh + 4 * 3 * rows + b * s,
+                      4 * b * h * s * s * dh, peak),
+                exp_floor_ms=exp_floor_ms(attention_exps(shape)))
 
 
 def backward_bounds(shape, itemsize=4, peak=TF32_FLOPS):
     """dq: reads q, k, v, o, dO, m, l, mask, writes dq, delta; 3 products.
     dk/dv: reads q, k, v, dO, m, l, delta, mask, writes dk, dv; 4 products
-    (2 S^2 Dh FLOPs each).  m, l and delta are float32."""
+    (2 S^2 Dh FLOPs each).  m, l and delta are float32.  Each kernel forms
+    p once: one exponential a score each (``exp_floor_ms``)."""
     b, h, s, dh = shape
     rows = b * h * s
     product = 2 * b * h * s * s * dh
     nbytes = itemsize * 6 * rows * dh + 4 * 3 * rows + b * s
-    return (bound(nbytes, 3 * product, peak), bound(nbytes, 4 * product, peak))
+    floor = exp_floor_ms(attention_exps(shape))
+    return (dict(bound(nbytes, 3 * product, peak), exp_floor_ms=floor),
+            dict(bound(nbytes, 4 * product, peak), exp_floor_ms=floor))
 
 
 def sdpa_kernels(fn):
@@ -1854,8 +1912,9 @@ def phase_bf16_kernel(card):
             f"delta within their bars; second calls bitwise equal")
 
     fwd_t, bwd_t = {}, {}
+    # crello_scaled's width (D=512 over 8 heads of 64) beside the paths'.
     for shape in ((8, 8, 50, 32), (256, 8, 50, 32), FLAT_SHAPE,
-                  EVAL_FLAT_SHAPE):
+                  EVAL_FLAT_SHAPE, (2048, 8, 50, 64)):
         b, h, s, dh = shape
         q, k, v = (torch.randn(shape, generator=g).to("cuda", bf16)
                    for _ in range(3))
@@ -1863,10 +1922,13 @@ def phase_bf16_kernel(card):
         mask = torch.ones(b, s, dtype=torch.bool)
         mask[:, s - s // 5:] = False
         mask = mask.cuda()
+        every = torch.ones_like(mask)
         bias = attn.key_bias(mask, b, s, q.device)
         sdpa_mask = bias.to(bf16)[:, None, None, :]
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, attn_mask=sdpa_mask)
+        unmasked = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v)
         t = {
             "ms": device_ms(lambda: attn.flash_attention_forward(q, k, v,
                                                                  mask)),
@@ -1875,15 +1937,25 @@ def phase_bf16_kernel(card):
             "library_ms": device_ms(library),
             "f32_ms": device_ms(lambda: attn.flash_attention_forward(
                 q32, k32, v32, mask)),
+            # Every key attended: the kernel with an all-True mask, the
+            # library with none (another SDPA backend).
+            "unmasked": {
+                "ms": device_ms(lambda: attn.flash_attention_forward(
+                    q, k, v, every)),
+                "library_ms": device_ms(unmasked)},
         }
         t.update(forward_bound(shape, 2, BF16_FLOPS))
         fwd_t[shape] = t
         log(f"[time] bf16 attention {shape} device time (CUDA graph of 20 "
-            f"calls, median of 50): kernel {t['ms']:.4f} ms, plain bf16 "
-            f"{t['plain_ms']:.4f} ms, library (bf16 "
-            f"scaled_dot_product_attention, O only; {sdpa_kernels(library)})"
-            f" {t['library_ms']:.4f} ms, float32 kernel {t['f32_ms']:.4f} ms"
-            f"; bound {t['bound_ms']:.4f} ms ({t['bound_by']}) [{card}]")
+            f"calls, median of 50), last fifth of the keys masked: kernel "
+            f"{t['ms']:.4f} ms, plain bf16 {t['plain_ms']:.4f} ms, library "
+            f"(bf16 scaled_dot_product_attention with the additive key "
+            f"bias, O only; {sdpa_kernels(library)}) {t['library_ms']:.4f} "
+            f"ms, float32 kernel {t['f32_ms']:.4f} ms; every key attended: "
+            f"kernel {t['unmasked']['ms']:.4f} ms, library (no mask; "
+            f"{sdpa_kernels(unmasked)}) {t['unmasked']['library_ms']:.4f} "
+            f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+            f"exponential floor {t['exp_floor_ms']:.4f} ms [{card}]")
     for shape in ((256, 8, 50, 32), (1, 2, 4096, 64), FLAT_SHAPE):
         b, h, s, dh = shape
         q, k, v, do = (torch.randn(shape, generator=g).to("cuda", bf16)
@@ -2056,17 +2128,82 @@ def phase_bf16(card, root, data_dir, spec, batch, data, f32_losses,
     phase_bf16_parity(flat_args, spec, {k: v[:FLAT_PARITY_DOCS]
                                         for k, v in flat_batch.items()},
                       f"crello_flat bf16 ({FLAT_PARITY_DOCS} documents)")
-    flat_ms, _, flat_counts, _ = phase_train_steps(
+    flat_ms, _, flat_counts, flat_model = phase_train_steps(
         flat_args, spec, flat_batch, card, "crello_flat bf16")
     log(f"[bf16] crello_flat: median step {flat_ms:.2f} ms against float32 "
         f"{f32_flat_ms:.2f} ms (batch {FLAT_BATCH}) [{card}]")
+    flat_eval_counts = flat_bf16_elem(card, root, flat_args, flat_model, data)
     log(f"[bf16] phase done in {time.perf_counter() - t0:.1f} s")
     return step_ms, flat_ms, {
         "crello_ours_exp_bf16_steps": counts,
         "crello_ours_exp_bf16_cli": cli_counts,
         "crello_ours_exp_bf16_eval": eval_counts,
         "crello_flat_bf16_steps": flat_counts,
+        "crello_flat_bf16_eval": flat_eval_counts,
     }
+
+
+FLAT_BF16_EVAL_DOCS = 512  # 12(c)'s elem eval: the first of phase 11's
+
+
+def flat_bf16_elem(card, root, args, model, data):
+    """12(c): the trained bf16 crello_flat weights scored with ``elem``
+    through the harness, resident, on the first ``FLAT_BF16_EVAL_DOCS``
+    documents of phase 11's crello split (forwards at (256, 8, 500, 32)):
+    the bf16 forward launched once a block a forward and no other kernel,
+    the sums finite and equal to the same harness run with
+    ``--attention_impl xla`` on the card at bf16's bars (numerical Σnum
+    within one bf16 ulp relative, categorical Σnum equal apart from near
+    ties, counted).  Returns the kernels' launch counts."""
+    import torch
+
+    from flexdm_tpu_torch.demo import load_model
+    from flexdm_tpu_torch.evaluation import harness
+
+    t0 = time.perf_counter()
+    label = f"crello_flat bf16 elem ({FLAT_BF16_EVAL_DOCS} documents)"
+    job = os.path.join(root, "flat_bf16_job")
+    write_job(job, args, model)
+    kernels, spec = load_model(job, batch_size=EVAL_BATCH, device="cuda",
+                               data_dir=data["crello"])
+    plain, _ = load_model(job, batch_size=EVAL_BATCH, device="cuda",
+                          data_dir=data["crello"], attention_impl="xla")
+    check(kernels.dtype == BF16 and impl_names(plain) == {"xla"},
+          f"{label}: models {kernels.dtype} {impl_names(plain)}")
+    docs = FirstDocs(spec, FLAT_BF16_EVAL_DOCS)
+    cache = harness._make_cache(docs, "cuda")
+    blocks = eval_blocks(cache, "elem", spec.schema.max_length)
+    num_blocks = len(list(kernels.blocks.children()))
+    attn_reset()
+    t1 = time.perf_counter()
+    got = harness.task_sums(kernels, docs, "elem", None, cache=cache)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t1
+    counts = launch_counts()
+    check(counts["fwd_bf16"] == num_blocks * blocks
+          and not any(n for k, n in counts.items() if k != "fwd_bf16"),
+          f"{label}: launches {counts}, not {num_blocks} x {blocks} bf16 "
+          "forwards alone")
+    check(got and finite(got), f"{label}: sums {got}")
+    ties = NearTies(spec.schema, False, BF16_TIE)
+    attn_reset()
+    t1 = time.perf_counter()
+    want = harness.task_sums(plain, docs, "elem", None, cache=cache,
+                             observe=ties)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    check(not any(launch_counts().values()),
+          f"{label}: --attention_impl xla launched {launch_counts()}")
+    rel, cat = compare_sums(label, spec.schema, got, want, ties, BF16_ULP)
+    log(f"[bf16] {label}, resident: {blocks} forwards of {ELEM_CHUNK} "
+        f"replicas at (256, 8, 500, 32), bf16 forward launched "
+        f"{counts['fwd_bf16']} times (= {num_blocks} x {blocks}); sums "
+        f"finite and equal to --attention_impl xla on the card (numerical "
+        f"Σnum within {rel:.2e} relative, bar {BF16_ULP:g}; categorical "
+        f"apart by at most {cat:g}; {ties.fields} masked fields near a "
+        f"tie); kernels {kernel_s:.3f} s, xla {plain_s:.3f} s, "
+        f"{time.perf_counter() - t0:.1f} s in all [{card}]")
+    return counts
 
 
 
@@ -4794,12 +4931,14 @@ def main():
     def fwd_times(t):
         return {"ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "exp_floor_ms": t["exp_floor_ms"],
                 "library_ms": t["library_ms"], "shape": list(shape)}
 
     def bwd_times(t, part):
         bd = t["bounds"][part]
         return {"ms": t[part], "plain_ms": t["plain"],
                 "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                "exp_floor_ms": bd["exp_floor_ms"],
                 "library_ms": t["library"], "shape": list(shape)}
 
     def multi_times(key):

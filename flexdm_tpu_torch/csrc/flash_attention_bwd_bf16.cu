@@ -78,17 +78,10 @@
 
 #include <cstdint>
 
-#include "mma_bf16.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
 
-constexpr int kWarpgroup = 128;
-// Scores are kept in log2 units (s log2 e), so p = 2^(x - m log2 e) / l is
-// one ex2.  A replaced or masked score is -1e9 log2 e, which rounds to the
-// same float as a fully masked row's m log2 e: such a row keeps p = 1/l.
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kMaskedLog2 = kMaskedScore * kLog2e;
 constexpr int kTile = 64;  // rows or keys a consumer warpgroup owns
 // Keys per K/V tile of the dq kernel and Q/dO rows per tile of the dk/dv
 // kernel: the N of the score products.  32 keeps s, dp (or s^T, dp^T) at 16
@@ -115,8 +108,6 @@ constexpr int kConsumerRegs = 232;
 // one.
 constexpr int min_blocks(int dh, int nwg) { return dh == 32 && nwg == 1 ? 3 : 1; }
 
-constexpr int round_up_1024(int bytes) { return (bytes + 1023) / 1024 * 1024; }
-
 // Threads of a block with NWG consumer warpgroups: one producer warp after
 // a single consumer warpgroup (its registers stay under the 255 a thread
 // may have), a whole producer warpgroup after two, whose registers go to
@@ -128,24 +119,6 @@ constexpr int threads(int nwg) {
 // Consumer warpgroups per block: 2 for a small grid with tiles to split.
 int consumer_groups(long long blocks, int tiles) {
   return tiles >= 2 && blocks < kSplitBelowBlocks ? 2 : 1;
-}
-
-// 2^x (ex2.approx; a result below the smallest normal float is 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The accumulators of n8 blocks 2 kk, 2 kk + 1 as the bf16 A operand of the
-// k16 step kk.
-template <int R>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[R],
-                                         int kk) {
-  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
-  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
-  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
-  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
 // The hand-over of partial sums between consumer warpgroups through
@@ -166,23 +139,6 @@ __device__ __forceinline__ void add_sums(float (&acc)[R], const float* buf,
 #pragma unroll
   for (int r = 0; r < R; ++r)
     acc[r] += buf[(slot * R + r) * kWarpgroup + lane128];
-}
-
-// Row 16 w + g + 8 hh of an m64nDH accumulator set, scaled, as bf16 pairs
-// into row ``row`` of a (rows, DH) bf16 array.
-template <int DH>
-__device__ __forceinline__ void store_row(bf16* dst, size_t row,
-                                          const float (&acc)[DH / 2], int hh,
-                                          int t, float scale) {
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
-    *reinterpret_cast<uint32_t*>(dst + row * DH + 8 * j + 2 * t) = pack_bf16(
-        acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);
-}
-
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  const uint32_t a = shared_addr(p);
-  return p + ((1024 - (a & 1023)) & 1023);
 }
 
 // ---------------------------------------------------------------------------
@@ -732,15 +688,6 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     store_row<DH>(dk, key_row, acc_dk, hh, t, scale);
     store_row<DH>(dv, key_row, acc_dv, hh, t, 1.f);
   }
-}
-
-// Sets every instance's dynamic shared memory limit to what it uses, at
-// any size (a launch of these kernels with the default limit failed with
-// cudaErrorInvalidValue on the card).
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <int DH, int NWG>

@@ -25,8 +25,14 @@
 // Accumulators of m64nNk16 (thread 32 w + 4 g + t of the warpgroup):
 // d[4 j + e] holds row 16 w + g + 8 (e >> 1), column 8 j + 2 t + (e & 1).
 // Two adjacent n8 blocks j = 2 kk, 2 kk + 1, rounded to bf16 and packed in
-// pairs, are the register A operand of the k16 step kk (acc_to_a of
-// mma_bf16.cuh, whose m16n8k16 A layout each warp of the warpgroup keeps).
+// pairs, are the register A operand of the k16 step kk (acc_to_a: the
+// m16n8k16 A layout, which each warp of the warpgroup keeps).
+//
+// Scores in log2 units.  The kernels keep s log2 e, so a probability is
+// one ex2 (exp2_approx).  A replaced or masked score is -1e9 log2 e
+// (kMaskedLog2), which rounds to the same float as a fully masked row's
+// max m log2 e, and m = -1e9 survives the trip to log2 units and back
+// (m2 ln 2 log2 e == m2 in float32): such a row keeps p = 1/l.
 
 #pragma once
 
@@ -35,8 +41,58 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+
+#include "mma_tf32.cuh"  // kMaskedScore, key_bias
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarpgroup = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kMaskedLog2 = kMaskedScore * kLog2e;
+
+// 2^x (ex2.approx; a result below the smallest normal float is 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats rounded to bf16 (to nearest even), ``lo`` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  uint32_t r;
+  memcpy(&r, &v, sizeof(r));
+  return r;
+}
+
+// The accumulators of n8 blocks 2 kk, 2 kk + 1 as the bf16 A operand of the
+// k16 step kk.
+template <int R>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[R],
+                                         int kk) {
+  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// Row 16 w + g + 8 hh of an m64nDH accumulator set, scaled, as bf16 pairs
+// into row ``row`` of a (rows, DH) bf16 array.
+template <int DH>
+__device__ __forceinline__ void store_row(bf16* dst, size_t row,
+                                          const float (&acc)[DH / 2], int hh,
+                                          int t, float scale) {
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+    *reinterpret_cast<uint32_t*>(dst + row * DH + 8 * j + 2 * t) = pack_bf16(
+        acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);
+}
+
+constexpr int round_up_1024(int bytes) { return (bytes + 1023) / 1024 * 1024; }
 
 // ---------------------------------------------------------------------------
 // Shared tiles
@@ -62,21 +118,37 @@ struct SwizzledTile {
            static_cast<uint64_t>(lbo >> 4) << 16 |
            static_cast<uint64_t>(8 * kRowBytes >> 4) << 32 | kLayout << 62;
   }
+  // How far (in the descriptors' 16-byte units) the k16 step ``ks`` read
+  // K-major, and the k16 step starting at row ``r0`` read MN-major, start
+  // from the tile's first: a descriptor's address field adds without carry,
+  // shared addresses staying below 2^18.
+  static __host__ __device__ constexpr uint64_t k_step(int ks) {
+    return (16 * ks / kCols * kBlockBytes + 16 * ks % kCols * 2) >> 4;
+  }
+  static __host__ __device__ constexpr uint64_t mn_step(int r0) {
+    return r0 * kRowBytes >> 4;
+  }
   // The k16 step ``ks`` of the tile read K-major (k = its columns).
   static __device__ __forceinline__ uint64_t k_major(uint32_t base, int ks) {
-    const int col = 16 * ks;
-    return desc(base + col / kCols * kBlockBytes + col % kCols * 2, 16);
+    return desc(base, 16) + k_step(ks);
   }
   // The k16 step starting at row ``r0`` of the tile read MN-major (k = its
   // rows, n = its columns).
   static __device__ __forceinline__ uint64_t mn_major(uint32_t base,
                                                       int r0) {
-    return desc(base + r0 * kRowBytes, kBlockBytes);
+    return desc(base, kBlockBytes) + mn_step(r0);
   }
 };
 
 __device__ __forceinline__ uint32_t shared_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte boundary at or after ``p`` (dynamic shared memory is
+// allocated with 1024 bytes of slack for it).
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  const uint32_t a = shared_addr(p);
+  return p + ((1024 - (a & 1023)) & 1023);
 }
 
 // ---------------------------------------------------------------------------
@@ -332,8 +404,17 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
 }
 
 // ---------------------------------------------------------------------------
-// Host: tensor maps
+// Host: shared memory and tensor maps
 // ---------------------------------------------------------------------------
+
+// Sets an instance's dynamic shared memory limit to what it uses, at any
+// size (a launch with the default limit failed with cudaErrorInvalidValue
+// on the card, even below 48 KB).
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
 
 using EncodeTiledFn = CUresult (*)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -361,12 +442,25 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// Makes a CUDA context current on the calling thread, once a thread.
+// cuTensorMapEncodeTiled needs one and fails with CUDA_ERROR_INVALID_VALUE
+// without it: a thread can reach the kernels before any runtime call of
+// its own has bound the primary context (autograd's device thread, its
+// outputs served from the caching allocator, did on the card).  Where the
+// thread has a current context, the runtime keeps it.
+inline cudaError_t bind_context() {
+  thread_local const cudaError_t err = cudaFree(nullptr);
+  return err;
+}
+
 // The map of a contiguous (BH, S, DH) bf16 tensor read in (ROWS, DH) tiles
 // of SwizzledTile<DH, ROWS> (boxes of one column block).  Rows past S come
 // back as zeros, never as the next head's rows.
 template <int DH, int ROWS>
 cudaError_t rows_map(CUtensorMap* map, const void* base, int BH, int S) {
   using T = SwizzledTile<DH, ROWS>;
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return bound;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(DH),

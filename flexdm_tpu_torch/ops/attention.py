@@ -23,11 +23,12 @@ the JAX layout: ``q, k, v`` are ``(B, H, S, Dh)`` and ``key_mask`` is a
   keeps float32-level accuracy (~1e-6); tiles arrive by ``cp.async``.
 * Both take float32 or bfloat16 (q, k and v of one dtype).  bfloat16
   launches the bf16 instances ``csrc/flash_attention_fwd_bf16.cu`` and
-  ``csrc/flash_attention_bwd_bf16.cu``: every product on the bf16 tensor
-  cores (``mma.sync.m16n8k16``) with float32 sums; the probabilities and
-  ``ds`` enter their products as bf16 operands, and O, dq, dk and dv are
-  rounded to bf16 once.  lse, m, l and delta stay float32.  A bf16 input
-  is never upcast to reuse the float32 kernels.
+  ``csrc/flash_attention_bwd_bf16.cu``: every product a warpgroup
+  ``wgmma`` on the bf16 tensor cores with float32 sums, over tiles that
+  TMA copies (``csrc/wgmma_bf16.cuh``); the probabilities and ``ds`` enter
+  their products as bf16 operands, and O, dq, dk and dv are rounded to
+  bf16 once.  lse, m, l and delta stay float32.  A bf16 input is never
+  upcast to reuse the float32 kernels.
 * :class:`FlashAttention` wires the two into autograd (the JAX package's
   ``jax.custom_vjp``); the key mask gets no gradient.
 * :func:`dot_product_attention` takes JAX's ``impl``: ``"xla"`` is the

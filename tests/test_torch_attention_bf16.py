@@ -144,28 +144,40 @@ def _rounded(x):
     return x.bfloat16().float()
 
 
-def _emulated_forward(q, k, v, bias, causal, block=64):
+LOG2E = np.float32(1.4426950408889634)
+LN2 = np.float32(0.6931471805599453)
+FWD_KEYS = 64  # keys per K/V tile of the bf16 forward kernel
+
+
+def _emulated_forward(q, k, v, bias, causal, block=FWD_KEYS):
     """The bf16 forward kernel's arithmetic in plain PyTorch: float32 scores
-    of the bf16 operands, online softmax over ``block``-key tiles, P rounded
-    to bf16 for P V, O rounded once.  Returns ``(O, lse)``."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(
-        q.shape[-1])
-    s = s + bias[:, None, None, :]
+    of the bf16 operands kept in log2 units (x = s scale log2 e + bias
+    log2 e, the causal band replaced by -1e9 log2 e), online softmax over
+    ``block``-key tiles with p = 2^(x - m2), P rounded to bf16 for P V, O
+    rounded once; m2 ln 2 and lse = m2 ln 2 + log l in natural units.
+    Returns ``(O, lse)``."""
+    c1 = torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=torch.float32) \
+        * torch.tensor(LOG2E)
+    x = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * c1
+    x = x + (bias * torch.tensor(LOG2E))[:, None, None, :]
     if causal:
-        s = s.masked_fill(port_attn._outside_causal_band(q), port_attn.NEG_INF)
-    m = torch.full(s.shape[:-1], -np.inf)
-    l = torch.zeros(s.shape[:-1])
+        masked = torch.tensor(port_attn.NEG_INF, dtype=torch.float32) \
+            * torch.tensor(LOG2E)
+        x = x.masked_fill(port_attn._outside_causal_band(q), masked.item())
+    m = torch.full(x.shape[:-1], -np.inf)
+    l = torch.zeros(x.shape[:-1])
     acc = torch.zeros(q.shape)
-    for k0 in range(0, s.shape[-1], block):
-        tile = s[..., k0:k0 + block]
+    for k0 in range(0, x.shape[-1], block):
+        tile = x[..., k0:k0 + block]
         m_new = torch.maximum(m, tile.amax(-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(tile - m_new[..., None])
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(tile - m_new[..., None])
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + _rounded(p) @ v[..., k0:k0 + block,
                                                        :].float()
         m = m_new
-    return (acc / l[..., None]).bfloat16(), m + torch.log(l)
+    m_nat = m * torch.tensor(LN2)
+    return (acc / l[..., None]).bfloat16(), m_nat + torch.log(l)
 
 
 # The bf16 backward kernels' tiling (csrc/flash_attention_bwd_bf16.cu): a

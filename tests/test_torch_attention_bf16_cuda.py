@@ -1,10 +1,12 @@
 """The bf16 attention kernels on the card: forward and backward against
-their plain bf16 versions, the tile edges, and the backward's bitwise
-repeatability.  Imports no JAX, so it runs where the card is:
+their plain bf16 versions, the tile edges (the forward's 64-row blocks and
+its ring of K/V stages), and bitwise repeatability.  Imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest -m cuda tests/test_torch_attention_bf16_cuda.py
 
 Every test skips without a CUDA device (the kernels have no CPU mode)."""
+
+import threading
 
 import pytest
 import torch
@@ -105,3 +107,108 @@ def test_bf16_backward_is_bitwise_repeatable_on_card(shape, causal):
     torch.cuda.synchronize()
     for name, x, y in zip(("dq", "dk", "dv"), *runs):
         assert torch.equal(x, y), f"{name} differs between two calls"
+
+
+def _check_forward_and_backward(shape, causal, q, k, v, do, mask):
+    """O within the card's bar and lse within 2e-5 of the plain versions, a
+    second forward call bitwise equal, and the backward kernels, fed the
+    forward's m and l, within the bar."""
+    b, _, s, _ = shape
+    got = port_attn._forward(q, k, v, mask, causal)
+    again = port_attn._forward(q, k, v, mask, causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    o, lse, m, l = got
+    bias = port_attn.key_bias(mask, b, s, q.device)
+    assert_bf16_close(o, port_attn.attention_reference(q, k, v, bias, causal),
+                      "O")
+    torch.testing.assert_close(
+        lse, port_attn.attention_reference_lse(q, k, bias, causal), **LSE_TOL)
+    want = port_attn.attention_reference_backward(q, k, v, bias, o, do, causal)
+    got = port_attn.flash_attention_backward(q, k, v, mask, o, m, l, do,
+                                             causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if s == 1 and name != "dv":
+            # A softmax over one key is constant: dq and dk are 0, and
+            # both sides hold only the float32 rounding of dO v - delta.
+            torch.testing.assert_close(g.float(), torch.zeros_like(w.float()),
+                                       rtol=0, atol=1e-5)
+        else:
+            assert_bf16_close(g, w, name)
+    return o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 191, 192, 193])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_forward_ring_edges_on_card(s, dh, causal):
+    """S = 1 and one, two and three 64-key stages of the forward's ring,
+    each +- 1 key (the ring has 3 stages, 2 at Dh=128, so 129 and up wrap
+    it), with a fully masked row."""
+    _need_card()
+    shape = (2, 2, s, dh)
+    _check_forward_and_backward(shape, causal,
+                                *_card_inputs(shape, s + dh + causal))
+
+
+@pytest.mark.cuda
+def test_bf16_forward_at_crello_scaled_width_on_card():
+    """configs/crello_scaled.json's attention: D=512 over 8 heads of 64, at
+    batch 2048, S=50, the last fifth of the keys masked."""
+    _need_card()
+    shape = (2048, 8, 50, 64)
+    q, k, v, do, _ = _card_inputs(shape, 64)
+    mask = torch.ones(2048, 50, dtype=torch.bool)
+    mask[:, 40:] = False
+    _check_forward_and_backward(shape, False, q, k, v, do, mask.cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 128])
+def test_bf16_causal_row_with_every_in_band_key_masked_on_card(dh):
+    """The causal band is replaced by the finite -1e9, not skipped: rows
+    0 .. 69 of the first batch row, whose in-band keys are all masked, tie
+    with their out-of-band keys and average V over all S = 130 keys."""
+    _need_card()
+    shape = (2, 2, 130, dh)
+    q, k, v, do, _ = _card_inputs(shape, dh)
+    mask = torch.ones(2, 130, dtype=torch.bool)
+    mask[0, :70] = False
+    o = _check_forward_and_backward(shape, True, q, k, v, do, mask.cuda())
+    mean_v = v[0].float().mean(1, keepdim=True).expand(2, 70, dh)
+    assert_bf16_close(o[0, :, :70], mean_v, "O of the masked rows")
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_launch_from_a_thread_without_a_context_on_card():
+    """A thread that has made no CUDA runtime call of its own has no
+    current context, and the kernels' tensor maps need one (their encode
+    fails without it).  Forward and backward from a new thread whose
+    outputs come from the caching allocator equal the calling thread's."""
+    _need_card()
+    q, k, v, do, mask = _card_inputs((2, 2, 130, 32), 7)
+
+    def both():
+        o, lse, m, l = port_attn._forward(q, k, v, mask, False)
+        return (o, lse) + port_attn.flash_attention_backward(
+            q, k, v, mask, o, m, l, do)
+
+    want = both()
+    del_me = both()  # freed: the thread's outputs reuse its blocks
+    del del_me
+    torch.cuda.synchronize()
+    out = {}
+
+    def run():
+        try:
+            out["got"] = both()
+            torch.cuda.synchronize()
+        except Exception as e:  # re-raised below, in the test's thread
+            out["err"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "err" not in out, out.get("err")
+    for x, y in zip(out["got"], want):
+        assert torch.equal(x, y)

@@ -1,0 +1,120 @@
+"""The float32 attention kernels on the card: forward (O and lse within
+2e-5 abs + 2e-5 rel) and backward (dq, dk and dv within 1e-4 abs + 1e-4
+rel) against their plain versions, the tile edges, and bitwise
+repeatability.  Imports no JAX, so it runs where the card is:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_attention_cuda.py
+
+Every test skips without a CUDA device (the kernels have no CPU mode)."""
+
+import pytest
+import torch
+
+from flexdm_tpu_torch.ops import attention as port_attn
+
+FWD_TOL = dict(rtol=2e-5, atol=2e-5)
+BWD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+
+
+def _card_inputs(shape, seed):
+    """q, k, v, dO (float32) and a key mask that keeps key 0 in every row
+    but masks the whole last batch row."""
+    b, _, s, _ = shape
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g).cuda() for _ in range(4))
+    mask = torch.rand(b, s, generator=g) > 0.3
+    mask[:, 0] = True
+    mask[-1] = False
+    return q, k, v, do, mask.cuda()
+
+
+def _check_forward(shape, causal, seed):
+    q, k, v, _, mask = _card_inputs(shape, seed)
+    b, _, s, _ = shape
+    before = port_attn.KERNEL_LAUNCHES
+    got = port_attn.flash_attention_forward(q, k, v, mask, causal)
+    again = port_attn.flash_attention_forward(q, k, v, mask, causal)
+    assert port_attn.KERNEL_LAUNCHES == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    bias = port_attn.key_bias(mask, b, s, q.device)
+    torch.testing.assert_close(
+        got[0], port_attn.attention_reference(q, k, v, bias, causal),
+        **FWD_TOL)
+    torch.testing.assert_close(
+        got[1], port_attn.attention_reference_lse(q, k, bias, causal),
+        **FWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 8, 50, 32), (256, 8, 50, 32),
+                                   (2, 4, 650, 32), (2, 4, 512, 64),
+                                   (2, 2, 100, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_forward_matches_plain_on_card(shape, causal):
+    """O and lse within 2e-5 of the plain version, a fully masked row
+    included; a second call bitwise equal."""
+    _need_card()
+    _check_forward(shape, causal, sum(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 16, 17, 63, 64, 65, 128, 129])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_f32_forward_tile_edges_on_card(s, dh):
+    """The forward's tile edges (64-row query tiles; 64-key K/V tiles, 32
+    at Dh=128), causal."""
+    _need_card()
+    _check_forward((2, 2, s, dh), True, s * dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [
+    ((256, 8, 50, 32), False), ((8, 8, 51, 32), True),
+    ((2, 4, 512, 64), False), ((2, 4, 650, 32), True),
+    ((2, 2, 128, 128), False), ((2, 2, 65, 64), True),
+    ((2, 2, 129, 128), True), ((1, 2, 4096, 64), False)])
+def test_f32_backward_matches_plain_on_card(shape, causal):
+    """dq, dk and dv through autograd within 1e-4 of the plain backward
+    (S=4096, the TPU's stream kernels' regime, included); two calls
+    bitwise equal; each backward kernel launched once a call."""
+    _need_card()
+    q, k, v, do, mask = _card_inputs(shape, len(shape) + shape[2])
+    b, _, s, _ = shape
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    runs = []
+    for _ in range(2):
+        before = (port_attn.BWD_DQ_LAUNCHES, port_attn.BWD_DKV_LAUNCHES)
+        runs.append(torch.autograd.grad(
+            port_attn.dot_product_attention(*leaves, mask, causal), leaves,
+            do))
+        assert (port_attn.BWD_DQ_LAUNCHES, port_attn.BWD_DKV_LAUNCHES) == (
+            before[0] + 1, before[1] + 1)
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    bias = port_attn.key_bias(mask, b, s, q.device)
+    q, k, v = (t.detach() for t in leaves)
+    ref_o = port_attn.attention_reference(q, k, v, bias, causal)
+    want = port_attn.attention_reference_backward(q, k, v, bias, ref_o, do,
+                                                  causal)
+    for name, g, w in zip(("dq", "dk", "dv"), runs[0], want):
+        torch.testing.assert_close(g, w, **BWD_TOL, msg=name)
+
+
+@pytest.mark.cuda
+def test_f32_kernels_refuse_unaligned_rows_on_card():
+    """The kernels copy rows 16 bytes at a time: a tensor that does not
+    start on a 16-byte boundary raises, and nothing is launched."""
+    _need_card()
+    q = torch.zeros(1 + 2 * 4 * 32, device="cuda")[1:].view(1, 2, 4, 32)
+    stats = torch.ones(1, 2, 4, device="cuda")
+    counts = port_attn.launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        port_attn.flash_attention_forward(q, q, q)
+    with pytest.raises(ValueError, match="16-byte"):
+        port_attn.flash_attention_backward(q, q, q, None, q, stats, stats, q)
+    assert port_attn.launch_counts() == counts

@@ -145,6 +145,24 @@ def test_bench_attention_bounds_are_a_hand_count(dtype, causal):
                                          else "operations")
 
 
+def test_exponential_floor_is_a_hand_count():
+    """One exponential a score: 64 x 8 x 500^2 = 128,000,000 in the forward
+    at crello_flat's training shape, once more in each backward kernel;
+    the causal band's S (S + 1) / 2 a head; over 16 a clock an SM, at 132
+    SMs and 1980 MHz, 0.0306 ms."""
+    chip_smoke = torch_bench_attention.chip_smoke
+    assert chip_smoke.attention_exps((64, 8, 500, 32)) == 128_000_000
+    assert chip_smoke.attention_exps((2, 2, 64, 32), causal=True) == \
+        4 * 64 * 65 // 2
+    got = torch_bench_attention.bounds(64, 8, 500, 32, "bfloat16")
+    assert got["fwd"]["exps"] == 128_000_000
+    assert got["fwd_bwd"]["exps"] == 3 * 128_000_000
+    assert chip_smoke.exp_floor_ms(128_000_000, sms=132, mhz=1980) == \
+        pytest.approx(128e6 / (16 * 132 * 1980e6) * 1e3, rel=1e-12)
+    assert chip_smoke.exp_floor_ms(128_000_000, sms=132, mhz=1980) == \
+        pytest.approx(0.0306, abs=1e-4)
+
+
 def test_bin_scripts_train_and_evaluate(crello_dir, tmp_path):
     job = str(tmp_path / "job")
     env = dict(os.environ, DATA_DIR=crello_dir, JOB_DIR=job)

@@ -20,7 +20,11 @@ calls, warm):
 * beside the bound of each (PERF.md section 6's rule): the larger of the
   bytes the work must move over 3.35 TB/s and its FLOPs over the
   tensor-core peak of the dtype (495 TFLOP/s TF32, 989.4 TFLOP/s bf16),
-  the products cut to the causal band with ``--causal``.
+  the products cut to the causal band with ``--causal``;
+* and the exponential floor (``*_exp_floor_ms``): one exponential a score
+  (the causal band's with ``--causal``) for the forward and once more in
+  each of the two backward kernels, over 16 a clock an SM at the card's
+  SM count and ``clocks.max.sm``.
 
 Also the largest |difference| of the kernels' O, dq, dk and dv from the
 plain version's, and the kernels' launches.  Prints one JSON line per
@@ -48,7 +52,9 @@ def bounds(b, h, s, dh, dtype="float32", causal=False):
     kernel reads q, k, v, O, dO, m, l, the mask and writes dq and delta,
     the dk/dv kernel reads q, k, v, dO, m, l, delta, the mask and writes
     dk, dv; 2, 3 and 4 products of 2 S^2 Dh FLOPs per (batch, head), the
-    causal band's ``(S + 1) / 2S`` of them with ``causal``."""
+    causal band's ``(S + 1) / 2S`` of them with ``causal``.  ``exps``: the
+    exponentials, one a score in the forward and in each backward kernel
+    (``chip_smoke.attention_exps``)."""
     itemsize, peak = ((2, chip_smoke.BF16_FLOPS) if dtype == "bfloat16"
                       else (4, chip_smoke.TF32_FLOPS))
     rows = b * h * s
@@ -56,9 +62,12 @@ def bounds(b, h, s, dh, dtype="float32", causal=False):
     product = 2 * b * h * s * s * dh * band
     fwd_bytes = itemsize * 4 * rows * dh + 4 * 3 * rows + b * s
     bwd_bytes = 2 * (itemsize * 6 * rows * dh + 4 * 3 * rows + b * s)
-    return {"fwd": chip_smoke.bound(fwd_bytes, 2 * product, peak),
-            "fwd_bwd": chip_smoke.bound(fwd_bytes + bwd_bytes,
-                                        9 * product, peak)}
+    exps = chip_smoke.attention_exps((b, h, s, dh), causal)
+    return {"fwd": dict(chip_smoke.bound(fwd_bytes, 2 * product, peak),
+                        exps=exps),
+            "fwd_bwd": dict(chip_smoke.bound(fwd_bytes + bwd_bytes,
+                                             9 * product, peak),
+                            exps=3 * exps)}
 
 
 def measure(b, h, s, dh, dtype="float32", causal=False, iters=20,
@@ -114,6 +123,7 @@ def measure(b, h, s, dh, dtype="float32", causal=False, iters=20,
     for part, bd in bounds(b, h, s, dh, dtype, causal).items():
         out[f"{part}_bound_ms"] = bd["bound_ms"]
         out[f"{part}_bound_by"] = bd["bound_by"]
+        out[f"{part}_exp_floor_ms"] = chip_smoke.exp_floor_ms(bd["exps"])
     return out
 
 

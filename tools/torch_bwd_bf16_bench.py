@@ -179,8 +179,10 @@ def bench_kernels(builds, card):
     return results
 
 
-def bench_steps(builds, card):
-    """The crello_flat bf16 step with each build's kernels swapped in."""
+def bench_steps(builds, card, attr="_bwd_kernels", tag="bwd bf16 steps"):
+    """The crello_flat bf16 step with each build's entry points swapped in
+    for ``attention.<attr>`` (the backward's pair by default; the forward
+    tool swaps ``_kernel``), in turns (A, B, B, A)."""
     import torch
 
     from flexdm_tpu_torch.config import TrainConfig, build_model
@@ -191,7 +193,7 @@ def bench_steps(builds, card):
     from flexdm_tpu_torch.train.optim import KerasAdam
     from flexdm_tpu_torch.train.trainer import make_train_step
 
-    own = attn._bwd_kernels
+    own = getattr(attn, attr)
     results = {name: [] for name, _, _ in builds}
     with tempfile.TemporaryDirectory() as root:
         data_dir, spec, batch = chip_smoke.train_data(root, "crello", 0)
@@ -212,9 +214,8 @@ def bench_steps(builds, card):
         try:
             for name, fns, _ in [builds[0], *builds[1:], *builds[1:],
                                  builds[0]]:
-                attn._bwd_kernels = (lambda dtype=torch.float32, fns=fns:
-                                     fns if dtype == torch.bfloat16
-                                     else own(dtype))
+                setattr(attn, attr, lambda dtype=torch.float32, fns=fns:
+                        fns if dtype == torch.bfloat16 else own(dtype))
                 for _ in range(5):
                     step(batch, draws)
                 times = []
@@ -232,13 +233,13 @@ def bench_steps(builds, card):
                     "step_ms": statistics.median(times), "device_ms": device,
                     "attention_ms": attention, "kernels": kernels})
                 chip_smoke.log(
-                    f"[bwd bf16 steps] {name}: crello_flat bf16 step "
+                    f"[{tag}] {name}: crello_flat bf16 step "
                     f"{statistics.median(times):.2f} ms (median of 20), "
                     f"device kernel time {device:.3f} ms per step, attention"
                     f" kernels {attention:.3f} ms, {kernels:.0f} kernels; "
                     f"most time: {top} [{card}]")
         finally:
-            attn._bwd_kernels = own
+            setattr(attn, attr, own)
     return results
 
 
