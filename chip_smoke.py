@@ -10,7 +10,8 @@ Phases, each of which must pass (any failure exits non-zero):
    nvcc for sm_90a, one nvcc per source, and the host record decoder
    (``csrc/tfrecord_io.cc``) with g++ at its first use, all at once
    (seconds, printed with the ptxas report and g++'s version, and the bf16
-   forward's and backward's registers, spills and C7520 lines); fails if
+   forward's and backward's and the float32 backward's registers, spills
+   and C7520 lines); fails if
    the native decoder is not in use (14(a));
 3. kernel: the flash-attention forward kernel (split-TF32 tensor-core
    products) against its plain PyTorch version on the card (O and lse
@@ -23,12 +24,13 @@ Phases, each of which must pass (any failure exits non-zero):
    (256, 8, 50, 32), (8, 8, 650, 32), (64, 8, 500, 32) and
    (256, 8, 500, 32), beside the bound computed from the shapes;
 4. backward: the backward kernels (dq with delta, dk/dv; split-TF32
-   tensor-core products) through autograd against the plain backward and
-   against autograd of the plain forward, dq, dk and dv within 1e-4 abs +
-   1e-4 rel at every shape, S=4096 (the regime of the TPU's stream
-   kernels), S=500 and the kernels' tile edges (S = 64, 65, 128, 129 at
-   Dh 32, 64, 128) included, and a second call bitwise equal to the
-   first; then the kernels, the plain autograd backward and the library
+   products on warpgroup wgmma over TMA-fed tiles) through autograd
+   against the plain backward and against autograd of the plain forward,
+   dq, dk and dv within 1e-4 abs + 1e-4 rel at every shape, S=4096 (the
+   regime of the TPU's stream kernels), S=500, the kernels' tile edges
+   (S = 16, 17, 32, 33, 64, 65, 128, 129 at Dh 32, 64, 128) and two
+   streams of uneven items a block included, and a second call bitwise
+   equal to the first; then the kernels, the plain autograd backward and the library
    call's backward timed at (256, 8, 50, 32), (1, 2, 4096, 64) and
    (64, 8, 500, 32), beside their bounds;
 5. slice: the crello Ours-EXP job (D=256, 4 DeepSVG blocks, 8 heads,
@@ -419,9 +421,10 @@ def phase_build():
         f" -> sm_90a in {time.perf_counter() - t0:.2f} s")
     for name, _ in attn.LIBRARIES:
         log(_build.BUILD_LOGS.get(name, f"{name}: (reused build)").strip())
-    for label, lib in (("forward", attn.FWD_BF16_LIBRARY),
-                       ("backward", attn.BWD_BF16_LIBRARY)):
-        log(f"[build] bf16 {label} kernels (ptxas): " + "; ".join(
+    for label, lib in (("bf16 forward", attn.FWD_BF16_LIBRARY),
+                       ("bf16 backward", attn.BWD_BF16_LIBRARY),
+                       ("float32 backward", attn.BWD_LIBRARY)):
+        log(f"[build] {label} kernels (ptxas): " + "; ".join(
             ptxas_summary(_build.BUILD_LOGS.get(lib[0], ""))))
 
 
@@ -434,14 +437,14 @@ def ptxas_summary(report):
     out, name, spill = [], None, 0
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '\S*?\d(flash_\w+?"
-                          r"_kernel)(I(?:Li\d+E)+)?", line)
+                          r"_kernel)(I(?:L[ib]\d+E)+)?", line)
         if entry:
-            args = re.findall(r"Li(\d+)E", entry.group(2) or "")
+            args = re.findall(r"L[ib](\d+)E", entry.group(2) or "")
             name = entry.group(1) + (f"<{','.join(args)}>" if args else "")
         if "C7520" in line:
-            fn = re.search(r"\d(flash_\w+?_kernel)(I(?:Li\d+E)+)?", line)
+            fn = re.search(r"\d(flash_\w+?_kernel)(I(?:L[ib]\d+E)+)?", line)
             why = re.search(r"due to (.*?) in the function", line)
-            args = re.findall(r"Li(\d+)E", fn.group(2) or "") if fn else []
+            args = re.findall(r"L[ib](\d+)E", fn.group(2) or "") if fn else []
             out.append(f"C7520 in {fn.group(1) if fn else '?'}"
                        f"<{','.join(args)}>: "
                        f"{why.group(1) if why else line.strip()}")
@@ -867,9 +870,14 @@ def phase_backward(card):
         ((1, 2, 4096, 64), True, True),
         (FLAT_SHAPE, False, True),
     ]
-    # The kernels' tile edges (64 rows or keys; 32 Q/dO rows at Dh=128).
-    cases += [((2, 2, s, dh), causal, True) for s in (64, 65, 128, 129)
+    # The kernels' tile edges: items of 64 rows or keys, tiles of the other
+    # axis of 32 (16 at Dh=128).
+    cases += [((2, 2, s, dh), causal, True)
+              for s in (16, 17, 32, 33, 64, 65, 128, 129)
               for dh in (32, 64, 128) for causal in (False, True)]
+    # Two streams a block (at least two items per SM) of uneven counts and,
+    # causal, uneven lengths.
+    cases += [((33, 8, 70, 32), True, True), ((17, 16, 130, 64), True, True)]
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
     for shape, causal, fully_masked in cases:
         b, h, s, dh = shape

@@ -1,12 +1,14 @@
 // Flash-attention backward for Hopper (sm_90a), float32 in and out, every
-// product on the tensor cores.
+// product a warpgroup wgmma on the TF32 tensor cores with each operand split
+// into two TF32 terms, over tiles that TMA brings in.
 //
 // Replaces the TPU kernels of flexdm_tpu/ops/attention.py:
-//   * _flash_bwd_dq_kernel and _flash_bwd_dq_stream_kernel -> the dq kernel
-//     here, which also computes delta = rowsum(dO * O) (the XLA glue of
+//   * _flash_bwd_dq_kernel (:116-153; pallas_call :383) and
+//     _flash_bwd_dq_stream_kernel (:217-251; :451) -> the dq kernel here,
+//     which also computes delta = rowsum(dO * O) (the XLA glue of
 //     _attention_pallas_bwd) for its rows and writes it for the dkv kernel;
-//   * _flash_bwd_dkv_kernel and _flash_bwd_dkv_stream_kernel -> the dkv
-//     kernel here.
+//   * _flash_bwd_dkv_kernel (:156-206; :407) and
+//     _flash_bwd_dkv_stream_kernel (:254-293; :475) -> the dkv kernel here.
 // The TPU needed the stream variants because its resident form kept whole
 // (S, Dh) arrays in VMEM and overflowed the 16 MB limit from S=4096.  These
 // kernels keep only tiles in shared memory and loop over the other axis
@@ -30,453 +32,990 @@
 // their own plain path there; these follow the plain path.  Masking is the
 // forward's: finite -1e9 for masked keys, causal band replaced by -1e9 on
 // absolute positions, keys at index >= S excluded outright.  The scores are
-// summed in another order than the forward's FMA loop (on the tensor
-// cores, below), so p is the forward's p to ~1e-6 relative, not bit for
-// bit.
+// summed in another order than the forward's, so p is the forward's p to
+// ~1e-6 relative, not bit for bit.
 //
 // Arithmetic.  Every product (q k^T, dO v^T, ds k, ds^T q, p^T dO) is
-// mma.sync.m16n8k8 with TF32 operands and FP32 accumulators, with each
-// operand split as it enters registers: hi = tf32(a), lo = tf32(a - hi),
-// and a b ~ lo hi' + hi lo' + hi hi' (three MMAs per k-step, summed from
-// zero on the tensor core and added to the accumulator in FP32; see mma3
-// in mma_tf32.cuh, which both attention sources share).  A single TF32
-// pass keeps ~3 decimal digits and misses the 1e-4 gate of the card checks
-// by 10x (tests/test_torch_attention_backward.py emulates both); the
-// split's error is ~1e-6, that of an FP32 FMA loop.
+// wgmma.mma_async m64nNk8 with TF32 operands and float32 accumulators, each
+// operand split once into hi = tf32(x) and lo = x - hi and a b computed as
+// lo hi' + hi lo' + hi hi' (wgmma_tf32.cuh).  A single TF32 pass keeps ~3
+// decimal digits and misses the 1e-4 gate of the card checks by 10x
+// (tests/test_torch_attention_backward.py emulates both;
+// tests/test_torch_attention_tf32_wgmma.py emulates this kernel's split on
+// its own tile layouts).  The tensor cores' float32 sums are not rounded to
+// nearest (each wgmma's sum is cut toward zero): chained over every tile of
+// the other axis they would bias dq, dk and dv, and the key bias's gradient
+// (0 in exact arithmetic: the rows of ds sum to 0) would gather that bias.
+// So each tile's ds k, ds^T q and p^T dO is summed from zero on the tensor
+// cores (12 wgmmas at most) and added to the running sums in float32, and
+// every product takes the small terms (lo hi', hi lo') of all its k8 steps
+// before the large ones (hi hi'), whose cuts are then the only ones at the
+// sum's full size.  With each step's three terms in turn, the crello
+// Ours-EXP step's key-bias gradient differed from the CPU's by 1.5e-5 on
+// the card, over the 1e-5 of chip_smoke.py's step-parity gate; in this
+// order the gate holds.  p is one ex2 of scores in log2 units
+// (2^(s log2 e - m log2 e) / l): a masked or replaced score is -1e9 log2 e,
+// the same float as a fully masked row's m log2 e, so that row keeps 1/l.
 //
-// What bounded the previous design (FMA pipes, one output element per lane)
-// was shared memory: every FMA read both operands as separate 4-byte
-// shared loads, about two warp-wide LDS.32 per warp-wide FMA, and an SM
-// issues about one LDS.32 per clock against four FMAs, so the kernels ran
-// at about an eighth of the FP32 rate.  At (B, H, S, Dh) = (256, 8, 50, 32)
-// that is ~583 M FMAs (dq) -> ~36 M warp loads -> ~0.16 ms on 132 SMs at
-// 1.755 GHz (measured 0.1664 ms), and ~0.96 G FMAs (dk/dv, measured
-// 0.2028 ms); at (1, 2, 4096, 64) ~1.7 ms each (measured 1.47 and 1.85 ms).
+// What bounded the previous design (mma.sync.m16n8k8, cp.async, 8 warps a
+// block): issue.  The split took four integer or float32 instructions per
+// operand value, every warp split every fragment it loaded (the B fragments
+// of a tile once per row group, the block's own Q/dO or K/V again for every
+// tile), and the k-step add took four FADDs per three MMAs: about five
+// instructions beside every MMA, ~110 TFLOP/s of MMA work, a fifth of the
+// TF32 peak, at (1, 2, 4096, 64); 11-15x the bound at (64, 8, 500, 32).  At
+// (256, 8, 50, 32) registers (125-143) held it to 2 blocks an SM: latency.
 //
-// What bounds this one.  An m16n8k8 MMA does 1024 multiply-adds for two
-// 4-byte shared loads of its B fragment, so shared memory is no longer the
-// limit; the split costs four integer or FP32 instructions per operand
-// value and the k-step add four FADDs per three MMAs, about five
-// instructions beside every MMA.
-//   * (1, 2, 4096, 64): ~39 (dq) and ~52 (dkv) GFLOP of TF32 MMA with the
-//     split, on 128 blocks of 8 warps, one block per SM.  Issue bound: the
-//     split's instructions and the MMAs of two warps per SM sub-partition,
-//     ~110 TFLOP/s of MMA work, about a fifth of the TF32 peak.  Four
-//     parts (16 warps) measured no faster than two, so it is not latency.
-//   * (256, 8, 50, 32): ~4 (dq) and ~6 (dkv) GFLOP of MMA work and ~79 MB
-//     of traffic per kernel over 2048 blocks of 64 rows or keys; registers
-//     (125-143 per thread) allow 2 blocks per SM, so ~8 waves of short
-//     load -> compute -> store chains: bound by latency, at ~1 TB/s.
+// What bounds this one.  The split triples the tensor work: at (64, 8, 500,
+// 32) 74 (dq) and 98 (dk/dv) GFLOP of TF32 products, 0.149 and 0.199 ms at
+// the 495 TFLOP/s peak; at (1, 2, 4096, 64) 39 and 52 GFLOP.  Beside them
+// the SM issues, per tile and stream, the exponentials, masks and ds of
+// 64 x 32 scores, the split of p and ds into A fragments (three
+// instructions a value) and the float32 adds, and the splitters' pass over
+// the tile; where the score products read both operands from shared memory
+// (SS: dk/dv, dq at Dh >= 64) an m64n32k8 reads 3 KB for 17 clocks of
+// tensor work, above the 128 bytes a clock shared memory gives.  No one of
+// the tensor cores, the issue slots or shared memory is saturated alone:
+// each tile is a chain (copy, split, products, p, ds, products) that the
+// other stream's tile overlaps.
 //
 // Design.
-//   * Tiles: 64 query rows per dq block and 64 keys per dkv block, in 4
-//     groups of 16 rows or keys.  Each group has two warps (kParts): warp
-//     part 0 takes the first half of every tile of the other axis (32 of
-//     the 64 keys of a K/V tile, or of the rows of a Q/dO tile), part 1
-//     the second half, each keeping its partial dq (or dk, dv) in
-//     registers; at the end part 1's sums are added to part 0's through
-//     shared memory, in that order.  Every output element is written once
-//     by one thread: no atomics, deterministic.  Two parts doubled the
-//     warps per SM at S=4096 (one warp per sub-partition left the MMAs'
-//     latency exposed) and halved the score registers.  32-row tiles (256
-//     blocks at S=4096) measured 4% slower than 64 at S=4096 and ~30%
-//     slower at S=50.  Q/dO tiles (dkv) are 64 rows, 32 at Dh=128
-//     (registers).
-//   * p and ds go from the accumulator layout to the A operand without
-//     moving: a lane holds columns 2t and 2t+1 of each 8-column n-tile and
-//     uses them as k = t and k = t+4, and the B operand of that product is
-//     loaded with the same k order (rows 2t and 2t+1).  The sum over k is
-//     the same; no shared-memory round trip, no shuffles.
-//   * Shared tiles are row-major with rows padded to Dh+4 floats: a
-//     fragment load has lane (g = lane/4, t = lane%4) read row g, column t
-//     (bank 4g + t) or row 2t (+1), column g (bank 8t + g (+4)), both 32
-//     different banks, so every fragment load is conflict-free.  16-byte
-//     row alignment is kept for cp.async.
-//   * Loads: the block's own Q/dO (dq) or K/V (dkv) and each tile of the
-//     other axis go through 16-byte cp.async (row statistics through 4-byte
-//     cp.async: rows of (B, H, S) are not 16-byte aligned) into a two-stage
-//     ring, so tile i+1 loads while tile i computes; rows past S are
-//     zero-filled by the copy.  A launch whose loop has one tile gets one
-//     stage of shared memory.  Above 48 KB the block's dynamic shared
-//     memory is opted into (Dh >= 64, or two stages at Dh=32).
-//   * Causal dq stops at the block's last row: later keys are replaced for
-//     every row of the block, so their ds is exactly 0.
+//   * An item is 64 query rows (dq) or 64 keys (dk/dv) of one head: the
+//     wgmma M.  A block, one an SM, runs one or two streams, each a
+//     consumer warpgroup taking the items first, first + stride, ... of the
+//     launch (persistent: the grid is the SMs), and one splitter warpgroup
+//     whose halves serve the streams.  Two streams where there are more
+//     items than SMs and two streams' tiles fit (dq at Dh <= 64, dk/dv at
+//     Dh = 32), else one: 384 or 256 threads, so at most 168 or 255
+//     registers.  (setmaxnreg did not raise ptxas's allocation over the
+//     launch bound: two 256-thread blocks an SM gave every thread 128
+//     registers and serialised, spilling products.)
+//   * The other axis comes in tiles of 32 keys (dq) or Q/dO rows (dk/dv),
+//     16 at Dh = 128: the N of the score products.  TMA copies each tile
+//     (tensor maps over (B H, S, Dh) views, __grid_constant__; rows past S
+//     arrive as zeros, never as the next head's) into a stage of the
+//     stream's ring; the splitters write hi over it in place, lo beside it,
+//     and the transposed hi and lo of K (dq) or of Q and dO (dk/dv) that
+//     ds k, ds^T q and p^T dO read (TF32 wgmma reads both operands K-major
+//     only), the rows in the k order of the accumulator-made A operand
+//     (acc_order), in 16-byte stores; then the row vectors (dq: key bias;
+//     dk/dv: m, 1/l, delta, by threads: rows of (B, H, S) are not 16-byte
+//     aligned for a tensor map at S = 50).  Per stage a TMA mbarrier and a
+//     full mbarrier (the splitters' arrivals, after a proxy fence).  The
+//     consumer's thread 0 refills the stage its warpgroup has just emptied
+//     (after the warpgroup's named barrier) with the stream's next tile,
+//     across items, so the next item's tiles land and split while this one
+//     ends.  An item's own tiles (Q, dO or K, V) land once and are split
+//     once; dq at Dh = 32 holds their hi and lo as register A fragments (RS
+//     score products; the next item's own tiles load as soon as they are
+//     read), else they stay in shared memory (SS) until the item ends.
+//   * Two streams take turns issuing their score products (Turns), so one
+//     stream's products run while the other forms p and ds.
+//   * dq: s = q k^T and dp = dO v^T, p formed while dp is on the tensor
+//     cores, ds, then ds k from ds's accumulators (no data moved) into a
+//     temporary set, added to dq.  dk/dv: s^T = k q^T and dp^T = v dO^T, so
+//     p^T and ds^T arrive with keys as rows; then p^T dO and ds^T q, one
+//     after the other.  Second products go in chunks of 32 columns.
+//   * dk/dv forms p and ds without branches: a branch around the values
+//     that feed its next products made ptxas serialise every wgmma of the
+//     kernel (C7520), where dq's last write before its product is a
+//     select.  dq keeps its fast path for tiles wholly inside S and the
+//     causal band.  causal is a template parameter, so non-causal launches
+//     carry no band checks.
+//   * Ring stages a stream (ring_stages, shared memory): dq 3 / 1 / 2 at
+//     Dh 32 / 64 / 128 with two streams, 4 / 3 / 2 with one; dk/dv 2 with
+//     two streams, 4 / 2 / 1 with one.
+//   * Every dq, dk and dv element is summed by one thread in a fixed order:
+//     no atomics, a second call is bitwise equal.
+//   * Causal dq stops at the item's last row: later keys are replaced for
+//     every row of the item, so their ds is exactly 0.  dk/dv visits every
+//     tile: a fully masked row's p = 1/S reaches dv through replaced keys.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
-#include "mma_tf32.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
-// A block has kGroups x kParts warps.  Warp w owns the rows (dq) or keys
-// (dkv) of group w % kGroups, 16 each, and takes part w / kGroups of every
-// tile of the other axis; the parts' partial sums are added at the end.
-constexpr int kGroups = 4;
-constexpr int kParts = 2;
-constexpr int kThreads = kGroups * kParts * 32;
+constexpr int kTile = 64;  // rows or keys an item has: the wgmma M
+// Keys per K/V tile (dq) and rows per Q/dO tile (dk/dv): the N of the score
+// products.
+__host__ __device__ constexpr int other_rows(int dh) {
+  return dh == 128 ? 16 : 32;
+}
+// Columns of dq, dk, dv a chained second product writes (its temporary
+// accumulator set holds 16 registers).
+constexpr int kChunkCols = 32;
+// Shared memory a block may use.
+constexpr int kSmemLimit = 232448;
+// Streams (consumer warpgroups) a block can run: two where two streams'
+// tiles fit in shared memory (dq at Dh <= 64, dk/dv at Dh = 32).
+template <int DH>
+constexpr int kMaxDqStreams = DH == 128 ? 1 : 2;
+template <int DH>
+constexpr int kMaxDkvStreams = DH == 32 ? 2 : 1;
+// A block has ``streams`` consumer warpgroups and one splitter warpgroup.
+__host__ __device__ constexpr int threads(int streams) {
+  return (streams + 1) * kWarpgroup;
+}
 
-// Adds the partial sums of a group's kParts warps into part 0, in part
-// order, through shared memory (buf: (kParts - 1) x kGroups x NT x 128
-// floats, free on entry; every thread of the block calls this).
-template <int NT>
-__device__ __forceinline__ void sum_parts(float (&acc)[NT][4], float* buf,
-                                          int group, int part, int lane) {
-  if (part > 0) {
-    float* dst = buf + ((part - 1) * kGroups + group) * NT * 128;
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dst[(n * 4 + e) * 32 + lane] = acc[n][e];
-  }
-  __syncthreads();
-  if (part == 0) {
-    for (int p = 1; p < kParts; ++p) {
-      const float* src = buf + ((p - 1) * kGroups + group) * NT * 128;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] += src[(n * 4 + e) * 32 + lane];
+// The SMs of the current device (the grid of a persistent launch).
+inline int sm_count() {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess)
+    return 132;
+  return sms;
+}
+
+// A stream's barriers: its own tiles landed (TMA bytes) and split, then per
+// ring stage landed and split (full).  The consumer refills a stage it has
+// just emptied, so there is no empty barrier.
+struct Barriers {
+  uint64_t* own_loaded;
+  uint64_t* own_ready;
+  uint64_t* loaded;
+  uint64_t* full;
+  __device__ Barriers(unsigned char* at, int stages)
+      : own_loaded(reinterpret_cast<uint64_t*>(at)),
+        own_ready(own_loaded + 1),
+        loaded(own_loaded + 2),
+        full(loaded + stages) {}
+  __device__ void init(int stages, int splitters) {
+    mbar_init(own_loaded, 1);
+    mbar_init(own_ready, splitters);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&loaded[s], 1);
+      mbar_init(&full[s], splitters);
     }
   }
-  __syncthreads();
+};
+
+__host__ __device__ constexpr int barrier_bytes(int stages) {
+  return (2 + 2 * stages) * 8;
+}
+
+// Register A fragments (hi, lo) of rows 16 w + g (+ 8) of an own tile.
+template <int DH>
+__device__ __forceinline__ void load_own_frags(uint32_t (&hi)[DH / 8][4],
+                                               uint32_t (&lo)[DH / 8][4],
+                                               const unsigned char* tile,
+                                               const unsigned char* lo_tile,
+                                               int w, int g, int t) {
+  using T = F32Tile<DH, kTile>;
+#pragma unroll
+  for (int ks = 0; ks < DH / 8; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int off =
+          T::offset(16 * w + g + 8 * (i & 1), 8 * ks + t + 4 * (i >> 1));
+      hi[ks][i] = *reinterpret_cast<const uint32_t*>(tile + off);
+      lo[ks][i] = *reinterpret_cast<const uint32_t*>(lo_tile + off);
+    }
+    fence_regs(hi[ks]);
+    fence_regs(lo[ks]);
+  }
+}
+
+// d = A B^T over DH (a score product, N = the rows of the other-axis tile
+// ``b`` / ``b_lo``), split: A from the register fragments own_hi / own_lo
+// with REGS, else from the own tile ``a`` / ``a_lo`` in shared memory.
+// Issued, not waited.
+template <int DH, int N, bool REGS, int F>
+__device__ __forceinline__ void score_product(
+    float (&d)[N / 2], const uint32_t (&own_hi)[F][4],
+    const uint32_t (&own_lo)[F][4], uint32_t a, uint32_t a_lo, uint32_t b,
+    uint32_t b_lo) {
+  using A = F32Tile<DH, kTile>;
+  using B = F32Tile<DH, N>;
+  // The small terms of every k8 step first, then the large ones (see
+  // "Arithmetic" above).
+#pragma unroll
+  for (int ks = 0; ks < DH / 8; ++ks) {
+    const uint64_t bh = B::k_major(b, ks);
+    const uint64_t bl = B::k_major(b_lo, ks);
+    if constexpr (REGS) {
+      wgmma_tf32_rs(d, own_lo[ks], bh, ks > 0);
+      wgmma_tf32_rs(d, own_hi[ks], bl, 1);
+    } else {
+      wgmma_tf32_ss(d, A::k_major(a_lo, ks), bh, ks > 0);
+      wgmma_tf32_ss(d, A::k_major(a, ks), bl, 1);
+    }
+  }
+#pragma unroll
+  for (int ks = 0; ks < DH / 8; ++ks) {
+    if constexpr (REGS)
+      wgmma_tf32_rs(d, own_hi[ks], B::k_major(b, ks), 1);
+    else
+      wgmma_tf32_ss(d, A::k_major(a, ks), B::k_major(b, ks), 1);
+  }
+}
+
+// acc += P T, P the (64, K) accumulators split into A fragments (hi, lo),
+// T the (DH, K) transposed tile ``t`` / ``t_lo``: in chunks of kChunkCols
+// columns, each summed from zero in ``tmp`` and added in float32.  Every
+// product has completed on return.
+template <int DH, int K>
+__device__ __forceinline__ void second_product(
+    float (&acc)[DH / 2], const uint32_t (&p_hi)[K / 8][4],
+    const uint32_t (&p_lo)[K / 8][4], uint32_t t, uint32_t t_lo) {
+  using Tt = TransposedTile<DH, K>;
+  constexpr int C = kChunkCols;
+#pragma unroll
+  for (int c = 0; c < DH / C; ++c) {
+    float tmp[C / 2];
+    fence_regs(tmp);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < K / 8; ++j) {
+      wgmma_tf32_rs(tmp, p_lo[j], Tt::k_major(t, c * C, j), j > 0);
+      wgmma_tf32_rs(tmp, p_hi[j], Tt::k_major(t_lo, c * C, j), 1);
+    }
+#pragma unroll
+    for (int j = 0; j < K / 8; ++j)
+      wgmma_tf32_rs(tmp, p_hi[j], Tt::k_major(t, c * C, j), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(tmp);
+#pragma unroll
+    for (int r = 0; r < C / 2; ++r) acc[c * C / 2 + r] += tmp[r];
+  }
+}
+
+// The split A fragments of every k8 step of an accumulator set.
+template <int K>
+__device__ __forceinline__ void acc_frags(uint32_t (&hi)[K / 8][4],
+                                          uint32_t (&lo)[K / 8][4],
+                                          const float (&d)[K / 2]) {
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    acc_to_a_tf32(hi[j], lo[j], d, j);
+    fence_regs(hi[j]);
+    fence_regs(lo[j]);
+  }
+}
+
+// A stream's work: items (head bh, block of 64 rows or keys) first, first +
+// stride, ... of the n_items = BH * blocks of a launch, in that order.
+struct Item {
+  int bh, row0;
+};
+__device__ __forceinline__ Item item_at(int it, int blocks) {
+  return {it / blocks, it % blocks * kTile};
+}
+
+// The next tile a stream's consumer thread 0 copies into the stage its
+// consumers have just emptied: it walks the same items as the stream's
+// consumers and splitters, stepping (head, row block) by the stride (no
+// division a tile: the refill is on the consumers' path).
+struct Cursor {
+  int item, bh, row0, tile;
+  __device__ Cursor(int first, int blocks)
+      : item(first), bh(first / blocks), row0(first % blocks * kTile),
+        tile(0) {}
+  // Once an item (the divisions are by the same values every time).
+  __device__ void next_item(int stride, int blocks) {
+    item += stride;
+    bh += stride / blocks;
+    row0 += stride % blocks * kTile;
+    if (row0 >= blocks * kTile) {
+      row0 -= blocks * kTile;
+      ++bh;
+    }
+    tile = 0;
+  }
+};
+
+// Two streams take turns on the tensor cores: a stream issues a tile's
+// score products only in its turn (named barrier kTurn + its index, both
+// consumer warpgroups), then hands the turn over, so one stream's products
+// run while the other forms p and ds, instead of both at once.  Stream 1
+// opens by handing stream 0 the first turn; a stream with fewer tiles
+// takes empty turns until the other is done, and stream 0 takes a last one,
+// so every arrival meets its wait.  One stream: nothing to do.
+constexpr int kTurn = 3;  // named barriers kTurn, kTurn + 1
+template <int NS>
+struct Turns {
+  int sid;  // the stream
+  __device__ void open() const {
+    if (NS == 2 && sid == 1) named_arrive(kTurn, 2 * kWarpgroup);
+  }
+  __device__ void take() const {
+    if (NS == 2) named_sync(kTurn + sid, 2 * kWarpgroup);
+  }
+  __device__ void give() const {
+    if (NS == 2) named_arrive(kTurn + 1 - sid, 2 * kWarpgroup);
+  }
+  // ``tiles(x)``: the tiles of the block's stream x.
+  template <typename Tiles>
+  __device__ void close(Tiles tiles) const {
+    if (NS != 2) return;
+    for (int x = tiles(sid), most = max(tiles(0), tiles(1)); x < most; ++x) {
+      take();
+      give();
+    }
+    if (sid == 0) take();
+  }
+};
+
+// Items a stream gets: first, first + stride, ... below n_items.
+__device__ __forceinline__ int stream_items(int first, int stride,
+                                            int n_items) {
+  return first < n_items ? (n_items - 1 - first) / stride + 1 : 0;
 }
 
 // ---------------------------------------------------------------------------
-// dq (and delta): one block per (batch, head, 64-row q-tile), 16 rows per
-// group.  Per 64-key K/V tile, each warp takes its part's 64 / kParts keys:
-// s = q k^T and dO v^T, p and ds in registers, then dq += ds k.
+// dq (and delta).  An item is 64 query rows of one head.  Per K/V tile:
+// s = q k^T and dp = dO v^T, ds in registers, then dq += ds k.
 // ---------------------------------------------------------------------------
 
-template <int DH>
-struct DqTile {
-  static_assert(DH % 32 == 0, "head dim must be a multiple of 32");
-  static constexpr int kRows = 16 * kGroups;  // query rows per block
-  static constexpr int kKeys = 64;            // keys per K/V tile
-  static constexpr int kPartKeys = kKeys / kParts;
-  static constexpr int kLd = DH + kPad;
-  static constexpr int kOwnFloats = 2 * kRows * kLd;            // Q, dO
-  static constexpr int kStageFloats = 2 * kKeys * kLd + kKeys;  // K, V, bias
-  static_assert((kParts - 1) * kRows * DH <= kOwnFloats + kStageFloats,
-                "the parts' sums must fit in one stage's shared memory");
+// Ring stages a stream gets out of a block's shared memory, at most 4.
+constexpr int ring_stages(int streams, int own_bytes, int stage_bytes,
+                          int vec_bytes) {
+  const int per_stage = streams * (stage_bytes + vec_bytes + 16);
+  const int n = (kSmemLimit - 1024 - streams * (own_bytes + 16)) / per_stage;
+  return n < 4 ? n : 4;
+}
+
+template <int DH, int NS>
+struct DqPlan {
+  static constexpr int kKeys = other_rows(DH);  // keys per K/V tile
+  static constexpr int kStreams = NS;
+  static constexpr int kSplitters = kWarpgroup / kStreams;  // per stream
+  static constexpr bool kOwnInRegs = DH == 32;  // Q, dO fragments
+  using Own = F32Tile<DH, kTile>;               // Q, Q lo, dO, dO lo
+  using Kv = F32Tile<DH, kKeys>;                // K, K lo, V, V lo
+  using Kt = TransposedTile<DH, kKeys>;         // K^T hi, lo
+  static constexpr int kOwnBytes = 4 * Own::kBytes;
+  static constexpr int kStageBytes = 4 * Kv::kBytes + 2 * Kt::kBytes;
+  static constexpr int kStages =
+      ring_stages(NS, kOwnBytes, kStageBytes, kKeys * 4);
+  static_assert(kStages >= 1, "a stage fits");
+  static constexpr int kStreamBytes = kOwnBytes + kStages * kStageBytes;
+  // The streams' tiles, their stages' key biases, then their barriers.
+  static constexpr int kVecOffset = kStreams * kStreamBytes;
+  static constexpr int kBarOffset =
+      kVecOffset + kStreams * kStages * kKeys * 4;
+  // 1024 bytes of slack to align the base.
+  static constexpr int kBytes =
+      1024 + kBarOffset + kStreams * barrier_bytes(kStages);
+  static_assert(kBytes <= kSmemLimit, "one block's shared memory");
 };
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads, DH == 32 ? 2 : 1)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
+// K/V tiles of a dq item (causal: up to the item's last row).
+__device__ __forceinline__ int dq_tiles(int q0, int S, int causal, int bk) {
+  const int n = (S + bk - 1) / bk;
+  return causal ? min(n, (min(q0 + kTile, S) + bk - 1) / bk) : n;
+}
+
+template <int DH, int NS, bool CAUSAL>
+__global__ void __launch_bounds__(threads(NS), 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map,
                     const uint8_t* __restrict__ key_mask,
                     const float* __restrict__ o,
                     const float* __restrict__ dout,
                     const float* __restrict__ row_max,
                     const float* __restrict__ row_sum,
                     float* __restrict__ delta, float* __restrict__ dq, int H,
-                    int S, int causal, float scale) {
-  using T = DqTile<DH>;
-  constexpr int BK = T::kKeys;
-  constexpr int PK = T::kPartKeys;
-  constexpr int LD = T::kLd;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                  // [kRows][LD]
-  float* do_s = q_s + T::kRows * LD;  // [kRows][LD]
-  // Stage i & 1 of the ring: K [BK][LD], V [BK][LD], key bias [BK].
-  auto stage = [&](int i) {
-    return smem + T::kOwnFloats + (i & 1) * T::kStageFloats;
+                    int S, float scale, int n_items) {
+  using P = DqPlan<DH, NS>;
+  constexpr bool causal = CAUSAL;
+  using Kv = typename P::Kv;
+  using Kt = typename P::Kt;
+  constexpr int BK = P::kKeys;
+  constexpr int ST = P::kStages;
+  constexpr int OT = P::Own::kBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const bool splitter = warp >= 4 * NS;
+  // The thread's stream, and its index among the stream's threads.
+  const int sid = splitter ? (tid - 4 * NS * 32) / P::kSplitters : warp / 4;
+  const int lt = splitter ? (tid - 4 * NS * 32) % P::kSplitters : tid % 128;
+  // The stream's own tiles (Q, Q lo, dO, dO lo), ring, key biases, barriers.
+  unsigned char* q_s = smem + sid * P::kStreamBytes;
+  unsigned char* do_s = q_s + 2 * OT;
+  auto stage = [&](int r) { return q_s + P::kOwnBytes + r * P::kStageBytes; };
+  float* bias_v = reinterpret_cast<float*>(smem + P::kVecOffset) + sid * ST * BK;
+  Barriers bar(smem + P::kBarOffset + sid * barrier_bytes(ST), ST);
+
+  const int blocks = (S + kTile - 1) / kTile;  // query blocks of a head
+  const int stride = gridDim.x * NS;
+  const int first = blockIdx.x * NS + sid;
+
+  // Copies (by the consumers' thread 0): an item's Q and dO, and the tile
+  // at the cursor into the next stage of the ring.
+  auto load_own = [&](int it) {
+    const Item item = item_at(it, blocks);
+    mbar_arrive_expect_tx(bar.own_loaded, 2 * OT);
+    tma_f32_tile<DH, kTile>(q_s, &q_map, bar.own_loaded, item.row0, item.bh);
+    tma_f32_tile<DH, kTile>(do_s, &do_map, bar.own_loaded, item.row0, item.bh);
+  };
+  // Stage r: each copy goes to the stage just emptied (tile g + ST to
+  // tile g's).
+  Cursor cur(first, blocks);
+  auto load_next = [&](int r) {
+    if (cur.item >= n_items) return;
+    mbar_arrive_expect_tx(&bar.loaded[r], 2 * Kv::kBytes);
+    tma_f32_tile<DH, BK>(stage(r), &k_map, &bar.loaded[r], cur.tile * BK,
+                         cur.bh);
+    tma_f32_tile<DH, BK>(stage(r) + 2 * Kv::kBytes, &v_map, &bar.loaded[r],
+                         cur.tile * BK, cur.bh);
+    if (++cur.tile == dq_tiles(cur.row0, S, causal, BK))
+      cur.next_item(stride, blocks);
   };
 
-  const int q0 = blockIdx.x * T::kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t head = (static_cast<size_t>(b) * H + h) * S;  // row of (b,h,0)
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
+  if (tid == 0) {
+    for (int x = 0; x < NS; ++x)
+      Barriers(smem + P::kBarOffset + x * barrier_bytes(ST), ST)
+          .init(ST, P::kSplitters);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (!splitter && lt == 0 && first < n_items) {
+    load_own(first);
+    for (int x = 0; x < ST; ++x) load_next(x);
+  }
+
+  if (splitter) {
+    // Splitters: per item its Q and dO, then each landed K/V tile.
+    int g = 0;
+    for (int it = first, k = 0; it < n_items; it += stride, ++k) {
+      const Item item = item_at(it, blocks);
+      const int b = item.bh / H;
+      mbar_wait(bar.own_loaded, k & 1);
+      split_tile<DH, kTile, false, P::kSplitters>(q_s, q_s + OT, nullptr,
+                                                  nullptr, lt);
+      split_tile<DH, kTile, false, P::kSplitters>(do_s, do_s + OT, nullptr,
+                                                  nullptr, lt);
+      fence_proxy_async();
+      mbar_arrive(bar.own_ready);
+      const int n_t = dq_tiles(item.row0, S, causal, BK);
+      for (int j = 0; j < n_t; ++j, ++g) {
+        const int r = g % ST;
+        // The mask is read before the wait, so its latency overlaps it.
+        const float kb =
+            lt < BK ? key_bias(key_mask, b, S, j * BK + lt) * kLog2e : 0.f;
+        mbar_wait(&bar.loaded[r], g / ST & 1);
+        unsigned char* st = stage(r);
+        unsigned char* kt = st + 4 * Kv::kBytes;
+        split_tile<DH, BK, true, P::kSplitters>(st, st + Kv::kBytes, kt,
+                                                kt + Kt::kBytes, lt);
+        split_tile<DH, BK, false, P::kSplitters>(
+            st + 2 * Kv::kBytes, st + 3 * Kv::kBytes, nullptr, nullptr, lt);
+        if (lt < BK) bias_v[r * BK + lt] = kb;
+        fence_proxy_async();
+        mbar_arrive(&bar.full[r]);
+      }
+    }
+    return;
+  }
+
+  // Consumers.  Thread 32 w + 4 g + t of its warpgroup holds rows 16 w + g
+  // and 16 w + g + 8 of the item's 64.
+  const int w = warp % 4;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int group = tid / 32 % kGroups;
-  const int part = tid / 32 / kGroups;
-  const int r0 = group * 16;  // the warp's first row in the block
-  const int c0 = part * PK;   // the warp's first key in each tile
-
-  int n_tiles = (S + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + T::kRows, S) + BK - 1) / BK);
-  auto load_kv = [&](int i) {
-    load_rows<BK, DH, kThreads>(stage(i), k + head * DH, i * BK, S, tid);
-    load_rows<BK, DH, kThreads>(stage(i) + BK * LD, v + head * DH, i * BK, S,
-                                tid);
-  };
-
-  load_rows<T::kRows, DH, kThreads>(q_s, q + head * DH, q0, S, tid);
-  load_rows<T::kRows, DH, kThreads>(do_s, dout + head * DH, q0, S, tid);
-  load_kv(0);
-  cp_async_commit();
-  if (tid < BK) stage(0)[2 * BK * LD + tid] = key_bias(key_mask, b, S, tid);
-
-  // Row statistics of the lane's rows g and g + 8.  A row past S gets
-  // inv_l = 0, so its p and ds are 0.
-  float m[2], inv_l[2], dlt[2];
+  const float c1 = scale * kLog2e;  // scores in log2 units
+  const uint32_t q_addr = shared_addr(q_s);
+  const uint32_t do_addr = shared_addr(do_s);
+  constexpr int kFrags = P::kOwnInRegs ? DH / 8 : 1;
+  uint32_t q_hi[kFrags][4], q_lo[kFrags][4], d_hi[kFrags][4], d_lo[kFrags][4];
+  const Turns<NS> turns{sid};
+  turns.open();
+  int gt = 0;  // the stream's tiles consumed
+  for (int it = first, k = 0; it < n_items; it += stride, ++k) {
+    const Item item = item_at(it, blocks);
+    const int q0 = item.row0;
+    const size_t head = static_cast<size_t>(item.bh) * S;  // row (b, h, 0)
+    // Row statistics (m in log2 units); delta in float32 from the O and dO
+    // rows.  A row past S gets inv_l = 0, so its p and ds are 0.
+    float m2[2], inv_l[2], dlt[2];
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = q0 + r0 + g + 8 * hh;
-    const bool real = row < S;
-    float part_sum = 0.f;
-    if (real) {
-      const float* o_row = o + (head + row) * DH;
-      const float* d_row = dout + (head + row) * DH;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + 16 * w + g + 8 * hh;
+      const bool real = row < S;
+      float part_sum = 0.f;
+      if (real) {
+        const float* o_row = o + (head + row) * DH;
+        const float* d_row = dout + (head + row) * DH;
 #pragma unroll
-      for (int c = 4 * t; c < DH; c += 16) {
-        const float4 x = *reinterpret_cast<const float4*>(o_row + c);
-        const float4 y = *reinterpret_cast<const float4*>(d_row + c);
-        part_sum = fmaf(x.x, y.x, part_sum);
-        part_sum = fmaf(x.y, y.y, part_sum);
-        part_sum = fmaf(x.z, y.z, part_sum);
-        part_sum = fmaf(x.w, y.w, part_sum);
-      }
-    }
-    part_sum += __shfl_xor_sync(0xffffffffu, part_sum, 1);
-    part_sum += __shfl_xor_sync(0xffffffffu, part_sum, 2);
-    dlt[hh] = part_sum;
-    m[hh] = real ? row_max[head + row] : 0.f;
-    inv_l[hh] = real ? 1.f / row_sum[head + row] : 0.f;
-    if (real && t == 0 && part == 0) delta[head + row] = part_sum;
-  }
-
-  float acc[DH / 8][4] = {};  // the part's dq of rows r0 .. r0 + 16, unscaled
-  for (int i = 0; i < n_tiles; ++i) {
-    const int k0 = i * BK;
-    float next_bias = 0.f;
-    if (i + 1 < n_tiles) {
-      load_kv(i + 1);
-      if (tid < BK) next_bias = key_bias(key_mask, b, S, k0 + BK + tid);
-    }
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();  // tile i (and Q, dO) landed for every thread
-
-    const float* k_s = stage(i);
-    const float* v_s = k_s + BK * LD;
-    const float* bias_s = v_s + BK * LD;
-    const int n_keys = min(BK, S - k0);
-    if (q0 + r0 < S && c0 < n_keys) {
-      float sc[PK / 8][4] = {}, dp[PK / 8][4] = {};
-#pragma unroll
-      for (int ks = 0; ks < DH / 8; ++ks) {
-        const FragA qa = load_a<LD>(q_s, r0, 8 * ks, g, t);
-        const FragA da = load_a<LD>(do_s, r0, 8 * ks, g, t);
-#pragma unroll
-        for (int j = 0; j < PK / 8; ++j) {
-          mma3(sc[j], qa, load_bt<LD>(k_s, c0 + 8 * j, 8 * ks, g, t));
-          mma3(dp[j], da, load_bt<LD>(v_s, c0 + 8 * j, 8 * ks, g, t));
+        for (int c = 4 * t; c < DH; c += 16) {
+          const float4 x = *reinterpret_cast<const float4*>(o_row + c);
+          const float4 y = *reinterpret_cast<const float4*>(d_row + c);
+          part_sum = fmaf(x.x, y.x, part_sum);
+          part_sum = fmaf(x.y, y.y, part_sum);
+          part_sum = fmaf(x.z, y.z, part_sum);
+          part_sum = fmaf(x.w, y.w, part_sum);
         }
       }
+      part_sum += __shfl_xor_sync(0xffffffffu, part_sum, 1);
+      part_sum += __shfl_xor_sync(0xffffffffu, part_sum, 2);
+      dlt[hh] = part_sum;
+      m2[hh] = real ? row_max[head + row] * kLog2e : 0.f;
+      inv_l[hh] = real ? 1.f / row_sum[head + row] : 0.f;
+      if (real && t == 0) delta[head + row] = part_sum;
+    }
+
+    mbar_wait(bar.own_ready, k & 1);
+    if constexpr (P::kOwnInRegs) {
+      // Q and dO live in registers from here: their tiles take the next
+      // item's.
+      load_own_frags<DH>(q_hi, q_lo, q_s, q_s + OT, w, g, t);
+      load_own_frags<DH>(d_hi, d_lo, do_s, do_s + OT, w, g, t);
+      named_sync(1 + sid, kWarpgroup);
+      if (lt == 0 && it + stride < n_items) load_own(it + stride);
+    }
+
+    float acc[DH / 2] = {};  // dq of the item's rows, unscaled
+    const int n_t = dq_tiles(q0, S, causal, BK);
+    for (int j = 0; j < n_t; ++j, ++gt) {
+      const int r = gt % ST;
+      mbar_wait(&bar.full[r], gt / ST & 1);
+      const uint32_t k_addr = shared_addr(stage(r));
+      const uint32_t v_addr = k_addr + 2 * Kv::kBytes;
+      const uint32_t kt_addr = k_addr + 4 * Kv::kBytes;
+      const float* bias_s = bias_v + r * BK;
+
+      float sc[BK / 2], dp[BK / 2];
+      fence_regs(sc);
+      fence_regs(dp);
+      turns.take();
+      wgmma_fence();
+      score_product<DH, BK, P::kOwnInRegs>(sc, q_hi, q_lo, q_addr,
+                                           q_addr + OT, k_addr,
+                                           k_addr + Kv::kBytes);
+      wgmma_commit();
+      score_product<DH, BK, P::kOwnInRegs>(dp, d_hi, d_lo, do_addr,
+                                           do_addr + OT, v_addr,
+                                           v_addr + Kv::kBytes);
+      wgmma_commit();
+      turns.give();
+
+      // p from s while dp is still on the tensor cores, then ds.  A tile of
+      // real keys wholly inside the causal band (every tile but the last
+      // when not causal) needs no per-score checks.
+      const int k0 = j * BK;
+      const int n_keys = min(BK, S - k0);
+      const bool interior = n_keys == BK && !(causal && k0 + BK - 1 > q0);
+      wgmma_wait<1>();
+      fence_regs(sc);
+      if (interior) {
 #pragma unroll
-      for (int j = 0; j < PK / 8; ++j) {
+        for (int jj = 0; jj < BK / 8; ++jj) {
+          const float2 bl =
+              *reinterpret_cast<const float2*>(bias_s + 8 * jj + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * jj + e] =
+                exp2_approx(fmaf(sc[4 * jj + e], c1, e & 1 ? bl.y : bl.x) -
+                            m2[e >> 1]) *
+                inv_l[e >> 1];
+        }
+      } else {
+        // Keys past S get p = 0 (their zero-filled scores keep the
+        // exponential finite), replaced scores -1e9 log2 e.
+#pragma unroll
+        for (int jj = 0; jj < BK / 8; ++jj) {
+          const float2 bl =
+              *reinterpret_cast<const float2*>(bias_s + 8 * jj + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kj = 8 * jj + 2 * t + (e & 1);
+            const int row = q0 + 16 * w + g + 8 * (e >> 1);
+            const bool replaced = causal & (k0 + kj > row);
+            const float x = replaced ? kMaskedLog2
+                                     : fmaf(sc[4 * jj + e], c1,
+                                            e & 1 ? bl.y : bl.x);
+            const float p = exp2_approx(x - m2[e >> 1]) * inv_l[e >> 1];
+            sc[4 * jj + e] = kj < n_keys ? p : 0.f;
+          }
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      // ds (0 where the causal band replaced s; p is 0 past S).
+#pragma unroll
+      for (int jj = 0; jj < BK / 8; ++jj) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int kj = c0 + 8 * j + 2 * t + (e & 1);
-          const int row = q0 + r0 + g + 8 * (e >> 1);
-          float ds = 0.f;
-          if (kj < n_keys) {
-            const bool replaced = causal && k0 + kj > row;
-            const float s =
-                replaced ? kMaskedScore : sc[j][e] * scale + bias_s[kj];
-            const float p = expf(s - m[e >> 1]) * inv_l[e >> 1];
-            ds = replaced ? 0.f : p * (dp[j][e] - dlt[e >> 1]);
-          }
-          sc[j][e] = ds;
+          const int kj = 8 * jj + 2 * t + (e & 1);
+          const int row = q0 + 16 * w + g + 8 * (e >> 1);
+          const bool replaced = causal & (k0 + kj > row);
+          sc[4 * jj + e] =
+              replaced ? 0.f
+                       : sc[4 * jj + e] * (dp[4 * jj + e] - dlt[e >> 1]);
         }
       }
-#pragma unroll
-      for (int j = 0; j < PK / 8; ++j) {
-        const FragA a = from_acc(sc[j]);
-#pragma unroll
-        for (int n = 0; n < DH / 8; ++n)
-          mma3(acc[n], a, load_b_paired<LD>(k_s, c0 + 8 * j, 8 * n, g, t));
-      }
+      // dq += ds k: ds from the accumulators, k transposed (K^T hi, lo).
+      uint32_t a_hi[BK / 8][4], a_lo[BK / 8][4];
+      acc_frags<BK>(a_hi, a_lo, sc);
+      second_product<DH, BK>(acc, a_hi, a_lo, kt_addr, kt_addr + Kt::kBytes);
+      // Stage r is consumed (every product reading it has completed, every
+      // thread has read its biases): it takes the stream's next tile.
+      named_sync(1 + sid, kWarpgroup);
+      if (lt == 0) load_next(r);
     }
-    if (tid < BK && i + 1 < n_tiles)
-      stage(i + 1)[2 * BK * LD + tid] = next_bias;
-    __syncthreads();  // stage i is consumed before tile i + 2 overwrites it
-  }
+    if constexpr (!P::kOwnInRegs) {
+      // The products read Q and dO from their tiles up to here.
+      if (lt == 0 && it + stride < n_items) load_own(it + stride);
+    }
 
-  sum_parts(acc, smem, group, part, lane);
-  if (part > 0) return;
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = q0 + r0 + g + 8 * hh;
-    if (row >= S) continue;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + 16 * w + g + 8 * hh;
+      if (row >= S) continue;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<float2*>(dq + (head + row) * DH + 8 * n + 2 * t) =
-          make_float2(acc[n][2 * hh] * scale, acc[n][2 * hh + 1] * scale);
+      for (int jj = 0; jj < DH / 8; ++jj)
+        *reinterpret_cast<float2*>(dq + (head + row) * DH + 8 * jj + 2 * t) =
+            make_float2(acc[4 * jj + 2 * hh] * scale,
+                        acc[4 * jj + 2 * hh + 1] * scale);
+    }
   }
+  turns.close([&](int x) {
+    int n = 0;  // causal items differ in length
+    for (int it = blockIdx.x * NS + x; it < n_items; it += stride)
+      n += dq_tiles(item_at(it, blocks).row0, S, causal, BK);
+    return n;
+  });
 }
 
 // ---------------------------------------------------------------------------
-// dk, dv: one block per (batch, head, 64-key k-tile), 16 keys per group.
-// Per Q/dO tile, each warp takes its part's rows: s^T = k q^T and v dO^T,
-// p^T and ds^T in registers, then dv += p^T dO and dk += ds^T q.
+// dk, dv.  An item is 64 keys of one head.  Per Q/dO tile: s^T = k q^T and
+// dp^T = v dO^T, p^T and ds^T in registers, then dv += p^T dO and
+// dk += ds^T q.
 // ---------------------------------------------------------------------------
 
-template <int DH>
-struct DkvTile {
-  static_assert(DH % 32 == 0, "head dim must be a multiple of 32");
-  static constexpr int kKeys = 16 * kGroups;        // keys per block
-  static constexpr int kRows = DH <= 64 ? 64 : 32;  // rows per Q/dO tile
-  static constexpr int kPartRows = kRows / kParts;
-  static constexpr int kLd = DH + kPad;
-  static constexpr int kOwnFloats = 2 * kKeys * kLd;  // K, V
-  // Q, dO, and the rows' m, l, delta.
-  static constexpr int kStageFloats = 2 * kRows * kLd + 3 * kRows;
-  static_assert(kPartRows % 8 == 0, "a part is whole k-steps of rows");
-  static_assert((kParts - 1) * kKeys * DH <= kOwnFloats + kStageFloats,
-                "the parts' sums must fit in one stage's shared memory");
+template <int DH, int NS>
+struct DkvPlan {
+  static constexpr int kRows = other_rows(DH);  // rows per Q/dO tile
+  static constexpr int kStreams = NS;
+  static constexpr int kSplitters = kWarpgroup / kStreams;
+  using Own = F32Tile<DH, kTile>;        // K, K lo, V, V lo
+  using Qt = F32Tile<DH, kRows>;         // Q, Q lo, dO, dO lo
+  using Tt = TransposedTile<DH, kRows>;  // Q^T, dO^T hi and lo
+  static constexpr int kOwnBytes = 4 * Own::kBytes;
+  static constexpr int kStageBytes = 4 * Qt::kBytes + 4 * Tt::kBytes;
+  static constexpr int kStages =
+      ring_stages(NS, kOwnBytes, kStageBytes, 3 * kRows * 4);
+  static_assert(kStages >= 1, "a stage fits");
+  static constexpr int kStreamBytes = kOwnBytes + kStages * kStageBytes;
+  // The streams' tiles, their stages' m (log2 units), 1/l and delta, then
+  // their barriers.
+  static constexpr int kVecOffset = kStreams * kStreamBytes;
+  static constexpr int kBarOffset =
+      kVecOffset + kStreams * kStages * 3 * kRows * 4;
+  static constexpr int kBytes =
+      1024 + kBarOffset + kStreams * barrier_bytes(kStages);
+  static_assert(kBytes <= kSmemLimit, "one block's shared memory");
 };
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads, DH == 32 ? 2 : 1)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
+template <int DH, int NS, bool CAUSAL>
+__global__ void __launch_bounds__(threads(NS), 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map,
                      const uint8_t* __restrict__ key_mask,
-                     const float* __restrict__ dout,
                      const float* __restrict__ row_max,
                      const float* __restrict__ row_sum,
                      const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int H, int S, int causal,
-                     float scale) {
-  using T = DkvTile<DH>;
-  constexpr int BQ = T::kRows;
-  constexpr int PR = T::kPartRows;
-  constexpr int LD = T::kLd;
-  extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;                 // [kKeys][LD]
-  float* v_s = k_s + T::kKeys * LD;  // [kKeys][LD]
-  // Stage i & 1 of the ring: Q [BQ][LD], dO [BQ][LD], m, l, delta [BQ].
-  auto stage = [&](int i) {
-    return smem + T::kOwnFloats + (i & 1) * T::kStageFloats;
-  };
+                     float* __restrict__ dv, int H, int S, float scale,
+                     int n_items) {
+  using P = DkvPlan<DH, NS>;
+  constexpr bool causal = CAUSAL;
+  using Qt = typename P::Qt;
+  using Tt = typename P::Tt;
+  constexpr int BQ = P::kRows;
+  constexpr int ST = P::kStages;
+  constexpr int OT = P::Own::kBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
 
-  const int k0 = blockIdx.x * T::kKeys;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t head = (static_cast<size_t>(b) * H + h) * S;
   const int tid = threadIdx.x;
+  const int warp = tid / 32;
   const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int group = tid / 32 % kGroups;
-  const int part = tid / 32 / kGroups;
-  const int kr0 = group * 16;  // the warp's first key in the block
-  const int c0 = part * PR;    // the warp's first row in each tile
+  const bool splitter = warp >= 4 * NS;
+  const int sid = splitter ? (tid - 4 * NS * 32) / P::kSplitters : warp / 4;
+  const int lt = splitter ? (tid - 4 * NS * 32) % P::kSplitters : tid % 128;
+  // The stream's own tiles (K, K lo, V, V lo), ring, row statistics,
+  // barriers.
+  unsigned char* k_s = smem + sid * P::kStreamBytes;
+  unsigned char* v_s = k_s + 2 * OT;
+  auto stage = [&](int r) { return k_s + P::kOwnBytes + r * P::kStageBytes; };
+  float* stats_v =
+      reinterpret_cast<float*>(smem + P::kVecOffset) + sid * ST * 3 * BQ;
+  Barriers bar(smem + P::kBarOffset + sid * barrier_bytes(ST), ST);
 
-  const int n_tiles = (S + BQ - 1) / BQ;
-  auto load_q = [&](int i) {
-    float* st = stage(i);
-    load_rows<BQ, DH, kThreads>(st, q + head * DH, i * BQ, S, tid);
-    load_rows<BQ, DH, kThreads>(st + BQ * LD, dout + head * DH, i * BQ, S,
-                                tid);
-    float* stats = st + 2 * BQ * LD;
-    load_vec<BQ, kThreads>(stats, row_max + head, i * BQ, S, tid);
-    load_vec<BQ, kThreads>(stats + BQ, row_sum + head, i * BQ, S, tid);
-    load_vec<BQ, kThreads>(stats + 2 * BQ, delta + head, i * BQ, S, tid);
+  const int blocks = (S + kTile - 1) / kTile;  // key blocks of a head
+  const int n_t = (S + BQ - 1) / BQ;          // Q/dO tiles of an item
+  const int stride = gridDim.x * NS;
+  const int first = blockIdx.x * NS + sid;
+
+  auto load_own = [&](int it) {
+    const Item item = item_at(it, blocks);
+    mbar_arrive_expect_tx(bar.own_loaded, 2 * OT);
+    tma_f32_tile<DH, kTile>(k_s, &k_map, bar.own_loaded, item.row0, item.bh);
+    tma_f32_tile<DH, kTile>(v_s, &v_map, bar.own_loaded, item.row0, item.bh);
+  };
+  Cursor cur(first, blocks);
+  auto load_next = [&](int r) {
+    if (cur.item >= n_items) return;
+    mbar_arrive_expect_tx(&bar.loaded[r], 2 * Qt::kBytes);
+    tma_f32_tile<DH, BQ>(stage(r), &q_map, &bar.loaded[r], cur.tile * BQ,
+                         cur.bh);
+    tma_f32_tile<DH, BQ>(stage(r) + 2 * Qt::kBytes, &do_map, &bar.loaded[r],
+                         cur.tile * BQ, cur.bh);
+    if (++cur.tile == n_t) cur.next_item(stride, blocks);
   };
 
-  load_rows<T::kKeys, DH, kThreads>(k_s, k + head * DH, k0, S, tid);
-  load_rows<T::kKeys, DH, kThreads>(v_s, v + head * DH, k0, S, tid);
-  load_q(0);
-  cp_async_commit();
-
-  // The lane's keys g and g + 8.
-  bool kreal[2];
-  float kbias[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int key = k0 + kr0 + g + 8 * hh;
-    kreal[hh] = key < S;
-    kbias[hh] = key_bias(key_mask, b, S, key);
+  if (tid == 0) {
+    for (int x = 0; x < NS; ++x)
+      Barriers(smem + P::kBarOffset + x * barrier_bytes(ST), ST)
+          .init(ST, P::kSplitters);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (!splitter && lt == 0 && first < n_items) {
+    load_own(first);
+    for (int x = 0; x < ST; ++x) load_next(x);
   }
 
-  // The part's dk (unscaled) and dv of keys kr0 .. kr0 + 16.
-  float acc_dk[DH / 8][4] = {}, acc_dv[DH / 8][4] = {};
-  for (int i = 0; i < n_tiles; ++i) {
-    const int i0 = i * BQ;
-    if (i + 1 < n_tiles) load_q(i + 1);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();  // tile i (and K, V) landed for every thread
-
-    const float* q_s = stage(i);
-    const float* do_s = q_s + BQ * LD;
-    const float* m_s = do_s + BQ * LD;
-    const float* l_s = m_s + BQ;
-    const float* delta_s = l_s + BQ;
-    const int n_rows = min(BQ, S - i0);
-    if (k0 + kr0 < S && c0 < n_rows) {
-      float sc[PR / 8][4] = {}, dp[PR / 8][4] = {};
-#pragma unroll
-      for (int ks = 0; ks < DH / 8; ++ks) {
-        const FragA ka = load_a<LD>(k_s, kr0, 8 * ks, g, t);
-        const FragA va = load_a<LD>(v_s, kr0, 8 * ks, g, t);
-#pragma unroll
-        for (int j = 0; j < PR / 8; ++j) {
-          mma3(sc[j], ka, load_bt<LD>(q_s, c0 + 8 * j, 8 * ks, g, t));
-          mma3(dp[j], va, load_bt<LD>(do_s, c0 + 8 * j, 8 * ks, g, t));
+  if (splitter) {
+    // Splitters: per item its K and V, then each landed Q/dO tile and its
+    // rows' statistics.
+    int g = 0;
+    for (int it = first, k = 0; it < n_items; it += stride, ++k) {
+      const size_t head = static_cast<size_t>(item_at(it, blocks).bh) * S;
+      mbar_wait(bar.own_loaded, k & 1);
+      split_tile<DH, kTile, false, P::kSplitters>(k_s, k_s + OT, nullptr,
+                                                  nullptr, lt);
+      split_tile<DH, kTile, false, P::kSplitters>(v_s, v_s + OT, nullptr,
+                                                  nullptr, lt);
+      fence_proxy_async();
+      mbar_arrive(bar.own_ready);
+      for (int j = 0; j < n_t; ++j, ++g) {
+        const int r = g % ST;
+        // The statistics are read before the wait, so their latency
+        // overlaps it.
+        const int row = j * BQ + lt;
+        const bool real = lt < BQ && row < S;
+        const float mx = real ? row_max[head + row] * kLog2e : 0.f;
+        const float il = real ? 1.f / row_sum[head + row] : 0.f;
+        const float dl = real ? delta[head + row] : 0.f;
+        mbar_wait(&bar.loaded[r], g / ST & 1);
+        unsigned char* st = stage(r);
+        unsigned char* tq = st + 4 * Qt::kBytes;
+        unsigned char* tdo = tq + 2 * Tt::kBytes;
+        split_tile<DH, BQ, true, P::kSplitters>(st, st + Qt::kBytes, tq,
+                                                tq + Tt::kBytes, lt);
+        split_tile<DH, BQ, true, P::kSplitters>(st + 2 * Qt::kBytes,
+                                                st + 3 * Qt::kBytes, tdo,
+                                                tdo + Tt::kBytes, lt);
+        if (lt < BQ) {
+          float* stats = stats_v + r * 3 * BQ;
+          stats[lt] = mx;
+          stats[BQ + lt] = il;
+          stats[2 * BQ + lt] = dl;
         }
+        fence_proxy_async();
+        mbar_arrive(&bar.full[r]);
       }
+    }
+    return;
+  }
+
+  // Consumers.  Thread 32 w + 4 g + t of its warpgroup holds keys 16 w + g
+  // and 16 w + g + 8 of the item's 64.
+  const int w = warp % 4;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const float c1 = scale * kLog2e;  // scores in log2 units
+  const uint32_t k_addr = shared_addr(k_s);
+  const uint32_t v_addr = shared_addr(v_s);
+  // K and V stay in shared memory (SS score products): their register
+  // fragments beside dk's and dv's sums would take ~200 registers of 168.
+  uint32_t no_frags[1][4];
+  const Turns<NS> turns{sid};
+  turns.open();
+  int gt = 0;  // the stream's tiles consumed
+  for (int it = first, k = 0; it < n_items; it += stride, ++k) {
+    const Item item = item_at(it, blocks);
+    const int k0 = item.row0;
+    const int b = item.bh / H;
+    const size_t head = static_cast<size_t>(item.bh) * S;
+    bool kreal[2];
+    float kbias[2];  // log2 units
 #pragma unroll
-      for (int j = 0; j < PR / 8; ++j) {
-        const int ri = c0 + 8 * j + 2 * t;
-        const float2 mm = *reinterpret_cast<const float2*>(m_s + ri);
-        const float2 ll = *reinterpret_cast<const float2*>(l_s + ri);
-        const float2 dd = *reinterpret_cast<const float2*>(delta_s + ri);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = k0 + 16 * w + g + 8 * hh;
+      kreal[hh] = key < S;
+      kbias[hh] = key_bias(key_mask, b, S, key) * kLog2e;
+    }
+
+    mbar_wait(bar.own_ready, k & 1);
+
+    // dk (unscaled) and dv of the item's keys.
+    float acc_dk[DH / 2] = {}, acc_dv[DH / 2] = {};
+    for (int j = 0; j < n_t; ++j, ++gt) {
+      const int r = gt % ST;
+      mbar_wait(&bar.full[r], gt / ST & 1);
+      const uint32_t q_addr = shared_addr(stage(r));
+      const uint32_t do_addr = q_addr + 2 * Qt::kBytes;
+      const uint32_t tq_addr = q_addr + 4 * Qt::kBytes;
+      const uint32_t tdo_addr = tq_addr + 2 * Tt::kBytes;
+      // The rows' statistics into registers before the products are
+      // issued: the SS products' operand reads keep shared memory busy, and
+      // loads issued behind them took most of the time p takes.
+      const float* m_s = stats_v + r * 3 * BQ;
+      float2 mm[BQ / 8], il[BQ / 8], dd[BQ / 8];
+#pragma unroll
+      for (int jj = 0; jj < BQ / 8; ++jj) {
+        const int ri = 8 * jj + 2 * t;
+        mm[jj] = *reinterpret_cast<const float2*>(m_s + ri);
+        il[jj] = *reinterpret_cast<const float2*>(m_s + BQ + ri);
+        dd[jj] = *reinterpret_cast<const float2*>(m_s + 2 * BQ + ri);
+      }
+
+      float sc[BQ / 2], dp[BQ / 2];
+      fence_regs(sc);
+      fence_regs(dp);
+      // The descriptors are made per tile next to their wgmma: hoisted out
+      // of the loop (K's and V's never change, nor Q's and dO's in a
+      // one-stage ring), they took up to 128 registers and dk/dv at
+      // Dh = 128 spilled.  (Not in dq: there the hoisting pays at Dh = 64
+      // and costs no spill.)
+      uint32_t ka = k_addr, va = v_addr, qa = q_addr, da = do_addr;
+      asm volatile("" : "+r"(ka), "+r"(va), "+r"(qa), "+r"(da));
+      turns.take();
+      wgmma_fence();
+      score_product<DH, BQ, false>(sc, no_frags, no_frags, ka, ka + OT, qa,
+                                   qa + Qt::kBytes);
+      wgmma_commit();
+      score_product<DH, BQ, false>(dp, no_frags, no_frags, va, va + OT, da,
+                                   da + Qt::kBytes);
+      wgmma_commit();
+      turns.give();
+
+      // p^T from s^T while dp^T is still on the tensor cores, then ds^T.
+      const int i0 = j * BQ;
+      const int n_rows = min(BQ, S - i0);
+      wgmma_wait<1>();
+      fence_regs(sc);
+      // Branch-free (bitwise conditions, selects): a branch around values
+      // that feed the next products made ptxas serialise every wgmma of the
+      // kernel (C7520).  Rows or keys past S have a score of 0 (zero-filled
+      // tiles), so their exponential is finite before it is dropped.
+#pragma unroll
+      for (int jj = 0; jj < BQ / 8; ++jj) {
+        const int ri = 8 * jj + 2 * t;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = e & 1;
-          const int key = k0 + kr0 + g + 8 * (e >> 1);
-          float p = 0.f, ds = 0.f;
-          if (ri + c < n_rows && kreal[e >> 1]) {
-            const bool replaced = causal && key > i0 + ri + c;
-            const float s = replaced ? kMaskedScore
-                                     : sc[j][e] * scale + kbias[e >> 1];
-            p = expf(s - (c ? mm.y : mm.x)) * (1.f / (c ? ll.y : ll.x));
-            ds = replaced ? 0.f : p * (dp[j][e] - (c ? dd.y : dd.x));
-          }
-          sc[j][e] = p;
-          dp[j][e] = ds;
+          const int key = k0 + 16 * w + g + 8 * (e >> 1);
+          const bool replaced = causal & (key > i0 + ri + c);
+          const float x =
+              replaced ? kMaskedLog2 : fmaf(sc[4 * jj + e], c1, kbias[e >> 1]);
+          const float p = exp2_approx(x - (c ? mm[jj].y : mm[jj].x)) *
+                          (c ? il[jj].y : il[jj].x);
+          sc[4 * jj + e] = (ri + c < n_rows) & kreal[e >> 1] ? p : 0.f;
         }
       }
+      wgmma_wait<0>();
+      fence_regs(dp);
 #pragma unroll
-      for (int j = 0; j < PR / 8; ++j) {
-        const FragA pa = from_acc(sc[j]);
-        const FragA sa = from_acc(dp[j]);
+      for (int jj = 0; jj < BQ / 8; ++jj) {
+        const int ri = 8 * jj + 2 * t;
 #pragma unroll
-        for (int n = 0; n < DH / 8; ++n) {
-          mma3(acc_dv[n], pa,
-               load_b_paired<LD>(do_s, c0 + 8 * j, 8 * n, g, t));
-          mma3(acc_dk[n], sa,
-               load_b_paired<LD>(q_s, c0 + 8 * j, 8 * n, g, t));
+        for (int e = 0; e < 4; ++e) {
+          const int c = e & 1;
+          const int key = k0 + 16 * w + g + 8 * (e >> 1);
+          const bool replaced = causal & (key > i0 + ri + c);
+          dp[4 * jj + e] =
+              replaced ? 0.f
+                       : sc[4 * jj + e] *
+                             (dp[4 * jj + e] - (c ? dd[jj].y : dd[jj].x));
         }
       }
+      // dv += p^T dO and dk += ds^T q (dO and q transposed), one after the
+      // other, nothing formed while a product is in flight.
+      {
+        uint32_t a_hi[BQ / 8][4], a_lo[BQ / 8][4];
+        acc_frags<BQ>(a_hi, a_lo, sc);
+        second_product<DH, BQ>(acc_dv, a_hi, a_lo, tdo_addr,
+                               tdo_addr + Tt::kBytes);
+      }
+      {
+        uint32_t a_hi[BQ / 8][4], a_lo[BQ / 8][4];
+        acc_frags<BQ>(a_hi, a_lo, dp);
+        second_product<DH, BQ>(acc_dk, a_hi, a_lo, tq_addr,
+                               tq_addr + Tt::kBytes);
+      }
+      // Stage r is consumed: it takes the stream's next tile.
+      named_sync(1 + sid, kWarpgroup);
+      if (lt == 0) load_next(r);
     }
-    __syncthreads();  // stage i is consumed before tile i + 2 overwrites it
-  }
+    // The products read K and V from their tiles up to here (the last
+    // tile's named barrier).
+    if (lt == 0 && it + stride < n_items) load_own(it + stride);
 
-  sum_parts(acc_dk, smem, group, part, lane);
-  sum_parts(acc_dv, smem, group, part, lane);
-  if (part > 0) return;
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    if (!kreal[hh]) continue;
-    const size_t key_row = head + k0 + kr0 + g + 8 * hh;
+    for (int hh = 0; hh < 2; ++hh) {
+      if (!kreal[hh]) continue;
+      const size_t key_row = head + k0 + 16 * w + g + 8 * hh;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      const int c = 8 * n + 2 * t;
-      *reinterpret_cast<float2*>(dk + key_row * DH + c) = make_float2(
-          acc_dk[n][2 * hh] * scale, acc_dk[n][2 * hh + 1] * scale);
-      *reinterpret_cast<float2*>(dv + key_row * DH + c) =
-          make_float2(acc_dv[n][2 * hh], acc_dv[n][2 * hh + 1]);
+      for (int jj = 0; jj < DH / 8; ++jj) {
+        const int c = 8 * jj + 2 * t;
+        *reinterpret_cast<float2*>(dk + key_row * DH + c) =
+            make_float2(acc_dk[4 * jj + 2 * hh] * scale,
+                        acc_dk[4 * jj + 2 * hh + 1] * scale);
+        *reinterpret_cast<float2*>(dv + key_row * DH + c) =
+            make_float2(acc_dv[4 * jj + 2 * hh], acc_dv[4 * jj + 2 * hh + 1]);
+      }
     }
   }
+  turns.close([&](int x) {
+    return n_t * stream_items(blockIdx.x * NS + x, stride, n_items);
+  });
+}
+
+// Streams a launch runs per block: two where there are more items than
+// SMs (and a Dh with a two-stream instance), so an SM overlaps two items
+// where one stream would run them in turn; else one, so that every SM has
+// an item (at (1, 2, 4096, 64), 128 items, two streams would leave half
+// the SMs idle).
+int streams_for(int items, int max_streams) {
+  return max_streams > 1 && items > sm_count() ? 2 : 1;
+}
+
+template <int DH, int NS, bool CAUSAL>
+cudaError_t launch_dq_streams(const CUtensorMap (&maps)[4],
+                              const uint8_t* key_mask, const float* o,
+                              const float* dout, const float* row_max,
+                              const float* row_sum, float* delta, float* dq,
+                              int H, int S, int items, cudaStream_t stream) {
+  using P = DqPlan<DH, NS>;
+  static const cudaError_t attr =
+      set_smem(flash_bwd_dq_kernel<DH, NS, CAUSAL>, P::kBytes);
+  if (attr != cudaSuccess) return attr;
+  const int grid = min(sm_count(), (items + NS - 1) / NS);
+  const float scale = 1.0f / sqrtf(static_cast<float>(DH));
+  flash_bwd_dq_kernel<DH, NS, CAUSAL>
+      <<<grid, threads(NS), P::kBytes, stream>>>(
+          maps[0], maps[1], maps[2], maps[3], key_mask, o, dout, row_max,
+          row_sum, delta, dq, H, S, scale, items);
+  return cudaGetLastError();
 }
 
 template <int DH>
@@ -485,16 +1024,40 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const float* dout, const float* row_max,
                       const float* row_sum, float* delta, float* dq, int B,
                       int H, int S, int causal, cudaStream_t stream) {
-  using T = DqTile<DH>;
+  constexpr int kKeys = other_rows(DH);
+  constexpr int NS = kMaxDqStreams<DH>;
+  CUtensorMap maps[4];
+  cudaError_t err = f32_rows_map<DH, kTile>(&maps[0], q, B * H, S);
+  if (err == cudaSuccess) err = f32_rows_map<DH, kKeys>(&maps[1], k, B * H, S);
+  if (err == cudaSuccess) err = f32_rows_map<DH, kKeys>(&maps[2], v, B * H, S);
+  if (err == cudaSuccess) err = f32_rows_map<DH, kTile>(&maps[3], dout, B * H, S);
+  if (err != cudaSuccess) return err;
+  const int items = B * H * ((S + kTile - 1) / kTile);
+  const bool two = streams_for(items, NS) == 2;
+#define FLEXDM_DQ(ns, c)                                                   \
+  launch_dq_streams<DH, ns, c>(maps, key_mask, o, dout, row_max, row_sum, \
+                               delta, dq, H, S, items, stream)
+  if (causal) return two ? FLEXDM_DQ(NS, true) : FLEXDM_DQ(1, true);
+  return two ? FLEXDM_DQ(NS, false) : FLEXDM_DQ(1, false);
+#undef FLEXDM_DQ
+}
+
+template <int DH, int NS, bool CAUSAL>
+cudaError_t launch_dkv_streams(const CUtensorMap (&maps)[4],
+                               const uint8_t* key_mask, const float* row_max,
+                               const float* row_sum, const float* delta,
+                               float* dk, float* dv, int H, int S, int items,
+                               cudaStream_t stream) {
+  using P = DkvPlan<DH, NS>;
   static const cudaError_t attr =
-      allow_smem(flash_bwd_dq_kernel<DH>, smem_bytes<T>(2));
+      set_smem(flash_bwd_dkv_kernel<DH, NS, CAUSAL>, P::kBytes);
   if (attr != cudaSuccess) return attr;
-  const int bytes = smem_bytes<T>(S > T::kKeys ? 2 : 1);
-  const dim3 grid((S + T::kRows - 1) / T::kRows, H, B);
+  const int grid = min(sm_count(), (items + NS - 1) / NS);
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
-  flash_bwd_dq_kernel<DH><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, key_mask, o, dout, row_max, row_sum, delta, dq, H, S, causal,
-      scale);
+  flash_bwd_dkv_kernel<DH, NS, CAUSAL>
+      <<<grid, threads(NS), P::kBytes, stream>>>(
+          maps[0], maps[1], maps[2], maps[3], key_mask, row_max, row_sum,
+          delta, dk, dv, H, S, scale, items);
   return cudaGetLastError();
 }
 
@@ -504,21 +1067,29 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* row_max, const float* row_sum,
                        const float* delta, float* dk, float* dv, int B, int H,
                        int S, int causal, cudaStream_t stream) {
-  using T = DkvTile<DH>;
-  static const cudaError_t attr =
-      allow_smem(flash_bwd_dkv_kernel<DH>, smem_bytes<T>(2));
-  if (attr != cudaSuccess) return attr;
-  const int bytes = smem_bytes<T>(S > T::kRows ? 2 : 1);
-  const dim3 grid((S + T::kKeys - 1) / T::kKeys, H, B);
-  const float scale = 1.0f / sqrtf(static_cast<float>(DH));
-  flash_bwd_dkv_kernel<DH><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, key_mask, dout, row_max, row_sum, delta, dk, dv, H, S, causal,
-      scale);
-  return cudaGetLastError();
+  constexpr int kRows = other_rows(DH);
+  constexpr int NS = kMaxDkvStreams<DH>;
+  CUtensorMap maps[4];
+  cudaError_t err = f32_rows_map<DH, kRows>(&maps[0], q, B * H, S);
+  if (err == cudaSuccess) err = f32_rows_map<DH, kTile>(&maps[1], k, B * H, S);
+  if (err == cudaSuccess) err = f32_rows_map<DH, kTile>(&maps[2], v, B * H, S);
+  if (err == cudaSuccess) err = f32_rows_map<DH, kRows>(&maps[3], dout, B * H, S);
+  if (err != cudaSuccess) return err;
+  const int items = B * H * ((S + kTile - 1) / kTile);
+  const bool two = streams_for(items, NS) == 2;
+#define FLEXDM_DKV(ns, c)                                                 \
+  launch_dkv_streams<DH, ns, c>(maps, key_mask, row_max, row_sum, delta, \
+                                dk, dv, H, S, items, stream)
+  if (causal) return two ? FLEXDM_DKV(NS, true) : FLEXDM_DKV(1, true);
+  return two ? FLEXDM_DKV(NS, false) : FLEXDM_DKV(1, false);
+#undef FLEXDM_DKV
 }
 
+// Shapes the launches take: the items (B H (S / 64) blocks of 64 rows or
+// keys) counted in an int.
 bool bad_shape(int B, int H, int S) {
-  return B <= 0 || H <= 0 || S <= 0 || B > 65535 || H > 65535;
+  return B <= 0 || H <= 0 || S <= 0 ||
+         static_cast<long long>(B) * H * ((S + kTile - 1) / kTile) > INT_MAX;
 }
 
 }  // namespace
@@ -526,7 +1097,8 @@ bool bad_shape(int B, int H, int S) {
 // All tensors float32 and contiguous: q, k, v, o, dout, dq, dk, dv are
 // (B, H, S, Dh) and 16-byte aligned; row_max, row_sum (from the forward)
 // and delta are (B, H, S).  key_mask: (B, S) bool (nonzero = attend) or
-// null.  Each entry returns the cudaError_t of its launch.
+// null.  Each entry returns the cudaError_t of its launch
+// (cudaErrorNotSupported if the CUDA driver cannot encode tensor maps).
 
 // Writes dq and delta = rowsum(dout * o).  Run it before the dkv entry on
 // the same stream: dkv reads delta.

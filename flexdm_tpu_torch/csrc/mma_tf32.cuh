@@ -1,6 +1,6 @@
-// Building blocks shared by the flash-attention kernels (sm_90a): masking
-// constants, cp.async tile copies, and split-TF32 tensor-core products on
-// mma.sync.m16n8k8.
+// Building blocks of the float32 flash-attention forward (sm_90a): cp.async
+// tile copies and split-TF32 tensor-core products on mma.sync.m16n8k8.  (The
+// float32 backward runs the same split on wgmma: wgmma_tf32.cuh.)
 //
 // Split TF32.  A TF32 operand keeps 10 bits of mantissa, about three decimal
 // digits; one TF32 pass misses the float32-level tolerances of the card
@@ -31,24 +31,12 @@
 
 #include <cstdint>
 
+#include "attention_mask.cuh"
+
 namespace {
 
 constexpr int kPad = 4;  // floats of padding per shared row
-constexpr float kMaskedScore = -1e9f;
 constexpr int kStaticSmemLimit = 48 * 1024;
-
-// ---------------------------------------------------------------------------
-// Masking
-// ---------------------------------------------------------------------------
-
-// The additive bias of a key: 0 if attended, the finite -1e9 if masked or
-// past S (callers exclude keys past S outright where it matters).
-__device__ __forceinline__ float key_bias(const uint8_t* key_mask, int b,
-                                          int S, int key) {
-  const bool keep = key < S && (key_mask == nullptr ||
-                                key_mask[static_cast<size_t>(b) * S + key]);
-  return keep ? 0.f : kMaskedScore;
-}
 
 // ---------------------------------------------------------------------------
 // Asynchronous copies
@@ -64,14 +52,6 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(real ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool real) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(real ? 4 : 0)
                : "memory");
 }
 
@@ -100,16 +80,6 @@ __device__ __forceinline__ void load_rows(float* tile, const float* src,
     const float* from =
         real ? src + static_cast<size_t>(row0 + r) * DH + c : src;
     cp_async16(tile + r * (DH + kPad) + c, from, real);
-  }
-}
-
-// Entries [row0, row0 + ROWS) of a length-S vector; past S zero-filled.
-template <int ROWS, int THREADS>
-__device__ __forceinline__ void load_vec(float* dst, const float* src,
-                                         int row0, int S, int tid) {
-  for (int i = tid; i < ROWS; i += THREADS) {
-    const bool real = row0 + i < S;
-    cp_async4(dst + i, real ? src + row0 + i : src, real);
   }
 }
 

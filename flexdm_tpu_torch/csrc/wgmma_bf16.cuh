@@ -1,10 +1,9 @@
-// Building blocks of the Hopper-native bf16 kernels (sm_90a): tiles by TMA
-// (cp.async.bulk.tensor) completed on mbarriers, their swizzled shared
-// layout, and warpgroup products (wgmma.mma_async m64nNk16, bf16 operands,
-// float32 accumulators) with the shared-memory matrix descriptors that read
-// that layout.  The host side encodes the tensor maps through the CUDA
-// runtime's entry point into the CUDA driver, so the library links against
-// nothing but cudart.
+// Building blocks of the Hopper-native bf16 kernels (sm_90a): the swizzled
+// shared layout of bf16 tiles that TMA writes, and warpgroup products
+// (wgmma.mma_async m64nNk16, bf16 operands, float32 accumulators) with the
+// shared-memory matrix descriptors that read that layout.  The mbarriers,
+// TMA copies, fences and the tensor-map encode are hopper.cuh's, shared with
+// the float32 kernels.
 //
 // Shared layout.  A (rows, Dh) bf16 tile is stored as Dh / 64 column blocks
 // (one at Dh = 32 and 64, two at Dh = 128), each a row-major (rows, W) array
@@ -43,23 +42,11 @@
 #include <cstdint>
 #include <cstring>
 
-#include "mma_tf32.cuh"  // kMaskedScore, key_bias
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kWarpgroup = 128;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kMaskedLog2 = kMaskedScore * kLog2e;
-
-// 2^x (ex2.approx; a result below the smallest normal float is 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Two floats rounded to bf16 (to nearest even), ``lo`` in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -91,8 +78,6 @@ __device__ __forceinline__ void store_row(bf16* dst, size_t row,
     *reinterpret_cast<uint32_t*>(dst + row * DH + 8 * j + 2 * t) = pack_bf16(
         acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);
 }
-
-constexpr int round_up_1024(int bytes) { return (bytes + 1023) / 1024 * 1024; }
 
 // ---------------------------------------------------------------------------
 // Shared tiles
@@ -140,89 +125,6 @@ struct SwizzledTile {
   }
 };
 
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The first 1024-byte boundary at or after ``p`` (dynamic shared memory is
-// allocated with 1024 bytes of slack for it).
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  const uint32_t a = shared_addr(p);
-  return p + ((1024 - (a & 1023)) & 1023);
-}
-
-// ---------------------------------------------------------------------------
-// mbarriers and TMA
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   shared_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   shared_addr(bar))
-               : "memory");
-}
-
-// Arrives and adds ``bytes`` to the transactions the phase waits for.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          shared_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Adds ``bytes`` to the transactions the current phase waits for, without
-// arriving.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   shared_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Returns once the phase of parity ``parity`` has completed.  A wait that
-// never ends (a fault in the pipeline) traps after ~2^28 tries, seconds
-// where a real wait takes microseconds, so it fails the launch instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = shared_addr(bar);
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 28)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// One box of a 3-D tensor map (coordinates innermost first) into shared
-// memory; completes ``bar``'s transactions with the box's bytes.
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(shared_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(shared_addr(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
 // Rows [row0, row0 + ROWS) of head ``head`` of a (B H, S, DH) map into a
 // SwizzledTile<DH, ROWS> (one box per column block).
 template <int DH, int ROWS>
@@ -234,48 +136,6 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst,
   for (int blk = 0; blk < T::kBlocks; ++blk)
     tma_load_3d(dst + blk * T::kBlockBytes, map, bar, blk * T::kCols, row0,
                 head);
-}
-
-// Named barrier over the first ``threads`` threads of the block.
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// Moves registers between warpgroups (every warp of the warpgroup runs it):
-// the producer gives up what it does not need, the consumers take it.
-template <int N>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-// ---------------------------------------------------------------------------
-// Warpgroup products
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulators across
-// the asynchronous products that own them.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A B, m64n32k16, A and B K-major in shared memory (descriptors).
@@ -396,87 +256,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// The same for register A operands: their values are made before the
-// wgmma.fence that precedes the products reading them.
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
-}
-
-// ---------------------------------------------------------------------------
-// Host: shared memory and tensor maps
-// ---------------------------------------------------------------------------
-
-// Sets an instance's dynamic shared memory limit to what it uses, at any
-// size (a launch with the default limit failed with cudaErrorInvalidValue
-// on the card, even below 48 KB).
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the CUDA driver, through the runtime (no
-// -lcuda); null if the CUDA driver has none.
-inline EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// Makes a CUDA context current on the calling thread, once a thread.
-// cuTensorMapEncodeTiled needs one and fails with CUDA_ERROR_INVALID_VALUE
-// without it: a thread can reach the kernels before any runtime call of
-// its own has bound the primary context (autograd's device thread, its
-// outputs served from the caching allocator, did on the card).  Where the
-// thread has a current context, the runtime keeps it.
-inline cudaError_t bind_context() {
-  thread_local const cudaError_t err = cudaFree(nullptr);
-  return err;
-}
-
 // The map of a contiguous (BH, S, DH) bf16 tensor read in (ROWS, DH) tiles
 // of SwizzledTile<DH, ROWS> (boxes of one column block).  Rows past S come
 // back as zeros, never as the next head's rows.
 template <int DH, int ROWS>
 cudaError_t rows_map(CUtensorMap* map, const void* base, int BH, int S) {
   using T = SwizzledTile<DH, ROWS>;
-  const cudaError_t bound = bind_context();
-  if (bound != cudaSuccess) return bound;
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(DH),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(DH) * 2,
-                                 static_cast<cuuint64_t>(S) * DH * 2};
-  const cuuint32_t box[3] = {T::kCols, ROWS, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                          : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_rows_map(map, base, BH, S, DH, 2,
+                         CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, T::kCols, ROWS,
+                         T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                             : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 }  // namespace

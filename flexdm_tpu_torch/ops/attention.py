@@ -18,9 +18,10 @@ the JAX layout: ``q, k, v`` are ``(B, H, S, Dh)`` and ``key_mask`` is a
   kernel.  They replace the TPU kernels ``_flash_bwd_dq_kernel`` /
   ``_flash_bwd_dkv_kernel`` and their S >= 4096 stream variants: they keep
   only tiles in shared memory, so one kernel covers every S.  Every
-  product runs on the tensor cores (``mma.sync`` TF32) with each operand
-  split into two TF32 terms and three products summed in float32, which
-  keeps float32-level accuracy (~1e-6); tiles arrive by ``cp.async``.
+  product is a warpgroup ``wgmma`` on the TF32 tensor cores with each
+  operand split into two TF32 terms and three products summed in float32,
+  which keeps float32-level accuracy (~1e-6); tiles arrive by TMA and are
+  split once, by a warpgroup of their own (``csrc/wgmma_tf32.cuh``).
 * Both take float32 or bfloat16 (q, k and v of one dtype).  bfloat16
   launches the bf16 instances ``csrc/flash_attention_fwd_bf16.cu`` and
   ``csrc/flash_attention_bwd_bf16.cu``: every product a warpgroup

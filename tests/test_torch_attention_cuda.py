@@ -1,11 +1,14 @@
 """The float32 attention kernels on the card: forward (O and lse within
 2e-5 abs + 2e-5 rel) and backward (dq, dk and dv within 1e-4 abs + 1e-4
-rel) against their plain versions, the tile edges, and bitwise
-repeatability.  Imports no JAX, so it runs where the card is:
+rel) against their plain versions, the tile edges, bitwise repeatability,
+and the backward's tensor maps encoded on a thread with no CUDA context.
+Imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest -m cuda tests/test_torch_attention_cuda.py
 
 Every test skips without a CUDA device (the kernels have no CPU mode)."""
+
+import threading
 
 import pytest
 import torch
@@ -83,7 +86,11 @@ def test_f32_backward_matches_plain_on_card(shape, causal):
     (S=4096, the TPU's stream kernels' regime, included); two calls
     bitwise equal; each backward kernel launched once a call."""
     _need_card()
-    q, k, v, do, mask = _card_inputs(shape, len(shape) + shape[2])
+    _check_backward(shape, causal, len(shape) + shape[2])
+
+
+def _check_backward(shape, causal, seed):
+    q, k, v, do, mask = _card_inputs(shape, seed)
     b, _, s, _ = shape
     leaves = [t.requires_grad_() for t in (q, k, v)]
     runs = []
@@ -103,6 +110,62 @@ def test_f32_backward_matches_plain_on_card(shape, causal):
                                                   causal)
     for name, g, w in zip(("dq", "dk", "dv"), runs[0], want):
         torch.testing.assert_close(g, w, **BWD_TOL, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [15, 16, 17, 31, 32, 33, 97])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_f32_backward_tile_edges_on_card(s, dh):
+    """The backward's tile edges, causal, a fully masked row: tiles of the
+    other axis of 32 rows or keys (16 at Dh=128), items of 64."""
+    _need_card()
+    _check_backward((2, 2, s, dh), True, s * dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [
+    ((33, 8, 70, 32), True), ((33, 8, 70, 32), False),
+    ((17, 16, 130, 64), True)])
+def test_f32_backward_streams_on_card(shape, causal):
+    """Enough items for two streams a block (at least two per SM), of
+    uneven counts, causal dq items of uneven lengths: the streams' turns
+    on the tensor cores balance and every item is written."""
+    _need_card()
+    _check_backward(shape, causal, sum(shape))
+
+
+@pytest.mark.cuda
+def test_f32_backward_launches_from_a_thread_without_a_context_on_card():
+    """A thread that has made no CUDA runtime call of its own has no
+    current context, and the backward kernels' tensor maps need one (their
+    encode fails without it).  The backward from a new thread whose
+    outputs come from the caching allocator equals the calling thread's."""
+    _need_card()
+    q, k, v, do, mask = _card_inputs((2, 2, 130, 32), 7)
+    o, _, m, l = port_attn._forward(q, k, v, mask, False)
+
+    def backward():
+        return port_attn.flash_attention_backward(q, k, v, mask, o, m, l, do)
+
+    want = backward()
+    del_me = backward()  # freed: the thread's outputs reuse its blocks
+    del del_me
+    torch.cuda.synchronize()
+    out = {}
+
+    def run():
+        try:
+            out["got"] = backward()
+            torch.cuda.synchronize()
+        except Exception as e:  # re-raised below, in the test's thread
+            out["err"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "err" not in out, out.get("err")
+    for x, y in zip(out["got"], want):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

@@ -145,6 +145,39 @@ def test_bench_attention_bounds_are_a_hand_count(dtype, causal):
                                          else "operations")
 
 
+def test_bwd_bench_parses_its_arguments():
+    """``tools/torch_bwd_bf16_bench.py``: ``--dtype float32`` builds the
+    float32 backward and times it at the three shapes and the baselines'
+    causal one; bfloat16 stays the default."""
+    from flexdm_tpu_torch.ops import attention as attn
+    from tools import torch_bwd_bf16_bench as bench
+
+    args = bench.parse_args(["--dtype", "float32", "--other",
+                             "parent=build/parent/flash_attention_bwd.cu",
+                             "--steps", "--turns", "4"])
+    assert (args.dtype, args.other, args.steps, args.turns) == (
+        "float32", ["parent=build/parent/flash_attention_bwd.cu"], True, 4)
+    default = bench.parse_args([])
+    assert (default.dtype, default.other, default.steps, default.turns) == (
+        "bfloat16", [], False, 2)
+    assert bench.library("float32") == attn.BWD_LIBRARY
+    assert bench.library("bfloat16") == attn.BWD_BF16_LIBRARY
+    assert bench.ENTRIES["float32"] == ("flexdm_flash_attention_bwd_dq",
+                                        "flexdm_flash_attention_bwd_dkv")
+    assert bench.F32_SHAPES == ((256, 8, 50, 32), (64, 8, 500, 32),
+                                (1, 2, 4096, 64), (64, 8, 50, 32))
+    for bad in (["--dtype", "float16"], ["--other", "parent"]):
+        with pytest.raises(SystemExit):
+            bench.parse_args(bad)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_bench_refuses_to_run_without_a_card(dtype):
+    proc = run_tool("torch_bwd_bf16_bench.py", "--dtype", dtype)
+    assert proc.returncode != 0
+    assert "this bench needs one GPU" in proc.stderr
+
+
 def test_exponential_floor_is_a_hand_count():
     """One exponential a score: 64 x 8 x 500^2 = 128,000,000 in the forward
     at crello_flat's training shape, once more in each backward kernel;
