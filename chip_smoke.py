@@ -13,12 +13,14 @@ Phases, each of which must pass (any failure exits non-zero):
    forward's and backward's and the float32 backward's registers, spills
    and C7520 lines); fails if
    the native decoder is not in use (14(a));
-3. kernel: the flash-attention forward kernel (split-TF32 tensor-core
-   products) against its plain PyTorch version on the card (O and lse
-   within 2e-5 abs + 2e-5 rel, float32) at the serving, training,
-   crello_flat training and crello_flat ``elem`` evaluation shapes, S=650
-   and the kernel's tile edges (S = 16, 17, 63, 64, 65, 128, 129 at Dh 32,
-   64, 128), and a second call bitwise equal to the first; then kernel,
+3. kernel: the flash-attention forward kernel (split-TF32 products on
+   warpgroup wgmma over TMA-fed tiles) against its plain PyTorch version
+   on the card (O and lse within 2e-5 abs + 2e-5 rel, float32) at the
+   serving, training, crello_flat training and crello_flat ``elem``
+   evaluation shapes, S=650, the kernel's tile edges (S = 15, 16, 17, 31,
+   32, 33, 63, 64, 65, 97, 128, 129 at Dh 32, 64, 128) and persistent
+   streams of more items than SMs, and a second call bitwise equal to the
+   first; the forward from a thread with no CUDA context; then kernel,
    plain version and one library call (``scaled_dot_product_attention``, a
    yardstick the port never calls) timed at (8, 8, 50, 32),
    (256, 8, 50, 32), (8, 8, 650, 32), (64, 8, 500, 32) and
@@ -142,7 +144,7 @@ Phases, each of which must pass (any failure exits non-zero):
 15. baselines (crello CanvasVAE, LayoutVAE, AutoReg, BART; D=256, 8
     heads, 4 blocks, batch 64, float32, on the 512/64/64 split of 8): for
     each, (a) one training step on the card against the same step on a
-    CPU copy, 16 documents (LayoutVAE 8; dropout 0, the same draws and VAE
+    CPU copy, 16 documents (LayoutVAE 4; dropout 0, the same draws and VAE
     normals): the loss and its KL and length terms within 1e-5 relative,
     gradients as in 8(i); (b) 5 timed steps (LayoutVAE 2) with CUDA
     events, the peak memory and a ``torch.profiler`` window; (c) ``python
@@ -423,6 +425,7 @@ def phase_build():
         log(_build.BUILD_LOGS.get(name, f"{name}: (reused build)").strip())
     for label, lib in (("bf16 forward", attn.FWD_BF16_LIBRARY),
                        ("bf16 backward", attn.BWD_BF16_LIBRARY),
+                       ("float32 forward", attn.FWD_LIBRARY),
                        ("float32 backward", attn.BWD_LIBRARY)):
         log(f"[build] {label} kernels (ptxas): " + "; ".join(
             ptxas_summary(_build.BUILD_LOGS.get(lib[0], ""))))
@@ -480,11 +483,16 @@ def phase_kernel(card):
         (FLAT_SHAPE, False, True),
         (EVAL_FLAT_SHAPE, False, True),
     ]
-    # The kernel's tile edges (64-row query tiles; 64-key K/V tiles, 32 at
-    # Dh=128).
+    # The kernel's tile edges: items of 64 query rows; K/V tiles of 64 keys
+    # at Dh=32, 32 at Dh=64, 16 at Dh=128.
     cases += [((2, 2, s, dh), causal, True)
-              for s in (16, 17, 63, 64, 65, 128, 129)
+              for s in (15, 16, 17, 31, 32, 33, 63, 64, 65, 97, 128, 129)
               for dh in (32, 64, 128) for causal in (False, True)]
+    # Persistent streams: items outnumbering the SMs (two streams a block
+    # at Dh <= 64, uneven counts; one at Dh = 128), several items a block.
+    cases += [((33, 8, 70, 32), False, True), ((33, 8, 70, 32), True, True),
+              ((17, 16, 130, 64), True, True),
+              ((9, 8, 130, 128), False, True)]
     worst = 0.0
     for shape, causal, fully_masked in cases:
         b, h, s, dh = shape
@@ -513,10 +521,44 @@ def phase_kernel(card):
         check(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
               f"two forward calls differ at {shape} causal={causal}")
 
+    forward_off_thread(g)
     timings = {shape: forward_times(shape, g, card)
                for shape in ((8, 8, 50, 32), (256, 8, 50, 32), (8, 8, 650, 32),
                              FLAT_SHAPE, EVAL_FLAT_SHAPE)}
     return worst, timings
+
+
+def forward_off_thread(g):
+    """The serving engine's case: the forward launched from a thread that
+    has made no CUDA call of its own (no current context; the tensor maps'
+    encode needs one) equals the calling thread's, bitwise."""
+    import torch
+
+    from flexdm_tpu_torch.ops import attention as attn
+
+    shape = (8, 8, 50, 32)
+    q, k, v = (torch.randn(shape, generator=g).cuda() for _ in range(3))
+    mask = (torch.rand(shape[0], shape[2], generator=g) > 0.3).cuda()
+    want = attn._forward(q, k, v, mask, False)
+    torch.cuda.synchronize()
+    out = {}
+
+    def run():
+        try:
+            out["got"] = attn._forward(q, k, v, mask, False)
+            torch.cuda.synchronize()
+        except Exception as e:  # reported below, in the calling thread
+            out["err"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=120)
+    check(not thread.is_alive(), "the forward off the main thread hangs")
+    check("err" not in out, f"forward off the main thread: {out.get('err')}")
+    check(all(torch.equal(x, y) for x, y in zip(out["got"], want)),
+          "the forward off the main thread differs from the main thread's")
+    log("[kernel] the forward from a thread with no CUDA context: bitwise "
+        "the calling thread's")
 
 
 def forward_times(shape, g, card):
@@ -1000,10 +1042,9 @@ def backward_times(shape, g, card):
     return t
 
 
-def profile_steps(fn, steps=5):
-    """Device kernel time per call of ``fn`` over ``steps`` calls from
-    ``torch.profiler``: total and attention kernels' ms, kernels per call,
-    and the three kernels that take the most time."""
+def profile_by_name(fn, steps=5):
+    """Device kernel ms per call of ``fn`` by kernel name over ``steps``
+    calls from ``torch.profiler``, and the device kernels per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1019,14 +1060,25 @@ def profile_steps(fn, steps=5):
             continue
         us = getattr(e, "device_time", None)
         by_name[e.name] = by_name.get(e.name, 0.0) + (
-            e.cuda_time if us is None else us)
+            e.cuda_time if us is None else us) / 1e3 / steps
         count += 1
-    total = sum(by_name.values()) / 1e3 / steps
-    attention = sum(v for k, v in by_name.items()
-                    if "flash_" in k) / 1e3 / steps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    top = ", ".join(f"{k[:50]} {v / 1e3 / steps:.3f} ms" for k, v in top)
-    return total, attention, count / steps, top
+    return by_name, count / steps
+
+
+def top_kernels(by_name, n=3):
+    """The ``n`` kernels of :func:`profile_by_name` that take the most
+    time, as one line."""
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
+    return ", ".join(f"{k[:50]} {v:.3f} ms" for k, v in top)
+
+
+def profile_steps(fn, steps=5):
+    """Device kernel time per call of ``fn`` over ``steps`` calls from
+    ``torch.profiler``: total and attention kernels' ms, kernels per call,
+    and the three kernels that take the most time."""
+    by_name, kernels = profile_by_name(fn, steps)
+    attention = sum(v for k, v in by_name.items() if "flash_" in k)
+    return sum(by_name.values()), attention, kernels, top_kernels(by_name)
 
 
 def launch_counts():
@@ -2925,8 +2977,8 @@ BASELINE_STEPS = 5
 # LayoutVAE's step runs the blocks 50 times (~3.5 s on the card, slower on
 # the CPU): its parity takes fewer documents, its timing fewer steps and
 # its CLI epoch a smaller train split, to keep the script inside its time.
-LAYOUTVAE_PARITY_DOCS = 8
-LAYOUTVAE_STEPS = 2
+LAYOUTVAE_PARITY_DOCS = 4  # the CPU copy's 50 passes: the script's time
+LAYOUTVAE_STEPS = 1
 LAYOUTVAE_TRAIN_DOCS = 2 * BASELINE_BATCH
 BASELINE_ELEM_DOCS = 2  # the CPU's elem decodes: one replica per element
 BASELINE_DOCS = 8  # one /predict
@@ -3488,7 +3540,7 @@ TP_SHAPE = (TRAIN_BATCH, 8 // RANKS, 50, 32)
 FLAT_DP_SHAPE = (FLAT_BATCH // RANKS, 8, 500, 32)
 TP_BASELINE_SHAPE = (BASELINE_BATCH, 8 // RANKS, 50, 32)
 TP_BASELINE_STEPS = 3
-TP_LAYOUTVAE_STEPS = 2  # ~9 s a tensor-parallel LayoutVAE step on one card
+TP_LAYOUTVAE_STEPS = 1  # ~9 s a tensor-parallel LayoutVAE step on one card
 
 
 def tp_steps(name):
@@ -4616,7 +4668,7 @@ def phase_entry_points(card, root, data_dir, batch, data):
 
 RAW_DOCS = 20000  # release scale (~23k templates), the JAX drill's default
 DRILL_EPOCHS = 1  # 70 steps of 256
-CAPSTONE_EPOCHS = 2  # the last validates, so ``best`` exists
+CAPSTONE_EPOCHS = 1  # the last validates, so ``best`` exists
 CAPSTONE_ITERS = 4
 NOTEBOOK_DIRS = {"demo_crello_torch.ipynb": ("FLEXDM_JOB_DIR",
                                              "FLEXDM_DATA_DIR"),
@@ -4884,18 +4936,31 @@ def main():
         f"allow_bf16_reduced_precision_reduction "
         f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
+    t_start = time.perf_counter()
+
+    def lap(done):
+        """The script's seconds so far, after the phases ``done``: where
+        its time limit goes."""
+        log(f"[time] after {done}: {time.perf_counter() - t_start:.1f} s "
+            f"since the start")
+
     phase_build()
+    lap("phase 2 (build)")
     kernel_err, timings = phase_kernel(card)
     backward_err, backward_timings = phase_backward(card)
+    lap("the kernels' checks and times")
     phase_slice(card)
     maskgit_ms = phase_maskgit(card)
+    lap("serving and MaskGIT")
     with tempfile.TemporaryDirectory() as root:
         data_dir, spec, batch = train_data(root, "crello", seed=0)
         step_ms, f32_losses, step_counts, train_counts = phase_train(
             card, root, data_dir, spec, batch)
         rico_ms, rico_counts = phase_rico(card, root)
         flat_ms, flat_counts = phase_flat(card, root, data_dir, spec, batch)
+        lap("training crello, rico and crello_flat")
         data = eval_data(root)
+        lap("the eval splits")
         eval_counts = phase_eval(card, root, data)
         bf16_err, bf16_fwd, bf16_bwd = phase_bf16_kernel(card)
         bf16_ms, bf16_flat_ms, bf16_counts = phase_bf16(
@@ -4910,6 +4975,7 @@ def main():
             card, root, data_dir, batch, data)
         entry_counts = phase_entry_points(card, root, data_dir, batch, data)
         ingest_counts = phase_ingestion(card, root)
+    lap("phase 18")
     log(f"[time] summary: train step crello Ours-EXP {step_ms:.2f} ms "
         f"(bf16 {bf16_ms:.2f} ms), rico Ours-EXP {rico_ms:.2f} ms (batch "
         f"{TRAIN_BATCH}), crello_flat {flat_ms:.2f} ms (bf16 "

@@ -134,253 +134,23 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstdint>
 
 #include "wgmma_tf32.cuh"
 
 namespace {
 
-constexpr int kTile = 64;  // rows or keys an item has: the wgmma M
-// Keys per K/V tile (dq) and rows per Q/dO tile (dk/dv): the N of the score
-// products.
-__host__ __device__ constexpr int other_rows(int dh) {
-  return dh == 128 ? 16 : 32;
-}
-// Columns of dq, dk, dv a chained second product writes (its temporary
-// accumulator set holds 16 registers).
-constexpr int kChunkCols = 32;
-// Shared memory a block may use.
-constexpr int kSmemLimit = 232448;
 // Streams (consumer warpgroups) a block can run: two where two streams'
 // tiles fit in shared memory (dq at Dh <= 64, dk/dv at Dh = 32).
 template <int DH>
 constexpr int kMaxDqStreams = DH == 128 ? 1 : 2;
 template <int DH>
 constexpr int kMaxDkvStreams = DH == 32 ? 2 : 1;
-// A block has ``streams`` consumer warpgroups and one splitter warpgroup.
-__host__ __device__ constexpr int threads(int streams) {
-  return (streams + 1) * kWarpgroup;
-}
-
-// The SMs of the current device (the grid of a persistent launch).
-inline int sm_count() {
-  int device = 0, sms = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-          cudaSuccess)
-    return 132;
-  return sms;
-}
-
-// A stream's barriers: its own tiles landed (TMA bytes) and split, then per
-// ring stage landed and split (full).  The consumer refills a stage it has
-// just emptied, so there is no empty barrier.
-struct Barriers {
-  uint64_t* own_loaded;
-  uint64_t* own_ready;
-  uint64_t* loaded;
-  uint64_t* full;
-  __device__ Barriers(unsigned char* at, int stages)
-      : own_loaded(reinterpret_cast<uint64_t*>(at)),
-        own_ready(own_loaded + 1),
-        loaded(own_loaded + 2),
-        full(loaded + stages) {}
-  __device__ void init(int stages, int splitters) {
-    mbar_init(own_loaded, 1);
-    mbar_init(own_ready, splitters);
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(&loaded[s], 1);
-      mbar_init(&full[s], splitters);
-    }
-  }
-};
-
-__host__ __device__ constexpr int barrier_bytes(int stages) {
-  return (2 + 2 * stages) * 8;
-}
-
-// Register A fragments (hi, lo) of rows 16 w + g (+ 8) of an own tile.
-template <int DH>
-__device__ __forceinline__ void load_own_frags(uint32_t (&hi)[DH / 8][4],
-                                               uint32_t (&lo)[DH / 8][4],
-                                               const unsigned char* tile,
-                                               const unsigned char* lo_tile,
-                                               int w, int g, int t) {
-  using T = F32Tile<DH, kTile>;
-#pragma unroll
-  for (int ks = 0; ks < DH / 8; ++ks) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int off =
-          T::offset(16 * w + g + 8 * (i & 1), 8 * ks + t + 4 * (i >> 1));
-      hi[ks][i] = *reinterpret_cast<const uint32_t*>(tile + off);
-      lo[ks][i] = *reinterpret_cast<const uint32_t*>(lo_tile + off);
-    }
-    fence_regs(hi[ks]);
-    fence_regs(lo[ks]);
-  }
-}
-
-// d = A B^T over DH (a score product, N = the rows of the other-axis tile
-// ``b`` / ``b_lo``), split: A from the register fragments own_hi / own_lo
-// with REGS, else from the own tile ``a`` / ``a_lo`` in shared memory.
-// Issued, not waited.
-template <int DH, int N, bool REGS, int F>
-__device__ __forceinline__ void score_product(
-    float (&d)[N / 2], const uint32_t (&own_hi)[F][4],
-    const uint32_t (&own_lo)[F][4], uint32_t a, uint32_t a_lo, uint32_t b,
-    uint32_t b_lo) {
-  using A = F32Tile<DH, kTile>;
-  using B = F32Tile<DH, N>;
-  // The small terms of every k8 step first, then the large ones (see
-  // "Arithmetic" above).
-#pragma unroll
-  for (int ks = 0; ks < DH / 8; ++ks) {
-    const uint64_t bh = B::k_major(b, ks);
-    const uint64_t bl = B::k_major(b_lo, ks);
-    if constexpr (REGS) {
-      wgmma_tf32_rs(d, own_lo[ks], bh, ks > 0);
-      wgmma_tf32_rs(d, own_hi[ks], bl, 1);
-    } else {
-      wgmma_tf32_ss(d, A::k_major(a_lo, ks), bh, ks > 0);
-      wgmma_tf32_ss(d, A::k_major(a, ks), bl, 1);
-    }
-  }
-#pragma unroll
-  for (int ks = 0; ks < DH / 8; ++ks) {
-    if constexpr (REGS)
-      wgmma_tf32_rs(d, own_hi[ks], B::k_major(b, ks), 1);
-    else
-      wgmma_tf32_ss(d, A::k_major(a, ks), B::k_major(b, ks), 1);
-  }
-}
-
-// acc += P T, P the (64, K) accumulators split into A fragments (hi, lo),
-// T the (DH, K) transposed tile ``t`` / ``t_lo``: in chunks of kChunkCols
-// columns, each summed from zero in ``tmp`` and added in float32.  Every
-// product has completed on return.
-template <int DH, int K>
-__device__ __forceinline__ void second_product(
-    float (&acc)[DH / 2], const uint32_t (&p_hi)[K / 8][4],
-    const uint32_t (&p_lo)[K / 8][4], uint32_t t, uint32_t t_lo) {
-  using Tt = TransposedTile<DH, K>;
-  constexpr int C = kChunkCols;
-#pragma unroll
-  for (int c = 0; c < DH / C; ++c) {
-    float tmp[C / 2];
-    fence_regs(tmp);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < K / 8; ++j) {
-      wgmma_tf32_rs(tmp, p_lo[j], Tt::k_major(t, c * C, j), j > 0);
-      wgmma_tf32_rs(tmp, p_hi[j], Tt::k_major(t_lo, c * C, j), 1);
-    }
-#pragma unroll
-    for (int j = 0; j < K / 8; ++j)
-      wgmma_tf32_rs(tmp, p_hi[j], Tt::k_major(t, c * C, j), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(tmp);
-#pragma unroll
-    for (int r = 0; r < C / 2; ++r) acc[c * C / 2 + r] += tmp[r];
-  }
-}
-
-// The split A fragments of every k8 step of an accumulator set.
-template <int K>
-__device__ __forceinline__ void acc_frags(uint32_t (&hi)[K / 8][4],
-                                          uint32_t (&lo)[K / 8][4],
-                                          const float (&d)[K / 2]) {
-#pragma unroll
-  for (int j = 0; j < K / 8; ++j) {
-    acc_to_a_tf32(hi[j], lo[j], d, j);
-    fence_regs(hi[j]);
-    fence_regs(lo[j]);
-  }
-}
-
-// A stream's work: items (head bh, block of 64 rows or keys) first, first +
-// stride, ... of the n_items = BH * blocks of a launch, in that order.
-struct Item {
-  int bh, row0;
-};
-__device__ __forceinline__ Item item_at(int it, int blocks) {
-  return {it / blocks, it % blocks * kTile};
-}
-
-// The next tile a stream's consumer thread 0 copies into the stage its
-// consumers have just emptied: it walks the same items as the stream's
-// consumers and splitters, stepping (head, row block) by the stride (no
-// division a tile: the refill is on the consumers' path).
-struct Cursor {
-  int item, bh, row0, tile;
-  __device__ Cursor(int first, int blocks)
-      : item(first), bh(first / blocks), row0(first % blocks * kTile),
-        tile(0) {}
-  // Once an item (the divisions are by the same values every time).
-  __device__ void next_item(int stride, int blocks) {
-    item += stride;
-    bh += stride / blocks;
-    row0 += stride % blocks * kTile;
-    if (row0 >= blocks * kTile) {
-      row0 -= blocks * kTile;
-      ++bh;
-    }
-    tile = 0;
-  }
-};
-
-// Two streams take turns on the tensor cores: a stream issues a tile's
-// score products only in its turn (named barrier kTurn + its index, both
-// consumer warpgroups), then hands the turn over, so one stream's products
-// run while the other forms p and ds, instead of both at once.  Stream 1
-// opens by handing stream 0 the first turn; a stream with fewer tiles
-// takes empty turns until the other is done, and stream 0 takes a last one,
-// so every arrival meets its wait.  One stream: nothing to do.
-constexpr int kTurn = 3;  // named barriers kTurn, kTurn + 1
-template <int NS>
-struct Turns {
-  int sid;  // the stream
-  __device__ void open() const {
-    if (NS == 2 && sid == 1) named_arrive(kTurn, 2 * kWarpgroup);
-  }
-  __device__ void take() const {
-    if (NS == 2) named_sync(kTurn + sid, 2 * kWarpgroup);
-  }
-  __device__ void give() const {
-    if (NS == 2) named_arrive(kTurn + 1 - sid, 2 * kWarpgroup);
-  }
-  // ``tiles(x)``: the tiles of the block's stream x.
-  template <typename Tiles>
-  __device__ void close(Tiles tiles) const {
-    if (NS != 2) return;
-    for (int x = tiles(sid), most = max(tiles(0), tiles(1)); x < most; ++x) {
-      take();
-      give();
-    }
-    if (sid == 0) take();
-  }
-};
-
-// Items a stream gets: first, first + stride, ... below n_items.
-__device__ __forceinline__ int stream_items(int first, int stride,
-                                            int n_items) {
-  return first < n_items ? (n_items - 1 - first) / stride + 1 : 0;
-}
 
 // ---------------------------------------------------------------------------
 // dq (and delta).  An item is 64 query rows of one head.  Per K/V tile:
 // s = q k^T and dp = dO v^T, ds in registers, then dq += ds k.
 // ---------------------------------------------------------------------------
-
-// Ring stages a stream gets out of a block's shared memory, at most 4.
-constexpr int ring_stages(int streams, int own_bytes, int stage_bytes,
-                          int vec_bytes) {
-  const int per_stage = streams * (stage_bytes + vec_bytes + 16);
-  const int n = (kSmemLimit - 1024 - streams * (own_bytes + 16)) / per_stage;
-  return n < 4 ? n : 4;
-}
 
 template <int DH, int NS>
 struct DqPlan {
@@ -990,15 +760,6 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
   });
 }
 
-// Streams a launch runs per block: two where there are more items than
-// SMs (and a Dh with a two-stream instance), so an SM overlaps two items
-// where one stream would run them in turn; else one, so that every SM has
-// an item (at (1, 2, 4096, 64), 128 items, two streams would leave half
-// the SMs idle).
-int streams_for(int items, int max_streams) {
-  return max_streams > 1 && items > sm_count() ? 2 : 1;
-}
-
 template <int DH, int NS, bool CAUSAL>
 cudaError_t launch_dq_streams(const CUtensorMap (&maps)[4],
                               const uint8_t* key_mask, const float* o,
@@ -1083,13 +844,6 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
   if (causal) return two ? FLEXDM_DKV(NS, true) : FLEXDM_DKV(1, true);
   return two ? FLEXDM_DKV(NS, false) : FLEXDM_DKV(1, false);
 #undef FLEXDM_DKV
-}
-
-// Shapes the launches take: the items (B H (S / 64) blocks of 64 rows or
-// keys) counted in an int.
-bool bad_shape(int B, int H, int S) {
-  return B <= 0 || H <= 0 || S <= 0 ||
-         static_cast<long long>(B) * H * ((S + kTile - 1) / kTile) > INT_MAX;
 }
 
 }  // namespace

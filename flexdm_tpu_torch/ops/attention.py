@@ -9,10 +9,11 @@ the JAX layout: ``q, k, v`` are ``(B, H, S, Dh)`` and ``key_mask`` is a
   kernels, written out as the formulas autograd computes.
 * :func:`flash_attention_forward` launches the hand-written Hopper kernel
   ``csrc/flash_attention_fwd.cu``, which replaces the TPU kernel
-  ``_flash_fwd_kernel``: 64-row query tiles, both products (q k^T and
-  p v) on the tensor cores with the split-TF32 arithmetic described
-  below, K/V tiles by ``cp.async``.  The kernel note in the source says
-  what bounds it on the H100.
+  ``_flash_fwd_kernel``: persistent streams of 64-row query items, both
+  products (q k^T and p v) warpgroup ``wgmma`` on the TF32 tensor cores
+  with the split-TF32 arithmetic described below, K/V tiles brought in by
+  TMA and split once by a warpgroup of their own (V transposed for p v).
+  The kernel note in the source says what bounds it on the H100.
 * :func:`flash_attention_backward` launches ``csrc/flash_attention_bwd.cu``:
   a dq kernel (which also writes ``delta = rowsum(dO * O)``) and a dk/dv
   kernel.  They replace the TPU kernels ``_flash_bwd_dq_kernel`` /

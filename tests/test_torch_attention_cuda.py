@@ -1,7 +1,8 @@
 """The float32 attention kernels on the card: forward (O and lse within
 2e-5 abs + 2e-5 rel) and backward (dq, dk and dv within 1e-4 abs + 1e-4
-rel) against their plain versions, the tile edges, bitwise repeatability,
-and the backward's tensor maps encoded on a thread with no CUDA context.
+rel) against their plain versions, the tile edges, persistent streams of
+items, bitwise repeatability, and the tensor maps of both encoded on a
+thread with no CUDA context.
 Imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest -m cuda tests/test_torch_attention_cuda.py
@@ -73,6 +74,60 @@ def test_f32_forward_tile_edges_on_card(s, dh):
     at Dh=128), causal."""
     _need_card()
     _check_forward((2, 2, s, dh), True, s * dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [15, 31, 32, 33, 95, 97])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_forward_key_tile_edges_on_card(s, dh, causal):
+    """The forward's key tiles (64 keys at Dh=32, 32 at Dh=64, 16 at
+    Dh=128): a last tile of one key, a full one, one short of full; a fully
+    masked row."""
+    _need_card()
+    _check_forward((2, 2, s, dh), causal, s + dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [
+    ((33, 8, 70, 32), False), ((33, 8, 70, 32), True),
+    ((17, 16, 130, 64), True), ((9, 8, 130, 128), False),
+    ((2, 4, 130, 32), True), ((1, 1, 4096, 32), False)])
+def test_f32_forward_streams_on_card(shape, causal):
+    """Items (64 query rows of a head) outnumbering the SMs, two streams a
+    block at Dh <= 64 with uneven counts and one at Dh = 128, each block
+    running several items; and fewer items than SMs (one stream, one item
+    a block, S = 4096 a long one)."""
+    _need_card()
+    _check_forward(shape, causal, sum(shape))
+
+
+@pytest.mark.cuda
+def test_f32_forward_launches_from_a_thread_without_a_context_on_card():
+    """The serving engine runs forwards off the main thread: a thread that
+    has made no CUDA runtime call of its own has no current context, and
+    the forward's tensor maps need one.  The forward from a new thread
+    equals the calling thread's, bitwise."""
+    _need_card()
+    q, k, v, _, mask = _card_inputs((4, 8, 100, 32), 11)
+    want = port_attn._forward(q, k, v, mask, False)
+    torch.cuda.synchronize()
+    out = {}
+
+    def run():
+        try:
+            out["got"] = port_attn._forward(q, k, v, mask, False)
+            torch.cuda.synchronize()
+        except Exception as e:  # re-raised below, in the test's thread
+            out["err"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive()
+    assert "err" not in out, out.get("err")
+    for x, y in zip(out["got"], want):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
@@ -180,4 +235,8 @@ def test_f32_kernels_refuse_unaligned_rows_on_card():
         port_attn.flash_attention_forward(q, q, q)
     with pytest.raises(ValueError, match="16-byte"):
         port_attn.flash_attention_backward(q, q, q, None, q, stats, stats, q)
+    aligned = torch.zeros(1, 2, 4, 32, device="cuda")
+    for args in ((aligned, q, aligned), (aligned, aligned, q)):
+        with pytest.raises(ValueError, match="16-byte"):
+            port_attn.flash_attention_forward(*args)
     assert port_attn.launch_counts() == counts

@@ -1,6 +1,6 @@
-"""The float32 backward kernels' arithmetic (``csrc/flash_attention_bwd.cu``
-on ``csrc/wgmma_tf32.cuh``) emulated on the CPU on the kernels' own tile
-layouts.
+"""The float32 attention kernels' arithmetic (``csrc/flash_attention_fwd.cu``
+and ``csrc/flash_attention_bwd.cu`` on ``csrc/wgmma_tf32.cuh``) emulated on
+the CPU on the kernels' own tile layouts.
 
 The layouts are mirrored from ``wgmma_tf32.cuh``: a tile as TMA writes it
 (``F32Tile``, 128-byte swizzle), its split into hi = tf32(x) and
@@ -13,24 +13,32 @@ canonical layouts of the PTX ISA (modelled below: byte addresses, then the
 TF32 products (lo hi' + hi lo' + hi hi', the small terms of all k8 steps
 first) whose lo terms the tensor cores read to 19 bits (truncated here, the
 worse of truncation and rounding), summed in float32; each tile's second
-product is summed from zero and added to the running sum, as the kernels
-do.
+product (the forward's P V, the backward's ds k, p^T dO, ds^T q) is summed
+from zero and added to the running sum, as the kernels do.  The forward's
+scores are in log2 units, its online softmax over tiles of 64 keys at
+Dh = 32 (32 at Dh = 64, 16 at Dh = 128), P V one product of up to 32 keys
+at a time.
 
-Held to the plain backward within ``CARD_TOL`` (1e-4 abs + 1e-4 rel, the
-bar of ``chip_smoke.py``), and shown to fail it when the transposed tiles
+Held to the plain versions within ``KERNEL_TOL`` (the forward's O and lse,
+2e-5 abs + 2e-5 rel) and ``CARD_TOL`` (dq, dk, dv, 1e-4 abs + 1e-4 rel), the
+bars of ``chip_smoke.py``, and shown to fail them when the transposed tiles
 keep the rows in their own order (the permutation of the accumulator-made A
-operand not matched) or are not transposed at all.  The tensor cores'
-own float32 summation order and rounding are not emulated."""
+operand not matched) or are not transposed at all.  The forward's emulation
+also meets the JAX package's Pallas forward (interpret mode).  The tensor
+cores' own float32 summation order and rounding are not emulated."""
 
 import math
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from flexdm_tpu.ops import attention as jax_attn
 from flexdm_tpu_torch.ops import attention as port_attn
 
 CARD_TOL = dict(rtol=1e-4, atol=1e-4)
+KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 TILE = 64  # rows or keys of an item: the wgmma M
 
 
@@ -41,6 +49,11 @@ TILE = 64  # rows or keys of an item: the wgmma M
 def other_rows(dh):
     """Keys per K/V tile (dq) and rows per Q/dO tile (dk/dv)."""
     return 16 if dh == 128 else 32
+
+
+def fwd_keys(dh):
+    """Keys per K/V tile of the forward (fwd_keys in the kernel)."""
+    return 64 if dh == 32 else other_rows(dh)
 
 
 def f32_offset(r, c, rows):
@@ -222,17 +235,19 @@ def score_product(own, own_layout, other, layout, in_regs):
          for ks in range(layout.dh // 8)])
 
 
-def second_product(acc, p, tile_buf, layout):
+def second_product(acc, p, tile_buf, layout, j0=0, steps=None):
     """acc + p T: p (..., 64, K) accumulators as A fragments, T the
-    transposed tile of the (K, dh) landed tile; 32 columns a chunk, each
-    summed from zero and added in float32."""
+    transposed tile of the (K, dh) landed tile, its k8 steps j0 ..
+    j0 + steps (all by default); 32 columns a chunk, each summed from zero
+    and added in float32."""
     t = layout.transpose(tile_buf)
     out = acc.clone()
+    steps = layout.rows // 8 if steps is None else steps
     for c0 in range(0, layout.dh, 32):
         out[..., c0:c0 + 32] += products(
             [(p[..., torch.from_numpy(a_from_acc_columns(j))],
               layout.t_k_major(t, c0, j, 32))
-             for j in range(layout.rows // 8)])
+             for j in range(j0, j0 + steps)])
     return out
 
 
@@ -323,6 +338,61 @@ def emulate_backward(q, k, v, key_mask, o, do, m, l, causal,
     dk = (dk * scale).reshape(b, h, sp, dh)[..., :s, :]
     dv = dv.reshape(b, h, sp, dh)[..., :s, :]
     return dq, dk, dv
+
+
+LOG2E = np.float32(1.4426950408889634)
+LN2 = np.float32(0.6931471805599453)
+MASKED2 = np.float32(np.float32(-1e9) * LOG2E)  # kMaskedLog2
+
+
+def emulate_forward(q, k, v, key_mask, causal, order=acc_order):
+    """(O, lse) of the forward kernel's arithmetic on its layouts: per item
+    (64 query rows) and key tile, S = Q K^T from Q (register fragments at
+    Dh = 32, else read K-major) and K as landed, x = s scale log2 e + bias
+    log2 e, keys past S excluded, replaced scores -1e9 log2 e, the online
+    softmax in log2 units, then O += P V with P from the score
+    accumulators and V transposed, rows at ``order`` (acc_order; another
+    order breaks it, the mutation case), one product of 32 keys (16 at
+    Dh = 128) at a time, each summed from zero and added in float32.
+    m = m2 ln 2, lse = m + log l."""
+    b, h, s, dh = q.shape
+    bk = fwd_keys(dh)
+    kh = min(bk, 32)  # keys a P V product takes
+    c1 = np.float32(np.float32(1.0) / np.sqrt(np.float32(dh)) * LOG2E)
+    sp = -(-s // TILE) * TILE  # whole items
+    n_t = -(-s // bk)          # key tiles an item visits
+    qp = _pad(q, sp)
+    kp, vp = (_pad(x, n_t * bk) for x in (k, v))
+    bias2 = torch.full((b, n_t * bk), float(MASKED2))
+    bias2[:, :s] = torch.where(key_mask, 0.0, float(MASKED2)) \
+        if key_mask is not None else 0.0
+    own = TileLayout(TILE, dh, 64)
+    tiles = TileLayout(bk, dh, 64, order)
+    q_buf = own.landed(qp.reshape(b, h, sp // TILE, TILE, dh))
+    rows = torch.arange(sp).reshape(sp // TILE, TILE, 1)
+    m2 = torch.full((b, h, sp // TILE, TILE), -math.inf)
+    l = torch.zeros(b, h, sp // TILE, TILE)
+    acc = torch.zeros(b, h, sp // TILE, TILE, dh)
+    for j in range(n_t):
+        key = torch.arange(j * bk, (j + 1) * bk)
+        k_buf = tiles.landed(kp[:, :, None, j * bk:(j + 1) * bk])
+        v_buf = tiles.landed(vp[:, :, None, j * bk:(j + 1) * bk])
+        sc = score_product(q_buf, own, k_buf, tiles, dh == 32)
+        x = sc * c1 + bias2[:, None, None, None, key]
+        if causal:
+            x = torch.where(key > rows, float(MASKED2), x)
+        x = torch.where(key < s, x, -math.inf)
+        m_new = torch.maximum(m2, x.amax(-1))
+        alpha = torch.exp2(m2 - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None]
+        for j0 in range(0, bk // 8, kh // 8):
+            acc = second_product(acc, p, v_buf, tiles, j0, kh // 8)
+        m2 = m_new
+    o = (acc / l[..., None]).reshape(b, h, sp, dh)[..., :s, :]
+    lse = (m2 * LN2 + torch.log(l)).reshape(b, h, sp)[..., :s]
+    return o, lse
 
 
 def _inputs(shape, seed, fully_masked_row):
@@ -416,3 +486,62 @@ def test_tile_layouts_read_back_as_written(rows, dh):
             slots = {f32_offset(r0 + 2 * m, c, rows) // 16 % 8
                      for r0, c in units[u0:u0 + 8]}
             assert len(slots) == 8
+
+
+def _plain_forward(q, k, v, mask, causal):
+    b, _, s, _ = q.shape
+    bias = port_attn.key_bias(mask, b, s, "cpu")
+    return (port_attn.attention_reference(q, k, v, bias, causal),
+            port_attn.attention_reference_lse(q, k, bias, causal))
+
+
+FORWARD_CASES = [((8, 8, 50, 32), False, True), ((8, 8, 50, 32), True, True),
+                 ((2, 2, 63, 32), True, True), ((2, 2, 64, 64), False, True),
+                 ((2, 2, 65, 128), True, True), ((2, 2, 129, 32), False, True),
+                 ((2, 2, 129, 64), True, False), ((2, 2, 500, 32), False, True)]
+
+
+@pytest.mark.parametrize("shape,causal,fully_masked_row", FORWARD_CASES)
+def test_emulated_wgmma_forward_meets_the_card_tolerance(shape, causal,
+                                                          fully_masked_row):
+    """O and lse through the forward kernel's layouts, split, log2 scores
+    and tile sums within KERNEL_TOL of the plain version: a fully masked
+    row, causal, Dh 32, 64 and 128, S at the tile edges and S = 500."""
+    q, k, v, _, mask = _inputs(shape, 20, fully_masked_row)
+    want = _plain_forward(q, k, v, mask, causal)
+    got = emulate_forward(q, k, v, mask, causal)
+    for g, w, n in zip(got, want, ("O", "lse")):
+        torch.testing.assert_close(g, w, **KERNEL_TOL, msg=n)
+    if fully_masked_row:  # V averaged over the S real keys, l = S
+        torch.testing.assert_close(got[0][-1], v[-1].mean(-2, keepdim=True)
+                                   .expand_as(got[0][-1]), **KERNEL_TOL)
+
+
+def test_forward_emulation_fails_with_v_rows_in_their_own_order():
+    """V's transposed tile must hold key r at acc_order(r): in the keys' own
+    order P V pairs accumulator column 2t + 1 with key t + 4."""
+    q, k, v, _, mask = _inputs((2, 2, 64, 32), 6, False)
+    want = _plain_forward(q, k, v, mask, False)
+    got = emulate_forward(q, k, v, mask, False, order=lambda r: r)
+    assert not torch.allclose(got[0], want[0], **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("causal,fully_masked_row", [(False, True),
+                                                     (True, False)])
+def test_emulated_forward_matches_the_jax_pallas_forward(causal,
+                                                         fully_masked_row):
+    """The same seeded numpy inputs through JAX's ``_flash_forward`` in
+    interpret mode (as the JAX package's tests run it on the CPU) and
+    through the emulation: O and lse within 2e-5.  (JAX adds its causal
+    -1e9 where the port replaces the score, so a fully masked row is
+    compared without the band.)"""
+    q, k, v, _, mask = _inputs((2, 4, 96, 32), 21, fully_masked_row)
+    bias = np.where(mask.numpy(), 0.0, jax_attn.NEG_INF).astype(np.float32)
+    want_o, want_lse = jax_attn._flash_forward(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v)), jnp.asarray(bias),
+        causal, True)
+    got_o, got_lse = emulate_forward(q, k, v, mask, causal)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o),
+                               **KERNEL_TOL)
+    np.testing.assert_allclose(got_lse.numpy(),
+                               np.asarray(want_lse)[..., 0], **KERNEL_TOL)

@@ -178,6 +178,81 @@ def test_bwd_bench_refuses_to_run_without_a_card(dtype):
     assert "this bench needs one GPU" in proc.stderr
 
 
+def test_fwd_bench_parses_its_arguments():
+    """``tools/torch_fwd_bench.py``: float32 by default, the parent's file
+    as ``--other``, the bf16 mode kept; the float32 shapes of the A/B: the
+    aims' shapes, the baselines' causal one, a rank's shapes, then
+    crello_scaled's Dh = 64 one."""
+    from tools import torch_fwd_bench as bench
+
+    parent = "parent=build/parent/flexdm_tpu_torch/csrc/flash_attention_fwd.cu"
+    args = bench.parse_args(["--other", parent, "--steps", "--turns", "4",
+                             "--sass-out", "build/sass"])
+    assert (args.dtype, args.other, args.steps, args.turns,
+            args.sass_out) == ("float32", [parent], True, 4,
+                               "build/sass")
+    default = bench.parse_args([])
+    assert (default.dtype, default.other, default.steps, default.turns,
+            default.sass_out) == ("float32", [], False, 2, None)
+    assert bench.parse_args(["--dtype", "bfloat16"]).dtype == "bfloat16"
+    assert bench.ENTRIES == {"float32": "flexdm_flash_attention_fwd",
+                             "bfloat16": "flexdm_flash_attention_fwd_bf16"}
+    assert bench.SOURCES["float32"] == "flash_attention_fwd.cu"
+    assert bench.CASES["float32"] == (
+        ((8, 8, 50, 32), False), ((256, 8, 50, 32), False),
+        ((8, 8, 650, 32), False), ((64, 8, 500, 32), False),
+        ((256, 8, 500, 32), False), ((64, 8, 50, 32), True),
+        ((128, 8, 50, 32), False), ((256, 4, 50, 32), False),
+        ((32, 8, 500, 32), False), ((64, 4, 50, 32), False),
+        ((64, 4, 50, 32), True), ((2048, 8, 50, 64), False))
+    for bad in (["--dtype", "float16"], ["--other", "parent"]):
+        with pytest.raises(SystemExit):
+            bench.parse_args(bad)
+
+
+def test_fwd_bench_floors_are_a_hand_count(monkeypatch):
+    """The split-TF32 tensor floor: 3 x (2 products of 2 S^2 Dh FLOPs) a
+    head, 3 x 16.384 GFLOP at (64, 8, 500, 32), 0.0993 ms at 495 TFLOP/s;
+    the causal case's bound counts the band's (S + 1) / 2S of the products
+    and of the exponentials, its split floor every tile; a thread forms 32
+    scores a float32 key tile at Dh = 32 (16 at Dh = 64, 8 at Dh = 128), 32
+    a bf16 one."""
+    from tools import torch_fwd_bench as bench
+
+    chip_smoke = bench.chip_smoke
+    monkeypatch.setattr(chip_smoke, "card_sm_rate", lambda: (132, 1980.0))
+    assert bench.split_floor_ms((64, 8, 500, 32)) == pytest.approx(
+        3 * 16.384e9 / 495e12 * 1e3, rel=1e-12)
+    assert bench.split_floor_ms((64, 8, 500, 32)) == pytest.approx(0.0993,
+                                                                  abs=1e-4)
+    flat = bench.case_bounds((64, 8, 500, 32), False, "float32")
+    assert flat["bound_by"] == "bytes"
+    assert flat["bound_ms"] == pytest.approx(
+        (4 * 4 * 64 * 8 * 500 * 32 + 4 * 3 * 64 * 8 * 500 + 64 * 500)
+        / 3.35e12 * 1e3, rel=1e-12)
+    assert flat["exp_floor_ms"] == pytest.approx(0.0306, abs=1e-4)
+    causal = bench.case_bounds((64, 8, 50, 32), True, "float32")
+    rows = 64 * 8 * 50
+    assert causal["bound_ms"] == pytest.approx(
+        max((16 * rows * 32 + 12 * rows + 64 * 50) / 3.35e12,
+            4 * 64 * 8 * 50 * 50 * 32 * (51 / 100) / 495e12) * 1e3,
+        rel=1e-12)
+    assert causal["exp_floor_ms"] == pytest.approx(
+        64 * 8 * 50 * 51 / 2 / (16 * 132 * 1980e6) * 1e3, rel=1e-12)
+    assert causal["split_floor_ms"] == bench.split_floor_ms((64, 8, 50, 32))
+    assert "split_floor_ms" not in bench.case_bounds((64, 8, 500, 32), False,
+                                                     "bfloat16")
+    assert [bench.scores_per_pass(d, dh) for d, dh in (
+        ("float32", 32), ("float32", 64), ("float32", 128),
+        ("bfloat16", 32))] == [32, 16, 8, 32]
+
+
+def test_fwd_bench_refuses_to_run_without_a_card():
+    proc = run_tool("torch_fwd_bench.py")
+    assert proc.returncode != 0
+    assert "this bench needs one GPU" in proc.stderr
+
+
 def test_exponential_floor_is_a_hand_count():
     """One exponential a score: 64 x 8 x 500^2 = 128,000,000 in the forward
     at crello_flat's training shape, once more in each backward kernel;

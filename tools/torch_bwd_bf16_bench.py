@@ -27,8 +27,8 @@ own headers sit beside it), one nvcc each, all at once.  Then:
 * with ``--steps``: the crello_flat training step at batch 64 in the dtype
   (random weights, seed 0; one synthetic batch) with each build swapped in,
   in turns (A, B, B, A): median of 20 warm steps between CUDA events, and
-  from ``torch.profiler`` over 10 steps the device kernel time per step and
-  the attention kernels' share.
+  from ``torch.profiler`` over 10 steps the device kernel time per step,
+  the attention kernels' share and the forward kernel's.
 
 Prints one line per measurement and, last, one JSON object with all of
 them.
@@ -310,17 +310,23 @@ def bench_steps(builds, card, attr="_bwd_kernels", tag="bwd bf16 steps",
                     stop.record()
                     stop.synchronize()
                     times.append(start.elapsed_time(stop))
-                device, attention, kernels, top = chip_smoke.profile_steps(
+                by_name, kernels = chip_smoke.profile_by_name(
                     lambda: step(batch, draws), steps=10)
+                device = sum(by_name.values())
+                attention = sum(v for k, v in by_name.items()
+                                if "flash_" in k)
+                fwd = sum(v for k, v in by_name.items() if "flash_fwd" in k)
+                top = chip_smoke.top_kernels(by_name)
                 results[name].append({
                     "step_ms": statistics.median(times), "device_ms": device,
-                    "attention_ms": attention, "kernels": kernels})
+                    "attention_ms": attention, "fwd_ms": fwd,
+                    "kernels": kernels})
                 chip_smoke.log(
                     f"[{tag}] {name}: crello_flat {dtype} step "
                     f"{statistics.median(times):.2f} ms (median of 20), "
                     f"device kernel time {device:.3f} ms per step, attention"
-                    f" kernels {attention:.3f} ms, {kernels:.0f} kernels; "
-                    f"most time: {top} [{card}]")
+                    f" kernels {attention:.3f} ms (the forward {fwd:.3f}), "
+                    f"{kernels:.0f} kernels; most time: {top} [{card}]")
         finally:
             setattr(attn, attr, own)
     return results
