@@ -19,22 +19,28 @@ Phases, each of which must pass (any failure exits non-zero):
    serving, training, crello_flat training and crello_flat ``elem``
    evaluation shapes, S=650, the kernel's tile edges (S = 15, 16, 17, 31,
    32, 33, 63, 64, 65, 97, 128, 129 at Dh 32, 64, 128) and persistent
-   streams of more items than SMs, and a second call bitwise equal to the
-   first; the forward from a thread with no CUDA context; then kernel,
+   streams of more items than SMs, the head dims below the tile widths
+   (Dh 8, 16, 20, 25, 48, 96, 120 at (8, 8, 50, Dh) and (2, 4, 500, Dh),
+   causal and not, the last fifth of the keys masked; the two-stream
+   (33, 8, 70, 25) and (33, 8, 70, 48)), and a second call bitwise equal
+   to the first; the forward from a thread with no CUDA context; then kernel,
    plain version and one library call (``scaled_dot_product_attention``, a
    yardstick the port never calls) timed at (8, 8, 50, 32),
-   (256, 8, 50, 32), (8, 8, 650, 32), (64, 8, 500, 32) and
-   (256, 8, 500, 32), beside the bound computed from the shapes;
+   (256, 8, 50, 32), (8, 8, 650, 32), (64, 8, 500, 32),
+   (256, 8, 500, 32) and the head dims of ``--latent_dim`` 128 and 384,
+   (256, 8, 50, 16) and (256, 8, 50, 48), beside the bound computed from
+   the shapes (at the true Dh);
 4. backward: the backward kernels (dq with delta, dk/dv; split-TF32
    products on warpgroup wgmma over TMA-fed tiles) through autograd
    against the plain backward and against autograd of the plain forward,
    dq, dk and dv within 1e-4 abs + 1e-4 rel at every shape, S=4096 (the
    regime of the TPU's stream kernels), S=500, the kernels' tile edges
-   (S = 16, 17, 32, 33, 64, 65, 128, 129 at Dh 32, 64, 128) and two
-   streams of uneven items a block included, and a second call bitwise
-   equal to the first; then the kernels, the plain autograd backward and the library
-   call's backward timed at (256, 8, 50, 32), (1, 2, 4096, 64) and
-   (64, 8, 500, 32), beside their bounds;
+   (S = 16, 17, 32, 33, 64, 65, 128, 129 at Dh 32, 64, 128), two
+   streams of uneven items a block and phase 3's head dims included, and
+   a second call bitwise equal to the first; then the kernels, the plain
+   autograd backward and the library call's backward timed at
+   (256, 8, 50, 32), (1, 2, 4096, 64), (64, 8, 500, 32), (256, 8, 50, 16)
+   and (256, 8, 50, 48), beside their bounds;
 5. slice: the crello Ours-EXP job (D=256, 4 DeepSVG blocks, 8 heads,
    batch 8) with random weights from seed 0 on a synthetic data dir,
    served over HTTP through ``CoalescingEngine``; every answer is checked
@@ -81,7 +87,8 @@ Phases, each of which must pass (any failure exits non-zero):
     (counted).
 12. bf16 (``--dtype bfloat16``): (a) the bf16 kernel instances against
     their plain bf16 versions at the serving, training and crello_flat
-    shapes, S=650, the tile edges (causal, a fully masked row) and, for the
+    shapes, S=650, the tile edges (causal, a fully masked row), phase 3's
+    head dims (20 and 25 through padded copies) and, for the
     backward, S=4096: O, dq, dk and dv within one bf16 ulp (2^-7 relative)
     plus 2^-8 of the largest reference entry, lse and delta within 2e-5
     abs + 2e-5 rel, a second call bitwise equal; timed beside the plain
@@ -103,7 +110,8 @@ Phases, each of which must pass (any failure exits non-zero):
     to ``--attention_impl xla`` on the card at bf16's bars.  Every bf16
     path launches only bf16 kernels, every float32 path only float32 ones.
     12(a)'s times: at (8, 8, 50, 32), (256, 8, 50, 32), (64, 8, 500, 32),
-    (256, 8, 500, 32) and crello_scaled's (2048, 8, 50, 64), each with the
+    (256, 8, 500, 32), crello_scaled's (2048, 8, 50, 64), (256, 8, 50, 16)
+    and (256, 8, 50, 48), each with the
     last fifth of the keys masked and with every key attended (the
     library with no mask then), beside the exponential floor.
 13. trainer (crello Ours-EXP, batch 256, the 512/64/64 split of 8): (a)
@@ -251,6 +259,21 @@ Phases, each of which must pass (any failure exits non-zero):
     ``flexdm_tpu_torch.utils.notebook`` on the card (a toy job trained
     there first): at least 2 HTML outputs each, the forward launched.
     Each part prints its seconds.
+19. head dims (run before 18): crello Ours-EXP (4 blocks, 8 heads, S=50,
+    batch 256, the 512/64/64 split of 8) at ``--latent_dim`` 128 and 384
+    (Dh 16 and 48, widths no preset has), ``--attention_impl pallas``
+    against ``xla``: (a) one step (dropout 0, the same draws) at 8(i)'s
+    gate, at 384 in bf16 too (no farther from the plain bf16 step than
+    that is from float32); (b) ``python -m flexdm_tpu_torch`` for one
+    epoch with a validation in float32 (and bf16 at 384), the histories
+    within 1e-5 (training) and ``EVAL_RTOL`` (validation; bf16 one ulp);
+    (c) the eval CLI's ``elem`` and ``all_feat`` on the pallas job over
+    its 64 test documents, as 11 (near ties counted); (d) ``/predict`` of
+    8 documents with ``num_iter`` 1 and 3 over HTTP against an engine on
+    a copy of the job recording ``xla`` (decoder outputs within 1e-4,
+    answers equal but for near ties).  Launches exact: the forward once
+    for every attention call of the ``xla`` run, 4 of each backward kernel
+    a step, 4 x ``num_iter`` a request.
 Each step phase ends with a ``torch.profiler`` window: device kernel time
 per step, its attention share and the busiest kernels.
 
@@ -263,9 +286,10 @@ trainer path of phase 13, the demo runs of phase 14, each baseline's
 steps, CLI run and evaluation of phase 15 and one rank's step of phase
 16's layouts and of each baseline's tensor-parallel step; a float32
 kernel's ``multi_device`` times at phase 16's per-rank shapes, the
-baselines' causal one too; the launches of phase 17's and 18's paths
-too), the
-card's name and power limit from nvidia-smi, and ``{"ok": true,
+baselines' causal one too; the launches of phase 17's, 18's and 19's
+paths too; each kernel's ``head_dims`` times at (256, 8, 50, 16) and
+(256, 8, 50, 48)), the card's name and power limit from nvidia-smi, and
+``{"ok": true,
 "device": {...}}``.
 """
 
@@ -315,6 +339,19 @@ BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative
 BF16_TIE = 4 * BF16_ULP
 F32_KERNELS = ("fwd", "dq", "dkv")
 BF16_KERNELS = ("fwd_bf16", "dq_bf16", "dkv_bf16")
+# Head dims below the kernels' tile widths (every Dh from 1 to 128 runs on
+# tiles 32, 64 or 128 wide, zero-filled past Dh): 20 direct in float32 and
+# copied onto padded rows in bf16, 25 copied in both, 96 a column block
+# wholly past the row.  Checked at HEAD_DIM_SHAPES (B, H, S) + (Dh,),
+# causal and not, the last fifth of the keys masked; the float32 two-stream
+# instances at HEAD_DIM_STREAMS (more items than SMs, W = 32 and 64).
+HEAD_DIMS = (8, 16, 20, 25, 48, 96, 120)
+HEAD_DIM_SHAPES = ((8, 8, 50), (2, 4, 500))
+HEAD_DIM_STREAMS = ((33, 8, 70, 25), (33, 8, 70, 48))
+# The head dims of crello Ours-EXP at --latent_dim 128 and 384 (8 heads),
+# timed at the training batch.
+HEAD_DIM_TIMED = ((TRAIN_BATCH, 8, 50, 16), (TRAIN_BATCH, 8, 50, 48))
+HEAD_DIM_LATENTS = (128, 384)
 
 
 class SmokeFailure(RuntimeError):
@@ -494,14 +531,10 @@ def phase_kernel(card):
               ((17, 16, 130, 64), True, True),
               ((9, 8, 130, 128), False, True)]
     worst = 0.0
-    for shape, causal, fully_masked in cases:
+    for shape, causal, mask in head_dim_cases(cases, g):
         b, h, s, dh = shape
         q, k, v = (torch.randn(shape, generator=g).cuda() for _ in range(3))
-        mask = torch.rand(b, s, generator=g) > 0.3
-        mask[:, 0] = True
-        if fully_masked:
-            mask[-1] = False
-        mask = mask.cuda()
+        fully_masked = not mask[-1].any().item()
         o, lse = attn.flash_attention_forward(q, k, v, mask, causal)
         again = attn.flash_attention_forward(q, k, v, mask, causal)
         bias = attn.key_bias(mask, b, s, q.device)
@@ -524,8 +557,39 @@ def phase_kernel(card):
     forward_off_thread(g)
     timings = {shape: forward_times(shape, g, card)
                for shape in ((8, 8, 50, 32), (256, 8, 50, 32), (8, 8, 650, 32),
-                             FLAT_SHAPE, EVAL_FLAT_SHAPE)}
+                             FLAT_SHAPE, EVAL_FLAT_SHAPE) + HEAD_DIM_TIMED}
     return worst, timings
+
+
+def fifth_masked(b, s):
+    """A ``(B, S)`` key mask on the card dropping the last fifth of the
+    keys."""
+    import torch
+
+    mask = torch.ones(b, s, dtype=torch.bool)
+    mask[:, s - s // 5:] = False
+    return mask.cuda()
+
+
+def head_dim_cases(cases, g, streams=HEAD_DIM_STREAMS):
+    """``(shape, causal, mask)`` of each of ``cases`` (``(shape, causal,
+    fully masked last batch row)``: a random mask keeping key 0 of every
+    row), then of the head dims below the tile widths: ``HEAD_DIMS`` at
+    ``HEAD_DIM_SHAPES`` and ``streams``, causal and not, the last fifth of
+    the keys masked."""
+    import torch
+
+    for shape, causal, fully_masked in cases:
+        b, _, s, _ = shape
+        mask = torch.rand(b, s, generator=g) > 0.3
+        mask[:, 0] = True
+        if fully_masked:
+            mask[-1] = False
+        yield shape, causal, mask.cuda()
+    for shape in [bhs + (dh,) for dh in HEAD_DIMS
+                  for bhs in HEAD_DIM_SHAPES] + list(streams):
+        for causal in (False, True):
+            yield shape, causal, fifth_masked(shape[0], shape[2])
 
 
 def forward_off_thread(g):
@@ -921,16 +985,12 @@ def phase_backward(card):
     # causal, uneven lengths.
     cases += [((33, 8, 70, 32), True, True), ((17, 16, 130, 64), True, True)]
     worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-    for shape, causal, fully_masked in cases:
+    for shape, causal, mask in head_dim_cases(cases, g):
         b, h, s, dh = shape
         q, k, v = (torch.randn(shape, generator=g).cuda().requires_grad_()
                    for _ in range(3))
         do = torch.randn(shape, generator=g).cuda()
-        mask = torch.rand(b, s, generator=g) > 0.3
-        mask[:, 0] = True
-        if fully_masked:
-            mask[-1] = False
-        mask = mask.cuda()
+        fully_masked = not mask[-1].any().item()
         bias = attn.key_bias(mask, b, s, q.device)
         got, again = (torch.autograd.grad(
             attn.dot_product_attention(q, k, v, mask, causal), (q, k, v), do)
@@ -961,7 +1021,8 @@ def phase_backward(card):
             f"1e-4 rel); a second call bitwise equal")
 
     timings = {shape: backward_times(shape, g, card)
-               for shape in ((256, 8, 50, 32), (1, 2, 4096, 64), FLAT_SHAPE)}
+               for shape in ((256, 8, 50, 32), (1, 2, 4096, 64), FLAT_SHAPE)
+               + HEAD_DIM_TIMED}
     return worst, timings
 
 
@@ -1432,11 +1493,14 @@ def phase_flat(card, root, data_dir, spec, batch):
     return step_ms, counts
 
 
-def maskgit_reference(engine, cpu_model, docs, task):
+def maskgit_reference(engine, cpu_model, docs, task,
+                      num_iter=MASKGIT_ITERS, rel=0.0):
     """The CPU's MaskGIT decode of ``docs`` as the engine batches them:
     per document, how many masked fields had a confidence within
     ``NEAR_TIE`` of their round's threshold or a final argmax within
-    ``NEAR_TIE`` of a tie (where the card may decode otherwise)."""
+    ``NEAR_TIE`` of a tie (where the card may decode otherwise); ``rel``
+    widens "within" by that fraction of the larger value (a bf16 model:
+    ``BF16_TIE``)."""
     import torch
 
     from flexdm_tpu_torch.data import split_device_batch
@@ -1449,18 +1513,21 @@ def maskgit_reference(engine, cpu_model, docs, task):
         engine.spec.batch_documents(padded)).items()}
     masks = build_task_masks(schema, batch, task)
     rounds = []
-    out = forward_eval(cpu_model, batch, masks, num_iter=MASKGIT_ITERS,
+    out = forward_eval(cpu_model, batch, masks, num_iter=num_iter,
                        rounds=rounds)
     near = torch.zeros(engine.batch_size, dtype=torch.long)
     for r in rounds:
-        thr = r["threshold"][:, None]
+        thr = r["threshold"].float()[:, None]
         for conf in r["confidence"].values():
+            conf = conf.float()
             gap = (conf - thr).abs()
-            near += ((conf > 0) & (gap > 0) & (gap <= NEAR_TIE)).sum(1)
+            near += ((conf > 0) & (gap > 0)
+                     & (gap <= NEAR_TIE + rel * thr)).sum(1)
     for c in schema.sequence_columns:
         if c.is_categorical:
-            top = out[c.name].topk(2, -1).values
-            tie = ((top[..., 0] - top[..., 1]) <= NEAR_TIE).any(-1)
+            top = out[c.name].float().topk(2, -1).values
+            tie = ((top[..., 0] - top[..., 1])
+                   <= NEAR_TIE + rel * top[..., 0].abs()).any(-1)
             near += (tie & masks[c.name]).sum(1)
     return near[:len(docs)].tolist()
 
@@ -1920,15 +1987,13 @@ def phase_bf16_kernel(card):
     cases += [((2, 2, s, dh), True, True)
               for s in (16, 17, 63, 64, 65, 128, 129) for dh in (32, 64, 128)]
     worst = dict.fromkeys(("O", "lse", "delta", "dq", "dk", "dv"), 0.0)
-    for shape, causal, fully_masked in cases:
+    n_cases = 0
+    for shape, causal, mask in head_dim_cases(cases, g, streams=()):
+        n_cases += 1
         b, h, s, dh = shape
         q, k, v, do = (torch.randn(shape, generator=g).to("cuda", bf16)
                        for _ in range(4))
-        mask = torch.rand(b, s, generator=g) > 0.3
-        mask[:, 0] = True
-        if fully_masked:
-            mask[-1] = False
-        mask = mask.cuda()
+        fully_masked = not mask[-1].any().item()
         bias = attn.key_bias(mask, b, s, q.device)
         o, lse, m, l = attn._forward(q, k, v, mask, causal)
         again = attn._forward(q, k, v, mask, causal)
@@ -1944,7 +2009,11 @@ def phase_bf16_kernel(card):
         check(torch.allclose(lse, ref_lse, **KERNEL_TOL),
               f"bf16 lse differs at {shape}")
         worst["lse"] = max(worst["lse"], (lse - ref_lse).abs().max().item())
-        _, delta = attn._backward_dq(q, k, v, mask, o, m, l, do, causal)
+        # The dq kernel alone on the kernels' rows of Dh (a zero-padded
+        # copy where ``head_dim_plan`` says so).
+        rows = attn._padded(dh, bf16, q, k, v, o, do)
+        _, delta = attn._backward_dq(*rows[:3], mask, rows[3], m, l, rows[4],
+                                     causal, dh)
         ref_delta = (do.float() * o.float()).sum(-1)
         check(torch.allclose(delta, ref_delta, **KERNEL_TOL),
               f"bf16 delta differs at {shape}")
@@ -1974,7 +2043,7 @@ def phase_bf16_kernel(card):
     fwd_t, bwd_t = {}, {}
     # crello_scaled's width (D=512 over 8 heads of 64) beside the paths'.
     for shape in ((8, 8, 50, 32), (256, 8, 50, 32), FLAT_SHAPE,
-                  EVAL_FLAT_SHAPE, (2048, 8, 50, 64)):
+                  EVAL_FLAT_SHAPE, (2048, 8, 50, 64)) + HEAD_DIM_TIMED:
         b, h, s, dh = shape
         q, k, v = (torch.randn(shape, generator=g).to("cuda", bf16)
                    for _ in range(3))
@@ -2016,7 +2085,8 @@ def phase_bf16_kernel(card):
             f"{sdpa_kernels(unmasked)}) {t['unmasked']['library_ms']:.4f} "
             f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
             f"exponential floor {t['exp_floor_ms']:.4f} ms [{card}]")
-    for shape in ((256, 8, 50, 32), (1, 2, 4096, 64), FLAT_SHAPE):
+    for shape in ((256, 8, 50, 32), (1, 2, 4096, 64), FLAT_SHAPE) \
+            + HEAD_DIM_TIMED:
         b, h, s, dh = shape
         q, k, v, do = (torch.randn(shape, generator=g).to("cuda", bf16)
                        for _ in range(4))
@@ -2075,7 +2145,7 @@ def phase_bf16_kernel(card):
             f"({t['bounds']['dq']['bound_by']}), dkv "
             f"{t['bounds']['dkv']['bound_ms']:.4f} ms "
             f"({t['bounds']['dkv']['bound_by']}) [{card}]")
-    log(f"[bf16 kernel] worst errors over {len(cases)} cases: "
+    log(f"[bf16 kernel] worst errors over {n_cases} cases: "
         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
     return worst, fwd_t, bwd_t
 
@@ -3599,7 +3669,8 @@ def _grid_steps(args, batch, grid=None, steps=MULTI_STEPS,
     generator = torch.Generator("cuda").manual_seed(5)
     primary = grid is None or grid.is_primary
     shapes = []
-    forward = attn._forward
+    # The forward kernel's launch (on the kernels' rows; autograd's path).
+    forward = attn._launch_forward
 
     def counted(q, *rest):
         shapes.append(tuple(q.shape))
@@ -3616,7 +3687,7 @@ def _grid_steps(args, batch, grid=None, steps=MULTI_STEPS,
 
     out = {"steps": []}
     relu = ReluPatterns(model) if kinks else None
-    attn._forward = counted
+    attn._launch_forward = counted
     try:
         for i in range(steps):
             if relu is not None and i:
@@ -3645,7 +3716,7 @@ def _grid_steps(args, batch, grid=None, steps=MULTI_STEPS,
                     record["grads"] = grads
             out["steps"].append(record)
     finally:
-        attn._forward = forward
+        attn._launch_forward = forward
         if relu is not None:
             out["relu"] = relu.close()
     if not timed:
@@ -4359,29 +4430,48 @@ def impl_step(args, batch, impl, dtype=None):
             launch_counts(), plain.calls)
 
 
-def impl_steps(args, batch):
-    """17(a): the step with ``xla`` against the step with ``pallas``; the
-    bf16 step with ``pallas``."""
-    loss, grads, counts, plain = impl_step(args, batch, "xla")
-    p_loss, p_grads, p_counts, p_plain = impl_step(args, batch, "pallas")
+def impl_gate(label, xla, pallas):
+    """A ``pallas`` step (:func:`impl_step`) held to the ``xla`` step at
+    8(i)'s gate: loss 1e-5 relative, each gradient leaf within 1e-5 + 1e-3
+    of its largest entry, the key biases' (0 in exact arithmetic) noise
+    below ``KEY_BIAS_NOISE``; ``xla`` launches nothing and runs the plain
+    attention 4 times, ``pallas`` 4 of each float32 kernel and never the
+    plain attention.  Returns the largest gradient difference and the key
+    biases' noise."""
+    loss, grads, counts, plain = xla
+    p_loss, p_grads, p_counts, p_plain = pallas
     check(abs(p_loss - loss) <= 1e-5 * abs(loss),
-          f"pallas loss {p_loss} vs xla {loss}")
+          f"{label}: pallas loss {p_loss} vs xla {loss}")
     worst = noise = 0.0
     for name, g in grads.items():
         err = (p_grads[name] - g).abs().max().item()
         if name.endswith(KEY_BIAS):
             noise = max(noise, g.abs().max().item(),
                         p_grads[name].abs().max().item())
-            check(noise <= KEY_BIAS_NOISE, f"{name}: gradient {noise:.2e}")
+            check(noise <= KEY_BIAS_NOISE,
+                  f"{label}: {name}: gradient {noise:.2e}")
             continue
         worst = max(worst, err)
         check(err <= 1e-5 + 1e-3 * g.abs().max().item(),
-              f"pallas gradient of {name} differs from xla's by {err:.2e}")
+              f"{label}: pallas gradient of {name} differs from xla's by "
+              f"{err:.2e}")
     check(not any(counts.values()) and plain == 4,
-          f"xla step: launches {counts}, plain attention {plain} times")
+          f"{label}: xla step: launches {counts}, plain attention {plain} "
+          "times")
     check(p_counts == dict(fwd=4, dq=4, dkv=4, fwd_bf16=0, dq_bf16=0,
                            dkv_bf16=0) and p_plain == 0,
-          f"pallas step: launches {p_counts}, plain attention {p_plain}")
+          f"{label}: pallas step: launches {p_counts}, plain attention "
+          f"{p_plain}")
+    return worst, noise
+
+
+def impl_steps(args, batch):
+    """17(a): the step with ``xla`` against the step with ``pallas``; the
+    bf16 step with ``pallas``."""
+    loss, grads, counts, plain = xla = impl_step(args, batch, "xla")
+    p_loss, p_grads, p_counts, p_plain = pallas = impl_step(args, batch,
+                                                            "pallas")
+    worst, noise = impl_gate("17(a)", xla, pallas)
     _, _, b_counts, b_plain = impl_step(args, batch, "pallas", BF16)
     check(b_counts == dict(fwd=0, dq=0, dkv=0, fwd_bf16=4, dq_bf16=4,
                            dkv_bf16=4) and b_plain == 0,
@@ -4477,6 +4567,308 @@ def impl_cli(card, root, data_dir, data):
             "impl_pallas_eval": {k: v for k, v in
                                  eval_counts["pallas"].items()
                                  if k != "plain"}}
+
+
+# ---------------------------------------------------------------------------
+# 19. head dims: crello Ours-EXP at --latent_dim 128 and 384 (Dh 16, 48).
+# ---------------------------------------------------------------------------
+
+def head_dim_steps(args, batch, latent):
+    """19(a): one step at ``latent`` with ``pallas`` against ``xla``
+    (dropout 0, the same draws) at 8(i)'s gate; at 384 also in bf16, at
+    12(b)'s gate: the kernels' loss no farther from the plain bf16 step's
+    than that is from the float32 one's.  Each bf16 gradient leaf's
+    distance from the plain bf16 step's is logged as a share of bf16's own
+    distance from float32 (plus 8(i)'s 1e-5 + 1e-3 of its largest entry),
+    not gated: the kernels round p and ds to bf16 operands where the plain
+    version keeps float32, and no bf16 gradient bar is set (PERF.md §2);
+    the key biases (0 in exact arithmetic) as their noise."""
+    label = f"19(a) latent {latent}"
+    args = dict(args, latent_dim=latent)
+    xla = impl_step(args, batch, "xla")
+    pallas = impl_step(args, batch, "pallas")
+    worst, noise = impl_gate(label, xla, pallas)
+    out = {f"head_dim_{latent}_xla_step": xla[2],
+           f"head_dim_{latent}_pallas_step": pallas[2]}
+    line = (f"[head dims] (a) crello Ours-EXP --latent_dim {latent} (Dh "
+            f"{latent // 8}) step, batch {TRAIN_BATCH}, dropout 0, the same "
+            f"draws: pallas loss {pallas[0]:.6f} vs xla {xla[0]:.6f}, max "
+            f"|dg| {worst:.2e} (key biases noise {noise:.2e}); launches "
+            f"pallas {pallas[2]}, xla none (plain {xla[3]})")
+    if latent == max(HEAD_DIM_LATENTS):
+        b_xla = impl_step(args, batch, "xla", BF16)
+        b_pallas = impl_step(args, batch, "pallas", BF16)
+        own = abs(b_xla[0] - xla[0])
+        check(abs(b_pallas[0] - b_xla[0]) <= max(own, 1e-5 * abs(b_xla[0])),
+              f"{label} bf16: pallas loss {b_pallas[0]} vs xla {b_xla[0]} "
+              f"(bf16 vs float32 {own:.3e})")
+        worst_b, worst_leaf, noise_b = 0.0, None, 0.0
+        for name, g in b_xla[1].items():
+            err = (b_pallas[1][name] - g).abs().max().item()
+            if name.endswith(KEY_BIAS):
+                noise_b = max(noise_b, g.abs().max().item(),
+                              b_pallas[1][name].abs().max().item())
+                continue
+            own_g = (1e-5 + 1e-3 * g.abs().max().item()
+                     + (g - xla[1][name]).abs().max().item())
+            if err / own_g > worst_b:
+                worst_b, worst_leaf = err / own_g, name
+        check(not any(b_xla[2].values()) and b_xla[3] == 4,
+              f"{label} bf16 xla: {b_xla[2]}, plain {b_xla[3]}")
+        check(b_pallas[2] == dict(fwd=0, dq=0, dkv=0, fwd_bf16=4, dq_bf16=4,
+                                  dkv_bf16=4) and b_pallas[3] == 0,
+              f"{label} bf16 pallas: {b_pallas[2]}, plain {b_pallas[3]}")
+        out[f"head_dim_{latent}_pallas_bf16_step"] = b_pallas[2]
+        line += (f"; --dtype bfloat16: pallas loss {b_pallas[0]:.6f} vs xla "
+                 f"{b_xla[0]:.6f} (bf16 vs float32 {own:.2e}); the largest "
+                 f"gradient distance {worst_b:.3f} x bf16's own ({worst_leaf}"
+                 f"; key biases noise {noise_b:.2e}), launches "
+                 f"{b_pallas[2]}")
+    log(line)
+    return out
+
+
+def head_dim_cli(root, data_dir, latent, dtype):
+    """19(b): ``python -m flexdm_tpu_torch --latent_dim <latent>`` for one
+    epoch (2 steps) with a validation, once with ``--attention_impl
+    pallas`` and once with ``xla``: the histories within 1e-5 relative in
+    the training fields and ``EVAL_RTOL`` in the validation ones; in bf16
+    within one bf16 ulp, the validation scores (argmax accuracies, which a
+    near tie flips; the eval CLI of (c) counts those) logged, not gated.
+    ``pallas`` launches the forward once for every attention call the
+    ``xla`` run made (4 a model forward) and 4 of each backward kernel a
+    step, ``xla`` none.  Returns the pallas job and its launches."""
+    tag = f"{latent}_{dtype or 'float32'}"
+    runs = {}
+    for impl in ("pallas", "xla"):
+        job = os.path.join(root, f"head_dim_{tag}_{impl}")
+        argv = ["--num_epochs", "1", "--validation_freq", "1",
+                "--latent_dim", str(latent), "--attention_impl", impl]
+        with PlainOnCard() as plain:
+            (history, counts, seconds), _ = quiet(
+                _cli, argv + (["--dtype", dtype] if dtype else []),
+                data_dir, job)
+        runs[impl] = (job, history, counts, plain.calls, seconds)
+    job, history, counts, plain, seconds = runs["pallas"]
+    _, x_history, x_counts, x_plain, x_seconds = runs["xla"]
+    steps = history[-1]["step"]
+    fwd, dq, dkv = kernel_names(dtype)
+    check(not any(x_counts.values()) and x_plain > 0,
+          f"19(b) {tag} xla: launches {x_counts}, plain {x_plain}")
+    check(plain == 0 and counts[fwd] == x_plain
+          and counts[dq] == counts[dkv] == 4 * steps
+          and x_plain % 4 == 0, f"19(b) {tag} pallas: launches {counts} "
+          f"for {steps} steps, {x_plain} attention calls")
+    check_one_instance(counts, dtype, f"19(b) {tag}")
+    def gated(h):
+        return {k: v for k, v in h.items() if not dtype
+                or not (k.startswith("val_") and k.endswith("_score"))}
+
+    gap = _history_gap([gated(h) for h in history],
+                       [gated(h) for h in x_history])
+    scores = _history_gap(history, x_history)["val"] if dtype else None
+    bars = ((BF16_ULP, BF16_ULP) if dtype else (1e-5, EVAL_RTOL))
+    check(gap["train"] <= bars[0] and gap["val"] <= bars[1],
+          f"19(b) {tag}: pallas history differs from xla's by {gap}: "
+          f"{history} vs {x_history}")
+    log(f"[head dims] (b) python -m flexdm_tpu_torch --latent_dim {latent}"
+        f"{' --dtype ' + dtype if dtype else ''}, 1 epoch ({steps} steps, "
+        f"validated): pallas {seconds:.1f} s, launches {counts}; xla "
+        f"{x_seconds:.1f} s, the plain attention {x_plain} times; histories"
+        f" apart by {gap['train']:.2e} (training) and {gap['val']:.2e} "
+        f"(validation), bars {bars[0]:g} / {bars[1]:g}"
+        + ("" if scores is None else
+           f" (validation scores, not gated: {scores:.2e})")
+        + f"; loss {history[-1]['loss']:.4f}")
+    return job, counts
+
+
+def head_dim_eval(job, data_dir, dtype):
+    """19(c): ``python -m flexdm_tpu_torch.evaluation`` on the pallas job
+    over its 64-document test split, ``elem`` and ``all_feat``, as recorded
+    (the kernels) and with ``--attention_impl xla``: the sums at phase
+    11's bars (bf16: one bf16 ulp, near ties at ``BF16_TIE``), near ties
+    counted; the forward launched once for every attention call of the
+    ``xla`` run, no backward kernel."""
+    import torch
+
+    from flexdm_tpu_torch.demo import load_model
+    from flexdm_tpu_torch.evaluation import harness
+
+    worker = node_worker()
+    model, spec = load_model(job, batch_size=EVAL_BATCH, device="cuda")
+    schema = spec.schema
+    loader = spec.make_dataset("test", batch_size=EVAL_BATCH)
+    out, parts = {}, []
+    for mode in ("elem", "all_feat"):
+        argv = ["--job-dir", job, "--batch_size", str(EVAL_BATCH),
+                "--task_mode", mode]
+        sums, counts = {}, {}
+        for impl in ("pallas", "xla"):
+            attn_reset()
+            with worker.recorded_sums() as sums[impl], \
+                    PlainOnCard() as plain:
+                quiet(harness.main, argv + ["--attention_impl", impl])
+                torch.cuda.synchronize()
+            counts[impl] = dict(launch_counts(), plain=plain.calls)
+        fwd = kernel_names(dtype)[0]
+        check(counts["pallas"][fwd] == counts["xla"]["plain"] > 0
+              and counts["pallas"]["plain"] == 0
+              and sum(counts["pallas"].values()) == counts["pallas"][fwd]
+              and sum(counts["xla"].values()) == counts["xla"]["plain"],
+              f"19(c) {job} {mode}: launches {counts}")
+        worst = worst_cat = 0.0
+        for task, group in eval_tasks(schema, mode):
+            ties = NearTies(schema, False, BF16_TIE if dtype else 0.0)
+            harness.task_sums(model, loader, task, group, observe=ties)
+            rel, cat = compare_sums(
+                f"19(c) {mode} {task} pallas vs xla", schema,
+                sums["pallas"][task], sums["xla"][task], ties,
+                BF16_ULP if dtype else EVAL_RTOL)
+            worst, worst_cat = max(worst, rel), max(worst_cat, cat)
+        out[mode] = {k: v for k, v in counts["pallas"].items()
+                     if k != "plain"}
+        parts.append(f"{mode}: forward launches {counts['pallas'][fwd]} = "
+                     f"the xla run's attention calls, numerical Σnum within "
+                     f"{worst:.2e}, categorical Σnum apart by at most "
+                     f"{worst_cat:g}")
+    return out, "; ".join(parts)
+
+
+def head_dim_serve(job, data_dir, dtype):
+    """19(d): the pallas job served over HTTP on the card, ``/predict`` of 8
+    documents with ``num_iter`` 1 and 3, against an engine on a copy of
+    the job that records ``--attention_impl xla`` (the same weights): the
+    decoder outputs of one forward within 1e-4 (bf16: 12(b)'s bar, no
+    farther from the plain bf16 model's than those are from the float32
+    model's, mean and max within twice), the answers equal but for
+    documents with a near tie on the CPU; the forward launched exactly
+    4 x ``num_iter`` times a request."""
+    import shutil
+
+    import torch
+
+    from flexdm_tpu_torch.config import TrainConfig, build_model
+    from flexdm_tpu_torch.data import split_device_batch
+    from flexdm_tpu_torch.demo import build_task_masks
+    from flexdm_tpu_torch.models.masking import preprocess_for_test
+    from flexdm_tpu_torch.serve import InferenceEngine, _jsonable, serve
+
+    xla_job = job + "_served_xla"
+    os.makedirs(xla_job)
+    shutil.copytree(os.path.join(job, "checkpoints"),
+                    os.path.join(xla_job, "checkpoints"))
+    with open(os.path.join(job, "args.json")) as f:
+        args = json.load(f)
+    with open(os.path.join(xla_job, "args.json"), "w") as f:
+        json.dump(dict(args, attention_impl="xla"), f)
+    engine = InferenceEngine(job, batch_size=BATCH, device="cuda")
+    reference = InferenceEngine(xla_job, batch_size=BATCH, device="cuda")
+    check(impl_names(engine.model) == {"pallas"}
+          and impl_names(reference.model) == {"xla"}, "served impls")
+    cpu_model = copy.deepcopy(reference.model).cpu()
+    spec = engine.spec
+    docs = _jsonable(spec.unbatch(split_device_batch(
+        next(iter(spec.make_dataset("test", batch_size=BATCH))))))
+    host = {k: torch.from_numpy(v) for k, v in
+            spec.batch_documents(docs).items() if v.dtype != object}
+    if dtype:  # the same weights computing in float32
+        f32 = build_model(TrainConfig.from_args(dict(
+            args, dtype=None, attention_impl="xla")), spec.schema)
+        f32.load_state_dict(reference.model.state_dict())
+        f32 = f32.cuda().eval()
+    with torch.inference_mode():
+        inputs = preprocess_for_test(host, spec.schema, build_task_masks(
+            spec.schema, host, "pos"))
+        inputs = {k: v.cuda() for k, v in inputs.items()}
+        got, want = engine.model(inputs), reference.model(inputs)
+        if dtype:
+            ref = model_distance(want, f32(inputs))
+    if dtype:
+        dist = model_distance(got, want)
+        worst = dist[1]
+        check(dist[0] <= ref[0] and dist[1] <= 2 * ref[1],
+              f"19(d) {job}: bf16 decoder outputs pallas vs xla {dist} "
+              f"(mean, max), farther than bf16 from float32 {ref}")
+    else:
+        worst = 0.0
+        for name, value in want.items():
+            err = (got[name] - value).abs().max().item()
+            worst = max(worst, err)
+            check(torch.allclose(got[name], value, **SLICE_TOL),
+                  f"19(d) {job}: decoder output {name} pallas vs xla {err}")
+    server = serve(engine, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    counts, parts = {}, []
+    try:
+        for num_iter in (1, MASKGIT_ITERS):
+            attn_reset()
+            body, secs = http(server.server_address[1], "/predict", dict(
+                task="pos", documents=docs, num_iter=num_iter))
+            counts[num_iter] = launch_counts()
+            preds = body["predictions"]
+            check_predictions(spec, "pos", docs, preds)
+            fwd = kernel_names(dtype)[0]
+            check(counts[num_iter][fwd] == 4 * num_iter
+                  and sum(counts[num_iter].values()) == 4 * num_iter,
+                  f"19(d) num_iter {num_iter}: launches {counts[num_iter]}")
+            want = reference.predict(docs, task="pos", num_iter=num_iter)
+            near = maskgit_reference(engine, cpu_model, docs, "pos",
+                                     num_iter, BF16_TIE if dtype else 0.0)
+            differ = [i for i, (g, w) in enumerate(zip(preds, want))
+                      if g != w]
+            check(all(near[i] for i in differ),
+                  f"19(d) num_iter {num_iter}: documents {differ} differ "
+                  f"from xla's with no near tie ({near})")
+            parts.append(f"num_iter {num_iter}: 200 in {secs * 1e3:.1f} ms, "
+                         f"forward launches {counts[num_iter][fwd]}, "
+                         f"{len(docs) - len(differ)} of {len(docs)} answers "
+                         f"equal to xla's ({sum(near)} near-tie fields)")
+    finally:
+        server.shutdown()
+        server.server_close()
+    within = (f"decoder outputs within {worst:.2e}" if not dtype else
+              f"bf16 decoder outputs pallas vs xla mean {dist[0]:.2e} max "
+              f"{dist[1]:.2e}, bf16 vs float32 mean {ref[0]:.2e} max "
+              f"{ref[1]:.2e}")
+    return counts, within + "; " + "; ".join(parts)
+
+
+def phase_head_dims(card, root, data_dir, batch):
+    """19: crello Ours-EXP (4 blocks, 8 heads, S = 50, batch 256) at
+    ``--latent_dim`` 128 and 384 (Dh 16 and 48, widths no preset has)
+    through the entry points, ``pallas`` against ``xla``: (a) a step, (b)
+    the training CLI (float32, and bf16 at 384), (c) the eval CLI's
+    ``elem`` and ``all_feat``, (d) ``/predict`` with ``num_iter`` 1 and
+    3."""
+    args = load_args(CONFIG, data_dir)
+    by_path = {}
+    t0 = time.perf_counter()
+    for latent in HEAD_DIM_LATENTS:
+        by_path.update(head_dim_steps(args, batch, latent))
+        for dtype in (None, BF16) if latent == max(HEAD_DIM_LATENTS) \
+                else (None,):
+            tag = f"{latent}_{dtype or 'float32'}"
+            t1 = time.perf_counter()
+            job, counts = head_dim_cli(root, data_dir, latent, dtype)
+            by_path[f"head_dim_{tag}_cli"] = counts
+            evals, eval_line = head_dim_eval(job, data_dir, dtype)
+            for mode, c in evals.items():
+                by_path[f"head_dim_{tag}_eval_{mode}"] = c
+            served, serve_line = head_dim_serve(job, data_dir, dtype)
+            for num_iter, c in served.items():
+                by_path[f"head_dim_{tag}_predict_{num_iter}"] = c
+            log(f"[head dims] (c) eval --latent_dim {latent}"
+                f"{' --dtype ' + dtype if dtype else ''}, pallas vs xla "
+                f"over 64 documents: {eval_line}")
+            log(f"[head dims] (d) /predict pos x{BATCH} --latent_dim "
+                f"{latent}{' --dtype ' + dtype if dtype else ''}, pallas "
+                f"vs xla: {serve_line}; (b)-(d) "
+                f"{time.perf_counter() - t1:.1f} s")
+    log(f"[time] phase 19 (head dims) {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    return by_path
 
 
 def phase_nodes(card, root, data_dir, data):
@@ -4974,6 +5366,7 @@ def main():
         multi_counts, multi_kernels, multi_causal = phase_multi(
             card, root, data_dir, batch, data)
         entry_counts = phase_entry_points(card, root, data_dir, batch, data)
+        head_dim_counts = phase_head_dims(card, root, data_dir, batch)
         ingest_counts = phase_ingestion(card, root)
     lap("phase 18")
     log(f"[time] summary: train step crello Ours-EXP {step_ms:.2f} ms "
@@ -4993,7 +5386,7 @@ def main():
                "crello_flat_steps": flat_counts, **eval_counts,
                **bf16_counts, **trainer_counts, "demo": demo_counts,
                **baseline_counts, **multi_counts, **entry_counts,
-               **ingest_counts}
+               **head_dim_counts, **ingest_counts}
     # The training shape, which every kernel of the path runs at (the
     # forward also serves at (8, 8, 50, 32) and crello_flat runs
     # (64, 8, 500, 32): the log lines above).
@@ -5014,6 +5407,12 @@ def main():
                 "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
                 "exp_floor_ms": bd["exp_floor_ms"],
                 "library_ms": t["library"], "shape": list(shape)}
+
+    def head_dim_times(table, part=None):
+        """A kernel's times at the head dims of ``HEAD_DIM_TIMED``."""
+        return {str(s): dict(fwd_times(table[s]) if part is None
+                             else bwd_times(table[s], part), shape=list(s))
+                for s in HEAD_DIM_TIMED}
 
     def multi_times(key):
         """A float32 kernel's times at phase 16's per-rank shapes."""
@@ -5045,7 +5444,7 @@ def main():
     fwd16, bwd16 = bf16_fwd[shape], bf16_bwd[shape]
     dq_tpu = f"{tpu}:116 and {tpu}:217"
     dkv_tpu = f"{tpu}:156 and {tpu}:254"
-    log(json.dumps({"kernels": [
+    kernels = [
         entry("flash_attention_fwd", "float32", "flash_attention_fwd.cu",
               f"{tpu}:77", "fwd", train_counts, kernel_err, fwd_times(fwd)),
         entry("flash_attention_bwd_dq", "float32", "flash_attention_bwd.cu",
@@ -5064,7 +5463,14 @@ def main():
         entry("flash_attention_bwd_dkv_bf16", BF16,
               "flash_attention_bwd_bf16.cu", dkv_tpu, "dkv_bf16", bf16_cli,
               max(bf16_err["dk"], bf16_err["dv"]), bwd_times(bwd16, "dkv")),
-    ]}))
+    ]
+    # The head dims of --latent_dim 128 and 384, timed at the training
+    # batch (Dh 16 on the 32-wide tiles, 48 on the 64-wide ones).
+    for out, table, part in zip(kernels, (
+            timings, backward_timings, backward_timings, bf16_fwd, bf16_bwd,
+            bf16_bwd), (None, "dq", "dkv", None, "dq", "dkv")):
+        out["head_dims"] = head_dim_times(table, part)
+    log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -78,6 +78,11 @@ class TrainConfig:
     num_devices: Optional[int] = None
     model_parallel: int = 1
 
+    @property
+    def head_dim(self) -> int:
+        """Every attention's head dim: ``latent_dim / num_heads``."""
+        return self.latent_dim // self.num_heads
+
     def to_json(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 

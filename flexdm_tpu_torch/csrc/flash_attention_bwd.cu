@@ -80,6 +80,11 @@
 // other stream's tile overlaps.
 //
 // Design.
+//   * Instances are tile widths DH = 32, 64 and 128 ("Dh = 32" below names
+//     the instance); the head dim is a runtime value from 1 to 128, run on
+//     the smallest width that holds its row, zero-filled by TMA, its scale
+//     1/sqrt(Dh), its delta summed and its stores made over its own columns
+//     (hopper.cuh, "Head dims").
 //   * An item is 64 query rows (dq) or 64 keys (dk/dv) of one head: the
 //     wgmma M.  A block, one an SM, runs one or two streams, each a
 //     consumer warpgroup taking the items first, first + stride, ... of the
@@ -195,7 +200,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const float* __restrict__ row_max,
                     const float* __restrict__ row_sum,
                     float* __restrict__ delta, float* __restrict__ dq, int H,
-                    int S, float scale, int n_items) {
+                    int S, int ld, float scale, int n_items) {
   using P = DqPlan<DH, NS>;
   constexpr bool causal = CAUSAL;
   using Kv = typename P::Kv;
@@ -318,10 +323,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       const bool real = row < S;
       float part_sum = 0.f;
       if (real) {
-        const float* o_row = o + (head + row) * DH;
-        const float* d_row = dout + (head + row) * DH;
+        const float* o_row = o + (head + row) * ld;
+        const float* d_row = dout + (head + row) * ld;
 #pragma unroll
         for (int c = 4 * t; c < DH; c += 16) {
+          if (c >= ld) break;
           const float4 x = *reinterpret_cast<const float4*>(o_row + c);
           const float4 y = *reinterpret_cast<const float4*>(d_row + c);
           part_sum = fmaf(x.x, y.x, part_sum);
@@ -447,10 +453,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       const int row = q0 + 16 * w + g + 8 * hh;
       if (row >= S) continue;
 #pragma unroll
-      for (int jj = 0; jj < DH / 8; ++jj)
-        *reinterpret_cast<float2*>(dq + (head + row) * DH + 8 * jj + 2 * t) =
-            make_float2(acc[4 * jj + 2 * hh] * scale,
-                        acc[4 * jj + 2 * hh + 1] * scale);
+      for (int jj = 0; jj < DH / 8; ++jj) {
+        const int c = 8 * jj + 2 * t;
+        if (c < ld)
+          *reinterpret_cast<float2*>(dq + (head + row) * ld + c) =
+              make_float2(acc[4 * jj + 2 * hh] * scale,
+                          acc[4 * jj + 2 * hh + 1] * scale);
+      }
     }
   }
   turns.close([&](int x) {
@@ -501,8 +510,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                      const float* __restrict__ row_max,
                      const float* __restrict__ row_sum,
                      const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int H, int S, float scale,
-                     int n_items) {
+                     float* __restrict__ dv, int H, int S, int ld,
+                     float scale, int n_items) {
   using P = DkvPlan<DH, NS>;
   constexpr bool causal = CAUSAL;
   using Qt = typename P::Qt;
@@ -747,10 +756,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int jj = 0; jj < DH / 8; ++jj) {
         const int c = 8 * jj + 2 * t;
-        *reinterpret_cast<float2*>(dk + key_row * DH + c) =
+        if (c >= ld) continue;
+        *reinterpret_cast<float2*>(dk + key_row * ld + c) =
             make_float2(acc_dk[4 * jj + 2 * hh] * scale,
                         acc_dk[4 * jj + 2 * hh + 1] * scale);
-        *reinterpret_cast<float2*>(dv + key_row * DH + c) =
+        *reinterpret_cast<float2*>(dv + key_row * ld + c) =
             make_float2(acc_dv[4 * jj + 2 * hh], acc_dv[4 * jj + 2 * hh + 1]);
       }
     }
@@ -765,17 +775,17 @@ cudaError_t launch_dq_streams(const CUtensorMap (&maps)[4],
                               const uint8_t* key_mask, const float* o,
                               const float* dout, const float* row_max,
                               const float* row_sum, float* delta, float* dq,
-                              int H, int S, int items, cudaStream_t stream) {
+                              int H, int S, int Dh, int ld, int items,
+                              cudaStream_t stream) {
   using P = DqPlan<DH, NS>;
   static const cudaError_t attr =
       set_smem(flash_bwd_dq_kernel<DH, NS, CAUSAL>, P::kBytes);
   if (attr != cudaSuccess) return attr;
   const int grid = min(sm_count(), (items + NS - 1) / NS);
-  const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   flash_bwd_dq_kernel<DH, NS, CAUSAL>
       <<<grid, threads(NS), P::kBytes, stream>>>(
           maps[0], maps[1], maps[2], maps[3], key_mask, o, dout, row_max,
-          row_sum, delta, dq, H, S, scale, items);
+          row_sum, delta, dq, H, S, ld, softmax_scale(Dh), items);
   return cudaGetLastError();
 }
 
@@ -784,20 +794,23 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const uint8_t* key_mask, const float* o,
                       const float* dout, const float* row_max,
                       const float* row_sum, float* delta, float* dq, int B,
-                      int H, int S, int causal, cudaStream_t stream) {
+                      int H, int S, int Dh, int ld, int causal,
+                      cudaStream_t stream) {
   constexpr int kKeys = other_rows(DH);
   constexpr int NS = kMaxDqStreams<DH>;
   CUtensorMap maps[4];
-  cudaError_t err = f32_rows_map<DH, kTile>(&maps[0], q, B * H, S);
-  if (err == cudaSuccess) err = f32_rows_map<DH, kKeys>(&maps[1], k, B * H, S);
-  if (err == cudaSuccess) err = f32_rows_map<DH, kKeys>(&maps[2], v, B * H, S);
-  if (err == cudaSuccess) err = f32_rows_map<DH, kTile>(&maps[3], dout, B * H, S);
+  const int BH = B * H;
+  cudaError_t err = f32_rows_map<DH, kTile>(&maps[0], q, BH, S, ld);
+  if (err == cudaSuccess) err = f32_rows_map<DH, kKeys>(&maps[1], k, BH, S, ld);
+  if (err == cudaSuccess) err = f32_rows_map<DH, kKeys>(&maps[2], v, BH, S, ld);
+  if (err == cudaSuccess)
+    err = f32_rows_map<DH, kTile>(&maps[3], dout, BH, S, ld);
   if (err != cudaSuccess) return err;
   const int items = B * H * ((S + kTile - 1) / kTile);
   const bool two = streams_for(items, NS) == 2;
 #define FLEXDM_DQ(ns, c)                                                   \
   launch_dq_streams<DH, ns, c>(maps, key_mask, o, dout, row_max, row_sum, \
-                               delta, dq, H, S, items, stream)
+                               delta, dq, H, S, Dh, ld, items, stream)
   if (causal) return two ? FLEXDM_DQ(NS, true) : FLEXDM_DQ(1, true);
   return two ? FLEXDM_DQ(NS, false) : FLEXDM_DQ(1, false);
 #undef FLEXDM_DQ
@@ -807,18 +820,17 @@ template <int DH, int NS, bool CAUSAL>
 cudaError_t launch_dkv_streams(const CUtensorMap (&maps)[4],
                                const uint8_t* key_mask, const float* row_max,
                                const float* row_sum, const float* delta,
-                               float* dk, float* dv, int H, int S, int items,
-                               cudaStream_t stream) {
+                               float* dk, float* dv, int H, int S, int Dh,
+                               int ld, int items, cudaStream_t stream) {
   using P = DkvPlan<DH, NS>;
   static const cudaError_t attr =
       set_smem(flash_bwd_dkv_kernel<DH, NS, CAUSAL>, P::kBytes);
   if (attr != cudaSuccess) return attr;
   const int grid = min(sm_count(), (items + NS - 1) / NS);
-  const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   flash_bwd_dkv_kernel<DH, NS, CAUSAL>
       <<<grid, threads(NS), P::kBytes, stream>>>(
           maps[0], maps[1], maps[2], maps[3], key_mask, row_max, row_sum,
-          delta, dk, dv, H, S, scale, items);
+          delta, dk, dv, H, S, ld, softmax_scale(Dh), items);
   return cudaGetLastError();
 }
 
@@ -827,20 +839,23 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const uint8_t* key_mask, const float* dout,
                        const float* row_max, const float* row_sum,
                        const float* delta, float* dk, float* dv, int B, int H,
-                       int S, int causal, cudaStream_t stream) {
+                       int S, int Dh, int ld, int causal,
+                       cudaStream_t stream) {
   constexpr int kRows = other_rows(DH);
   constexpr int NS = kMaxDkvStreams<DH>;
   CUtensorMap maps[4];
-  cudaError_t err = f32_rows_map<DH, kRows>(&maps[0], q, B * H, S);
-  if (err == cudaSuccess) err = f32_rows_map<DH, kTile>(&maps[1], k, B * H, S);
-  if (err == cudaSuccess) err = f32_rows_map<DH, kTile>(&maps[2], v, B * H, S);
-  if (err == cudaSuccess) err = f32_rows_map<DH, kRows>(&maps[3], dout, B * H, S);
+  const int BH = B * H;
+  cudaError_t err = f32_rows_map<DH, kRows>(&maps[0], q, BH, S, ld);
+  if (err == cudaSuccess) err = f32_rows_map<DH, kTile>(&maps[1], k, BH, S, ld);
+  if (err == cudaSuccess) err = f32_rows_map<DH, kTile>(&maps[2], v, BH, S, ld);
+  if (err == cudaSuccess)
+    err = f32_rows_map<DH, kRows>(&maps[3], dout, BH, S, ld);
   if (err != cudaSuccess) return err;
   const int items = B * H * ((S + kTile - 1) / kTile);
   const bool two = streams_for(items, NS) == 2;
 #define FLEXDM_DKV(ns, c)                                                 \
   launch_dkv_streams<DH, ns, c>(maps, key_mask, row_max, row_sum, delta, \
-                                dk, dv, H, S, items, stream)
+                                dk, dv, H, S, Dh, ld, items, stream)
   if (causal) return two ? FLEXDM_DKV(NS, true) : FLEXDM_DKV(1, true);
   return two ? FLEXDM_DKV(NS, false) : FLEXDM_DKV(1, false);
 #undef FLEXDM_DKV
@@ -849,7 +864,10 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
 }  // namespace
 
 // All tensors float32 and contiguous: q, k, v, o, dout, dq, dk, dv are
-// (B, H, S, Dh) and 16-byte aligned; row_max, row_sum (from the forward)
+// (B, H, S, ld) and 16-byte aligned, ld = Dh rounded up to a multiple of 4
+// (16 bytes) with columns Dh .. ld - 1 of q, k, v, o and dout zero (a padded
+// copy; hopper.cuh, "Head dims"), 1 <= Dh <= 128; row_max, row_sum (from the
+// forward)
 // and delta are (B, H, S).  key_mask: (B, S) bool (nonzero = attend) or
 // null.  Each entry returns the cudaError_t of its launch
 // (cudaErrorNotSupported if the CUDA driver cannot encode tensor maps).
@@ -861,7 +879,9 @@ extern "C" int flexdm_flash_attention_bwd_dq(
     const void* o, const void* dout, const void* row_max, const void* row_sum,
     void* delta, void* dq, int B, int H, int S, int Dh, int causal,
     void* stream) {
-  if (bad_shape(B, H, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, H, S) || bad_head_dim(Dh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ld = row_width(Dh, 4);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
@@ -873,24 +893,14 @@ extern "C" int flexdm_flash_attention_bwd_dq(
   auto* deltaf = static_cast<float*>(delta);
   auto* dqf = static_cast<float*>(dq);
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (Dh) {
-    case 32:
-      err = launch_dq<32>(qf, kf, vf, mask, of, df, mf, sf, deltaf, dqf, B, H,
-                          S, causal, st);
-      break;
-    case 64:
-      err = launch_dq<64>(qf, kf, vf, mask, of, df, mf, sf, deltaf, dqf, B, H,
-                          S, causal, st);
-      break;
-    case 128:
-      err = launch_dq<128>(qf, kf, vf, mask, of, df, mf, sf, deltaf, dqf, B,
-                           H, S, causal, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+#define FLEXDM_DQ_W(w)                                                   \
+  launch_dq<w>(qf, kf, vf, mask, of, df, mf, sf, deltaf, dqf, B, H, S, Dh, \
+               ld, causal, st)
+  const int width = tile_width(ld);
+  return static_cast<int>(width == 32   ? FLEXDM_DQ_W(32)
+                          : width == 64 ? FLEXDM_DQ_W(64)
+                                        : FLEXDM_DQ_W(128));
+#undef FLEXDM_DQ_W
 }
 
 // Writes dk and dv; reads the delta written by flexdm_flash_attention_bwd_dq.
@@ -899,7 +909,9 @@ extern "C" int flexdm_flash_attention_bwd_dkv(
     const void* dout, const void* row_max, const void* row_sum,
     const void* delta, void* dk, void* dv, int B, int H, int S, int Dh,
     int causal, void* stream) {
-  if (bad_shape(B, H, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, H, S) || bad_head_dim(Dh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ld = row_width(Dh, 4);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
@@ -911,22 +923,12 @@ extern "C" int flexdm_flash_attention_bwd_dkv(
   auto* dkf = static_cast<float*>(dk);
   auto* dvf = static_cast<float*>(dv);
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (Dh) {
-    case 32:
-      err = launch_dkv<32>(qf, kf, vf, mask, df, mf, sf, deltaf, dkf, dvf, B,
-                           H, S, causal, st);
-      break;
-    case 64:
-      err = launch_dkv<64>(qf, kf, vf, mask, df, mf, sf, deltaf, dkf, dvf, B,
-                           H, S, causal, st);
-      break;
-    case 128:
-      err = launch_dkv<128>(qf, kf, vf, mask, df, mf, sf, deltaf, dkf, dvf, B,
-                            H, S, causal, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+#define FLEXDM_DKV_W(w)                                                   \
+  launch_dkv<w>(qf, kf, vf, mask, df, mf, sf, deltaf, dkf, dvf, B, H, S, Dh, \
+                ld, causal, st)
+  const int width = tile_width(ld);
+  return static_cast<int>(width == 32   ? FLEXDM_DKV_W(32)
+                          : width == 64 ? FLEXDM_DKV_W(64)
+                                        : FLEXDM_DKV_W(128));
+#undef FLEXDM_DKV_W
 }

@@ -35,6 +35,11 @@
 // tile and mma.sync's rate.
 //
 // Design.
+//   * Instances are tile widths DH = 32, 64 and 128 ("Dh = 32" below names
+//     the instance); the head dim is a runtime value from 1 to 128, run on
+//     the smallest width that holds its row, zero-filled by TMA, its scale
+//     1/sqrt(Dh), its delta summed and its stores made over its own columns
+//     (hopper.cuh, "Head dims").
 //   * A consumer warpgroup owns 64 query rows (dq) or 64 keys (dk/dv): the
 //     wgmma M.  dq computes s = q k^T and dp = dO v^T as SS products (q, dO
 //     and k, v tiles in shared memory, all K-major), forms ds in the
@@ -178,7 +183,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                          const float* __restrict__ row_max,
                          const float* __restrict__ row_sum,
                          float* __restrict__ delta, bf16* __restrict__ dq,
-                         int H, int S, int causal, float scale) {
+                         int H, int S, int ld, int causal, float scale) {
   using P = DqPlan<DH, NWG>;
   using Own = typename P::Own;
   using Kv = typename P::Kv;
@@ -267,10 +272,11 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     const bool real = row < S;
     float part_sum = 0.f;
     if (real) {
-      const bf16* o_row = o + (head + row) * DH;
-      const bf16* d_row = dout + (head + row) * DH;
+      const bf16* o_row = o + (head + row) * ld;
+      const bf16* d_row = dout + (head + row) * ld;
 #pragma unroll
       for (int c = 8 * t; c < DH; c += 32) {
+        if (c >= ld) break;
         const uint4 x = *reinterpret_cast<const uint4*>(o_row + c);
         const uint4 y = *reinterpret_cast<const uint4*>(d_row + c);
         const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
@@ -405,7 +411,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = q0 + 16 * w + g + 8 * hh;
-    if (row < S) store_row<DH>(dq, head + row, acc, hh, t, scale);
+    if (row < S) store_row<DH>(dq, head + row, ld, acc, hh, t, scale);
   }
 }
 
@@ -445,7 +451,7 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                           const float* __restrict__ row_sum,
                           const float* __restrict__ delta,
                           bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-                          int S, int causal, float scale) {
+                          int S, int ld, int causal, float scale) {
   using P = DkvPlan<DH, NWG>;
   using Own = typename P::Own;
   using Qt = typename P::Qt;
@@ -685,8 +691,8 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int hh = 0; hh < 2; ++hh) {
     if (!kreal[hh]) continue;
     const size_t key_row = head + k0 + 16 * w + g + 8 * hh;
-    store_row<DH>(dk, key_row, acc_dk, hh, t, scale);
-    store_row<DH>(dv, key_row, acc_dv, hh, t, 1.f);
+    store_row<DH>(dk, key_row, ld, acc_dk, hh, t, scale);
+    store_row<DH>(dv, key_row, ld, acc_dv, hh, t, 1.f);
   }
 }
 
@@ -695,23 +701,23 @@ cudaError_t launch_dq_groups(const bf16* q, const bf16* k, const bf16* v,
                              const uint8_t* key_mask, const bf16* o,
                              const bf16* dout, const float* row_max,
                              const float* row_sum, float* delta, bf16* dq,
-                             int B, int H, int S, int causal,
+                             int B, int H, int S, int Dh, int ld, int causal,
                              cudaStream_t stream) {
   using P = DqPlan<DH, NWG>;
   static const cudaError_t attr =
       set_smem(flash_bwd_dq_bf16_kernel<DH, NWG>, P::kBytes);
   if (attr != cudaSuccess) return attr;
   CUtensorMap maps[4];
-  cudaError_t err = rows_map<DH, kTile>(&maps[0], q, B * H, S);
-  if (err == cudaSuccess) err = rows_map<DH, P::kKeys>(&maps[1], k, B * H, S);
-  if (err == cudaSuccess) err = rows_map<DH, P::kKeys>(&maps[2], v, B * H, S);
-  if (err == cudaSuccess) err = rows_map<DH, kTile>(&maps[3], dout, B * H, S);
+  const int BH = B * H;
+  cudaError_t err = rows_map<DH, kTile>(&maps[0], q, BH, S, ld);
+  if (err == cudaSuccess) err = rows_map<DH, P::kKeys>(&maps[1], k, BH, S, ld);
+  if (err == cudaSuccess) err = rows_map<DH, P::kKeys>(&maps[2], v, BH, S, ld);
+  if (err == cudaSuccess) err = rows_map<DH, kTile>(&maps[3], dout, BH, S, ld);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kTile - 1) / kTile, H, B);
-  const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   flash_bwd_dq_bf16_kernel<DH, NWG><<<grid, P::kThreads, P::kBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], key_mask, o, dout, row_max, row_sum,
-      delta, dq, H, S, causal, scale);
+      delta, dq, H, S, ld, causal, softmax_scale(Dh));
   return cudaGetLastError();
 }
 
@@ -720,15 +726,17 @@ cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v,
                       const uint8_t* key_mask, const bf16* o,
                       const bf16* dout, const float* row_max,
                       const float* row_sum, float* delta, bf16* dq, int B,
-                      int H, int S, int causal, cudaStream_t stream) {
+                      int H, int S, int Dh, int ld, int causal,
+                      cudaStream_t stream) {
   const int blocks = (S + kTile - 1) / kTile;
   const int tiles = (S + dq_keys(DH) - 1) / dq_keys(DH);
   if (consumer_groups(static_cast<long long>(blocks) * B * H, tiles) == 2)
     return launch_dq_groups<DH, 2>(q, k, v, key_mask, o, dout, row_max,
-                                   row_sum, delta, dq, B, H, S, causal,
-                                   stream);
+                                   row_sum, delta, dq, B, H, S, Dh, ld,
+                                   causal, stream);
   return launch_dq_groups<DH, 1>(q, k, v, key_mask, o, dout, row_max,
-                                 row_sum, delta, dq, B, H, S, causal, stream);
+                                 row_sum, delta, dq, B, H, S, Dh, ld, causal,
+                                 stream);
 }
 
 template <int DH, int NWG>
@@ -736,22 +744,24 @@ cudaError_t launch_dkv_groups(const bf16* q, const bf16* k, const bf16* v,
                               const uint8_t* key_mask, const bf16* dout,
                               const float* row_max, const float* row_sum,
                               const float* delta, bf16* dk, bf16* dv, int B,
-                              int H, int S, int causal, cudaStream_t stream) {
+                              int H, int S, int Dh, int ld, int causal,
+                              cudaStream_t stream) {
   using P = DkvPlan<DH, NWG>;
   static const cudaError_t attr =
       set_smem(flash_bwd_dkv_bf16_kernel<DH, NWG>, P::kBytes);
   if (attr != cudaSuccess) return attr;
   CUtensorMap maps[4];
-  cudaError_t err = rows_map<DH, P::kRows>(&maps[0], q, B * H, S);
-  if (err == cudaSuccess) err = rows_map<DH, kTile>(&maps[1], k, B * H, S);
-  if (err == cudaSuccess) err = rows_map<DH, kTile>(&maps[2], v, B * H, S);
-  if (err == cudaSuccess) err = rows_map<DH, P::kRows>(&maps[3], dout, B * H, S);
+  const int BH = B * H;
+  cudaError_t err = rows_map<DH, P::kRows>(&maps[0], q, BH, S, ld);
+  if (err == cudaSuccess) err = rows_map<DH, kTile>(&maps[1], k, BH, S, ld);
+  if (err == cudaSuccess) err = rows_map<DH, kTile>(&maps[2], v, BH, S, ld);
+  if (err == cudaSuccess)
+    err = rows_map<DH, P::kRows>(&maps[3], dout, BH, S, ld);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kTile - 1) / kTile, H, B);
-  const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   flash_bwd_dkv_bf16_kernel<DH, NWG><<<grid, P::kThreads, P::kBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], key_mask, row_max, row_sum, delta,
-      dk, dv, H, S, causal, scale);
+      dk, dv, H, S, ld, causal, softmax_scale(Dh));
   return cudaGetLastError();
 }
 
@@ -760,15 +770,17 @@ cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v,
                        const uint8_t* key_mask, const bf16* dout,
                        const float* row_max, const float* row_sum,
                        const float* delta, bf16* dk, bf16* dv, int B, int H,
-                       int S, int causal, cudaStream_t stream) {
+                       int S, int Dh, int ld, int causal,
+                       cudaStream_t stream) {
   const int blocks = (S + kTile - 1) / kTile;
   const int tiles = (S + kDkvRows - 1) / kDkvRows;
   if (consumer_groups(static_cast<long long>(blocks) * B * H, tiles) == 2)
     return launch_dkv_groups<DH, 2>(q, k, v, key_mask, dout, row_max,
-                                    row_sum, delta, dk, dv, B, H, S, causal,
-                                    stream);
+                                    row_sum, delta, dk, dv, B, H, S, Dh, ld,
+                                    causal, stream);
   return launch_dkv_groups<DH, 1>(q, k, v, key_mask, dout, row_max, row_sum,
-                                  delta, dk, dv, B, H, S, causal, stream);
+                                  delta, dk, dv, B, H, S, Dh, ld, causal,
+                                  stream);
 }
 
 bool bad_shape(int B, int H, int S) {
@@ -777,8 +789,11 @@ bool bad_shape(int B, int H, int S) {
 
 }  // namespace
 
-// q, k, v, o, dout, dq, dk, dv: (B, H, S, Dh) bf16, contiguous, 16-byte
-// aligned; row_max, row_sum (from the forward) and delta: (B, H, S)
+// q, k, v, o, dout, dq, dk, dv: (B, H, S, ld) bf16, contiguous, 16-byte
+// aligned, ld = Dh rounded up to a multiple of 8 (16 bytes) with columns
+// Dh .. ld - 1 of q, k, v, o and dout zero (a padded copy; hopper.cuh, "Head
+// dims"), 1 <= Dh <= 128; row_max, row_sum (from the forward) and delta:
+// (B, H, S)
 // float32.  key_mask: (B, S) bool (nonzero = attend) or null.  Each entry
 // returns the cudaError_t of its launch (cudaErrorNotSupported if the
 // CUDA driver cannot encode tensor maps).
@@ -790,7 +805,9 @@ extern "C" int flexdm_flash_attention_bwd_dq_bf16(
     const void* o, const void* dout, const void* row_max, const void* row_sum,
     void* delta, void* dq, int B, int H, int S, int Dh, int causal,
     void* stream) {
-  if (bad_shape(B, H, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, H, S) || bad_head_dim(Dh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ld = row_width(Dh, 8);
   const auto* qb = static_cast<const bf16*>(q);
   const auto* kb = static_cast<const bf16*>(k);
   const auto* vb = static_cast<const bf16*>(v);
@@ -802,24 +819,14 @@ extern "C" int flexdm_flash_attention_bwd_dq_bf16(
   auto* deltaf = static_cast<float*>(delta);
   auto* dqb = static_cast<bf16*>(dq);
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (Dh) {
-    case 32:
-      err = launch_dq<32>(qb, kb, vb, mask, ob, db, mf, sf, deltaf, dqb, B, H,
-                          S, causal, st);
-      break;
-    case 64:
-      err = launch_dq<64>(qb, kb, vb, mask, ob, db, mf, sf, deltaf, dqb, B, H,
-                          S, causal, st);
-      break;
-    case 128:
-      err = launch_dq<128>(qb, kb, vb, mask, ob, db, mf, sf, deltaf, dqb, B,
-                           H, S, causal, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+#define FLEXDM_DQ_W(w)                                                   \
+  launch_dq<w>(qb, kb, vb, mask, ob, db, mf, sf, deltaf, dqb, B, H, S, Dh, \
+               ld, causal, st)
+  const int width = tile_width(ld);
+  return static_cast<int>(width == 32   ? FLEXDM_DQ_W(32)
+                          : width == 64 ? FLEXDM_DQ_W(64)
+                                        : FLEXDM_DQ_W(128));
+#undef FLEXDM_DQ_W
 }
 
 // Writes dk and dv; reads the delta written by
@@ -829,7 +836,9 @@ extern "C" int flexdm_flash_attention_bwd_dkv_bf16(
     const void* dout, const void* row_max, const void* row_sum,
     const void* delta, void* dk, void* dv, int B, int H, int S, int Dh,
     int causal, void* stream) {
-  if (bad_shape(B, H, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, H, S) || bad_head_dim(Dh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ld = row_width(Dh, 8);
   const auto* qb = static_cast<const bf16*>(q);
   const auto* kb = static_cast<const bf16*>(k);
   const auto* vb = static_cast<const bf16*>(v);
@@ -841,22 +850,12 @@ extern "C" int flexdm_flash_attention_bwd_dkv_bf16(
   auto* dkb = static_cast<bf16*>(dk);
   auto* dvb = static_cast<bf16*>(dv);
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (Dh) {
-    case 32:
-      err = launch_dkv<32>(qb, kb, vb, mask, db, mf, sf, deltaf, dkb, dvb, B,
-                           H, S, causal, st);
-      break;
-    case 64:
-      err = launch_dkv<64>(qb, kb, vb, mask, db, mf, sf, deltaf, dkb, dvb, B,
-                           H, S, causal, st);
-      break;
-    case 128:
-      err = launch_dkv<128>(qb, kb, vb, mask, db, mf, sf, deltaf, dkb, dvb, B,
-                            H, S, causal, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+#define FLEXDM_DKV_W(w)                                                   \
+  launch_dkv<w>(qb, kb, vb, mask, db, mf, sf, deltaf, dkb, dvb, B, H, S, Dh, \
+                ld, causal, st)
+  const int width = tile_width(ld);
+  return static_cast<int>(width == 32   ? FLEXDM_DKV_W(32)
+                          : width == 64 ? FLEXDM_DKV_W(64)
+                                        : FLEXDM_DKV_W(128));
+#undef FLEXDM_DKV_W
 }

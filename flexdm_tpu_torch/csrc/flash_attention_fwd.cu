@@ -70,6 +70,11 @@
 // one computes.
 //
 // Design (the backward's dq kernel without dp and ds).
+//   * Instances are tile widths DH = 32, 64 and 128 ("Dh = 32" below names
+//     the instance); the head dim is a runtime value from 1 to 128, run on
+//     the smallest width that holds its row, zero-filled by TMA, its scale
+//     1/sqrt(Dh) and its stores Dh wide (hopper.cuh, "Head dims").  Dh 1-32
+//     takes 32: at Dh = 16 the score products do twice the tensor work.
 //   * An item is 64 query rows of one head (the wgmma M).  A block, one an
 //     SM (persistent: the grid is the SMs), runs one or two streams, each a
 //     consumer warpgroup taking the items first, first + stride, ..., and
@@ -179,7 +184,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const uint8_t* __restrict__ key_mask,
                  float* __restrict__ o, float* __restrict__ lse,
                  float* __restrict__ row_max, float* __restrict__ row_sum,
-                 int H, int S, float scale_log2, int n_items) {
+                 int H, int S, int ld, float scale_log2, int n_items) {
   using P = FwdPlan<DH, NS>;
   using Kv = typename P::Kv;
   using Vt = typename P::Vt;
@@ -422,10 +427,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       if (row >= S) continue;
       const float inv = 1.f / sum;
 #pragma unroll
-      for (int jj = 0; jj < DH / 8; ++jj)
-        *reinterpret_cast<float2*>(o + (head + row) * DH + 8 * jj + 2 * t) =
-            make_float2(acc[4 * jj + 2 * hh] * inv,
-                        acc[4 * jj + 2 * hh + 1] * inv);
+      for (int jj = 0; jj < DH / 8; ++jj) {
+        const int c = 8 * jj + 2 * t;
+        if (c < ld)
+          *reinterpret_cast<float2*>(o + (head + row) * ld + c) =
+              make_float2(acc[4 * jj + 2 * hh] * inv,
+                          acc[4 * jj + 2 * hh + 1] * inv);
+      }
       if (t == 0) {
         const float mn = m2[hh] * kLn2;
         lse[head + row] = mn + logf(sum);
@@ -443,37 +451,39 @@ template <int DH, int NS, bool CAUSAL>
 cudaError_t launch_streams(const CUtensorMap (&maps)[3],
                            const uint8_t* key_mask, float* o, float* lse,
                            float* row_max, float* row_sum, int H, int S,
-                           int items, cudaStream_t stream) {
+                           int Dh, int ld, int items, cudaStream_t stream) {
   using P = FwdPlan<DH, NS>;
   static const cudaError_t attr =
       set_smem(flash_fwd_kernel<DH, NS, CAUSAL>, P::kBytes);
   if (attr != cudaSuccess) return attr;
   const int grid = min(sm_count(), (items + NS - 1) / NS);
   // The backward's c1: the same x from the same scores.
-  const float scale_log2 = 1.0f / sqrtf(static_cast<float>(DH)) * kLog2e;
+  const float scale_log2 = softmax_scale(Dh, kLog2e);
   flash_fwd_kernel<DH, NS, CAUSAL><<<grid, threads(NS), P::kBytes, stream>>>(
       maps[0], maps[1], maps[2], key_mask, o, lse, row_max, row_sum, H, S,
-      scale_log2, items);
+      ld, scale_log2, items);
   return cudaGetLastError();
 }
 
+// The launch on tiles DH wide of tensors ld wide (head dim Dh).
 template <int DH>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const uint8_t* key_mask, float* o, float* lse,
                    float* row_max, float* row_sum, int B, int H, int S,
-                   int causal, cudaStream_t stream) {
+                   int Dh, int ld, int causal, cudaStream_t stream) {
   constexpr int kKeys = fwd_keys(DH);
   constexpr int NS = kMaxFwdStreams<DH>;
   CUtensorMap maps[3];
-  cudaError_t err = f32_rows_map<DH, kTile>(&maps[0], q, B * H, S);
-  if (err == cudaSuccess) err = f32_rows_map<DH, kKeys>(&maps[1], k, B * H, S);
-  if (err == cudaSuccess) err = f32_rows_map<DH, kKeys>(&maps[2], v, B * H, S);
+  const int BH = B * H;
+  cudaError_t err = f32_rows_map<DH, kTile>(&maps[0], q, BH, S, ld);
+  if (err == cudaSuccess) err = f32_rows_map<DH, kKeys>(&maps[1], k, BH, S, ld);
+  if (err == cudaSuccess) err = f32_rows_map<DH, kKeys>(&maps[2], v, BH, S, ld);
   if (err != cudaSuccess) return err;
   const int items = B * H * ((S + kTile - 1) / kTile);
   const bool two = streams_for(items, NS) == 2;
 #define FLEXDM_FWD(ns, c)                                                   \
   launch_streams<DH, ns, c>(maps, key_mask, o, lse, row_max, row_sum, H, S, \
-                            items, stream)
+                            Dh, ld, items, stream)
   if (causal) return two ? FLEXDM_FWD(NS, true) : FLEXDM_FWD(1, true);
   return two ? FLEXDM_FWD(NS, false) : FLEXDM_FWD(1, false);
 #undef FLEXDM_FWD
@@ -481,7 +491,9 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 
 }  // namespace
 
-// q, k, v, o: (B, H, S, Dh) float32, contiguous, 16-byte aligned.
+// q, k, v, o: (B, H, S, ld) float32, contiguous, 16-byte aligned, ld = Dh
+// rounded up to a multiple of 4 (16 bytes) with columns Dh .. ld - 1 of q,
+// k and v zero (a padded copy; hopper.cuh, "Head dims"); 1 <= Dh <= 128.
 // key_mask: (B, S) bool (one byte per key, nonzero = attend) or null for
 // "all keys valid".  lse, row_max, row_sum: (B, H, S) float32.  Returns the
 // cudaError_t of the launch (cudaErrorNotSupported if the CUDA driver
@@ -491,7 +503,9 @@ extern "C" int flexdm_flash_attention_fwd(const void* q, const void* k,
                                           void* o, void* lse, void* row_max,
                                           void* row_sum, int B, int H, int S,
                                           int Dh, int causal, void* stream) {
-  if (bad_shape(B, H, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, H, S) || bad_head_dim(Dh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ld = row_width(Dh, 4);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
@@ -501,19 +515,11 @@ extern "C" int flexdm_flash_attention_fwd(const void* q, const void* k,
   auto* mf = static_cast<float*>(row_max);
   auto* sf = static_cast<float*>(row_sum);
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (Dh) {
-    case 32:
-      err = launch<32>(qf, kf, vf, mask, of, lf, mf, sf, B, H, S, causal, st);
-      break;
-    case 64:
-      err = launch<64>(qf, kf, vf, mask, of, lf, mf, sf, B, H, S, causal, st);
-      break;
-    case 128:
-      err = launch<128>(qf, kf, vf, mask, of, lf, mf, sf, B, H, S, causal, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+#define FLEXDM_FWD_W(w)                                                   \
+  launch<w>(qf, kf, vf, mask, of, lf, mf, sf, B, H, S, Dh, ld, causal, st)
+  const int width = tile_width(ld);
+  return static_cast<int>(width == 32   ? FLEXDM_FWD_W(32)
+                          : width == 64 ? FLEXDM_FWD_W(64)
+                                        : FLEXDM_FWD_W(128));
+#undef FLEXDM_FWD_W
 }

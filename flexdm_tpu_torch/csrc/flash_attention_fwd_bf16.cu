@@ -39,6 +39,10 @@
 // product -> store chain, which only other blocks on the SM hide.
 //
 // Design.
+//   * Instances are tile widths DH = 32, 64 and 128 ("Dh = 32" below names
+//     the instance); the head dim is a runtime value from 1 to 128, run on
+//     the smallest width that holds its row, zero-filled by TMA, its scale
+//     1/sqrt(Dh) and its stores Dh wide (hopper.cuh, "Head dims").
 //   * One consumer warpgroup owns 64 query rows (the wgmma M) and walks
 //     every key tile of 64 keys.  Q arrives once by TMA.  S = Q K^T is an SS
 //     product (Q and K K-major); O += P V an RS product, P packed to bf16
@@ -117,7 +121,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       const uint8_t* __restrict__ key_mask,
                       bf16* __restrict__ o, float* __restrict__ lse,
                       float* __restrict__ row_max, float* __restrict__ row_sum,
-                      int H, int S, int causal, float scale_log2) {
+                      int H, int S, int ld, int causal, float scale_log2) {
   using P = FwdPlan<DH>;
   using Own = typename P::Own;
   using Kv = typename P::Kv;
@@ -375,7 +379,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const int row = row0 + 8 * hh;
     if (row >= S) continue;
-    store_row<DH>(o, head + row, acc, hh, t, 1.f / sum);
+    store_row<DH>(o, head + row, ld, acc, hh, t, 1.f / sum);
     if (t == 0) {
       const float mn = m[hh] * kLn2;
       lse[head + row] = mn + logf(sum);
@@ -385,19 +389,21 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// The launch on tiles DH wide of tensors ld wide (head dim Dh).
 template <int DH>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
                    const uint8_t* key_mask, bf16* o, float* lse,
                    float* row_max, float* row_sum, int B, int H, int S,
-                   int causal, cudaStream_t stream) {
+                   int Dh, int ld, int causal, cudaStream_t stream) {
   using P = FwdPlan<DH>;
   static const cudaError_t attr =
       set_smem(flash_fwd_bf16_kernel<DH>, P::bytes(P::kStages));
   if (attr != cudaSuccess) return attr;
   CUtensorMap maps[3];
-  cudaError_t err = rows_map<DH, kRows>(&maps[0], q, B * H, S);
-  if (err == cudaSuccess) err = rows_map<DH, kKeys>(&maps[1], k, B * H, S);
-  if (err == cudaSuccess) err = rows_map<DH, kKeys>(&maps[2], v, B * H, S);
+  const int BH = B * H;
+  cudaError_t err = rows_map<DH, kRows>(&maps[0], q, BH, S, ld);
+  if (err == cudaSuccess) err = rows_map<DH, kKeys>(&maps[1], k, BH, S, ld);
+  if (err == cudaSuccess) err = rows_map<DH, kKeys>(&maps[2], v, BH, S, ld);
   if (err != cudaSuccess) return err;
   // A short sequence needs fewer stages than the ring has (and so less
   // shared memory a block).
@@ -405,16 +411,19 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
   const int bytes = P::bytes(n_tiles < P::kStages ? n_tiles : P::kStages);
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   // The backward's c1: the same x from the same scores.
-  const float scale_log2 = 1.0f / sqrtf(static_cast<float>(DH)) * kLog2e;
+  const float scale_log2 = softmax_scale(Dh, kLog2e);
   flash_fwd_bf16_kernel<DH><<<grid, kThreads, bytes, stream>>>(
       maps[0], maps[1], maps[2], key_mask, o, lse, row_max, row_sum, H, S,
-      causal, scale_log2);
+      ld, causal, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o: (B, H, S, Dh) bf16, contiguous, 16-byte aligned.  key_mask:
+// q, k, v, o: (B, H, S, ld) bf16, contiguous, 16-byte aligned, ld = Dh
+// rounded up to a multiple of 8 (16 bytes) with columns Dh .. ld - 1 of q,
+// k and v zero (a padded copy; hopper.cuh, "Head dims"); 1 <= Dh <= 128.
+// key_mask:
 // (B, S) bool (one byte per key, nonzero = attend) or null for "all keys
 // valid".  lse, row_max, row_sum: (B, H, S) float32.  Returns the
 // cudaError_t of the launch (cudaErrorNotSupported if the CUDA driver
@@ -423,8 +432,10 @@ extern "C" int flexdm_flash_attention_fwd_bf16(
     const void* q, const void* k, const void* v, const void* key_mask,
     void* o, void* lse, void* row_max, void* row_sum, int B, int H, int S,
     int Dh, int causal, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || B > 65535 || H > 65535)
+  if (B <= 0 || H <= 0 || S <= 0 || B > 65535 || H > 65535 ||
+      bad_head_dim(Dh))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int ld = row_width(Dh, 8);
   const auto* qb = static_cast<const bf16*>(q);
   const auto* kb = static_cast<const bf16*>(k);
   const auto* vb = static_cast<const bf16*>(v);
@@ -434,19 +445,11 @@ extern "C" int flexdm_flash_attention_fwd_bf16(
   auto* mf = static_cast<float*>(row_max);
   auto* sf = static_cast<float*>(row_sum);
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (Dh) {
-    case 32:
-      err = launch<32>(qb, kb, vb, mask, ob, lf, mf, sf, B, H, S, causal, st);
-      break;
-    case 64:
-      err = launch<64>(qb, kb, vb, mask, ob, lf, mf, sf, B, H, S, causal, st);
-      break;
-    case 128:
-      err = launch<128>(qb, kb, vb, mask, ob, lf, mf, sf, B, H, S, causal, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+#define FLEXDM_FWD_W(w)                                                   \
+  launch<w>(qb, kb, vb, mask, ob, lf, mf, sf, B, H, S, Dh, ld, causal, st)
+  const int width = tile_width(ld);
+  return static_cast<int>(width == 32   ? FLEXDM_FWD_W(32)
+                          : width == 64 ? FLEXDM_FWD_W(64)
+                                        : FLEXDM_FWD_W(128));
+#undef FLEXDM_FWD_W
 }

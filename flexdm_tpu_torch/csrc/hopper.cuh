@@ -11,6 +11,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 
 #include "attention_mask.cuh"
@@ -179,8 +180,34 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
 }
 
 // ---------------------------------------------------------------------------
-// Host: shared memory and tensor maps
+// Host: head dims, shared memory and tensor maps
 // ---------------------------------------------------------------------------
+
+// Head dims.  The tile layouts of each dtype are instantiated at W = 32, 64
+// and 128 columns; the head dim Dh (1 .. 128) is a runtime value.  A
+// tensor's rows are ld = Dh rounded up to 16 bytes (``per16`` elements: 4
+// float32, 8 bf16), the row stride TMA needs: where ld > Dh the caller hands
+// in a zero-padded copy (ops/attention.py).  A call takes the smallest W >=
+// ld; TMA fills its columns from ld on with zeros, which change no score, no
+// O, no delta and no gradient column below Dh.  The softmax scale is
+// 1/sqrt(Dh), never 1/sqrt(W).  Stores write the columns below ld only.
+constexpr int kMaxHeadDim = 128;
+
+inline int row_width(int dh, int per16) {
+  return (dh + per16 - 1) / per16 * per16;
+}
+
+// The tile width W of a row width ld <= 128: 32, 64 or 128.
+inline int tile_width(int ld) { return ld <= 32 ? 32 : ld <= 64 ? 64 : 128; }
+
+inline bool bad_head_dim(int dh) { return dh < 1 || dh > kMaxHeadDim; }
+
+// 1/sqrt(Dh) times ``mul`` (log2 e for scores kept in log2 units), as every
+// kernel of a forward and its backward take it: the same x from the same
+// scores.
+inline float softmax_scale(int dh, float mul = 1.f) {
+  return 1.0f / sqrtf(static_cast<float>(dh)) * mul;
+}
 
 // Sets an instance's dynamic shared memory limit to what it uses, at any
 // size (a launch with the default limit failed with cudaErrorInvalidValue
@@ -228,24 +255,26 @@ inline cudaError_t bind_context() {
   return err;
 }
 
-// The map of a contiguous (BH, S, DH) tensor of ``elem_bytes``-byte
+// The map of a contiguous (BH, S, ld) tensor of ``elem_bytes``-byte
 // ``type`` elements read in boxes of ``box_cols`` columns by ``box_rows``
 // rows of one head, written to shared memory with ``swizzle``.  Rows past S
-// come back as zeros, never as the next head's rows.
+// and columns past ld come back as zeros, never as the next row's or
+// head's: a tile of W > ld columns (a column block wholly past ld too)
+// lands whole, its columns from ld on zero.
 inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int BH,
-                                   int S, int DH, int elem_bytes,
+                                   int S, int ld, int elem_bytes,
                                    CUtensorMapDataType type, int box_cols,
                                    int box_rows, CUtensorMapSwizzle swizzle) {
   const cudaError_t bound = bind_context();
   if (bound != cudaSuccess) return bound;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(DH),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(ld),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(BH)};
   const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(DH) * elem_bytes,
-      static_cast<cuuint64_t>(S) * DH * elem_bytes};
+      static_cast<cuuint64_t>(ld) * elem_bytes,
+      static_cast<cuuint64_t>(S) * ld * elem_bytes};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};

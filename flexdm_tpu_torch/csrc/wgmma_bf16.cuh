@@ -5,10 +5,12 @@
 // TMA copies, fences and the tensor-map encode are hopper.cuh's, shared with
 // the float32 kernels.
 //
-// Shared layout.  A (rows, Dh) bf16 tile is stored as Dh / 64 column blocks
-// (one at Dh = 32 and 64, two at Dh = 128), each a row-major (rows, W) array
-// with W = min(Dh, 64) columns (64 or 128 bytes a row), swizzled as TMA
-// writes it with CU_TENSOR_MAP_SWIZZLE_64B (Dh = 32) or _128B: the 16-byte
+// Shared layout.  A (rows, DH) bf16 tile (DH the tile width, 32, 64 or 128;
+// a smaller head dim lands zero-filled: hopper.cuh, "Head dims") is stored
+// as DH / 64 column blocks (one at DH = 32 and 64, two at DH = 128), each a
+// row-major (rows, C) array with C = min(DH, 64) columns (64 or 128 bytes a
+// row), swizzled as TMA writes it with CU_TENSOR_MAP_SWIZZLE_64B (DH = 32)
+// or _128B: the 16-byte
 // chunk c of row r lands at chunk c ^ (r / 2 % 4) (64 B) or c ^ (r % 8)
 // (128 B).  Every tile starts on a 1024-byte boundary, so the swizzle's
 // phase is the address's own and the descriptors' base offset is 0.
@@ -68,15 +70,19 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[R],
 }
 
 // Row 16 w + g + 8 hh of an m64nDH accumulator set, scaled, as bf16 pairs
-// into row ``row`` of a (rows, DH) bf16 array.
+// into row ``row`` of a (rows, ld) bf16 array (ld <= DH, a multiple of 8):
+// the columns below ld.
 template <int DH>
-__device__ __forceinline__ void store_row(bf16* dst, size_t row,
+__device__ __forceinline__ void store_row(bf16* dst, size_t row, int ld,
                                           const float (&acc)[DH / 2], int hh,
                                           int t, float scale) {
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
-    *reinterpret_cast<uint32_t*>(dst + row * DH + 8 * j + 2 * t) = pack_bf16(
-        acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);
+  for (int j = 0; j < DH / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (c < ld)
+      *reinterpret_cast<uint32_t*>(dst + row * ld + c) = pack_bf16(
+          acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -86,7 +92,7 @@ __device__ __forceinline__ void store_row(bf16* dst, size_t row,
 // A (ROWS, DH) bf16 tile in the swizzled layout above.
 template <int DH, int ROWS>
 struct SwizzledTile {
-  static_assert(DH == 32 || DH == 64 || DH == 128, "head dim 32, 64 or 128");
+  static_assert(DH == 32 || DH == 64 || DH == 128, "tile width 32, 64 or 128");
   static_assert(ROWS % 16 == 0, "whole k16 steps of rows");
   static constexpr int kCols = DH < 64 ? DH : 64;   // columns per block
   static constexpr int kRowBytes = kCols * 2;       // 64 or 128
@@ -256,13 +262,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// The map of a contiguous (BH, S, DH) bf16 tensor read in (ROWS, DH) tiles
-// of SwizzledTile<DH, ROWS> (boxes of one column block).  Rows past S come
-// back as zeros, never as the next head's rows.
+// The map of a contiguous (BH, S, ld) bf16 tensor (ld <= DH, a multiple of
+// 8) read in (ROWS, DH) tiles of SwizzledTile<DH, ROWS> (boxes of one column
+// block).  Rows past S and columns past ld come back as zeros, never as the
+// next row's or head's.
 template <int DH, int ROWS>
-cudaError_t rows_map(CUtensorMap* map, const void* base, int BH, int S) {
+cudaError_t rows_map(CUtensorMap* map, const void* base, int BH, int S,
+                     int ld) {
   using T = SwizzledTile<DH, ROWS>;
-  return encode_rows_map(map, base, BH, S, DH, 2,
+  return encode_rows_map(map, base, BH, S, ld, 2,
                          CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, T::kCols, ROWS,
                          T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                              : CU_TENSOR_MAP_SWIZZLE_64B);

@@ -24,7 +24,9 @@
 // (second_product): chained on the tensor cores the cuts would bias it.
 //
 // Shared layouts (every tile starts on a 1024-byte boundary):
-//   * F32Tile<DH, ROWS>: a (ROWS, DH) float32 tile as TMA writes it with
+//   * F32Tile<DH, ROWS>: a (ROWS, DH) float32 tile (DH the tile width; a
+//     smaller head dim lands zero-filled: hopper.cuh, "Head dims") as TMA
+//     writes it with
 //     CU_TENSOR_MAP_SWIZZLE_128B: DH / 32 column blocks, each a row-major
 //     (ROWS, 32) array of 128-byte rows, the 16-byte chunk c of row r at
 //     chunk c ^ (r % 8).  Read K-major (its columns are the product's k
@@ -122,7 +124,7 @@ __device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t step) {
 // A (ROWS, DH) float32 tile in the 128-byte swizzled layout TMA writes.
 template <int DH, int ROWS>
 struct F32Tile {
-  static_assert(DH == 32 || DH == 64 || DH == 128, "head dim 32, 64 or 128");
+  static_assert(DH == 32 || DH == 64 || DH == 128, "tile width 32, 64 or 128");
   static_assert(ROWS % 8 == 0, "whole 8-row core groups");
   static constexpr int kCols = 32;  // floats per column block (128 bytes)
   static constexpr int kBlocks = DH / kCols;
@@ -590,11 +592,13 @@ inline bool bad_shape(int B, int H, int S) {
          static_cast<long long>(B) * H * ((S + kTile - 1) / kTile) > INT_MAX;
 }
 
-// The map of a contiguous (BH, S, DH) float32 tensor read in F32Tile<DH,
-// ROWS> tiles.  Rows past S come back as zeros, never as the next head's.
+// The map of a contiguous (BH, S, ld) float32 tensor (ld <= DH, a multiple
+// of 4) read in F32Tile<DH, ROWS> tiles.  Rows past S and columns past ld
+// come back as zeros, never as the next row's or head's.
 template <int DH, int ROWS>
-cudaError_t f32_rows_map(CUtensorMap* map, const void* base, int BH, int S) {
-  return encode_rows_map(map, base, BH, S, DH, 4,
+cudaError_t f32_rows_map(CUtensorMap* map, const void* base, int BH, int S,
+                         int ld) {
+  return encode_rows_map(map, base, BH, S, ld, 4,
                          CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                          F32Tile<DH, ROWS>::kCols, ROWS,
                          CU_TENSOR_MAP_SWIZZLE_128B);

@@ -43,7 +43,23 @@ from .models.masking import (
     select_single_element,
 )
 from .models.mfp import forward_eval
+from .ops.attention import check_head_dim
 from .train.trainer import to_device
+
+
+def load_config(job_dir: str, attention_impl: Optional[str] = None,
+                device=None) -> TrainConfig:
+    """A job's ``TrainConfig`` from its ``args.json``, ``attention_impl``
+    overriding the recorded one; with ``device``, refuses (``ValueError``,
+    naming ``--attention_impl xla``) a head dim that no kernel takes where
+    the attention would launch them there."""
+    with open(os.path.join(job_dir, "args.json")) as f:
+        config = TrainConfig.from_args(json.load(f))
+    if attention_impl:
+        config.attention_impl = attention_impl
+    if device is not None:
+        check_head_dim(config.head_dim, config.attention_impl, device)
+    return config
 
 
 def load_model(job_dir: str, checkpoint: str = "best", batch_size: int = 8,
@@ -54,10 +70,7 @@ def load_model(job_dir: str, checkpoint: str = "best", batch_size: int = 8,
     ``data_dir`` overrides the data dir that ``args.json`` records (a job
     moved to another machine), ``attention_impl`` its attention
     implementation (the eval CLI's flag)."""
-    with open(os.path.join(job_dir, "args.json")) as f:
-        config = TrainConfig.from_args(json.load(f))
-    if attention_impl:
-        config.attention_impl = attention_impl
+    config = load_config(job_dir, attention_impl, device)
     spec = DatasetSpec(config.dataset_name, data_dir or config.data_dir,
                        batch_size)
     model = build_model(config, spec.schema)

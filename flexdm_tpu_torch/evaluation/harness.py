@@ -530,7 +530,8 @@ def main(argv=None, devices=None,
     The flags of the JAX package's CLI, plus ``--device`` (default
     ``cuda``; ``cpu`` only on request).  ``--attention_impl`` overrides
     the job's ``args.json`` (default: as recorded), as JAX's does;
-    ``pallas`` off a card raises before the job is read.
+    ``pallas`` off a card raises before the job is read, a head dim no
+    kernel takes (above 128) on a card before its weights are.
     ``--num_devices N`` scores on N
     data ranks (spawned, or joined under ``torchrun``) as
     :func:`..train.trainer.train` places them; ``devices`` and
@@ -555,6 +556,9 @@ def main(argv=None, devices=None,
     args = parser.parse_args(argv)
     if args.attention_impl:
         check_impl(args.attention_impl, args.device)
+    from ..demo import load_config
+
+    load_config(args.job_dir, args.attention_impl, args.device)
 
     if args.num_devices is None:
         final = _evaluate(args)

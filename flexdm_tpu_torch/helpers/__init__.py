@@ -1,7 +1,8 @@
-"""Visualization / demo helpers: SVG builders and asset retrieval.
+"""Visualization / demo helpers: SVG builders, asset retrieval, rasterizer.
 
-The port's own copy of ``flexdm_tpu/helpers`` (the rasterizer, which needs
-selenium or cairosvg, is not carried over).
+The port's own copy of ``flexdm_tpu/helpers``.  The rasterizer
+(``rasterizer.py``) needs cairosvg or selenium, which the port does not
+depend on: its ``Rasterizer`` raises where neither imports.
 """
 
 from .retrieve import ImageRetriever, TextRetriever, make_data_uri

@@ -23,6 +23,18 @@ the JAX layout: ``q, k, v`` are ``(B, H, S, Dh)`` and ``key_mask`` is a
   operand split into two TF32 terms and three products summed in float32,
   which keeps float32-level accuracy (~1e-6); tiles arrive by TMA and are
   split once, by a warpgroup of their own (``csrc/wgmma_tf32.cuh``).
+* Every head dim Dh from 1 to 128 runs through the kernels
+  (:func:`head_dim_plan`).  Their tile layouts are built at W = 32, 64 and
+  128 columns; a call takes the smallest W that holds its rows, and TMA
+  fills the columns past Dh with zeros, which change no score, no output
+  and no gradient column below Dh (the scale stays 1/sqrt(Dh)).  A row
+  must be a multiple of 16 bytes for TMA: where Dh is not (Dh % 4 in
+  float32, Dh % 8 in bf16), q, k, v (and O, dO) are copied once into a
+  zero-padded buffer of the next such width, and the outputs are sliced
+  back.  The copy is plain PyTorch around the kernels; each kernel still
+  launches once.  Dh > 128 has no kernel: on a CUDA device ``auto`` and
+  ``pallas`` refuse it (:func:`check_head_dim`), naming ``--attention_impl
+  xla``, where JAX runs it; the plain version takes every Dh.
 * Both take float32 or bfloat16 (q, k and v of one dtype).  bfloat16
   launches the bf16 instances ``csrc/flash_attention_fwd_bf16.cu`` and
   ``csrc/flash_attention_bwd_bf16.cu``: every product a warpgroup
@@ -71,12 +83,16 @@ import ctypes
 import functools
 import math
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e9
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+# The kernels take every head dim from 1 to MAX_HEAD_DIM, on tile layouts
+# KERNEL_WIDTHS columns wide (csrc/hopper.cuh, "Head dims").
+MAX_HEAD_DIM = 128
+KERNEL_WIDTHS = (32, 64, 128)
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -165,6 +181,43 @@ def attention_reference_backward(q, k, v, bias, o, do, causal: bool = False):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+class HeadDimPlan(NamedTuple):
+    """How the kernels run a head dim: on the tile layout ``width`` columns
+    wide (the template instance), over rows of ``row`` elements (Dh rounded
+    up to 16 bytes), through a zero-padded copy when ``copy``
+    (``row != Dh``)."""
+
+    width: int
+    row: int
+    copy: bool
+
+
+def head_dim_plan(dh: int, dtype=torch.float32) -> HeadDimPlan:
+    """The kernels' plan for head dim ``dh`` in ``dtype`` (float32 or
+    bfloat16): the smallest width of :data:`KERNEL_WIDTHS` that holds the
+    row of ``dh`` rounded up to 16 bytes (4 float32, 8 bf16 elements);
+    raises ``ValueError`` naming ``--attention_impl xla`` outside 1 ..
+    :data:`MAX_HEAD_DIM`.  The C entry points derive the same."""
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"head dim {dh} has no attention kernel: the CUDA kernels take "
+            f"1 <= Dh <= {MAX_HEAD_DIM} (Dh = latent_dim / num_heads); pass "
+            "--attention_impl xla to run the plain attention on the card")
+    per16 = 16 // torch.empty((), dtype=dtype).element_size()
+    row = -(-dh // per16) * per16
+    width = next(w for w in KERNEL_WIDTHS if row <= w)
+    return HeadDimPlan(width, row, row != dh)
+
+
+def check_head_dim(head_dim: int, impl: str = "auto", device="cuda") -> None:
+    """Refuse, before any step, a head dim the kernels do not take where
+    ``impl`` would launch them (``auto`` or ``pallas`` on a CUDA
+    ``device``): the training and eval CLIs and the server's load of
+    ``args.json`` call it.  ``xla`` and the CPU take every head dim."""
+    if impl != "xla" and torch.device(device).type == "cuda":
+        head_dim_plan(head_dim)
+
+
 def _bind(name: str, sources, symbol: str, n_pointers: int):
     """The C entry point ``symbol``: ``n_pointers`` pointers, then B, H, S,
     Dh, causal, then the stream."""
@@ -228,7 +281,11 @@ def _check_dtypes(q, k, v):
         )
 
 
-def _check_inputs(q, k, v, key_mask):
+def _check_inputs(q, k, v, key_mask, dh=None):
+    """What the kernels take: q, k and v alike, contiguous, aligned CUDA
+    tensors of a kernel dtype, ``(B, H, S, row)`` for the head dim ``dh``
+    (default: their own width, unpadded), whose row the plan of ``dh``
+    gives; the key mask a contiguous ``(B, S)`` bool beside them."""
     _check_dtypes(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(
@@ -242,10 +299,7 @@ def _check_inputs(q, k, v, key_mask):
             )
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, S, Dh), got {tuple(q.shape)}")
-    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(
-            f"head dim {q.shape[-1]} not in {SUPPORTED_HEAD_DIMS}"
-        )
+    _head_dim(q, dh)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     _check_aligned(q=q, k=k, v=v)
@@ -261,13 +315,41 @@ def _check_inputs(q, k, v, key_mask):
             )
 
 
-def _forward(q, k, v, key_mask, causal):
-    """Launch the forward kernel: ``O``, and the row ``lse``, max ``m`` and
-    sum ``l`` (each ``(B, H, S)``)."""
-    _check_inputs(q, k, v, key_mask)
+def _head_dim(q, dh=None) -> int:
+    """The head dim ``dh`` (default: q's width) whose kernel rows q's are;
+    raises otherwise (a launch on other rows would read past them)."""
+    dh = q.shape[-1] if dh is None else dh
+    row = head_dim_plan(dh, q.dtype).row
+    if q.shape[-1] != row:
+        raise ValueError(
+            f"head dim {dh} in {q.dtype} runs on rows of {row} elements "
+            f"(a zero-padded copy), got {q.shape[-1]}"
+        )
+    return dh
+
+
+def _padded(dh, dtype, *tensors):
+    """``tensors`` (each ``(..., dh)``) on the kernels' rows for head dim
+    ``dh``: themselves, or zero-padded copies."""
+    row = head_dim_plan(dh, dtype).row
+    return tuple(t if row == dh else F.pad(t, (0, row - dh))
+                 for t in tensors)
+
+
+def _unpadded(dh, *tensors):
+    """The first ``dh`` columns of each of ``tensors``, contiguous."""
+    return tuple(t if t.shape[-1] == dh else t[..., :dh].contiguous()
+                 for t in tensors)
+
+
+def _launch_forward(q, k, v, key_mask, causal, dh):
+    """Launch the forward kernel on q, k, v on the rows of head dim ``dh``
+    (checked): ``O`` (as wide), and the row ``lse``, max ``m`` and sum ``l``
+    (each ``(B, H, S)``)."""
+    _check_inputs(q, k, v, key_mask, dh)
     bf16 = q.dtype == torch.bfloat16
     fn = _kernel(q.dtype)
-    b, h, s, dh = q.shape
+    b, h, s, _ = q.shape
     o = torch.empty_like(q)
     lse, m, l = torch.empty((3, b, h, s), dtype=torch.float32, device=q.device)
     _launch(
@@ -278,6 +360,17 @@ def _forward(q, k, v, key_mask, causal):
     )
     _count("BF16_FWD_LAUNCHES" if bf16 else "KERNEL_LAUNCHES")
     return o, lse, m, l
+
+
+def _forward(q, k, v, key_mask, causal):
+    """Launch the forward kernel on ``(B, H, S, Dh)`` q, k, v (copied onto
+    zero-padded rows where :func:`head_dim_plan` says so): ``O``, and the
+    row ``lse``, max ``m`` and sum ``l`` (each ``(B, H, S)``)."""
+    _check_dtypes(q, k, v)
+    dh = q.shape[-1]
+    o, lse, m, l = _launch_forward(*_padded(dh, q.dtype, q, k, v), key_mask,
+                                   causal, dh)
+    return _unpadded(dh, o) + (lse, m, l)
 
 
 def _mask_ptr(key_mask):
@@ -300,8 +393,8 @@ def flash_attention_forward(
     return _forward(q, k, v, key_mask, causal)[:2]
 
 
-def _check_backward_inputs(q, k, v, key_mask, o, m, l, do):
-    _check_inputs(q, k, v, key_mask)
+def _check_backward_inputs(q, k, v, key_mask, o, m, l, do, dh=None):
+    _check_inputs(q, k, v, key_mask, dh)
     for name, t in (("o", o), ("do", do)):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
                 or not t.is_contiguous()):
@@ -315,11 +408,13 @@ def _check_backward_inputs(q, k, v, key_mask, o, m, l, do):
                              f"float32 on {q.device}")
 
 
-def _backward_dq(q, k, v, key_mask, o, m, l, do, causal=False):
+def _backward_dq(q, k, v, key_mask, o, m, l, do, causal=False, dh=None):
     """Launch the dq kernel; returns ``dq`` and ``delta = rowsum(dO * O)``
-    ``(B, H, S)``, which :func:`_backward_dkv` reads."""
+    ``(B, H, S)``, which :func:`_backward_dkv` reads.  The tensors are on
+    the kernels' rows of head dim ``dh`` (default: their width)."""
     bf16 = q.dtype == torch.bfloat16
-    b, h, s, dh = q.shape
+    b, h, s, _ = q.shape
+    dh = _head_dim(q, dh)
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     _launch(
@@ -332,10 +427,12 @@ def _backward_dq(q, k, v, key_mask, o, m, l, do, causal=False):
     return dq, delta
 
 
-def _backward_dkv(q, k, v, key_mask, m, l, delta, do, causal=False):
-    """Launch the dk/dv kernel; returns ``(dk, dv)``."""
+def _backward_dkv(q, k, v, key_mask, m, l, delta, do, causal=False, dh=None):
+    """Launch the dk/dv kernel; returns ``(dk, dv)`` (rows as
+    :func:`_backward_dq`'s)."""
     bf16 = q.dtype == torch.bfloat16
-    b, h, s, dh = q.shape
+    b, h, s, _ = q.shape
+    dh = _head_dim(q, dh)
     dk, dv = torch.empty((2,) + tuple(q.shape), dtype=q.dtype,
                          device=q.device)
     _launch(
@@ -348,14 +445,25 @@ def _backward_dkv(q, k, v, key_mask, m, l, delta, do, causal=False):
     return dk, dv
 
 
+def _launch_backward(q, k, v, key_mask, o, m, l, do, causal, dh):
+    """Both backward kernels on the rows of head dim ``dh`` (checked)."""
+    _check_backward_inputs(q, k, v, key_mask, o, m, l, do, dh)
+    dq, delta = _backward_dq(q, k, v, key_mask, o, m, l, do, causal, dh)
+    dk, dv = _backward_dkv(q, k, v, key_mask, m, l, delta, do, causal, dh)
+    return dq, dk, dv
+
+
 def flash_attention_backward(q, k, v, key_mask, o, m, l, do, causal=False):
     """Launch the backward kernels for the cotangent ``do`` of ``o``, with
     the forward's row max ``m`` and row sum ``l``; returns ``(dq, dk, dv)``.
-    Raises on anything the kernels do not take."""
-    _check_backward_inputs(q, k, v, key_mask, o, m, l, do)
-    dq, delta = _backward_dq(q, k, v, key_mask, o, m, l, do, causal)
-    dk, dv = _backward_dkv(q, k, v, key_mask, m, l, delta, do, causal)
-    return dq, dk, dv
+    q, k, v, o and do are ``(B, H, S, Dh)`` (copied onto zero-padded rows
+    where :func:`head_dim_plan` says so).  Raises on anything the kernels
+    do not take."""
+    _check_dtypes(q, k, v)
+    dh = q.shape[-1]
+    q, k, v, o, do = _padded(dh, q.dtype, q, k, v, o, do)
+    return _unpadded(dh, *_launch_backward(q, k, v, key_mask, o, m, l, do,
+                                           causal, dh))
 
 
 def reset_launch_counts() -> None:
@@ -382,19 +490,23 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, causal):
-        o, _, m, l = _forward(q, k, v, key_mask, causal)
-        ctx.causal = causal
+        # q, k, v and O are kept on the kernels' rows: a padded copy is
+        # made once a forward, not again in the backward.
+        dh = q.shape[-1]
+        q, k, v = _padded(dh, q.dtype, q, k, v)
+        o, _, m, l = _launch_forward(q, k, v, key_mask, causal, dh)
+        ctx.causal, ctx.dh = causal, dh
         ctx.save_for_backward(q, k, v, key_mask, o, m, l)
-        return o
+        return _unpadded(dh, o)[0]
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, key_mask, o, m, l = ctx.saved_tensors
         # The cotangent arrives through o.transpose(1, 2).reshape(...): it
         # is not contiguous.
-        dq, dk, dv = flash_attention_backward(
-            q, k, v, key_mask, o, m, l, do.contiguous(), ctx.causal
-        )
+        (do,) = _padded(ctx.dh, q.dtype, do.contiguous())
+        dq, dk, dv = _unpadded(ctx.dh, *_launch_backward(
+            q, k, v, key_mask, o, m, l, do, ctx.causal, ctx.dh))
         return dq, dk, dv, None, None
 
 

@@ -89,7 +89,7 @@ from ..data.pipeline import DeviceDataCache, Prefetcher
 from ..models import forward_train, make_task_config
 from ..models.masking import draw_train, record_draws
 from ..models.mfp import draw_options
-from ..ops.attention import check_impl
+from ..ops.attention import check_head_dim, check_impl
 from ..ops.rng import BatchRows
 from ..parallel import mesh
 from ..utils.profiling import trace_context
@@ -352,6 +352,7 @@ def _steps_per_epoch(train_loader, batch_size: int) -> int:
 def check_config(config: TrainConfig) -> None:
     """Refuse, before anything is written, a job the port cannot run."""
     check_impl(config.attention_impl, config.device)
+    check_head_dim(config.head_dim, config.attention_impl, config.device)
     if config.input_mode not in ("device", "host"):
         raise ValueError(f"input_mode {config.input_mode!r}: 'device' or "
                          "'host'")

@@ -7,6 +7,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from flexdm_tpu.ops import attention as jax_attn  # noqa: E402
@@ -58,6 +59,39 @@ def test_plain_matches_jax_xla_and_pallas(name):
             interpret=True,
         )
         np.testing.assert_allclose(out, np.asarray(pallas), **TOL)
+
+
+HEAD_DIMS = (8, 16, 20, 25, 48)  # W = 32 and 64; copied or not in each dtype
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_plain_matches_jax_pallas_at_head_dims(dh, causal):
+    """Head dims the kernels take on a wider tile: the port's attention
+    (the plain version on the CPU) and its three gradients against
+    ``jax.vjp`` through the Pallas kernels in interpret mode, which take
+    any Dh as one full block, with a seeded key mask."""
+    rng = np.random.default_rng(dh)
+    shape = (2, 2, 50, dh)
+    q, k, v, do = (rng.normal(size=shape).astype(np.float32)
+                   for _ in range(4))
+    mask = rng.random((2, 50)) > 0.3
+    mask[:, 0] = True
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = port_attn.dot_product_attention(
+        *leaves, key_mask=torch.from_numpy(mask), causal=causal)
+    got = [out] + list(torch.autograd.grad(out, leaves, torch.from_numpy(do)))
+
+    def f(q, k, v):
+        return jax_attn.dot_product_attention(
+            q, k, v, key_mask=jnp.asarray(mask), causal=causal,
+            impl="pallas", interpret=True)
+
+    want, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    for g, w, name in zip(got, [want, *vjp(jnp.asarray(do))],
+                          ("O", "dq", "dk", "dv")):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   err_msg=name, **TOL)
 
 
 @pytest.mark.parametrize("name", CASES)

@@ -212,3 +212,20 @@ def test_bf16_kernels_launch_from_a_thread_without_a_context_on_card():
     assert "err" not in out, out.get("err")
     for x, y in zip(out["got"], want):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [8, 16, 20, 25, 48, 96, 120])
+@pytest.mark.parametrize("shape", [(8, 8, 50), (2, 4, 500)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_kernels_at_every_head_dim_on_card(dh, shape, causal):
+    """Head dims below the tile widths (20 and 25 through padded copies of
+    24 and 32): O, lse, dq, dk and dv within their bars, the forward
+    bitwise equal on a repeat, through autograd too."""
+    _need_card()
+    shape = shape + (dh,)
+    q, k, v, do, mask = _card_inputs(shape, dh + shape[2] + causal)
+    _check_forward_and_backward(shape, causal, q, k, v, do, mask)
+    got, again = (_kernel_grads(q, k, v, do, mask, causal) for _ in range(2))
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)

@@ -240,3 +240,45 @@ def test_f32_kernels_refuse_unaligned_rows_on_card():
         with pytest.raises(ValueError, match="16-byte"):
             port_attn.flash_attention_forward(*args)
     assert port_attn.launch_counts() == counts
+
+
+# Head dims below the tile widths: 8, 16, 20, 25 on the 32-wide tiles (25
+# through a padded copy of 28), 48 on 64, 96 and 120 on 128 (96 leaves a
+# column block wholly past the row, zero-filled by TMA).
+HEAD_DIMS = (8, 16, 20, 25, 48, 96, 120)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("shape", [(8, 8, 50), (2, 4, 500)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_kernels_at_every_head_dim_on_card(dh, shape, causal):
+    """O and lse within 2e-5, dq, dk and dv within 1e-4 of the plain
+    versions at a head dim below the tile width, each call launched once
+    and bitwise equal on a repeat."""
+    _need_card()
+    _check_forward(shape + (dh,), causal, dh + shape[2])
+    _check_backward(shape + (dh,), causal, dh + shape[2] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [20, 48])
+def test_f32_backward_streams_at_head_dims_on_card(dh):
+    """Two streams a block (more items than SMs) on the 32- and 64-wide
+    tiles at a head dim below their width."""
+    _need_card()
+    _check_backward((33, 8, 70, dh), False, dh)
+
+
+@pytest.mark.cuda
+def test_f32_kernels_refuse_a_head_dim_above_128_on_card():
+    """Dh = 129 has no kernel: ``auto`` raises naming ``--attention_impl
+    xla`` and launches nothing; ``xla`` runs it."""
+    _need_card()
+    q, k, v, _, mask = _card_inputs((2, 2, 9, 129), 3)
+    counts = port_attn.launch_counts()
+    with pytest.raises(ValueError, match="--attention_impl xla"):
+        port_attn.dot_product_attention(q, k, v, mask)
+    assert port_attn.launch_counts() == counts
+    assert port_attn.dot_product_attention(q, k, v, mask,
+                                           impl="xla").shape == q.shape

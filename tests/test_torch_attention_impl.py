@@ -14,10 +14,17 @@
   it in ``args.json``; serving, the demo and the eval harness rebuild it
   from there; the eval CLI's flag overrides it; an ``args.json`` without
   the field reads as ``auto``.
+* Head dims: the kernels' plan (tile width, padded copy or not) for every
+  Dh from 1 to 128 in both dtypes; Dh above 128 refused where the kernels
+  would run (a card, ``auto`` or ``pallas``) at the training CLI, the eval
+  CLI and the server's load of ``args.json``, naming ``--attention_impl
+  xla``, where JAX runs it (a deliberate divergence); the crello Ours-EXP
+  model at ``latent_dim`` 128 and 384 (Dh 16 and 48) against JAX's.
 """
 
 import functools
 import json
+import math
 import os
 
 import numpy as np
@@ -235,3 +242,112 @@ def test_old_args_json_reads_as_auto(xla_job, tmp_path):
     save_weights(str(job / "checkpoints" / "best.torch.npz"), model)
     old, _ = demo.load_model(str(job), device="cpu")
     assert _impls(old) == {"auto"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_plan_for_every_head_dim(dtype):
+    """Dh 1-32 on the 32-wide tiles, 33-64 on 64, 65-128 on 128; the row
+    is Dh rounded up to 16 bytes (4 float32, 8 bf16 elements), copied with
+    zero padding where that is not Dh."""
+    per16 = 4 if dtype == torch.float32 else 8
+    for dh in range(1, 129):
+        plan = port_attn.head_dim_plan(dh, dtype)
+        row = per16 * math.ceil(dh / per16)
+        width = 32 if dh <= 32 else 64 if dh <= 64 else 128
+        assert plan == (width, row, row != dh), dh
+        assert plan.row <= plan.width
+    pinned = {torch.float32: {16: (32, 16, False), 20: (32, 20, False),
+                              25: (32, 28, True), 48: (64, 48, False),
+                              96: (128, 96, False)},
+              torch.bfloat16: {16: (32, 16, False), 20: (32, 24, True),
+                               25: (32, 32, True), 48: (64, 48, False),
+                               65: (128, 72, True)}}[dtype]
+    for dh, want in pinned.items():
+        assert port_attn.head_dim_plan(dh, dtype) == want, dh
+
+
+@pytest.mark.parametrize("dh", [0, 129, 256])
+def test_head_dim_without_a_kernel_is_refused(dh):
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="--attention_impl xla"):
+            port_attn.head_dim_plan(dh, dtype)
+    for impl in ("auto", "pallas"):
+        with pytest.raises(ValueError, match="--attention_impl xla"):
+            port_attn.check_head_dim(dh, impl, "cuda")
+        with pytest.raises(ValueError, match="--attention_impl xla"):
+            port_attn.check_head_dim(dh, impl, "cuda:0")
+    port_attn.check_head_dim(dh, "xla", "cuda")  # the plain version
+    port_attn.check_head_dim(dh, "auto", "cpu")
+
+
+def test_head_dim_above_128_runs_in_jax_and_is_refused_on_the_card():
+    """A deliberate divergence: JAX's ``auto`` runs Dh = 256 (XLA off the
+    TPU; its Pallas kernels take any Dh as one block), and so does the
+    port's plain version, to JAX's numbers; on a card the port's ``auto``
+    refuses it, naming ``--attention_impl xla``."""
+    q, k, v, mask = _qkv(torch.float32, dh=256)
+    got = port_attn.dot_product_attention(q, k, v, mask).numpy()
+    want = jax_attn.dot_product_attention(
+        *(jax.numpy.asarray(t.numpy()) for t in (q, k, v, mask)))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="--attention_impl xla"):
+        port_attn.check_head_dim(256, "auto", "cuda")
+
+
+def _wide_job(root, latent_dim=2048):
+    """A job whose ``args.json`` has Dh = latent_dim / 8 above 128."""
+    os.makedirs(root / "checkpoints")
+    args = dict(TrainConfig(latent_dim=latent_dim).to_json(),
+                data_dir=str(root / "missing"))
+    (root / "args.json").write_text(json.dumps(args))
+    return str(root)
+
+
+def test_cli_refuses_a_head_dim_without_a_kernel(crello_dir, tmp_path):
+    """``--latent_dim 2048`` (Dh 256) on a card: refused before anything is
+    written, naming ``--attention_impl xla``; the eval CLI and the server
+    refuse such a job before its weights are read."""
+    job = tmp_path / "job"
+    with pytest.raises(ValueError, match="--attention_impl xla"):
+        cli.main(["--preset", "crello_ours_exp", "--data_dir", crello_dir,
+                  "--job-dir", str(job), "--latent_dim", "2048"])
+    assert not job.exists()
+    wide = _wide_job(tmp_path / "wide")
+    with pytest.raises(ValueError, match="--attention_impl xla"):
+        harness.main(["--job-dir", wide])
+    with pytest.raises(ValueError, match="--attention_impl xla"):
+        harness.main(["--job-dir", wide, "--attention_impl", "pallas"])
+    with pytest.raises(ValueError, match="--attention_impl xla"):
+        InferenceEngine(wide)
+    with pytest.raises(ValueError, match="--attention_impl xla"):
+        demo.load_model(wide)
+    config = demo.load_config(wide, "xla", "cuda")  # the way out
+    assert config.attention_impl == "xla" and config.head_dim == 256
+
+
+@pytest.mark.parametrize("latent_dim", [128, 384])
+def test_mfp_model_matches_jax_at_head_dims(crello_spec, pallas_interpret,
+                                            latent_dim):
+    """crello Ours-EXP at widths no preset has, over its 8 heads: Dh 16
+    and 48, the head dims of ``--latent_dim 128`` and ``384``.  The port's
+    model (the plain attention on the CPU) against JAX's with ``xla`` and
+    with the Pallas kernels in interpret mode, on the same weights."""
+    schema = crello_spec.schema
+    batch = numpy_batch(crello_spec, 4)
+    masks = random_masks(schema, batch)
+    port_config, _ = _configs("auto", latent_dim=latent_dim, num_heads=8)
+    assert port_config.head_dim == latent_dim // 8
+    port_model = init_params(build_model(port_config, schema), 0).eval()
+    inputs = {k: np.asarray(v) for k, v in port_mfp.preprocess_for_test(
+        to_torch(batch), schema, to_torch(masks)).items()}
+    with torch.no_grad():
+        got = to_numpy(port_model(to_torch(inputs)))
+    params = _jax_params(params_to_jax(port_model.state_dict()))
+    for impl in ("xla", "pallas"):
+        jax_model = jax_trainer.build_model(
+            _configs(impl, latent_dim=latent_dim, num_heads=8)[1], schema)
+        want = to_numpy(jax.jit(jax_model.apply)(params, to_jax(inputs)))
+        assert set(got) == set(want)
+        for k in sorted(want):
+            np.testing.assert_allclose(got[k], want[k], **TOL,
+                                       err_msg=f"{impl}: {k}")

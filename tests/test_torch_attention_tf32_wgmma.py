@@ -19,6 +19,11 @@ scores are in log2 units, its online softmax over tiles of 64 keys at
 Dh = 32 (32 at Dh = 64, 16 at Dh = 128), P V one product of up to 32 keys
 at a time.
 
+A head dim below the tile width runs on the width's tiles with its columns
+past the head dim zero (TMA's fill) and the scale of the head dim: held to
+the plain versions at Dh 16 and 48 on tiles 32 and 64 wide, and shown to
+fail with the scale of the width.
+
 Held to the plain versions within ``KERNEL_TOL`` (the forward's O and lse,
 2e-5 abs + 2e-5 rel) and ``CARD_TOL`` (dq, dk, dv, 1e-4 abs + 1e-4 rel), the
 bars of ``chip_smoke.py``, and shown to fail them when the transposed tiles
@@ -259,13 +264,28 @@ def _pad(x, s):
     return torch.nn.functional.pad(x, (0, 0, 0, s - x.shape[-2]))
 
 
+def _pad_cols(x, width):
+    """``x`` with its columns zero-filled to ``width`` (TMA's fill of a
+    tile wider than the head dim)."""
+    if width is None:
+        return x
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
 def emulate_backward(q, k, v, key_mask, o, do, m, l, causal,
-                     order=acc_order, transposed=True):
+                     order=acc_order, transposed=True, width=None,
+                     scale_dim=None):
     """(dq, dk, dv) of the kernels' arithmetic on their layouts.  ``order``
-    and ``transposed`` can break the transposed tiles (mutation cases)."""
+    and ``transposed`` can break the transposed tiles (mutation cases).
+    ``width``: the tile width the head dim runs on (default the head dim),
+    its columns past the head dim zero as TMA fills them; ``scale_dim``: the
+    dim of the softmax scale (default the head dim; the width is the
+    mutation case)."""
+    head_dim = q.shape[-1]
+    scale = 1.0 / math.sqrt(scale_dim or head_dim)
+    q, k, v, o, do = (_pad_cols(x, width) for x in (q, k, v, o, do))
     b, h, s, dh = q.shape
     bo = other_rows(dh)
-    scale = 1.0 / math.sqrt(dh)
     c1 = np.float32(scale * np.float32(1.4426950408889634))
     log2e = np.float32(1.4426950408889634)
     masked2 = np.float32(np.float32(-1e9) * log2e)
@@ -337,7 +357,7 @@ def emulate_backward(q, k, v, key_mask, o, do, m, l, causal,
         dk = second_product(dk, ds, q_t, tiles)
     dk = (dk * scale).reshape(b, h, sp, dh)[..., :s, :]
     dv = dv.reshape(b, h, sp, dh)[..., :s, :]
-    return dq, dk, dv
+    return dq[..., :head_dim], dk[..., :head_dim], dv[..., :head_dim]
 
 
 LOG2E = np.float32(1.4426950408889634)
@@ -345,7 +365,8 @@ LN2 = np.float32(0.6931471805599453)
 MASKED2 = np.float32(np.float32(-1e9) * LOG2E)  # kMaskedLog2
 
 
-def emulate_forward(q, k, v, key_mask, causal, order=acc_order):
+def emulate_forward(q, k, v, key_mask, causal, order=acc_order, width=None,
+                    scale_dim=None):
     """(O, lse) of the forward kernel's arithmetic on its layouts: per item
     (64 query rows) and key tile, S = Q K^T from Q (register fragments at
     Dh = 32, else read K-major) and K as landed, x = s scale log2 e + bias
@@ -354,11 +375,15 @@ def emulate_forward(q, k, v, key_mask, causal, order=acc_order):
     accumulators and V transposed, rows at ``order`` (acc_order; another
     order breaks it, the mutation case), one product of 32 keys (16 at
     Dh = 128) at a time, each summed from zero and added in float32.
-    m = m2 ln 2, lse = m + log l."""
+    m = m2 ln 2, lse = m + log l.  ``width`` and ``scale_dim`` as
+    :func:`emulate_backward`'s."""
+    head_dim = q.shape[-1]
+    c1 = np.float32(np.float32(1.0) / np.sqrt(np.float32(
+        scale_dim or head_dim)) * LOG2E)
+    q, k, v = (_pad_cols(x, width) for x in (q, k, v))
     b, h, s, dh = q.shape
     bk = fwd_keys(dh)
     kh = min(bk, 32)  # keys a P V product takes
-    c1 = np.float32(np.float32(1.0) / np.sqrt(np.float32(dh)) * LOG2E)
     sp = -(-s // TILE) * TILE  # whole items
     n_t = -(-s // bk)          # key tiles an item visits
     qp = _pad(q, sp)
@@ -390,7 +415,7 @@ def emulate_forward(q, k, v, key_mask, causal, order=acc_order):
         for j0 in range(0, bk // 8, kh // 8):
             acc = second_product(acc, p, v_buf, tiles, j0, kh // 8)
         m2 = m_new
-    o = (acc / l[..., None]).reshape(b, h, sp, dh)[..., :s, :]
+    o = (acc / l[..., None]).reshape(b, h, sp, dh)[..., :s, :head_dim]
     lse = (m2 * LN2 + torch.log(l)).reshape(b, h, sp)[..., :s]
     return o, lse
 
@@ -545,3 +570,43 @@ def test_emulated_forward_matches_the_jax_pallas_forward(causal,
                                **KERNEL_TOL)
     np.testing.assert_allclose(got_lse.numpy(),
                                np.asarray(want_lse)[..., 0], **KERNEL_TOL)
+
+
+HEAD_DIMS = [(16, 32), (48, 64)]  # (Dh, the tile width it runs on)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh,width", HEAD_DIMS)
+def test_emulated_kernels_on_a_zero_filled_wider_tile(dh, width, causal):
+    """Dh 16 and 48 on the 32- and 64-wide tiles, the columns past Dh zero:
+    the forward's O and lse within KERNEL_TOL, dq, dk and dv within
+    CARD_TOL of the plain versions (a fully masked row, S past a tile)."""
+    q, k, v, do, mask = _inputs((2, 2, 70, dh), 22, True)
+    want = _plain_forward(q, k, v, mask, causal)
+    got = emulate_forward(q, k, v, mask, causal, width=width)
+    for g, w, n in zip(got, want, ("O", "lse")):
+        assert g.shape == w.shape, n
+        torch.testing.assert_close(g, w, **KERNEL_TOL, msg=n)
+    o, m, l, want = _reference(q, k, v, do, mask, causal)
+    got = emulate_backward(q, k, v, mask, o, do, m, l, causal, width=width)
+    for g, w, n in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape, n
+        torch.testing.assert_close(g, w, **CARD_TOL, msg=n)
+
+
+@pytest.mark.parametrize("dh,width", HEAD_DIMS)
+def test_emulation_with_the_scale_of_the_tile_width_fails(dh, width):
+    """A padded instance that took its scale from the tile width (1/sqrt(W)
+    for 1/sqrt(Dh)) misses the card's bars: the scale must come from the
+    head dim."""
+    q, k, v, do, mask = _inputs((2, 2, 70, dh), 23, False)
+    want = _plain_forward(q, k, v, mask, False)
+    got = emulate_forward(q, k, v, mask, False, width=width,
+                          scale_dim=width)
+    assert not torch.allclose(got[0], want[0], **KERNEL_TOL)
+    assert not torch.allclose(got[1], want[1], **KERNEL_TOL)
+    o, m, l, want = _reference(q, k, v, do, mask, False)
+    got = emulate_backward(q, k, v, mask, o, do, m, l, False, width=width,
+                           scale_dim=width)
+    for g, w, n in zip(got, want, ("dq", "dk", "dv")):
+        assert not torch.allclose(g, w, **CARD_TOL), n

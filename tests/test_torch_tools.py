@@ -253,6 +253,35 @@ def test_fwd_bench_refuses_to_run_without_a_card():
     assert "this bench needs one GPU" in proc.stderr
 
 
+def test_kernel_repeats_parses_its_arguments():
+    """``tools/torch_kernel_repeats.py``: the two-stream shapes (Dh 32, 48
+    and the padded 25) and the one-stream controls by default, shapes and
+    builds of the float32 backward from the command line."""
+    from tools import torch_kernel_repeats as tool
+
+    args = tool.parse_args(["--repeats", "10", "--dq-repeats", "20",
+                            "--shape", "33,8,70,32", "--other",
+                            "one_stream=build/variants/one_stream.cu"])
+    assert (args.repeats, args.dq_repeats, args.shape, args.other) == (
+        10, 20, ((33, 8, 70, 32),),
+        ["one_stream=build/variants/one_stream.cu"])
+    default = tool.parse_args([])
+    assert (default.repeats, default.dq_repeats, default.shape,
+            default.other) == (3000, 12000, tool.SHAPES, [])
+    assert tool.SHAPES[:3] == ((33, 8, 70, 32), (33, 8, 70, 48),
+                               (33, 8, 70, 25))
+    for bad in (["--shape", "33,8,70"], ["--shape", "0,8,70,32"],
+                ["--other", "one_stream"]):
+        with pytest.raises(SystemExit):
+            tool.parse_args(bad)
+
+
+def test_kernel_repeats_refuses_to_run_without_a_card():
+    proc = run_tool("torch_kernel_repeats.py", "--repeats", "1")
+    assert proc.returncode != 0
+    assert "this tool needs one GPU" in proc.stderr
+
+
 def test_exponential_floor_is_a_hand_count():
     """One exponential a score: 64 x 8 x 500^2 = 128,000,000 in the forward
     at crello_flat's training shape, once more in each backward kernel;

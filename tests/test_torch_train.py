@@ -12,8 +12,9 @@
   parameter by up to 2 lr: the bound used there is 2 lr + 1e-6.
 * Validation scores that do not change with the batch size (the JAX
   package's ``test_val_scores_invariant_to_batch_size``).
-* The same step for rico Ours-EXP (``sort_flag`` live) and crello_flat
-  (the shuffle uniforms JAX drew handed to the port).
+* The same step for rico Ours-EXP (``sort_flag`` live), crello_flat
+  (the shuffle uniforms JAX drew handed to the port) and crello Ours-EXP
+  at ``latent_dim`` 128 and 384 over 8 heads (Dh 16 and 48).
 * A CPU ``train()`` of 2 epochs whose ``best`` the port's engine serves,
   one epoch of the rico and flat presets, and the CLI's refusals
   (``--dtype float16``: no kernel instance computes in it).
@@ -99,6 +100,15 @@ def test_train_step_matches_jax_flat(crello_spec):
                             input_dtype="shuffled_set")
 
 
+@pytest.mark.parametrize("latent_dim", [128, 384])
+def test_train_step_matches_jax_at_head_dims(crello_spec, latent_dim):
+    """crello Ours-EXP's step at widths no preset has, over 8 heads: Dh 16
+    and 48 (``--latent_dim 128`` and ``384``), which the kernels run on
+    their 32- and 64-wide tiles on a card."""
+    _check_step_matches_jax(crello_spec, METHOD, latent_dim=latent_dim,
+                            num_heads=8)
+
+
 def test_train_step_matches_jax_canvas_without_l2(crello_spec, caplog):
     """``context='canvas'`` with ``l2=0``: the canvas heads are in no loss
     term, so they get a zero gradient and stay as they are, as in JAX; the
@@ -120,19 +130,19 @@ def test_train_step_matches_jax_canvas_without_l2(crello_spec, caplog):
 
 
 def _check_step_matches_jax(spec, method, min_pos_rows=0, l2=L2, unused=(),
-                            **model_kwargs):
+                            latent_dim=32, num_heads=4, **model_kwargs):
     """``unused``: name parts of the leaves the loss does not reach; their
     gradient is 0 and their parameters stay as they were, in both
     packages."""
     schema = spec.schema
     batch = numpy_batch(spec, 8)
-    jax_model = jax_mfp.MFPModel(schema, latent_dim=32, num_blocks=2,
-                                 num_heads=4, dropout=0.0,
-                                 attention_impl="xla", **model_kwargs)
+    sizes = dict(latent_dim=latent_dim, num_blocks=2, num_heads=num_heads,
+                 dropout=0.0)
+    jax_model = jax_mfp.MFPModel(schema, **sizes, attention_impl="xla",
+                                 **model_kwargs)
     # The port's keras initialisation, handed to JAX through convert.py.
-    model = init_params(port_mfp.MFPModel(
-        schema, latent_dim=32, num_blocks=2, num_heads=4, dropout=0.0,
-        **model_kwargs), 0)
+    model = init_params(port_mfp.MFPModel(schema, **sizes, **model_kwargs),
+                        0)
     initial = {k: np.array(v)
                for k, v in params_to_jax(model.state_dict()).items()}
     params = traverse_util.unflatten_dict({
