@@ -12,7 +12,12 @@ Phases, each of which must pass (any failure exits non-zero):
    (seconds, printed with the ptxas report and g++'s version, and the bf16
    forward's and backward's and the float32 backward's registers, spills
    and C7520 lines); fails if
-   the native decoder is not in use (14(a));
+   the native decoder is not in use (14(a)); (b) the static hazard check
+   of ``tools/torch_sass_hazards.py`` over every kernel instance of the
+   four libraries (``cuobjdump -sass``: an HGMMA's register operands or
+   accumulators touched before their wait, a TMA copy over shared loads
+   still in flight): each instance's registers, spills and hazards; fails
+   on any hazard;
 3. kernel: the flash-attention forward kernel (split-TF32 products on
    warpgroup wgmma over TMA-fed tiles) against its plain PyTorch version
    on the card (O and lse within 2e-5 abs + 2e-5 rel, float32) at the
@@ -37,8 +42,11 @@ Phases, each of which must pass (any failure exits non-zero):
    regime of the TPU's stream kernels), S=500, the kernels' tile edges
    (S = 16, 17, 32, 33, 64, 65, 128, 129 at Dh 32, 64, 128), two
    streams of uneven items a block and phase 3's head dims included, and
-   a second call bitwise equal to the first; then the kernels, the plain
-   autograd backward and the library call's backward timed at
+   a second call bitwise equal to the first; (b) the float32 forward, dq
+   and dk/dv kernels in autograd's order ``REPEATS`` times at
+   (33, 8, 70, 32), causal and not (the two-stream instances at Dh 32),
+   every output bitwise against the first call's; then the kernels, the
+   plain autograd backward and the library call's backward timed at
    (256, 8, 50, 32), (1, 2, 4096, 64), (64, 8, 500, 32), (256, 8, 50, 16)
    and (256, 8, 50, 48), beside their bounds;
 5. slice: the crello Ours-EXP job (D=256, 4 DeepSVG blocks, 8 heads,
@@ -134,7 +142,8 @@ Phases, each of which must pass (any failure exits non-zero):
     the two shards of phase 11's 2048-document crello and rico test splits
     (1024 records each) decoded by the native decoder equals its
     pure-Python decode, column by column (same dtype and shape), and the
-    native scan gives the Python scan's payloads with the CRCs verified;
+    native scan gives the Python scan's payloads with the CRCs verified
+    (by the Python scan too on the rico shard);
     (c) one pass of a fresh loader over each split, the
     crello ``random`` harness (decode included) and the ``DeviceDataCache``
     build over phase 8's 512-record train split, native and pure Python
@@ -348,6 +357,9 @@ BF16_KERNELS = ("fwd_bf16", "dq_bf16", "dkv_bf16")
 HEAD_DIMS = (8, 16, 20, 25, 48, 96, 120)
 HEAD_DIM_SHAPES = ((8, 8, 50), (2, 4, 500))
 HEAD_DIM_STREAMS = ((33, 8, 70, 25), (33, 8, 70, 48))
+# 4(b): the kernels repeated at the two-stream Dh 32 shape.
+REPEAT_SHAPE = (33, 8, 70, 32)
+REPEATS = 10000
 # The head dims of crello Ours-EXP at --latent_dim 128 and 384 (8 heads),
 # timed at the training batch.
 HEAD_DIM_TIMED = ((TRAIN_BATCH, 8, 50, 16), (TRAIN_BATCH, 8, 50, 48))
@@ -466,6 +478,27 @@ def phase_build():
                        ("float32 backward", attn.BWD_LIBRARY)):
         log(f"[build] {label} kernels (ptxas): " + "; ".join(
             ptxas_summary(_build.BUILD_LOGS.get(lib[0], ""))))
+    sass_hazards()
+
+
+def sass_hazards():
+    """2(b): ``tools/torch_sass_hazards.py`` over every instance of the four
+    libraries (``cuobjdump -sass``): registers, spills and hazards an
+    instance; any hazard fails the run."""
+    from flexdm_tpu_torch.ops import _build
+    from flexdm_tpu_torch.ops import attention as attn
+    from tools import torch_sass_hazards as hz
+
+    t0 = time.perf_counter()
+    reports = hz.check_dumps({
+        name: (hz.cuobjdump_sass(_build.build_library(name, sources)),
+               _build.BUILD_LOGS.get(name, ""))
+        for name, sources in attn.LIBRARIES})
+    total = sum(hz.log_report(name, report, log=log)
+                for name, report in reports.items())
+    log(f"[hazards] {total} hazards in the four libraries "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(total == 0, f"{total} hazards in the kernels' SASS")
 
 
 def ptxas_summary(report):
@@ -1020,10 +1053,37 @@ def phase_backward(card):
             f"{errs[1]:.2e} {errs[3]:.2e} {errs[5]:.2e} (bound 1e-4 abs + "
             f"1e-4 rel); a second call bitwise equal")
 
+    backward_repeats()
     timings = {shape: backward_times(shape, g, card)
                for shape in ((256, 8, 50, 32), (1, 2, 4096, 64), FLAT_SHAPE)
                + HEAD_DIM_TIMED}
     return worst, timings
+
+
+def backward_repeats():
+    """4(b): the float32 forward, dq and dk/dv kernels in autograd's order
+    ``REPEATS`` times at ``REPEAT_SHAPE``, causal and not, every output
+    bitwise against the first call's (``tools/torch_kernel_repeats.py``):
+    without the proxy fence of ``load_own_frags`` (csrc/wgmma_tf32.cuh) the
+    two-stream dq instances at Dh 32 wrote wrong rows in 22 of 120000
+    calls."""
+    import torch
+
+    from tools.torch_kernel_repeats import repeat_kernels
+
+    g = torch.Generator().manual_seed(11)
+    t0 = time.perf_counter()
+    for causal in (False, True):
+        got = repeat_kernels(REPEAT_SHAPE, causal, REPEATS, g)
+        log(f"[backward] {REPEAT_SHAPE} causal={causal}: {REPEATS} calls "
+            "of the forward, dq and dk/dv each bitwise against the first: "
+            + ", ".join(f"{k} {v['differ']} differ" for k, v in got.items())
+            + "".join(f"; {k} {c}" for k, v in got.items()
+                      for c in v["cases"]))
+        check(all(v["differ"] == 0 for v in got.values()),
+              f"repeated kernel calls differ at {REPEAT_SHAPE} "
+              f"causal={causal}")
+    log(f"[time] repeats {time.perf_counter() - t0:.1f} s")
 
 
 def backward_times(shape, g, card):
@@ -2701,10 +2761,12 @@ def _records_equal(got, want):
 
 def decode_parity(data):
     """14(b): every record of the first of the two shards of phase 11's
-    test splits (1024 records each; the pure-Python CRC of a crello shard
-    takes ~20 s) decoded natively equals its pure-Python decode, column by
-    column (dtype and shape included); the native scan gives the Python
-    scan's payloads, with the CRCs verified by each."""
+    test splits (1024 records each) decoded natively equals its
+    pure-Python decode, column by column (dtype and shape included); the
+    native scan gives the Python scan's payloads, with the CRCs verified
+    by the native scan, and by the Python one on the rico shard (on a
+    crello shard it takes ~20 s; tests/test_torch_native_io.py holds the
+    two CRCs to each other on the CPU)."""
     from flexdm_tpu_torch.data import DatasetSpec, tfrecord
 
     t0 = time.perf_counter()
@@ -2720,7 +2782,7 @@ def decode_parity(data):
         for shard in shards[:1]:
             payloads = tfrecord.read_records(shard, verify_crc=True)
             check(payloads == tfrecord.read_records(
-                shard, verify_crc=True, native=False),
+                shard, verify_crc=dataset == "rico", native=False),
                 f"{shard}: native and Python scans differ")
             for i, p in enumerate(payloads):
                 got = native.decode_record(p)
@@ -2732,7 +2794,8 @@ def decode_parity(data):
         log(f"[decode] {dataset}: {records} records of the first test "
             f"shard, {columns} columns "
             f"decoded natively = pure Python (np.array_equal, same dtype "
-            f"and shape); native scan = Python scan with verify_crc=True")
+            f"and shape); native scan (verify_crc=True) = Python scan "
+            f"(verify_crc={dataset == 'rico'})")
     log(f"[decode] parity in {time.perf_counter() - t0:.1f} s")
 
 

@@ -113,7 +113,8 @@
 //     ends.  An item's own tiles (Q, dO or K, V) land once and are split
 //     once; dq at Dh = 32 holds their hi and lo as register A fragments (RS
 //     score products; the next item's own tiles load as soon as they are
-//     read), else they stay in shared memory (SS) until the item ends.
+//     read, behind a proxy fence: load_own_frags), else they stay in shared
+//     memory (SS) until the item ends.
 //   * Two streams take turns issuing their score products (Turns), so one
 //     stream's products run while the other forms p and ds.
 //   * dq: s = q k^T and dp = dO v^T, p formed while dp is on the tensor
@@ -347,9 +348,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_wait(bar.own_ready, k & 1);
     if constexpr (P::kOwnInRegs) {
       // Q and dO live in registers from here: their tiles take the next
-      // item's.
+      // item's, after the proxy fence (load_own_frags).
       load_own_frags<DH>(q_hi, q_lo, q_s, q_s + OT, w, g, t);
       load_own_frags<DH>(d_hi, d_lo, do_s, do_s + OT, w, g, t);
+      fence_proxy_async();
       named_sync(1 + sid, kWarpgroup);
       if (lt == 0 && it + stride < n_items) load_own(it + stride);
     }

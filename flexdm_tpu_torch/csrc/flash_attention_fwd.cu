@@ -294,8 +294,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 
     mbar_wait(bar.own_ready, k & 1);
     if constexpr (P::kOwnInRegs) {
-      // Q lives in registers from here: its tile takes the next item's.
+      // Q lives in registers from here: its tile takes the next item's,
+      // after the proxy fence (load_own_frags).
       load_own_frags<DH>(q_hi, q_lo, q_s, q_s + OT, w, g, t);
+      fence_proxy_async();
       named_sync(1 + sid, kWarpgroup);
       if (lt == 0 && it + stride < n_items) load_own(it + stride);
     }

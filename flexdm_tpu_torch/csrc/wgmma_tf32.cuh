@@ -378,6 +378,14 @@ __host__ __device__ constexpr int barrier_bytes(int stages) {
 }
 
 // Register A fragments (hi, lo) of rows 16 w + g (+ 8) of an own tile.
+// Before the tile takes the next item's (a TMA copy issued by one thread
+// after a named barrier), every reading thread runs fence_proxy_async():
+// the loads go through the generic proxy and the copy writes through the
+// async proxy, which neither the barrier nor program order keeps behind
+// loads still in flight.  Without the fence a warp's loads still queued at
+// the barrier could read the next item's rows; the dq kernel's two-stream
+// instances at Dh 32 did, in 22 of 120000 calls at (33, 8, 70, 32) on an
+// H100 (tools/torch_sass_hazards.py reports the pattern, "tma").
 template <int DH>
 __device__ __forceinline__ void load_own_frags(uint32_t (&hi)[DH / 8][4],
                                                uint32_t (&lo)[DH / 8][4],

@@ -190,6 +190,34 @@ def test_f32_backward_streams_on_card(shape, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_dq_two_streams_repeat_bitwise_on_card(causal):
+    """The two-stream dq instances at Dh 32 (Q and dO held as register
+    fragments, their tiles refilled by TMA behind a proxy fence) in
+    autograd's order, forward, dq, dk/dv, 3000 times: every dq and delta
+    bitwise equal to the first call's.  Without the fence 2 (non-causal)
+    and 20 (causal) of 60000 calls wrote wrong rows on an H100
+    (tools/torch_kernel_repeats.py)."""
+    _need_card()
+    shape = (33, 8, 70, 32)
+    q, k, v, do, mask = _card_inputs(shape, 21)
+    o, _, m, l = port_attn._forward(q, k, v, mask, causal)
+
+    def dq_call():
+        port_attn._forward(q, k, v, mask, causal)
+        dq, delta = port_attn._backward_dq(q, k, v, mask, o, m, l, do,
+                                           causal, shape[3])
+        port_attn._backward_dkv(q, k, v, mask, m, l, delta, do, causal,
+                                shape[3])
+        return dq, delta
+
+    first = dq_call()
+    differ = [i for i in range(3000)
+              if not all(torch.equal(x, y) for x, y in zip(dq_call(), first))]
+    assert differ == []
+
+
+@pytest.mark.cuda
 def test_f32_backward_launches_from_a_thread_without_a_context_on_card():
     """A thread that has made no CUDA runtime call of its own has no
     current context, and the backward kernels' tensor maps need one (their

@@ -106,7 +106,7 @@ def sass_counts(path):
     counts and instructions, from ``cuobjdump -sass``."""
     import re
 
-    from tools.torch_fwd_bench import sass_functions
+    from tools.torch_sass_hazards import sass_functions
 
     out = {}
     for fname, rows in sass_functions(path).items():

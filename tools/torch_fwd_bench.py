@@ -69,6 +69,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
+from tools.torch_sass_hazards import sass_functions  # noqa: E402
 
 CASES = {  # (shape, causal) per dtype
     "float32": (((8, 8, 50, 32), False), ((256, 8, 50, 32), False),
@@ -162,39 +163,6 @@ def call(fn, q, k, v, mask, causal=False):
     if err:
         raise RuntimeError(f"launch failed: cudaError {err}")
     return o, lse, m, l
-
-
-def sass_functions(path):
-    """``{mangled name: [(opcode, text, branch target index)]}`` of every
-    function in a library, from ``cuobjdump -sass`` (found beside nvcc)."""
-    from flexdm_tpu_torch.ops import _build
-
-    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    dump = subprocess.run([tool, "-sass", path], capture_output=True,
-                          text=True, check=True).stdout
-    functions, current = {}, None
-    for line in dump.splitlines():
-        head = re.match(r"\s*Function : (\S+)", line)
-        if head:
-            current = functions.setdefault(head.group(1), [])
-            continue
-        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-        if ins and current is not None:
-            text = ins.group(2)
-            op = re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
-            current.append((int(ins.group(1), 16), op, text))
-    # A branch's target (an absolute address) as an instruction index.
-    out = {}
-    for name, body in functions.items():
-        index = {addr: i for i, (addr, _, _) in enumerate(body)}
-        rows = []
-        for addr, op, text in body:
-            hexa = re.findall(r"0x([0-9a-f]+)", text)
-            target = (index.get(int(hexa[-1], 16))
-                      if op.split(".")[0] == "BRA" and hexa else None)
-            rows.append((op, text, target))
-        out[name] = rows
-    return out
 
 
 def loop_counts(rows, scores_per_pass):
