@@ -14,7 +14,8 @@ Phases, each of which must pass (any failure exits non-zero):
    and C7520 lines); fails if
    the native decoder is not in use (14(a)); (b) the static hazard check
    of ``tools/torch_sass_hazards.py`` over every kernel instance of the
-   four libraries (``cuobjdump -sass``: an HGMMA's register operands or
+   five libraries (the wide kernels' too; ``cuobjdump -sass``: an HGMMA's
+   register operands or
    accumulators touched before their wait, a TMA copy over shared loads
    still in flight): each instance's registers, spills and hazards; fails
    on any hazard;
@@ -27,28 +28,35 @@ Phases, each of which must pass (any failure exits non-zero):
    streams of more items than SMs, the head dims below the tile widths
    (Dh 8, 16, 20, 25, 48, 96, 120 at (8, 8, 50, Dh) and (2, 4, 500, Dh),
    causal and not, the last fifth of the keys masked; the two-stream
-   (33, 8, 70, 25) and (33, 8, 70, 48)), and a second call bitwise equal
+   (33, 8, 70, 25) and (33, 8, 70, 48)), the head dims above 128 on the
+   wide kernels (``csrc/flash_attention_wide.cu``: Dh 129, 136, 160, 256,
+   264, 512 at the same shapes), each call launching one kernel of its
+   instance, and a second call bitwise equal
    to the first; the forward from a thread with no CUDA context; then kernel,
    plain version and one library call (``scaled_dot_product_attention``, a
    yardstick the port never calls) timed at (8, 8, 50, 32),
    (256, 8, 50, 32), (8, 8, 650, 32), (64, 8, 500, 32),
    (256, 8, 500, 32) and the head dims of ``--latent_dim`` 128 and 384,
-   (256, 8, 50, 16) and (256, 8, 50, 48), beside the bound computed from
-   the shapes (at the true Dh);
+   (256, 8, 50, 16) and (256, 8, 50, 48), and the wide kernels at
+   (8, 8, 50, 256), (256, 8, 50, 256) (``--latent_dim 2048``) and
+   (256, 1, 50, 512), beside the bound computed from the shapes (at the
+   true Dh);
 4. backward: the backward kernels (dq with delta, dk/dv; split-TF32
    products on warpgroup wgmma over TMA-fed tiles) through autograd
    against the plain backward and against autograd of the plain forward,
    dq, dk and dv within 1e-4 abs + 1e-4 rel at every shape, S=4096 (the
    regime of the TPU's stream kernels), S=500, the kernels' tile edges
    (S = 16, 17, 32, 33, 64, 65, 128, 129 at Dh 32, 64, 128), two
-   streams of uneven items a block and phase 3's head dims included, and
-   a second call bitwise equal to the first; (b) the float32 forward, dq
+   streams of uneven items a block and phase 3's head dims included (the
+   wide kernels' too, and S=4096 at Dh 256), each kernel launched once a
+   call, and a second call bitwise equal to the first; (b) the float32
+   forward, dq
    and dk/dv kernels in autograd's order ``REPEATS`` times at
    (33, 8, 70, 32), causal and not (the two-stream instances at Dh 32),
    every output bitwise against the first call's; then the kernels, the
    plain autograd backward and the library call's backward timed at
    (256, 8, 50, 32), (1, 2, 4096, 64), (64, 8, 500, 32), (256, 8, 50, 16)
-   and (256, 8, 50, 48), beside their bounds;
+   and (256, 8, 50, 48) and phase 3's wide shapes, beside their bounds;
 5. slice: the crello Ours-EXP job (D=256, 4 DeepSVG blocks, 8 heads,
    batch 8) with random weights from seed 0 on a synthetic data dir,
    served over HTTP through ``CoalescingEngine``; every answer is checked
@@ -96,8 +104,9 @@ Phases, each of which must pass (any failure exits non-zero):
 12. bf16 (``--dtype bfloat16``): (a) the bf16 kernel instances against
     their plain bf16 versions at the serving, training and crello_flat
     shapes, S=650, the tile edges (causal, a fully masked row), phase 3's
-    head dims (20 and 25 through padded copies) and, for the
-    backward, S=4096: O, dq, dk and dv within one bf16 ulp (2^-7 relative)
+    head dims (20 and 25 through padded copies, the wide ones, 129 through
+    a copy padded to 136) and, for the backward, S=4096 (at Dh 64 and 256):
+    O, dq, dk and dv within one bf16 ulp (2^-7 relative)
     plus 2^-8 of the largest reference entry, lse and delta within 2e-5
     abs + 2e-5 rel, a second call bitwise equal; timed beside the plain
     bf16 version, one bf16 ``scaled_dot_product_attention`` call and the
@@ -118,8 +127,8 @@ Phases, each of which must pass (any failure exits non-zero):
     to ``--attention_impl xla`` on the card at bf16's bars.  Every bf16
     path launches only bf16 kernels, every float32 path only float32 ones.
     12(a)'s times: at (8, 8, 50, 32), (256, 8, 50, 32), (64, 8, 500, 32),
-    (256, 8, 500, 32), crello_scaled's (2048, 8, 50, 64), (256, 8, 50, 16)
-    and (256, 8, 50, 48), each with the
+    (256, 8, 500, 32), crello_scaled's (2048, 8, 50, 64), (256, 8, 50, 16),
+    (256, 8, 50, 48) and phase 3's wide shapes, each with the
     last fifth of the keys masked and with every key attended (the
     library with no mask then), beside the exponential floor.
 13. trainer (crello Ours-EXP, batch 256, the 512/64/64 split of 8): (a)
@@ -246,8 +255,9 @@ Phases, each of which must pass (any failure exits non-zero):
     ``torch_profile_demo`` on 8(iii)'s job, ``torch_train_baselines``
     for CanvasVAE, AutoReg and BART (1 epoch on 512 documents; LayoutVAE
     runs in 15).
-18. raw crello ingestion to jobs (20000 raw templates from
-    ``tools/torch_scale_drill.make_raw_dump``, release scale): (a)
+18. raw crello ingestion to jobs (10000 raw templates from
+    ``tools/torch_scale_drill.make_raw_dump``, half the release scale,
+    cut for the time limit): (a)
     ``tools/torch_build_crello_dataset.py`` builds them: every template
     kept and counted in ``count.json``, each split non-empty,
     ``vocabulary.json`` naming every element type of the dump, a batch of
@@ -283,6 +293,19 @@ Phases, each of which must pass (any failure exits non-zero):
     answers equal but for near ties).  Launches exact: the forward once
     for every attention call of the ``xla`` run, 4 of each backward kernel
     a step, 4 x ``num_iter`` a request.
+20. wide head dims (run after 19, before 18): crello Ours-EXP at
+    ``--latent_dim 2048`` (Dh 256 over its 8 heads; D = 2048, 4 blocks,
+    S = 50, batch 256, the 512/64/64 split of 8), where the wide kernels
+    run every attention, as 19 with ``pallas`` against ``xla``: (a) one
+    step in float32 at 8(i)'s gate and one in bf16 at 12(b)'s; (b) the
+    training CLI for one epoch; (c) the eval CLI's ``elem`` and
+    ``all_feat``; (d) ``/predict`` with ``num_iter`` 1 and 3.  At D = 2048
+    a few MLP units have a pre-activation within float32's rounding of 0
+    (two float32 attentions let other rows through them): (a) excuses
+    those units' gradient entries, counted, and (b)'s bars are at least
+    twice the gap between ``xla`` and ``xla`` with the keys summed in
+    reverse (a third run).  Launches exact, only the wide kernels: 4
+    forwards a model forward, 4 of each backward kernel a step.
 Each step phase ends with a ``torch.profiler`` window: device kernel time
 per step, its attention share and the busiest kernels.
 
@@ -297,8 +320,11 @@ steps, CLI run and evaluation of phase 15 and one rank's step of phase
 kernel's ``multi_device`` times at phase 16's per-rank shapes, the
 baselines' causal one too; the launches of phase 17's, 18's and 19's
 paths too; each kernel's ``head_dims`` times at (256, 8, 50, 16) and
-(256, 8, 50, 48)), the card's name and power limit from nvidia-smi, and
-``{"ok": true,
+(256, 8, 50, 48)); then the six wide kernels (float32 and bf16 forward,
+dq and dk/dv of ``csrc/flash_attention_wide.cu``), timed at
+(256, 8, 50, 256) with their ``wide_times`` at the three wide shapes,
+``launches`` from phase 20's CLI run (float32) and bf16 step; the card's
+name and power limit from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -347,7 +373,6 @@ BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative
 # has travelled through the blocks.
 BF16_TIE = 4 * BF16_ULP
 F32_KERNELS = ("fwd", "dq", "dkv")
-BF16_KERNELS = ("fwd_bf16", "dq_bf16", "dkv_bf16")
 # Head dims below the kernels' tile widths (every Dh from 1 to 128 runs on
 # tiles 32, 64 or 128 wide, zero-filled past Dh): 20 direct in float32 and
 # copied onto padded rows in bf16, 25 copied in both, 96 a column block
@@ -364,6 +389,28 @@ REPEATS = 10000
 # timed at the training batch.
 HEAD_DIM_TIMED = ((TRAIN_BATCH, 8, 50, 16), (TRAIN_BATCH, 8, 50, 48))
 HEAD_DIM_LATENTS = (128, 384)
+# Head dims above 128, on the wide kernels (csrc/flash_attention_wide.cu):
+# 129 through a padded copy, 136, 160 and 264 a column block partly past
+# the row, 256 and 512 whole column blocks.  Checked as HEAD_DIMS are, and
+# the backward at S = 4096 at Dh 256.
+WIDE_HEAD_DIMS = (129, 136, 160, 256, 264, 512)
+WIDE_STREAM_SHAPE = (1, 2, 4096, 256)
+# crello Ours-EXP at --latent_dim 2048 (Dh 256 over 8 heads): phase 20,
+# served (8, 8, 50, 256) and trained (256, 8, 50, 256); one 512-wide head
+# (num_heads 1 at latent 512).  The wide kernels are timed there.
+WIDE_LATENT = 2048
+WIDE_TIMED = ((BATCH, 8, 50, 256), (TRAIN_BATCH, 8, 50, 256),
+              (TRAIN_BATCH, 1, 50, 512))
+WIDE_TRAIN_SHAPE = (TRAIN_BATCH, 8, 50, 256)
+# CUDA-graph windows a timing takes at the wide shapes (50 elsewhere): their
+# calls take up to milliseconds, and the script has its time limit.
+WIDE_SAMPLES = 10
+
+
+def timing_samples(shape):
+    """Windows of :func:`device_ms` (and calls of :func:`time_ms`) a timing
+    at ``shape`` takes."""
+    return WIDE_SAMPLES if shape in WIDE_TIMED else 50
 
 
 class SmokeFailure(RuntimeError):
@@ -466,8 +513,9 @@ def phase_build():
         f"{version} ({' '.join(_build.CXX_FLAGS)}) in {native_s:.2f} s; "
         f"native decoder in use: {tfrecord.native_available()}")
     for dtype in attn.KERNEL_DTYPES:
-        attn._kernel(dtype)
-        attn._bwd_kernels(dtype)
+        for wide in (False, True):
+            attn._kernel(dtype, wide)
+            attn._bwd_kernels(dtype, wide)
     log(f"[build] {', '.join(src for _, lib in attn.LIBRARIES for src in lib)}"
         f" -> sm_90a in {time.perf_counter() - t0:.2f} s")
     for name, _ in attn.LIBRARIES:
@@ -475,16 +523,17 @@ def phase_build():
     for label, lib in (("bf16 forward", attn.FWD_BF16_LIBRARY),
                        ("bf16 backward", attn.BWD_BF16_LIBRARY),
                        ("float32 forward", attn.FWD_LIBRARY),
-                       ("float32 backward", attn.BWD_LIBRARY)):
+                       ("float32 backward", attn.BWD_LIBRARY),
+                       ("wide", attn.WIDE_LIBRARY)):
         log(f"[build] {label} kernels (ptxas): " + "; ".join(
             ptxas_summary(_build.BUILD_LOGS.get(lib[0], ""))))
     sass_hazards()
 
 
 def sass_hazards():
-    """2(b): ``tools/torch_sass_hazards.py`` over every instance of the four
-    libraries (``cuobjdump -sass``): registers, spills and hazards an
-    instance; any hazard fails the run."""
+    """2(b): ``tools/torch_sass_hazards.py`` over every instance of the
+    kernel libraries (``cuobjdump -sass``): registers, spills and hazards
+    an instance; any hazard fails the run."""
     from flexdm_tpu_torch.ops import _build
     from flexdm_tpu_torch.ops import attention as attn
     from tools import torch_sass_hazards as hz
@@ -496,7 +545,7 @@ def sass_hazards():
         for name, sources in attn.LIBRARIES})
     total = sum(hz.log_report(name, report, log=log)
                 for name, report in reports.items())
-    log(f"[hazards] {total} hazards in the four libraries "
+    log(f"[hazards] {total} hazards in the {len(reports)} libraries "
         f"({time.perf_counter() - t0:.1f} s)")
     check(total == 0, f"{total} hazards in the kernels' SASS")
 
@@ -563,20 +612,26 @@ def phase_kernel(card):
     cases += [((33, 8, 70, 32), False, True), ((33, 8, 70, 32), True, True),
               ((17, 16, 130, 64), True, True),
               ((9, 8, 130, 128), False, True)]
-    worst = 0.0
+    # The worst error of each forward instance width (the wide kernels
+    # above Dh 128).
+    worst = {"fwd": 0.0, "fwd_wide": 0.0}
     for shape, causal, mask in head_dim_cases(cases, g):
         b, h, s, dh = shape
         q, k, v = (torch.randn(shape, generator=g).cuda() for _ in range(3))
         fully_masked = not mask[-1].any().item()
+        attn.reset_launch_counts()
         o, lse = attn.flash_attention_forward(q, k, v, mask, causal)
         again = attn.flash_attention_forward(q, k, v, mask, causal)
+        check(launch_counts() == instance_counts(None, dh, 2, True),
+              f"forward at {shape}: launches {launch_counts()}")
         bias = attn.key_bias(mask, b, s, q.device)
         ref_o = attn.attention_reference(q, k, v, bias, causal)
         ref_lse = attn.attention_reference_lse(q, k, bias, causal)
         torch.cuda.synchronize()
         err_o = (o - ref_o).abs().max().item()
         err_lse = (lse - ref_lse).abs().max().item()
-        worst = max(worst, err_o, err_lse)
+        key = kernel_names(None, dh)[0]
+        worst[key] = max(worst[key], err_o, err_lse)
         log(f"[kernel] {shape} causal={causal} fully_masked_row="
             f"{fully_masked}: max|dO|={err_o:.3e} max|dlse|={err_lse:.3e} "
             f"(bound 2e-5 abs + 2e-5 rel); a second call bitwise equal")
@@ -590,7 +645,8 @@ def phase_kernel(card):
     forward_off_thread(g)
     timings = {shape: forward_times(shape, g, card)
                for shape in ((8, 8, 50, 32), (256, 8, 50, 32), (8, 8, 650, 32),
-                             FLAT_SHAPE, EVAL_FLAT_SHAPE) + HEAD_DIM_TIMED}
+                             FLAT_SHAPE, EVAL_FLAT_SHAPE) + HEAD_DIM_TIMED
+               + WIDE_TIMED}
     return worst, timings
 
 
@@ -607,9 +663,9 @@ def fifth_masked(b, s):
 def head_dim_cases(cases, g, streams=HEAD_DIM_STREAMS):
     """``(shape, causal, mask)`` of each of ``cases`` (``(shape, causal,
     fully masked last batch row)``: a random mask keeping key 0 of every
-    row), then of the head dims below the tile widths: ``HEAD_DIMS`` at
-    ``HEAD_DIM_SHAPES`` and ``streams``, causal and not, the last fifth of
-    the keys masked."""
+    row), then of the head dims below the tile widths and above 128:
+    ``HEAD_DIMS`` and ``WIDE_HEAD_DIMS`` at ``HEAD_DIM_SHAPES`` and
+    ``streams``, causal and not, the last fifth of the keys masked."""
     import torch
 
     for shape, causal, fully_masked in cases:
@@ -619,7 +675,7 @@ def head_dim_cases(cases, g, streams=HEAD_DIM_STREAMS):
         if fully_masked:
             mask[-1] = False
         yield shape, causal, mask.cuda()
-    for shape in [bhs + (dh,) for dh in HEAD_DIMS
+    for shape in [bhs + (dh,) for dh in HEAD_DIMS + WIDE_HEAD_DIMS
                   for bhs in HEAD_DIM_SHAPES] + list(streams):
         for causal in (False, True):
             yield shape, causal, fifth_masked(shape[0], shape[2])
@@ -678,18 +734,19 @@ def forward_times(shape, g, card):
     plain = lambda: attn.attention_reference(q, k, v, bias)  # noqa: E731
     library = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, attn_mask=sdpa_mask)
-    t = {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
-         "library_ms": device_ms(library)}
+    n = timing_samples(shape)
+    t = {"ms": device_ms(kernel, n), "plain_ms": device_ms(plain, n),
+         "library_ms": device_ms(library, n)}
     t.update(forward_bound(shape))
     log(f"[time] attention {shape} device time (CUDA graph of 20 calls, "
-        f"median of 50): kernel {t['ms']:.4f} ms, plain "
+        f"median of {n}): kernel {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, library (scaled_dot_product_attention"
         f", O only; {sdpa_kernels(library)}) {t['library_ms']:.4f} ms; "
         f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; FP32 pipes "
         f"{t['fp32_bound_ms']:.4f} ms) [{card}]")
     log(f"[time] attention {shape} per call from Python (median of "
-        f"50 x 20): kernel {time_ms(kernel):.4f} ms, plain "
-        f"{time_ms(plain):.4f} ms [{card}]")
+        f"{n} x 20): kernel {time_ms(kernel, n):.4f} ms, plain "
+        f"{time_ms(plain, n):.4f} ms [{card}]")
     return t
 
 
@@ -1008,6 +1065,8 @@ def phase_backward(card):
         ((1, 2, 4096, 64), False, False),
         ((1, 2, 4096, 64), True, True),
         (FLAT_SHAPE, False, True),
+        (WIDE_STREAM_SHAPE, False, False),
+        (WIDE_STREAM_SHAPE, True, True),
     ]
     # The kernels' tile edges: items of 64 rows or keys, tiles of the other
     # axis of 32 (16 at Dh=128).
@@ -1017,7 +1076,9 @@ def phase_backward(card):
     # Two streams a block (at least two items per SM) of uneven counts and,
     # causal, uneven lengths.
     cases += [((33, 8, 70, 32), True, True), ((17, 16, 130, 64), True, True)]
-    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    # The worst error of each gradient, by instance width (``_wide``: the
+    # wide kernels above Dh 128).
+    worst = {f"{n}{w}": 0.0 for w in ("", "_wide") for n in ("dq", "dk", "dv")}
     for shape, causal, mask in head_dim_cases(cases, g):
         b, h, s, dh = shape
         q, k, v = (torch.randn(shape, generator=g).cuda().requires_grad_()
@@ -1025,9 +1086,13 @@ def phase_backward(card):
         do = torch.randn(shape, generator=g).cuda()
         fully_masked = not mask[-1].any().item()
         bias = attn.key_bias(mask, b, s, q.device)
+        attn.reset_launch_counts()
         got, again = (torch.autograd.grad(
             attn.dot_product_attention(q, k, v, mask, causal), (q, k, v), do)
             for _ in range(2))
+        check(launch_counts() == instance_counts(None, dh, 2),
+              f"backward at {shape}: launches {launch_counts()}")
+        wide = "_wide" * (kernel_names(None, dh)[0] == "fwd_wide")
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"two backward calls differ at {shape} causal={causal}")
         ref_o = attn.attention_reference(q, k, v, bias, causal)
@@ -1041,7 +1106,7 @@ def phase_backward(card):
                 ("dq", "dk", "dv"), got, plain, autograd):
             for want in (want_plain, want_auto):
                 err = (x - want).abs().max().item()
-                worst[name] = max(worst[name], err)
+                worst[name + wide] = max(worst[name + wide], err)
                 errs.append(err)
                 check(torch.isfinite(x).all().item(),
                       f"non-finite {name} at {shape}")
@@ -1056,7 +1121,7 @@ def phase_backward(card):
     backward_repeats()
     timings = {shape: backward_times(shape, g, card)
                for shape in ((256, 8, 50, 32), (1, 2, 4096, 64), FLAT_SHAPE)
-               + HEAD_DIM_TIMED}
+               + HEAD_DIM_TIMED + WIDE_TIMED}
     return worst, timings
 
 
@@ -1133,17 +1198,18 @@ def backward_times(shape, g, card):
         "library_fwd": lambda: plain_fwd(forward=library),
         "library_fwd_bwd": lambda: plain_fwd(True, library),
     }
-    t = {name: device_ms(fn) for name, fn in calls.items()}
+    n = timing_samples(shape)
+    t = {name: device_ms(fn, n) for name, fn in calls.items()}
     t["plain"] = t["plain_fwd_bwd"] - t["plain_fwd"]
     t["library"] = t["library_fwd_bwd"] - t["library_fwd"]
     t["bounds"] = dict(zip(("dq", "dkv"), backward_bounds(shape)))
     per_call = {
-        "kernels": time_ms(calls["kernels"]),
+        "kernels": time_ms(calls["kernels"], n),
         "plain": time_ms(lambda: torch.autograd.grad(
-            ref_o, (qg, kg, vg), do, retain_graph=True)),
+            ref_o, (qg, kg, vg), do, retain_graph=True), n),
     }
     log(f"[time] attention backward {shape} device time (CUDA graph of "
-        f"20 calls, median of 50): dq {t['dq']:.4f} ms, dkv "
+        f"20 calls, median of {n}): dq {t['dq']:.4f} ms, dkv "
         f"{t['dkv']:.4f} ms, kernels (dq + dkv) {t['kernels']:.4f} ms; "
         f"plain autograd backward {t['plain']:.4f} ms (forward + "
         f"backward {t['plain_fwd_bwd']:.4f} ms less forward "
@@ -1158,7 +1224,7 @@ def backward_times(shape, g, card):
             f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}; FP32 pipes "
             f"{bd['fp32_bound_ms']:.4f} ms), kernel {t[name]:.4f} ms")
     log(f"[time] attention backward {shape} per call from Python "
-        f"(median of 50 x 20): kernels {per_call['kernels']:.4f} ms, "
+        f"(median of {n} x 20): kernels {per_call['kernels']:.4f} ms, "
         f"plain autograd backward {per_call['plain']:.4f} ms [{card}]")
     return t
 
@@ -1208,17 +1274,32 @@ def launch_counts():
     return attn.launch_counts()
 
 
-def kernel_names(dtype):
+def kernel_names(dtype, head_dim=32):
     """``(fwd, dq, dkv)`` count names of the kernel instance a model of
-    compute ``dtype`` runs."""
-    return BF16_KERNELS if dtype == BF16 else F32_KERNELS
+    compute ``dtype`` and head dim ``head_dim`` runs (the wide kernels'
+    above 128)."""
+    import torch
+
+    from flexdm_tpu_torch.ops import attention as attn
+
+    return attn.instance_names(
+        torch.bfloat16 if dtype == BF16 else torch.float32, head_dim)
 
 
-def check_one_instance(counts, dtype, label):
-    """A path of compute ``dtype`` launched no kernel of the other dtype."""
-    other = F32_KERNELS if dtype == BF16 else BF16_KERNELS
-    check(not any(counts[n] for n in other),
-          f"{label}: a kernel of the other dtype launched: {counts}")
+def check_one_instance(counts, dtype, label, head_dim=32):
+    """A path of compute ``dtype`` and head dim ``head_dim`` launched no
+    kernel of another instance (the other dtype, or the other width)."""
+    mine = kernel_names(dtype, head_dim)
+    check(not any(n for k, n in counts.items() if k not in mine),
+          f"{label}: a kernel of another instance launched: {counts}")
+
+
+def instance_counts(dtype, head_dim, n, forward_only=False):
+    """:func:`launch_counts` after ``n`` launches of each kernel of one
+    instance (of its forward alone with ``forward_only``) and none of the
+    others."""
+    mine = kernel_names(dtype, head_dim)[:1 if forward_only else 3]
+    return {k: n * (k in mine) for k in launch_counts()}
 
 
 def train_data(root, dataset, seed):
@@ -2043,14 +2124,20 @@ def phase_bf16_kernel(card):
         ((8, 8, 650, 32), False, False),
         ((1, 2, 4096, 64), False, False),
         ((1, 2, 4096, 64), True, True),
+        (WIDE_STREAM_SHAPE, False, False),
+        (WIDE_STREAM_SHAPE, True, True),
     ]
     cases += [((2, 2, s, dh), True, True)
               for s in (16, 17, 63, 64, 65, 128, 129) for dh in (32, 64, 128)]
-    worst = dict.fromkeys(("O", "lse", "delta", "dq", "dk", "dv"), 0.0)
+    # The worst errors, O, dq, dk and dv by instance width (``_wide``: the
+    # wide kernels above Dh 128).
+    worst = dict.fromkeys(("O", "lse", "delta", "dq", "dk", "dv", "O_wide",
+                           "dq_wide", "dk_wide", "dv_wide"), 0.0)
     n_cases = 0
     for shape, causal, mask in head_dim_cases(cases, g, streams=()):
         n_cases += 1
         b, h, s, dh = shape
+        wide = "_wide" * (kernel_names(BF16, dh)[0] == "fwd_wide_bf16")
         q, k, v, do = (torch.randn(shape, generator=g).to("cuda", bf16)
                        for _ in range(4))
         fully_masked = not mask[-1].any().item()
@@ -2064,7 +2151,7 @@ def phase_bf16_kernel(card):
         ok, err = bf16_close(o, attn.attention_reference(q, k, v, bias,
                                                          causal))
         check(ok, f"bf16 O differs at {shape} causal={causal}: {err}")
-        worst["O"] = max(worst["O"], err)
+        worst["O" + wide] = max(worst["O" + wide], err)
         ref_lse = attn.attention_reference_lse(q, k, bias, causal)
         check(torch.allclose(lse, ref_lse, **KERNEL_TOL),
               f"bf16 lse differs at {shape}")
@@ -2080,10 +2167,13 @@ def phase_bf16_kernel(card):
         worst["delta"] = max(worst["delta"],
                              (delta - ref_delta).abs().max().item())
         grads = []
+        attn.reset_launch_counts()
         for _ in range(2):
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             grads.append(torch.autograd.grad(
                 attn.dot_product_attention(*leaves, mask, causal), leaves, do))
+        check(launch_counts() == instance_counts(BF16, dh, 2),
+              f"bf16 backward at {shape}: launches {launch_counts()}")
         check(all(torch.equal(x, y) for x, y in zip(*grads)),
               f"two bf16 backward calls differ at {shape} causal={causal}")
         want = attn.attention_reference_backward(q, k, v, bias, o, do, causal)
@@ -2092,7 +2182,7 @@ def phase_bf16_kernel(card):
             ok, err = bf16_close(x, w)
             check(x.dtype == bf16 and ok,
                   f"bf16 {name} differs at {shape} causal={causal}: {err}")
-            worst[name] = max(worst[name], err)
+            worst[name + wide] = max(worst[name + wide], err)
             errs.append(err)
         torch.cuda.synchronize()
         log(f"[bf16 kernel] {shape} causal={causal} fully_masked_row="
@@ -2103,7 +2193,8 @@ def phase_bf16_kernel(card):
     fwd_t, bwd_t = {}, {}
     # crello_scaled's width (D=512 over 8 heads of 64) beside the paths'.
     for shape in ((8, 8, 50, 32), (256, 8, 50, 32), FLAT_SHAPE,
-                  EVAL_FLAT_SHAPE, (2048, 8, 50, 64)) + HEAD_DIM_TIMED:
+                  EVAL_FLAT_SHAPE, (2048, 8, 50, 64)) + HEAD_DIM_TIMED \
+            + WIDE_TIMED:
         b, h, s, dh = shape
         q, k, v = (torch.randn(shape, generator=g).to("cuda", bf16)
                    for _ in range(3))
@@ -2118,25 +2209,25 @@ def phase_bf16_kernel(card):
             q, k, v, attn_mask=sdpa_mask)
         unmasked = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v)
+        ms = functools.partial(device_ms, samples=timing_samples(shape))
         t = {
-            "ms": device_ms(lambda: attn.flash_attention_forward(q, k, v,
-                                                                 mask)),
-            "plain_ms": device_ms(lambda: attn.attention_reference(q, k, v,
-                                                                   bias)),
-            "library_ms": device_ms(library),
-            "f32_ms": device_ms(lambda: attn.flash_attention_forward(
+            "ms": ms(lambda: attn.flash_attention_forward(q, k, v, mask)),
+            "plain_ms": ms(lambda: attn.attention_reference(q, k, v, bias)),
+            "library_ms": ms(library),
+            "f32_ms": ms(lambda: attn.flash_attention_forward(
                 q32, k32, v32, mask)),
             # Every key attended: the kernel with an all-True mask, the
             # library with none (another SDPA backend).
             "unmasked": {
-                "ms": device_ms(lambda: attn.flash_attention_forward(
+                "ms": ms(lambda: attn.flash_attention_forward(
                     q, k, v, every)),
-                "library_ms": device_ms(unmasked)},
+                "library_ms": ms(unmasked)},
         }
         t.update(forward_bound(shape, 2, BF16_FLOPS))
         fwd_t[shape] = t
         log(f"[time] bf16 attention {shape} device time (CUDA graph of 20 "
-            f"calls, median of 50), last fifth of the keys masked: kernel "
+            f"calls, median of {timing_samples(shape)}), last fifth of the "
+            f"keys masked: kernel "
             f"{t['ms']:.4f} ms, plain bf16 {t['plain_ms']:.4f} ms, library "
             f"(bf16 scaled_dot_product_attention with the additive key "
             f"bias, O only; {sdpa_kernels(library)}) {t['library_ms']:.4f} "
@@ -2146,7 +2237,7 @@ def phase_bf16_kernel(card):
             f"ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
             f"exponential floor {t['exp_floor_ms']:.4f} ms [{card}]")
     for shape in ((256, 8, 50, 32), (1, 2, 4096, 64), FLAT_SHAPE) \
-            + HEAD_DIM_TIMED:
+            + HEAD_DIM_TIMED + WIDE_TIMED:
         b, h, s, dh = shape
         q, k, v, do = (torch.randn(shape, generator=g).to("cuda", bf16)
                        for _ in range(4))
@@ -2174,7 +2265,7 @@ def phase_bf16_kernel(card):
         def library(*x):
             return F.scaled_dot_product_attention(*x, attn_mask=sdpa_mask)
 
-        t = {name: device_ms(fn) for name, fn in {
+        t = {name: device_ms(fn, timing_samples(shape)) for name, fn in {
             "dq": lambda: attn._backward_dq(q, k, v, mask, o, m, l, do),
             "dkv": lambda: attn._backward_dkv(q, k, v, mask, m, l, delta, do),
             "f32_dq": lambda: attn._backward_dq(q32, k32, v32, mask, o32,
@@ -2193,7 +2284,8 @@ def phase_bf16_kernel(card):
         bwd_t[shape] = t
         flops = 14 * b * h * s * s * dh  # 7 products of 2 S^2 Dh
         log(f"[time] bf16 attention backward {shape} device time (CUDA graph"
-            f" of 20 calls, median of 50): dq {t['dq']:.4f} ms, dkv "
+            f" of 20 calls, median of {timing_samples(shape)}): dq "
+            f"{t['dq']:.4f} ms, dkv "
             f"{t['dkv']:.4f} ms (together {flops / (t['dq'] + t['dkv']) / 1e9:.1f}"
             f" TFLOP/s); float32 kernels dq {t['f32_dq']:.4f} ms, "
             f"dkv {t['f32_dkv']:.4f} ms; plain bf16 autograd backward "
@@ -4467,11 +4559,67 @@ def impl_names(model):
             if isinstance(m, MultiHeadAttention)}
 
 
-def impl_step(args, batch, impl, dtype=None):
+class MlpKinks:
+    """While entered, each transformer MLP unit's ReLU pattern for every
+    ``mlp_0`` of ``model``: which rows its pre-activation lets through, as
+    the fingerprint ``sum_r [x_rj > 0] u_r`` with fixed random float64
+    weights ``u`` (:class:`ReluPatterns` does the same for the CVAE units).
+    Two runs whose attention rounds otherwise can put a pre-activation
+    that lies within that rounding of 0 on the other side of the kink: the
+    unit's ``mlp_0`` bias entry and weight row then take that row's term in
+    one run and not in the other (:func:`mlp_flips`)."""
+
+    def __init__(self, model):
+        self.names = {id(m): n for n, m in model.named_modules()}
+        self.patterns = {}
+
+    def __enter__(self):
+        from flexdm_tpu_torch.models import transformer
+
+        self._mlp = mlp = transformer.mlp
+
+        def recorded(x, mlp_0, mlp_1, dtype=None):
+            import torch
+
+            with torch.no_grad():
+                pre = transformer.dense(x, mlp_0.weight, mlp_0.bias,
+                                        dtype).flatten(0, -2)
+                u = torch.rand(pre.shape[0], dtype=torch.float64,
+                               generator=torch.Generator().manual_seed(
+                                   pre.shape[0])).to(pre.device)
+                self.patterns.setdefault(self.names[id(mlp_0)], []).append(
+                    ((pre > 0).double() * u[:, None]).sum(0).cpu())
+            return mlp(x, mlp_0, mlp_1, dtype)
+
+        transformer.mlp = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from flexdm_tpu_torch.models import transformer
+
+        transformer.mlp = self._mlp
+
+
+def mlp_flips(a, b):
+    """``{parameter name: bool mask}`` of the ``mlp_0`` bias entries and
+    weight rows of the units whose ReLU let other rows through in the two
+    runs' :attr:`MlpKinks.patterns`."""
+    out = {}
+    for key, fingerprints in a.items():
+        flipped = sum((x != y) for x, y in zip(fingerprints, b[key])) > 0
+        out[key + ".bias"] = flipped
+        out[key + ".weight"] = flipped[:, None]
+    return out
+
+
+def impl_step(args, batch, impl, dtype=None, patterns=None):
     """One crello Ours-EXP step on the card (dropout 0, draws from seed 5)
     with ``attention_impl=impl``: the loss, each leaf's clipped gradient
     (``mu / 0.1``), the launches and the plain attention's calls on the
-    card."""
+    card.  With a ``patterns`` dict, fills it with the step's
+    :attr:`MlpKinks.patterns`."""
+    import contextlib
+
     import torch
 
     overrides = dict(attention_impl=impl)
@@ -4484,48 +4632,61 @@ def impl_step(args, batch, impl, dtype=None):
     draws = _draws(model, schema, task_config, b,
                    torch.Generator("cuda").manual_seed(5))
     attn_reset()
-    with PlainOnCard() as plain:
+    kinks = MlpKinks(model) if patterns is not None else \
+        contextlib.nullcontext()
+    with PlainOnCard() as plain, kinks:
         metrics = step({k: v.cuda() for k, v in batch.items()}, draws)
         torch.cuda.synchronize()
+    if patterns is not None:
+        patterns.update(kinks.patterns)
     names = [n for n, _ in model.named_parameters()]
     return (metrics["loss"].item(),
             dict(zip(names, (mu.cpu() / 0.1 for mu in adam.mu))),
             launch_counts(), plain.calls)
 
 
-def impl_gate(label, xla, pallas):
+def impl_gate(label, xla, pallas, head_dim=32, flips=None):
     """A ``pallas`` step (:func:`impl_step`) held to the ``xla`` step at
     8(i)'s gate: loss 1e-5 relative, each gradient leaf within 1e-5 + 1e-3
     of its largest entry, the key biases' (0 in exact arithmetic) noise
     below ``KEY_BIAS_NOISE``; ``xla`` launches nothing and runs the plain
-    attention 4 times, ``pallas`` 4 of each float32 kernel and never the
-    plain attention.  Returns the largest gradient difference and the key
-    biases' noise."""
+    attention 4 times, ``pallas`` 4 of each float32 kernel of ``head_dim``'s
+    instance, no other, and never the plain attention.  The entries of
+    ``flips`` (:func:`mlp_flips`: the units whose ReLU let other rows
+    through in the two steps) are not compared, and those past the bar
+    counted.  Returns the largest gradient difference, the key biases'
+    noise and that count."""
     loss, grads, counts, plain = xla
     p_loss, p_grads, p_counts, p_plain = pallas
     check(abs(p_loss - loss) <= 1e-5 * abs(loss),
           f"{label}: pallas loss {p_loss} vs xla {loss}")
     worst = noise = 0.0
+    kinks = 0
     for name, g in grads.items():
-        err = (p_grads[name] - g).abs().max().item()
+        diff = (p_grads[name] - g).abs()
         if name.endswith(KEY_BIAS):
             noise = max(noise, g.abs().max().item(),
                         p_grads[name].abs().max().item())
             check(noise <= KEY_BIAS_NOISE,
                   f"{label}: {name}: gradient {noise:.2e}")
             continue
+        bar = 1e-5 + 1e-3 * g.abs().max().item()
+        if flips and name in flips:
+            excused = flips[name].expand_as(diff)
+            kinks += int((diff[excused] > bar).sum())
+            diff = diff.masked_fill(excused, 0.0)
+        err = diff.max().item()
         worst = max(worst, err)
-        check(err <= 1e-5 + 1e-3 * g.abs().max().item(),
+        check(err <= bar,
               f"{label}: pallas gradient of {name} differs from xla's by "
               f"{err:.2e}")
     check(not any(counts.values()) and plain == 4,
           f"{label}: xla step: launches {counts}, plain attention {plain} "
           "times")
-    check(p_counts == dict(fwd=4, dq=4, dkv=4, fwd_bf16=0, dq_bf16=0,
-                           dkv_bf16=0) and p_plain == 0,
+    check(p_counts == instance_counts(None, head_dim, 4) and p_plain == 0,
           f"{label}: pallas step: launches {p_counts}, plain attention "
           f"{p_plain}")
-    return worst, noise
+    return worst, noise, kinks
 
 
 def impl_steps(args, batch):
@@ -4534,10 +4695,9 @@ def impl_steps(args, batch):
     loss, grads, counts, plain = xla = impl_step(args, batch, "xla")
     p_loss, p_grads, p_counts, p_plain = pallas = impl_step(args, batch,
                                                             "pallas")
-    worst, noise = impl_gate("17(a)", xla, pallas)
+    worst, noise, _ = impl_gate("17(a)", xla, pallas)
     _, _, b_counts, b_plain = impl_step(args, batch, "pallas", BF16)
-    check(b_counts == dict(fwd=0, dq=0, dkv=0, fwd_bf16=4, dq_bf16=4,
-                           dkv_bf16=4) and b_plain == 0,
+    check(b_counts == instance_counts(BF16, 32, 4) and b_plain == 0,
           f"bf16 pallas step: launches {b_counts}, plain {b_plain}")
     log(f"[impl] (a) crello Ours-EXP step, batch {TRAIN_BATCH}, dropout 0, "
         f"the same draws: attention_impl pallas against xla: loss "
@@ -4636,29 +4796,43 @@ def impl_cli(card, root, data_dir, data):
 # 19. head dims: crello Ours-EXP at --latent_dim 128 and 384 (Dh 16, 48).
 # ---------------------------------------------------------------------------
 
-def head_dim_steps(args, batch, latent):
-    """19(a): one step at ``latent`` with ``pallas`` against ``xla``
-    (dropout 0, the same draws) at 8(i)'s gate; at 384 also in bf16, at
-    12(b)'s gate: the kernels' loss no farther from the plain bf16 step's
-    than that is from the float32 one's.  Each bf16 gradient leaf's
+def head_dim_steps(args, batch, latent, bf16=False, label="19(a)",
+                   kinks=False):
+    """19(a) (20(a)): one step at ``latent`` with ``pallas`` against ``xla``
+    (dropout 0, the same draws) at 8(i)'s gate (with ``kinks``, the
+    entries of MLP units whose ReLU let other rows through in the two
+    steps excused and counted, :func:`mlp_flips`); with ``bf16`` also in
+    bf16, at 12(b)'s gate: the kernels' loss no farther from the plain bf16
+    step's than that is from the float32 one's.  Each bf16 gradient leaf's
     distance from the plain bf16 step's is logged as a share of bf16's own
     distance from float32 (plus 8(i)'s 1e-5 + 1e-3 of its largest entry),
     not gated: the kernels round p and ds to bf16 operands where the plain
     version keeps float32, and no bf16 gradient bar is set (PERF.md §2);
     the key biases (0 in exact arithmetic) as their noise."""
-    label = f"19(a) latent {latent}"
+    head_dim = latent // 8
+    label = f"{label} latent {latent}"
     args = dict(args, latent_dim=latent)
-    xla = impl_step(args, batch, "xla")
-    pallas = impl_step(args, batch, "pallas")
-    worst, noise = impl_gate(label, xla, pallas)
+    patterns = ({}, {}) if kinks else (None, None)
+    xla = impl_step(args, batch, "xla", patterns=patterns[0])
+    pallas = impl_step(args, batch, "pallas", patterns=patterns[1])
+    flips = mlp_flips(*patterns) if kinks else None
+    worst, noise, excused = impl_gate(label, xla, pallas, head_dim, flips)
     out = {f"head_dim_{latent}_xla_step": xla[2],
            f"head_dim_{latent}_pallas_step": pallas[2]}
     line = (f"[head dims] (a) crello Ours-EXP --latent_dim {latent} (Dh "
-            f"{latent // 8}) step, batch {TRAIN_BATCH}, dropout 0, the same "
+            f"{head_dim}) step, batch {TRAIN_BATCH}, dropout 0, the same "
             f"draws: pallas loss {pallas[0]:.6f} vs xla {xla[0]:.6f}, max "
             f"|dg| {worst:.2e} (key biases noise {noise:.2e}); launches "
             f"pallas {pallas[2]}, xla none (plain {xla[3]})")
-    if latent == max(HEAD_DIM_LATENTS):
+    if kinks:
+        units = {k[:-len(".bias")]: int(m.sum()) for k, m in flips.items()
+                 if k.endswith(".bias")}
+        line += (f"; MLP units whose ReLU let other rows through "
+                 f"{sum(units.values())} of "
+                 f"{sum(m.numel() for k, m in flips.items() if k.endswith('.bias'))}"
+                 f" ({units}), their gradient entries past the bar "
+                 f"{excused} (excused)")
+    if bf16:
         b_xla = impl_step(args, batch, "xla", BF16)
         b_pallas = impl_step(args, batch, "pallas", BF16)
         own = abs(b_xla[0] - xla[0])
@@ -4678,8 +4852,8 @@ def head_dim_steps(args, batch, latent):
                 worst_b, worst_leaf = err / own_g, name
         check(not any(b_xla[2].values()) and b_xla[3] == 4,
               f"{label} bf16 xla: {b_xla[2]}, plain {b_xla[3]}")
-        check(b_pallas[2] == dict(fwd=0, dq=0, dkv=0, fwd_bf16=4, dq_bf16=4,
-                                  dkv_bf16=4) and b_pallas[3] == 0,
+        check(b_pallas[2] == instance_counts(BF16, head_dim, 4)
+              and b_pallas[3] == 0,
               f"{label} bf16 pallas: {b_pallas[2]}, plain {b_pallas[3]}")
         out[f"head_dim_{latent}_pallas_bf16_step"] = b_pallas[2]
         line += (f"; --dtype bfloat16: pallas loss {b_pallas[0]:.6f} vs xla "
@@ -4691,23 +4865,58 @@ def head_dim_steps(args, batch, latent):
     return out
 
 
-def head_dim_cli(root, data_dir, latent, dtype):
+class ReversedKeys:
+    """While entered, the plain attention sums over its keys in reverse
+    order: the same function (keys, values and the key bias reversed
+    together), rounded otherwise in float32.  Non-causal calls only (a
+    causal one fails the run)."""
+
+    def __enter__(self):
+        from flexdm_tpu_torch.ops import attention as attn
+
+        self._plain = plain = attn.attention_reference
+
+        def reversed_keys(q, k, v, bias, causal=False):
+            check(not causal, "ReversedKeys takes non-causal calls only")
+            return plain(q, k.flip(2), v.flip(2), bias.flip(1), causal)
+
+        attn.attention_reference = reversed_keys
+        return self
+
+    def __exit__(self, *exc):
+        from flexdm_tpu_torch.ops import attention as attn
+
+        attn.attention_reference = self._plain
+
+
+def head_dim_cli(root, data_dir, latent, dtype, yardstick=False):
     """19(b): ``python -m flexdm_tpu_torch --latent_dim <latent>`` for one
     epoch (2 steps) with a validation, once with ``--attention_impl
     pallas`` and once with ``xla``: the histories within 1e-5 relative in
     the training fields and ``EVAL_RTOL`` in the validation ones; in bf16
     within one bf16 ulp, the validation scores (argmax accuracies, which a
     near tie flips; the eval CLI of (c) counts those) logged, not gated.
+    With ``yardstick`` (20(b)), a third run, ``xla`` under
+    :class:`ReversedKeys`, measures how far two float32 attentions of the
+    same function part over the epoch, and the bars are at least twice
+    its gap to the ``xla`` run (ReLU kinks: a pre-activation within the
+    rounding of 0 lets other rows through a unit, 20(a)'s count).
     ``pallas`` launches the forward once for every attention call the
     ``xla`` run made (4 a model forward) and 4 of each backward kernel a
     step, ``xla`` none.  Returns the pallas job and its launches."""
+    import contextlib
+
     tag = f"{latent}_{dtype or 'float32'}"
     runs = {}
-    for impl in ("pallas", "xla"):
+    for impl in ("pallas", "xla") + (("xla_reversed",) if yardstick
+                                     else ()):
         job = os.path.join(root, f"head_dim_{tag}_{impl}")
         argv = ["--num_epochs", "1", "--validation_freq", "1",
-                "--latent_dim", str(latent), "--attention_impl", impl]
-        with PlainOnCard() as plain:
+                "--latent_dim", str(latent), "--attention_impl",
+                impl.split("_")[0]]
+        order = (ReversedKeys() if impl == "xla_reversed"
+                 else contextlib.nullcontext())
+        with order, PlainOnCard() as plain:
             (history, counts, seconds), _ = quiet(
                 _cli, argv + (["--dtype", dtype] if dtype else []),
                 data_dir, job)
@@ -4715,14 +4924,14 @@ def head_dim_cli(root, data_dir, latent, dtype):
     job, history, counts, plain, seconds = runs["pallas"]
     _, x_history, x_counts, x_plain, x_seconds = runs["xla"]
     steps = history[-1]["step"]
-    fwd, dq, dkv = kernel_names(dtype)
+    fwd, dq, dkv = kernel_names(dtype, latent // 8)
     check(not any(x_counts.values()) and x_plain > 0,
           f"19(b) {tag} xla: launches {x_counts}, plain {x_plain}")
     check(plain == 0 and counts[fwd] == x_plain
           and counts[dq] == counts[dkv] == 4 * steps
           and x_plain % 4 == 0, f"19(b) {tag} pallas: launches {counts} "
           f"for {steps} steps, {x_plain} attention calls")
-    check_one_instance(counts, dtype, f"19(b) {tag}")
+    check_one_instance(counts, dtype, f"19(b) {tag}", latent // 8)
     def gated(h):
         return {k: v for k, v in h.items() if not dtype
                 or not (k.startswith("val_") and k.endswith("_score"))}
@@ -4731,6 +4940,15 @@ def head_dim_cli(root, data_dir, latent, dtype):
                        [gated(h) for h in x_history])
     scores = _history_gap(history, x_history)["val"] if dtype else None
     bars = ((BF16_ULP, BF16_ULP) if dtype else (1e-5, EVAL_RTOL))
+    yard = ""
+    if yardstick:
+        y_history = runs["xla_reversed"][1]
+        y_gap = _history_gap([gated(h) for h in y_history],
+                             [gated(h) for h in x_history])
+        bars = (max(bars[0], 2 * y_gap["train"]),
+                max(bars[1], 2 * y_gap["val"]))
+        yard = (f"; xla with the keys summed in reverse apart from xla by "
+                f"{y_gap['train']:.2e} / {y_gap['val']:.2e}")
     check(gap["train"] <= bars[0] and gap["val"] <= bars[1],
           f"19(b) {tag}: pallas history differs from xla's by {gap}: "
           f"{history} vs {x_history}")
@@ -4739,14 +4957,14 @@ def head_dim_cli(root, data_dir, latent, dtype):
         f"validated): pallas {seconds:.1f} s, launches {counts}; xla "
         f"{x_seconds:.1f} s, the plain attention {x_plain} times; histories"
         f" apart by {gap['train']:.2e} (training) and {gap['val']:.2e} "
-        f"(validation), bars {bars[0]:g} / {bars[1]:g}"
+        f"(validation), bars {bars[0]:g} / {bars[1]:g}{yard}"
         + ("" if scores is None else
            f" (validation scores, not gated: {scores:.2e})")
         + f"; loss {history[-1]['loss']:.4f}")
     return job, counts
 
 
-def head_dim_eval(job, data_dir, dtype):
+def head_dim_eval(job, data_dir, dtype, latent):
     """19(c): ``python -m flexdm_tpu_torch.evaluation`` on the pallas job
     over its 64-document test split, ``elem`` and ``all_feat``, as recorded
     (the kernels) and with ``--attention_impl xla``: the sums at phase
@@ -4774,7 +4992,7 @@ def head_dim_eval(job, data_dir, dtype):
                 quiet(harness.main, argv + ["--attention_impl", impl])
                 torch.cuda.synchronize()
             counts[impl] = dict(launch_counts(), plain=plain.calls)
-        fwd = kernel_names(dtype)[0]
+        fwd = kernel_names(dtype, latent // 8)[0]
         check(counts["pallas"][fwd] == counts["xla"]["plain"] > 0
               and counts["pallas"]["plain"] == 0
               and sum(counts["pallas"].values()) == counts["pallas"][fwd]
@@ -4798,7 +5016,7 @@ def head_dim_eval(job, data_dir, dtype):
     return out, "; ".join(parts)
 
 
-def head_dim_serve(job, data_dir, dtype):
+def head_dim_serve(job, data_dir, dtype, latent):
     """19(d): the pallas job served over HTTP on the card, ``/predict`` of 8
     documents with ``num_iter`` 1 and 3, against an engine on a copy of
     the job that records ``--attention_impl xla`` (the same weights): the
@@ -4872,7 +5090,7 @@ def head_dim_serve(job, data_dir, dtype):
             counts[num_iter] = launch_counts()
             preds = body["predictions"]
             check_predictions(spec, "pos", docs, preds)
-            fwd = kernel_names(dtype)[0]
+            fwd = kernel_names(dtype, latent // 8)[0]
             check(counts[num_iter][fwd] == 4 * num_iter
                   and sum(counts[num_iter].values()) == 4 * num_iter,
                   f"19(d) num_iter {num_iter}: launches {counts[num_iter]}")
@@ -4909,28 +5127,61 @@ def phase_head_dims(card, root, data_dir, batch):
     by_path = {}
     t0 = time.perf_counter()
     for latent in HEAD_DIM_LATENTS:
-        by_path.update(head_dim_steps(args, batch, latent))
-        for dtype in (None, BF16) if latent == max(HEAD_DIM_LATENTS) \
-                else (None,):
-            tag = f"{latent}_{dtype or 'float32'}"
-            t1 = time.perf_counter()
-            job, counts = head_dim_cli(root, data_dir, latent, dtype)
-            by_path[f"head_dim_{tag}_cli"] = counts
-            evals, eval_line = head_dim_eval(job, data_dir, dtype)
-            for mode, c in evals.items():
-                by_path[f"head_dim_{tag}_eval_{mode}"] = c
-            served, serve_line = head_dim_serve(job, data_dir, dtype)
-            for num_iter, c in served.items():
-                by_path[f"head_dim_{tag}_predict_{num_iter}"] = c
-            log(f"[head dims] (c) eval --latent_dim {latent}"
-                f"{' --dtype ' + dtype if dtype else ''}, pallas vs xla "
-                f"over 64 documents: {eval_line}")
-            log(f"[head dims] (d) /predict pos x{BATCH} --latent_dim "
-                f"{latent}{' --dtype ' + dtype if dtype else ''}, pallas "
-                f"vs xla: {serve_line}; (b)-(d) "
-                f"{time.perf_counter() - t1:.1f} s")
+        bf16 = latent == max(HEAD_DIM_LATENTS)
+        by_path.update(head_dim_steps(args, batch, latent, bf16))
+        for dtype in (None, BF16) if bf16 else (None,):
+            by_path.update(head_dim_entry_points(root, data_dir, latent,
+                                                 dtype))
     log(f"[time] phase 19 (head dims) {time.perf_counter() - t0:.1f} s "
         f"[{card}]")
+    return by_path
+
+
+def head_dim_entry_points(root, data_dir, latent, dtype, yardstick=False):
+    """19(b)-(d) (20(b)-(d)) at ``latent`` in ``dtype``: the training CLI
+    (``yardstick`` as :func:`head_dim_cli`), the eval CLI and
+    ``/predict``; their launches by path."""
+    tag = f"{latent}_{dtype or 'float32'}"
+    t1 = time.perf_counter()
+    by_path = {}
+    job, counts = head_dim_cli(root, data_dir, latent, dtype, yardstick)
+    by_path[f"head_dim_{tag}_cli"] = counts
+    evals, eval_line = head_dim_eval(job, data_dir, dtype, latent)
+    for mode, c in evals.items():
+        by_path[f"head_dim_{tag}_eval_{mode}"] = c
+    served, serve_line = head_dim_serve(job, data_dir, dtype, latent)
+    for num_iter, c in served.items():
+        by_path[f"head_dim_{tag}_predict_{num_iter}"] = c
+    log(f"[head dims] (c) eval --latent_dim {latent}"
+        f"{' --dtype ' + dtype if dtype else ''}, pallas vs xla "
+        f"over 64 documents: {eval_line}")
+    log(f"[head dims] (d) /predict pos x{BATCH} --latent_dim "
+        f"{latent}{' --dtype ' + dtype if dtype else ''}, pallas "
+        f"vs xla: {serve_line}; (b)-(d) "
+        f"{time.perf_counter() - t1:.1f} s")
+    return by_path
+
+
+def phase_wide_heads(card, root, data_dir, batch):
+    """20: crello Ours-EXP (4 blocks, 8 heads, S = 50, batch 256) at
+    ``--latent_dim 2048``: Dh 256, on the wide kernels, ``pallas`` against
+    ``xla`` as phase 19: (a) a step in float32 and one in bf16, (b) the
+    training CLI for one epoch, (c) the eval CLI's ``elem`` and
+    ``all_feat``, (d) ``/predict`` with ``num_iter`` 1 and 3.  At D = 2048
+    a few of the 16384 MLP units have a pre-activation within float32's
+    rounding of 0, and two steps let other rows through them: (a) excuses
+    those units' gradient entries (counted), and (b)'s bars are at least
+    twice the gap of a third run, ``xla`` with the keys summed in reverse.
+    Launches exact and only the wide kernels': 4 forwards a model forward,
+    4 of each backward kernel a step."""
+    args = load_args(CONFIG, data_dir)
+    t0 = time.perf_counter()
+    by_path = head_dim_steps(args, batch, WIDE_LATENT, True, "20(a)",
+                             kinks=True)
+    by_path.update(head_dim_entry_points(root, data_dir, WIDE_LATENT, None,
+                                         yardstick=True))
+    log(f"[time] phase 20 (wide head dims) {time.perf_counter() - t0:.1f} "
+        f"s [{card}]")
     return by_path
 
 
@@ -5121,7 +5372,9 @@ def phase_entry_points(card, root, data_dir, batch, data):
 
 # --- 18. Raw crello ingestion to jobs ---------------------------------------
 
-RAW_DOCS = 20000  # release scale (~23k templates), the JAX drill's default
+# Half the release scale (~23k templates; the JAX drill's default 20000):
+# cut for the script's time limit.
+RAW_DOCS = 10000
 DRILL_EPOCHS = 1  # 70 steps of 256
 CAPSTONE_EPOCHS = 1  # the last validates, so ``best`` exists
 CAPSTONE_ITERS = 4
@@ -5430,6 +5683,8 @@ def main():
             card, root, data_dir, batch, data)
         entry_counts = phase_entry_points(card, root, data_dir, batch, data)
         head_dim_counts = phase_head_dims(card, root, data_dir, batch)
+        wide_counts = phase_wide_heads(card, root, data_dir, batch)
+        lap("phase 20")
         ingest_counts = phase_ingestion(card, root)
     lap("phase 18")
     log(f"[time] summary: train step crello Ours-EXP {step_ms:.2f} ms "
@@ -5449,7 +5704,7 @@ def main():
                "crello_flat_steps": flat_counts, **eval_counts,
                **bf16_counts, **trainer_counts, "demo": demo_counts,
                **baseline_counts, **multi_counts, **entry_counts,
-               **head_dim_counts, **ingest_counts}
+               **head_dim_counts, **wide_counts, **ingest_counts}
     # The training shape, which every kernel of the path runs at (the
     # forward also serves at (8, 8, 50, 32) and crello_flat runs
     # (64, 8, 500, 32): the log lines above).
@@ -5458,18 +5713,18 @@ def main():
     csrc = "flexdm_tpu_torch/csrc/"
     bf16_cli = bf16_counts["crello_ours_exp_bf16_cli"]
 
-    def fwd_times(t):
+    def fwd_times(t, at=shape):
         return {"ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "exp_floor_ms": t["exp_floor_ms"],
-                "library_ms": t["library_ms"], "shape": list(shape)}
+                "library_ms": t["library_ms"], "shape": list(at)}
 
-    def bwd_times(t, part):
+    def bwd_times(t, part, at=shape):
         bd = t["bounds"][part]
         return {"ms": t[part], "plain_ms": t["plain"],
                 "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
                 "exp_floor_ms": bd["exp_floor_ms"],
-                "library_ms": t["library"], "shape": list(shape)}
+                "library_ms": t["library"], "shape": list(at)}
 
     def head_dim_times(table, part=None):
         """A kernel's times at the head dims of ``HEAD_DIM_TIMED``."""
@@ -5509,7 +5764,8 @@ def main():
     dkv_tpu = f"{tpu}:156 and {tpu}:254"
     kernels = [
         entry("flash_attention_fwd", "float32", "flash_attention_fwd.cu",
-              f"{tpu}:77", "fwd", train_counts, kernel_err, fwd_times(fwd)),
+              f"{tpu}:77", "fwd", train_counts, kernel_err["fwd"],
+              fwd_times(fwd)),
         entry("flash_attention_bwd_dq", "float32", "flash_attention_bwd.cu",
               dq_tpu, "dq", train_counts, backward_err["dq"],
               bwd_times(bwd, "dq")),
@@ -5533,6 +5789,43 @@ def main():
             timings, backward_timings, backward_timings, bf16_fwd, bf16_bwd,
             bf16_bwd), (None, "dq", "dkv", None, "dq", "dkv")):
         out["head_dims"] = head_dim_times(table, part)
+    # The wide kernels (every Dh above 128), timed at the latent-2048
+    # training shape, with their times at WIDE_TIMED; launches from phase
+    # 20's CLI run (float32) and bf16 step.
+    wide = "flash_attention_wide.cu"
+    at = WIDE_TRAIN_SHAPE
+    wide_cli = wide_counts[f"head_dim_{WIDE_LATENT}_float32_cli"]
+    wide_bf16 = wide_counts[f"head_dim_{WIDE_LATENT}_pallas_bf16_step"]
+    wide_kernels = [
+        entry("flash_attention_fwd_wide", "float32", wide, f"{tpu}:77",
+              "fwd_wide", wide_cli, kernel_err["fwd_wide"],
+              fwd_times(timings[at], at)),
+        entry("flash_attention_bwd_dq_wide", "float32", wide, dq_tpu,
+              "dq_wide", wide_cli, backward_err["dq_wide"],
+              bwd_times(backward_timings[at], "dq", at)),
+        entry("flash_attention_bwd_dkv_wide", "float32", wide, dkv_tpu,
+              "dkv_wide", wide_cli,
+              max(backward_err["dk_wide"], backward_err["dv_wide"]),
+              bwd_times(backward_timings[at], "dkv", at)),
+        entry("flash_attention_fwd_wide_bf16", BF16, wide, f"{tpu}:77",
+              "fwd_wide_bf16", wide_bf16, bf16_err["O_wide"],
+              fwd_times(bf16_fwd[at], at)),
+        entry("flash_attention_bwd_dq_wide_bf16", BF16, wide, dq_tpu,
+              "dq_wide_bf16", wide_bf16, bf16_err["dq_wide"],
+              bwd_times(bf16_bwd[at], "dq", at)),
+        entry("flash_attention_bwd_dkv_wide_bf16", BF16, wide, dkv_tpu,
+              "dkv_wide_bf16", wide_bf16,
+              max(bf16_err["dk_wide"], bf16_err["dv_wide"]),
+              bwd_times(bf16_bwd[at], "dkv", at)),
+    ]
+    for out, table, part in zip(wide_kernels, (
+            timings, backward_timings, backward_timings, bf16_fwd, bf16_bwd,
+            bf16_bwd), (None, "dq", "dkv", None, "dq", "dkv")):
+        out["wide_times"] = {
+            str(s): dict(fwd_times(table[s], s) if part is None
+                         else bwd_times(table[s], part, s))
+            for s in WIDE_TIMED}
+    kernels += wide_kernels
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -19,9 +19,9 @@ more than one node); rank 0 prints.  ``--attention_impl`` is JAX's:
 ``auto`` (the kernels on a card, the plain version on the CPU), ``xla``
 (the plain version on any device) or ``pallas`` (the kernels; with
 ``--device cpu`` it raises before anything is written); ``args.json``
-records it.  ``auto`` and ``pallas`` on a card refuse a head dim
-(``latent_dim / 8``) above 128, which no kernel takes, before anything is
-written (``train``'s first check), naming ``--attention_impl xla``.  For the oneshot model a ``--dtype`` other than ``float32``
+records it.  Every head dim (``latent_dim / 8``) runs on a card: above
+128 through the wide kernels.  For the oneshot model a ``--dtype`` other
+than ``float32``
 and ``bfloat16`` raises ``NotImplementedError`` (``build_model``).
 ``--dtype bfloat16`` computes the oneshot model in bf16 where the JAX
 package does; parameters, gradients, the optimizer state and checkpoints

@@ -50,9 +50,9 @@ from .train.trainer import to_device
 def load_config(job_dir: str, attention_impl: Optional[str] = None,
                 device=None) -> TrainConfig:
     """A job's ``TrainConfig`` from its ``args.json``, ``attention_impl``
-    overriding the recorded one; with ``device``, refuses (``ValueError``,
-    naming ``--attention_impl xla``) a head dim that no kernel takes where
-    the attention would launch them there."""
+    overriding the recorded one; with ``device``, refuses (``ValueError``)
+    a head dim that no kernel takes (below 1) where the attention would
+    launch them there."""
     with open(os.path.join(job_dir, "args.json")) as f:
         config = TrainConfig.from_args(json.load(f))
     if attention_impl:

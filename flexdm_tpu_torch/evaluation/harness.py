@@ -530,8 +530,7 @@ def main(argv=None, devices=None,
     The flags of the JAX package's CLI, plus ``--device`` (default
     ``cuda``; ``cpu`` only on request).  ``--attention_impl`` overrides
     the job's ``args.json`` (default: as recorded), as JAX's does;
-    ``pallas`` off a card raises before the job is read, a head dim no
-    kernel takes (above 128) on a card before its weights are.
+    ``pallas`` off a card raises before the job is read.
     ``--num_devices N`` scores on N
     data ranks (spawned, or joined under ``torchrun``) as
     :func:`..train.trainer.train` places them; ``devices`` and

@@ -23,18 +23,21 @@ the JAX layout: ``q, k, v`` are ``(B, H, S, Dh)`` and ``key_mask`` is a
   operand split into two TF32 terms and three products summed in float32,
   which keeps float32-level accuracy (~1e-6); tiles arrive by TMA and are
   split once, by a warpgroup of their own (``csrc/wgmma_tf32.cuh``).
-* Every head dim Dh from 1 to 128 runs through the kernels
+* Every head dim Dh from 1 to 128 runs through the kernels above
   (:func:`head_dim_plan`).  Their tile layouts are built at W = 32, 64 and
   128 columns; a call takes the smallest W that holds its rows, and TMA
   fills the columns past Dh with zeros, which change no score, no output
-  and no gradient column below Dh (the scale stays 1/sqrt(Dh)).  A row
-  must be a multiple of 16 bytes for TMA: where Dh is not (Dh % 4 in
+  and no gradient column below Dh (the scale stays 1/sqrt(Dh)).  Every Dh
+  above 128 runs through the wide kernels ``csrc/flash_attention_wide.cu``
+  (forward, dq with delta, dk/dv; float32 and bf16 instances): a block owns
+  one column block of its outputs (128 columns of O or dq, 64 of dk and
+  dv) and computes the scores over the full row in chunks, so no tile or
+  accumulator grows with Dh and there is no upper limit.  A row must be a
+  multiple of 16 bytes (TMA, 16-byte copies): where Dh is not (Dh % 4 in
   float32, Dh % 8 in bf16), q, k, v (and O, dO) are copied once into a
   zero-padded buffer of the next such width, and the outputs are sliced
   back.  The copy is plain PyTorch around the kernels; each kernel still
-  launches once.  Dh > 128 has no kernel: on a CUDA device ``auto`` and
-  ``pallas`` refuse it (:func:`check_head_dim`), naming ``--attention_impl
-  xla``, where JAX runs it; the plain version takes every Dh.
+  launches once.  The plain version takes every Dh.
 * Both take float32 or bfloat16 (q, k and v of one dtype).  bfloat16
   launches the bf16 instances ``csrc/flash_attention_fwd_bf16.cu`` and
   ``csrc/flash_attention_bwd_bf16.cu``: every product a warpgroup
@@ -89,10 +92,12 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e9
-# The kernels take every head dim from 1 to MAX_HEAD_DIM, on tile layouts
-# KERNEL_WIDTHS columns wide (csrc/hopper.cuh, "Head dims").
-MAX_HEAD_DIM = 128
+# The kernels take head dims from 1 to 128 on tile layouts KERNEL_WIDTHS
+# columns wide (csrc/hopper.cuh, "Head dims"), and every wider one through
+# the wide kernels, whose blocks span WIDE_COLUMNS columns of the row at a
+# time (csrc/flash_attention_wide.cu).
 KERNEL_WIDTHS = (32, 64, 128)
+WIDE_COLUMNS = 128
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -100,14 +105,37 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 ATTENTION_IMPLS = ("auto", "xla", "pallas")
 
 # Launches of each CUDA kernel: the forward, and the backward's dq (with
-# delta) and dk/dv kernels; the BF16_ counts are the bf16 instances'.
+# delta) and dk/dv kernels; the BF16_ counts are the bf16 instances', the
+# WIDE_ counts the wide kernels' (Dh > 128).
 KERNEL_LAUNCHES = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
 BF16_FWD_LAUNCHES = 0
 BF16_DQ_LAUNCHES = 0
 BF16_DKV_LAUNCHES = 0
+WIDE_FWD_LAUNCHES = 0
+WIDE_DQ_LAUNCHES = 0
+WIDE_DKV_LAUNCHES = 0
+BF16_WIDE_FWD_LAUNCHES = 0
+BF16_WIDE_DQ_LAUNCHES = 0
+BF16_WIDE_DKV_LAUNCHES = 0
 _launches_lock = threading.Lock()
+# (kernel, bf16, wide) -> (its count's name above, the short name that
+# launch_counts() reports it under).
+_COUNTERS = {
+    ("fwd", False, False): ("KERNEL_LAUNCHES", "fwd"),
+    ("dq", False, False): ("BWD_DQ_LAUNCHES", "dq"),
+    ("dkv", False, False): ("BWD_DKV_LAUNCHES", "dkv"),
+    ("fwd", True, False): ("BF16_FWD_LAUNCHES", "fwd_bf16"),
+    ("dq", True, False): ("BF16_DQ_LAUNCHES", "dq_bf16"),
+    ("dkv", True, False): ("BF16_DKV_LAUNCHES", "dkv_bf16"),
+    ("fwd", False, True): ("WIDE_FWD_LAUNCHES", "fwd_wide"),
+    ("dq", False, True): ("WIDE_DQ_LAUNCHES", "dq_wide"),
+    ("dkv", False, True): ("WIDE_DKV_LAUNCHES", "dkv_wide"),
+    ("fwd", True, True): ("BF16_WIDE_FWD_LAUNCHES", "fwd_wide_bf16"),
+    ("dq", True, True): ("BF16_WIDE_DQ_LAUNCHES", "dq_wide_bf16"),
+    ("dkv", True, True): ("BF16_WIDE_DKV_LAUNCHES", "dkv_wide_bf16"),
+}
 
 # (library name, sources) of each kernel library, built by ops/_build.py.
 FWD_LIBRARY = ("flexdm_attention", ("flash_attention_fwd.cu",))
@@ -115,7 +143,9 @@ BWD_LIBRARY = ("flexdm_attention_bwd", ("flash_attention_bwd.cu",))
 FWD_BF16_LIBRARY = ("flexdm_attention_bf16", ("flash_attention_fwd_bf16.cu",))
 BWD_BF16_LIBRARY = ("flexdm_attention_bwd_bf16",
                     ("flash_attention_bwd_bf16.cu",))
-LIBRARIES = (FWD_LIBRARY, BWD_LIBRARY, FWD_BF16_LIBRARY, BWD_BF16_LIBRARY)
+WIDE_LIBRARY = ("flexdm_attention_wide", ("flash_attention_wide.cu",))
+LIBRARIES = (FWD_LIBRARY, BWD_LIBRARY, FWD_BF16_LIBRARY, BWD_BF16_LIBRARY,
+             WIDE_LIBRARY)
 
 
 def key_bias(key_mask: Optional[torch.Tensor], b: int, s: int,
@@ -183,35 +213,40 @@ def attention_reference_backward(q, k, v, bias, o, do, causal: bool = False):
 
 class HeadDimPlan(NamedTuple):
     """How the kernels run a head dim: on the tile layout ``width`` columns
-    wide (the template instance), over rows of ``row`` elements (Dh rounded
-    up to 16 bytes), through a zero-padded copy when ``copy``
-    (``row != Dh``)."""
+    wide (the template instance; above 128, the columns the wide kernels'
+    blocks span), over rows of ``row`` elements (Dh rounded up to 16
+    bytes), through a zero-padded copy when ``copy`` (``row != Dh``)."""
 
     width: int
     row: int
     copy: bool
 
+    @property
+    def wide(self) -> bool:
+        """The wide kernels (Dh > 128) run this head dim."""
+        return self.width > KERNEL_WIDTHS[-1]
+
 
 def head_dim_plan(dh: int, dtype=torch.float32) -> HeadDimPlan:
     """The kernels' plan for head dim ``dh`` in ``dtype`` (float32 or
-    bfloat16): the smallest width of :data:`KERNEL_WIDTHS` that holds the
-    row of ``dh`` rounded up to 16 bytes (4 float32, 8 bf16 elements);
-    raises ``ValueError`` naming ``--attention_impl xla`` outside 1 ..
-    :data:`MAX_HEAD_DIM`.  The C entry points derive the same."""
-    if not 1 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"head dim {dh} has no attention kernel: the CUDA kernels take "
-            f"1 <= Dh <= {MAX_HEAD_DIM} (Dh = latent_dim / num_heads); pass "
-            "--attention_impl xla to run the plain attention on the card")
+    bfloat16): the row of ``dh`` rounded up to 16 bytes (4 float32, 8 bf16
+    elements) on the smallest width of :data:`KERNEL_WIDTHS` that holds it,
+    or, above 128, on the wide kernels, the row rounded up to
+    :data:`WIDE_COLUMNS`.  Raises ``ValueError`` for ``dh < 1``.  The C
+    entry points derive the same."""
+    if dh < 1:
+        raise ValueError(f"head dim {dh}: the attention kernels take every "
+                         "Dh >= 1 (Dh = latent_dim / num_heads)")
     per16 = 16 // torch.empty((), dtype=dtype).element_size()
     row = -(-dh // per16) * per16
-    width = next(w for w in KERNEL_WIDTHS if row <= w)
+    width = next((w for w in KERNEL_WIDTHS if row <= w),
+                 -(-row // WIDE_COLUMNS) * WIDE_COLUMNS)
     return HeadDimPlan(width, row, row != dh)
 
 
 def check_head_dim(head_dim: int, impl: str = "auto", device="cuda") -> None:
-    """Refuse, before any step, a head dim the kernels do not take where
-    ``impl`` would launch them (``auto`` or ``pallas`` on a CUDA
+    """Refuse, before any step, a head dim the kernels do not take (below 1)
+    where ``impl`` would launch them (``auto`` or ``pallas`` on a CUDA
     ``device``): the training and eval CLIs and the server's load of
     ``args.json`` call it.  ``xla`` and the CPU take every head dim."""
     if impl != "xla" and torch.device(device).type == "cuda":
@@ -231,24 +266,30 @@ def _bind(name: str, sources, symbol: str, n_pointers: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(dtype=torch.float32):
-    """The forward's bound C entry point for ``dtype`` (built with nvcc on
-    first use)."""
-    if dtype == torch.bfloat16:
-        return _bind(*FWD_BF16_LIBRARY, "flexdm_flash_attention_fwd_bf16", 8)
-    return _bind(*FWD_LIBRARY, "flexdm_flash_attention_fwd", 8)
+def _kernel(dtype=torch.float32, wide=False):
+    """The forward's bound C entry point for ``dtype`` (the wide kernel's
+    with ``wide``; built with nvcc on first use)."""
+    bf16 = dtype == torch.bfloat16
+    library = (WIDE_LIBRARY if wide else FWD_BF16_LIBRARY if bf16
+               else FWD_LIBRARY)
+    return _bind(*library, _symbol("fwd", bf16, wide), 8)
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_kernels(dtype=torch.float32):
-    """The backward's bound C entry points ``(dq, dkv)`` for ``dtype``."""
-    if dtype == torch.bfloat16:
-        return (_bind(*BWD_BF16_LIBRARY, "flexdm_flash_attention_bwd_dq_bf16",
-                      10),
-                _bind(*BWD_BF16_LIBRARY,
-                      "flexdm_flash_attention_bwd_dkv_bf16", 10))
-    return (_bind(*BWD_LIBRARY, "flexdm_flash_attention_bwd_dq", 10),
-            _bind(*BWD_LIBRARY, "flexdm_flash_attention_bwd_dkv", 10))
+def _bwd_kernels(dtype=torch.float32, wide=False):
+    """The backward's bound C entry points ``(dq, dkv)`` for ``dtype`` (the
+    wide kernels' with ``wide``)."""
+    bf16 = dtype == torch.bfloat16
+    library = (WIDE_LIBRARY if wide else BWD_BF16_LIBRARY if bf16
+               else BWD_LIBRARY)
+    return tuple(_bind(*library, _symbol(kernel, bf16, wide), 10)
+                 for kernel in ("dq", "dkv"))
+
+
+def _symbol(kernel: str, bf16: bool, wide: bool) -> str:
+    """The C entry point of ``kernel`` ("fwd", "dq" or "dkv")."""
+    part = "fwd" if kernel == "fwd" else f"bwd_{kernel}"
+    return f"flexdm_flash_attention_{part}" + "_wide" * wide + "_bf16" * bf16
 
 
 def _count(name: str) -> None:
@@ -256,6 +297,20 @@ def _count(name: str) -> None:
     above)."""
     with _launches_lock:
         globals()[name] += 1
+
+
+def _run(kernel: str, q, dh: int, *args) -> None:
+    """Launch ``kernel`` ("fwd", "dq" or "dkv") of the instance that runs
+    head dim ``dh`` in q's dtype on ``args`` (pointers, then B, H, S, Dh,
+    causal, the stream), and count it."""
+    bf16 = q.dtype == torch.bfloat16
+    wide = head_dim_plan(dh, q.dtype).wide
+    if kernel == "fwd":
+        fn = _kernel(q.dtype, wide)
+    else:
+        fn = _bwd_kernels(q.dtype, wide)[kernel == "dkv"]
+    _launch(_symbol(kernel, bf16, wide), fn, *args)
+    _count(_COUNTERS[kernel, bf16, wide][0])
 
 
 def _launch(name: str, fn, *args) -> None:
@@ -347,18 +402,13 @@ def _launch_forward(q, k, v, key_mask, causal, dh):
     (checked): ``O`` (as wide), and the row ``lse``, max ``m`` and sum ``l``
     (each ``(B, H, S)``)."""
     _check_inputs(q, k, v, key_mask, dh)
-    bf16 = q.dtype == torch.bfloat16
-    fn = _kernel(q.dtype)
     b, h, s, _ = q.shape
     o = torch.empty_like(q)
     lse, m, l = torch.empty((3, b, h, s), dtype=torch.float32, device=q.device)
-    _launch(
-        "flash_attention_fwd" + "_bf16" * bf16, fn,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(key_mask),
-        o.data_ptr(), lse.data_ptr(), m.data_ptr(), l.data_ptr(),
-        b, h, s, dh, int(causal), _stream(q),
-    )
-    _count("BF16_FWD_LAUNCHES" if bf16 else "KERNEL_LAUNCHES")
+    _run("fwd", q, dh,
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(key_mask),
+         o.data_ptr(), lse.data_ptr(), m.data_ptr(), l.data_ptr(),
+         b, h, s, dh, int(causal), _stream(q))
     return o, lse, m, l
 
 
@@ -412,36 +462,28 @@ def _backward_dq(q, k, v, key_mask, o, m, l, do, causal=False, dh=None):
     """Launch the dq kernel; returns ``dq`` and ``delta = rowsum(dO * O)``
     ``(B, H, S)``, which :func:`_backward_dkv` reads.  The tensors are on
     the kernels' rows of head dim ``dh`` (default: their width)."""
-    bf16 = q.dtype == torch.bfloat16
     b, h, s, _ = q.shape
     dh = _head_dim(q, dh)
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch(
-        "flash_attention_bwd_dq" + "_bf16" * bf16, _bwd_kernels(q.dtype)[0],
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(key_mask),
-        o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), b, h, s, dh, int(causal), _stream(q),
-    )
-    _count("BF16_DQ_LAUNCHES" if bf16 else "BWD_DQ_LAUNCHES")
+    _run("dq", q, dh,
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(key_mask),
+         o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
+         delta.data_ptr(), dq.data_ptr(), b, h, s, dh, int(causal), _stream(q))
     return dq, delta
 
 
 def _backward_dkv(q, k, v, key_mask, m, l, delta, do, causal=False, dh=None):
     """Launch the dk/dv kernel; returns ``(dk, dv)`` (rows as
     :func:`_backward_dq`'s)."""
-    bf16 = q.dtype == torch.bfloat16
     b, h, s, _ = q.shape
     dh = _head_dim(q, dh)
     dk, dv = torch.empty((2,) + tuple(q.shape), dtype=q.dtype,
                          device=q.device)
-    _launch(
-        "flash_attention_bwd_dkv" + "_bf16" * bf16, _bwd_kernels(q.dtype)[1],
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(key_mask),
-        do.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, s, dh, int(causal), _stream(q),
-    )
-    _count("BF16_DKV_LAUNCHES" if bf16 else "BWD_DKV_LAUNCHES")
+    _run("dkv", q, dh,
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), _mask_ptr(key_mask),
+         do.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
+         dk.data_ptr(), dv.data_ptr(), b, h, s, dh, int(causal), _stream(q))
     return dk, dv
 
 
@@ -466,22 +508,27 @@ def flash_attention_backward(q, k, v, key_mask, o, m, l, do, causal=False):
                                            causal, dh))
 
 
+def instance_names(dtype=torch.float32, dh: int = 32) -> Tuple[str, ...]:
+    """The short names (:func:`launch_counts`' keys) of the forward, dq and
+    dk/dv kernels that run head dim ``dh`` in ``dtype``."""
+    key = (dtype == torch.bfloat16, head_dim_plan(dh, dtype).wide)
+    return tuple(_COUNTERS[(kernel,) + key][1]
+                 for kernel in ("fwd", "dq", "dkv"))
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    global KERNEL_LAUNCHES, BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
-    global BF16_FWD_LAUNCHES, BF16_DQ_LAUNCHES, BF16_DKV_LAUNCHES
     with _launches_lock:
-        KERNEL_LAUNCHES = BWD_DQ_LAUNCHES = BWD_DKV_LAUNCHES = 0
-        BF16_FWD_LAUNCHES = BF16_DQ_LAUNCHES = BF16_DKV_LAUNCHES = 0
+        for name, _ in _COUNTERS.values():
+            globals()[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """Every kernel's launch count, by the short names the tools print:
-    ``fwd``, ``dq``, ``dkv`` and their ``*_bf16`` instances."""
+    ``fwd``, ``dq``, ``dkv``, their ``*_bf16`` instances and the wide
+    kernels' ``*_wide`` and ``*_wide_bf16``."""
     with _launches_lock:
-        return {"fwd": KERNEL_LAUNCHES, "dq": BWD_DQ_LAUNCHES,
-                "dkv": BWD_DKV_LAUNCHES, "fwd_bf16": BF16_FWD_LAUNCHES,
-                "dq_bf16": BF16_DQ_LAUNCHES, "dkv_bf16": BF16_DKV_LAUNCHES}
+        return {short: globals()[name] for name, short in _COUNTERS.values()}
 
 
 class FlashAttention(torch.autograd.Function):

@@ -215,12 +215,7 @@ def main(spec_path):
         trainer._train, trainer.make_train_step = real_train, real_step
         trainer.train = entry
     out["warnings"] = warnings.lines
-    out["launches"] = {"fwd": attn.KERNEL_LAUNCHES,
-                       "dq": attn.BWD_DQ_LAUNCHES,
-                       "dkv": attn.BWD_DKV_LAUNCHES,
-                       "fwd_bf16": attn.BF16_FWD_LAUNCHES,
-                       "dq_bf16": attn.BF16_DQ_LAUNCHES,
-                       "dkv_bf16": attn.BF16_DKV_LAUNCHES}
+    out["launches"] = attn.launch_counts()
 
     if spec.get("eval_argv"):
         os.environ["MASTER_PORT"] = str(spec["eval_port"])

@@ -229,3 +229,33 @@ def test_bf16_kernels_at_every_head_dim_on_card(dh, shape, causal):
     got, again = (_kernel_grads(q, k, v, do, mask, causal) for _ in range(2))
     for x, y in zip(got, again):
         assert torch.equal(x, y)
+
+
+def _bf16_close(got, want, name):
+    """The card's bf16 bar, in the kernels' dtype."""
+    assert got.dtype == torch.bfloat16, name
+    assert_bf16_close(got, want, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [129, 136, 160, 256, 264, 512])
+@pytest.mark.parametrize("shape", [(8, 8, 50), (2, 4, 500)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_wide_kernels_at_head_dims_above_128_on_card(dh, shape, causal):
+    """The bf16 wide instances (Dh 129 through a copy padded to 136): O,
+    dq, dk and dv within one bf16 ulp + 2^-8 max|ref|, lse within 2e-5,
+    each kernel launched once a call, two calls bitwise equal."""
+    _need_card()
+    from test_torch_attention_cuda import check_wide
+
+    check_wide(shape + (dh,), causal, torch.bfloat16, dh + shape[2] + 1,
+               _bf16_close)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_wide_kernels_at_s_4096_on_card(causal):
+    _need_card()
+    from test_torch_attention_cuda import check_wide
+
+    check_wide((1, 2, 4096, 256), causal, torch.bfloat16, 4097, _bf16_close)

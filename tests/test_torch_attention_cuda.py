@@ -298,15 +298,77 @@ def test_f32_backward_streams_at_head_dims_on_card(dh):
     _check_backward((33, 8, 70, dh), False, dh)
 
 
+# Head dims above 128: the wide kernels (csrc/flash_attention_wide.cu).
+# 129 through a copy padded to 132, 136, 160 and 264 a column block partly
+# past the row, 256 and 512 whole column blocks.
+WIDE_HEAD_DIMS = (129, 136, 160, 256, 264, 512)
+
+
+def check_wide(shape, causal, dtype, seed, close):
+    """Forward and backward of the wide kernels at ``shape`` in ``dtype``
+    through autograd: each kernel launched once a call and no other, two
+    calls bitwise equal, O, lse, dq, dk and dv held to the plain versions
+    (the backward's of the kernels' O) by ``close(got, want, name)``.  The
+    key mask drops the last fifth of the keys and masks the whole last
+    batch row where B > 1.  (Shared with
+    tests/test_torch_attention_bf16_cuda.py.)"""
+    b, _, s, _ = shape
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g).to("cuda", dtype)
+                   for _ in range(4))
+    mask = torch.ones(b, s, dtype=torch.bool)
+    mask[:, s - s // 5:] = False
+    if b > 1:
+        mask[-1] = False
+    mask = mask.cuda()
+    bf16 = "_bf16" * (dtype == torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        port_attn.reset_launch_counts()
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = port_attn.dot_product_attention(*leaves, mask, causal)
+        runs.append((o.detach(),) + torch.autograd.grad(o, leaves, do))
+        counts = port_attn.launch_counts()
+        assert counts == {n: int(n in (f"fwd_wide{bf16}", f"dq_wide{bf16}",
+                                       f"dkv_wide{bf16}"))
+                          for n in counts}, counts
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    bias = port_attn.key_bias(mask, b, s, q.device)
+    # The plain backward of the kernels' own O (their delta's), as the
+    # other card tests hold the backward kernels.
+    want = (port_attn.attention_reference(q, k, v, bias, causal),
+            ) + port_attn.attention_reference_backward(
+        q, k, v, bias, runs[0][0], do, causal)
+    for name, got, w in zip(("O", "dq", "dk", "dv"), runs[0], want):
+        close(got, w, name)
+    _, lse = port_attn.flash_attention_forward(q, k, v, mask, causal)
+    torch.testing.assert_close(
+        lse, port_attn.attention_reference_lse(q, k, bias, causal),
+        **FWD_TOL)
+
+
+def _f32_close(got, want, name):
+    torch.testing.assert_close(got, want, msg=name,
+                               **(FWD_TOL if name == "O" else BWD_TOL))
+
+
 @pytest.mark.cuda
-def test_f32_kernels_refuse_a_head_dim_above_128_on_card():
-    """Dh = 129 has no kernel: ``auto`` raises naming ``--attention_impl
-    xla`` and launches nothing; ``xla`` runs it."""
+@pytest.mark.parametrize("dh", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("shape", [(8, 8, 50), (2, 4, 500)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_wide_kernels_at_head_dims_above_128_on_card(dh, shape, causal):
+    """Dh above 128 runs on the wide kernels, where JAX runs it: O and lse
+    within 2e-5, dq, dk and dv within 1e-4 of the plain versions."""
     _need_card()
-    q, k, v, _, mask = _card_inputs((2, 2, 9, 129), 3)
-    counts = port_attn.launch_counts()
-    with pytest.raises(ValueError, match="--attention_impl xla"):
-        port_attn.dot_product_attention(q, k, v, mask)
-    assert port_attn.launch_counts() == counts
-    assert port_attn.dot_product_attention(q, k, v, mask,
-                                           impl="xla").shape == q.shape
+    check_wide(shape + (dh,), causal, torch.float32, dh + shape[2],
+               _f32_close)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_wide_kernels_at_s_4096_on_card(causal):
+    """The regime of the TPU's stream kernels, at Dh 256: one wide dq and
+    one wide dk/dv kernel cover it."""
+    _need_card()
+    check_wide((1, 2, 4096, 256), causal, torch.float32, 4096, _f32_close)

@@ -15,11 +15,13 @@
   from there; the eval CLI's flag overrides it; an ``args.json`` without
   the field reads as ``auto``.
 * Head dims: the kernels' plan (tile width, padded copy or not) for every
-  Dh from 1 to 128 in both dtypes; Dh above 128 refused where the kernels
-  would run (a card, ``auto`` or ``pallas``) at the training CLI, the eval
-  CLI and the server's load of ``args.json``, naming ``--attention_impl
-  xla``, where JAX runs it (a deliberate divergence); the crello Ours-EXP
-  model at ``latent_dim`` 128 and 384 (Dh 16 and 48) against JAX's.
+  Dh from 1 to 128 in both dtypes, and the wide kernels' for Dh 129 to
+  1024; every Dh >= 1 accepted where the kernels would run (a card,
+  ``auto`` or ``pallas``) at the training CLI, the eval CLI and the
+  server's load of ``args.json`` (Dh 0 refused), as JAX runs every Dh;
+  the crello Ours-EXP model at ``latent_dim`` 128 and 384 over 8 heads
+  (Dh 16 and 48), 256 over one head (Dh 256) and 272 over two (Dh 136)
+  against JAX's.
 """
 
 import functools
@@ -266,32 +268,86 @@ def test_head_dim_plan_for_every_head_dim(dtype):
         assert port_attn.head_dim_plan(dh, dtype) == want, dh
 
 
-@pytest.mark.parametrize("dh", [0, 129, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_plan_above_128_takes_the_wide_kernels(dtype):
+    """Dh 129 to 1024 run on the wide kernels: the row is Dh rounded up to
+    16 bytes (a padded copy where that is not Dh), the width the row
+    rounded up to the wide kernels' 128-column blocks; no upper limit."""
+    per16 = 4 if dtype == torch.float32 else 8
+    for dh in range(129, 1025):
+        plan = port_attn.head_dim_plan(dh, dtype)
+        row = per16 * math.ceil(dh / per16)
+        assert plan == (128 * math.ceil(row / 128), row, row != dh), dh
+        assert plan.wide and plan.row <= plan.width
+    for dh in range(1, 129):
+        assert not port_attn.head_dim_plan(dh, dtype).wide, dh
+    assert port_attn.head_dim_plan(129, dtype) == (
+        (256, 132, True) if dtype == torch.float32 else (256, 136, True))
+    assert port_attn.head_dim_plan(100_000, dtype).wide
+
+
+def test_launch_counts_name_every_kernel():
+    """``launch_counts`` reports the six narrow and the six wide instances,
+    all 0 after ``reset_launch_counts``; a launch counts on its own name."""
+    port_attn.reset_launch_counts()
+    counts = port_attn.launch_counts()
+    assert counts == dict.fromkeys(
+        [f"{k}{w}{d}" for w in ("", "_wide") for d in ("", "_bf16")
+         for k in ("fwd", "dq", "dkv")], 0)
+    port_attn._count("BF16_WIDE_DKV_LAUNCHES")
+    assert port_attn.launch_counts()["dkv_wide_bf16"] == 1
+    assert sum(port_attn.launch_counts().values()) == 1
+    port_attn.reset_launch_counts()
+    assert not any(port_attn.launch_counts().values())
+
+
+@pytest.mark.parametrize("dh", [0])
 def test_head_dim_without_a_kernel_is_refused(dh):
     for dtype in (torch.float32, torch.bfloat16):
-        with pytest.raises(ValueError, match="--attention_impl xla"):
+        with pytest.raises(ValueError, match="Dh >= 1"):
             port_attn.head_dim_plan(dh, dtype)
     for impl in ("auto", "pallas"):
-        with pytest.raises(ValueError, match="--attention_impl xla"):
+        with pytest.raises(ValueError, match="Dh >= 1"):
             port_attn.check_head_dim(dh, impl, "cuda")
-        with pytest.raises(ValueError, match="--attention_impl xla"):
+        with pytest.raises(ValueError, match="Dh >= 1"):
             port_attn.check_head_dim(dh, impl, "cuda:0")
     port_attn.check_head_dim(dh, "xla", "cuda")  # the plain version
     port_attn.check_head_dim(dh, "auto", "cpu")
 
 
-def test_head_dim_above_128_runs_in_jax_and_is_refused_on_the_card():
-    """A deliberate divergence: JAX's ``auto`` runs Dh = 256 (XLA off the
-    TPU; its Pallas kernels take any Dh as one block), and so does the
-    port's plain version, to JAX's numbers; on a card the port's ``auto``
-    refuses it, naming ``--attention_impl xla``."""
+@pytest.mark.parametrize("dh", [129, 256])
+def test_head_dim_above_128_is_accepted_on_the_card(dh):
+    """The wide kernels take it: ``auto`` and ``pallas`` on a card pass the
+    check, as ``xla`` and the CPU do."""
+    for impl in ("auto", "pallas", "xla"):
+        for device in ("cuda", "cuda:0", "cpu"):
+            if impl != "pallas" or device != "cpu":
+                port_attn.check_head_dim(dh, impl, device)
+
+
+def test_head_dim_256_matches_jax():
+    """Dh 256 (``--latent_dim 2048`` over 8 heads): the port's attention
+    on the CPU (the plain version) and its gradients give JAX's ``auto``
+    (XLA off the TPU) and its Pallas kernels in interpret mode."""
     q, k, v, mask = _qkv(torch.float32, dh=256)
-    got = port_attn.dot_product_attention(q, k, v, mask).numpy()
-    want = jax_attn.dot_product_attention(
-        *(jax.numpy.asarray(t.numpy()) for t in (q, k, v, mask)))
-    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
-    with pytest.raises(ValueError, match="--attention_impl xla"):
-        port_attn.check_head_dim(256, "auto", "cuda")
+    do = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        q.shape, np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = port_attn.dot_product_attention(*leaves, mask)
+    got = [out, *torch.autograd.grad(out, leaves, do)]
+    for impl in ("auto", "pallas"):
+        def f(q, k, v, impl=impl):
+            return jax_attn.dot_product_attention(
+                q, k, v, jax.numpy.asarray(mask.numpy()), impl=impl,
+                interpret=True)
+
+        want, vjp = jax.vjp(f, *(jax.numpy.asarray(t.numpy())
+                                 for t in (q, k, v)))
+        for g, w, name in zip(got, [want, *vjp(jax.numpy.asarray(
+                do.numpy()))], ("O", "dq", "dk", "dv")):
+            np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                       rtol=2e-5, atol=2e-5,
+                                       err_msg=f"{impl} {name}")
 
 
 def _wide_job(root, latent_dim=2048):
@@ -303,40 +359,52 @@ def _wide_job(root, latent_dim=2048):
     return str(root)
 
 
-def test_cli_refuses_a_head_dim_without_a_kernel(crello_dir, tmp_path):
-    """``--latent_dim 2048`` (Dh 256) on a card: refused before anything is
-    written, naming ``--attention_impl xla``; the eval CLI and the server
-    refuse such a job before its weights are read."""
+def test_cli_accepts_a_wide_head_dim(crello_dir, tmp_path, monkeypatch):
+    """``--latent_dim 2048`` (Dh 256) on a card: the training CLI's check
+    passes and the run starts (stopped here where it would write the job);
+    the eval CLI and the server take such a job with ``auto`` and
+    ``pallas`` and stop where they read its data."""
+    from flexdm_tpu_torch.train import trainer as port_trainer
+
+    started = []
+    monkeypatch.setattr(port_trainer, "_train",
+                        lambda config, grid=None: started.append(config))
     job = tmp_path / "job"
-    with pytest.raises(ValueError, match="--attention_impl xla"):
+    for impl in ("auto", "pallas"):
         cli.main(["--preset", "crello_ours_exp", "--data_dir", crello_dir,
-                  "--job-dir", str(job), "--latent_dim", "2048"])
+                  "--job-dir", str(job), "--latent_dim", "2048",
+                  "--attention_impl", impl])
+    assert [(c.head_dim, c.attention_impl, c.device) for c in started] == [
+        (256, "auto", "cuda"), (256, "pallas", "cuda")]
     assert not job.exists()
     wide = _wide_job(tmp_path / "wide")
-    with pytest.raises(ValueError, match="--attention_impl xla"):
-        harness.main(["--job-dir", wide])
-    with pytest.raises(ValueError, match="--attention_impl xla"):
-        harness.main(["--job-dir", wide, "--attention_impl", "pallas"])
-    with pytest.raises(ValueError, match="--attention_impl xla"):
+    evaluated = []
+    monkeypatch.setattr(harness, "_evaluate",
+                        lambda args: evaluated.append(args) or {})
+    harness.main(["--job-dir", wide])
+    harness.main(["--job-dir", wide, "--attention_impl", "pallas"])
+    assert [a.attention_impl for a in evaluated] == [None, "pallas"]
+    with pytest.raises(ValueError, match="vocabulary.json"):
         InferenceEngine(wide)
-    with pytest.raises(ValueError, match="--attention_impl xla"):
+    with pytest.raises(ValueError, match="vocabulary.json"):
         demo.load_model(wide)
-    config = demo.load_config(wide, "xla", "cuda")  # the way out
-    assert config.attention_impl == "xla" and config.head_dim == 256
+    for impl in (None, "auto", "pallas", "xla"):
+        config = demo.load_config(wide, impl, "cuda")
+        assert config.head_dim == 256
+        assert config.attention_impl == (impl or "auto")
 
 
-@pytest.mark.parametrize("latent_dim", [128, 384])
-def test_mfp_model_matches_jax_at_head_dims(crello_spec, pallas_interpret,
-                                            latent_dim):
-    """crello Ours-EXP at widths no preset has, over its 8 heads: Dh 16
-    and 48, the head dims of ``--latent_dim 128`` and ``384``.  The port's
-    model (the plain attention on the CPU) against JAX's with ``xla`` and
-    with the Pallas kernels in interpret mode, on the same weights."""
+def _check_model_at_head_dim(crello_spec, latent_dim, num_heads):
+    """crello Ours-EXP over ``num_heads`` heads at ``latent_dim``: the
+    port's model (the plain attention on the CPU) against JAX's with
+    ``xla`` and with the Pallas kernels in interpret mode, on the same
+    weights."""
     schema = crello_spec.schema
     batch = numpy_batch(crello_spec, 4)
     masks = random_masks(schema, batch)
-    port_config, _ = _configs("auto", latent_dim=latent_dim, num_heads=8)
-    assert port_config.head_dim == latent_dim // 8
+    port_config, _ = _configs("auto", latent_dim=latent_dim,
+                              num_heads=num_heads)
+    assert port_config.head_dim == latent_dim // num_heads
     port_model = init_params(build_model(port_config, schema), 0).eval()
     inputs = {k: np.asarray(v) for k, v in port_mfp.preprocess_for_test(
         to_torch(batch), schema, to_torch(masks)).items()}
@@ -345,9 +413,27 @@ def test_mfp_model_matches_jax_at_head_dims(crello_spec, pallas_interpret,
     params = _jax_params(params_to_jax(port_model.state_dict()))
     for impl in ("xla", "pallas"):
         jax_model = jax_trainer.build_model(
-            _configs(impl, latent_dim=latent_dim, num_heads=8)[1], schema)
+            _configs(impl, latent_dim=latent_dim, num_heads=num_heads)[1],
+            schema)
         want = to_numpy(jax.jit(jax_model.apply)(params, to_jax(inputs)))
         assert set(got) == set(want)
         for k in sorted(want):
             np.testing.assert_allclose(got[k], want[k], **TOL,
                                        err_msg=f"{impl}: {k}")
+
+
+@pytest.mark.parametrize("latent_dim,num_heads", [(256, 1), (272, 2)])
+def test_mfp_model_matches_jax_at_wide_head_dims(crello_spec,
+                                                 pallas_interpret,
+                                                 latent_dim, num_heads):
+    """Dh 256 (one head at ``latent_dim`` 256) and Dh 136 (two heads at
+    272), which the wide kernels run on a card."""
+    _check_model_at_head_dim(crello_spec, latent_dim, num_heads)
+
+
+@pytest.mark.parametrize("latent_dim", [128, 384])
+def test_mfp_model_matches_jax_at_head_dims(crello_spec, pallas_interpret,
+                                            latent_dim):
+    """crello Ours-EXP at widths no preset has, over its 8 heads: Dh 16
+    and 48, the head dims of ``--latent_dim 128`` and ``384``."""
+    _check_model_at_head_dim(crello_spec, latent_dim, 8)

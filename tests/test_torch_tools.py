@@ -247,6 +247,30 @@ def test_fwd_bench_floors_are_a_hand_count(monkeypatch):
         ("bfloat16", 32))] == [32, 16, 8, 32]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bench_attention_takes_a_wide_shape(dtype):
+    """``--shape 256,8,50,256`` (crello Ours-EXP at ``--latent_dim 2048``):
+    the shape's four sizes, the wide kernels' names, and the bound at the
+    true Dh: q, k, v, O of 26,214,400 elements, lse, m, l 102,400 float32
+    rows, a 12,800-byte mask; 2 products of 2 * 2048 * 50^2 * 256 FLOPs."""
+    from flexdm_tpu_torch.ops import attention as attn
+
+    args = torch_bench_attention.parse_args(["--shape", "256,8,50,256",
+                                             "--dtype", dtype])
+    assert (args.b, args.h, args.s, args.dh) == (256, 8, 50, 256)
+    item, peak = (4, 495e12) if dtype == "float32" else (2, 989.4e12)
+    suffix = "_bf16" * (dtype == "bfloat16")
+    assert attn.instance_names(getattr(torch, dtype), args.dh) == tuple(
+        f"{k}_wide{suffix}" for k in ("fwd", "dq", "dkv"))
+    got = torch_bench_attention.bounds(*args.shape, dtype)["fwd"]
+    nbytes = 4 * 26_214_400 * item + 3 * 102_400 * 4 + 12_800
+    flops = 2 * 2 * 2048 * 50 ** 2 * 256
+    assert got["bound_ms"] == pytest.approx(
+        max(nbytes / 3.35e12, flops / peak) * 1e3, rel=1e-12)
+    with pytest.raises(SystemExit):
+        torch_bench_attention.parse_args(["--shape", "256,8,50"])
+
+
 def test_fwd_bench_refuses_to_run_without_a_card():
     proc = run_tool("torch_fwd_bench.py")
     assert proc.returncode != 0
@@ -274,6 +298,19 @@ def test_kernel_repeats_parses_its_arguments():
                 ["--other", "one_stream"]):
         with pytest.raises(SystemExit):
             tool.parse_args(bad)
+
+
+def test_kernel_repeats_takes_a_wide_shape():
+    """A head dim above 128 from the command line: the wide kernels are
+    the instances it repeats."""
+    from flexdm_tpu_torch.ops import attention as attn
+    from tools import torch_kernel_repeats as tool
+
+    args = tool.parse_args(["--shape", "8,8,50,256", "--shape",
+                            "2,4,500,129"])
+    assert args.shape == ((8, 8, 50, 256), (2, 4, 500, 129))
+    assert [attn.instance_names(torch.float32, s[3]) for s in args.shape] \
+        == [("fwd_wide", "dq_wide", "dkv_wide")] * 2
 
 
 def test_kernel_repeats_refuses_to_run_without_a_card():

@@ -4,6 +4,11 @@
     python tools/torch_bench_attention.py --sweep 256,512,768,1024
     python tools/torch_bench_attention.py --b 64 --h 8 --s 500 --dh 32 \\
         --dtype bfloat16 [--causal]
+    python tools/torch_bench_attention.py --shape 256,8,50,256
+
+``--shape B,H,S,DH`` stands for ``--b --h --s --dh``.  Every head dim runs:
+above 128 on the wide kernels (``csrc/flash_attention_wide.cu``); the
+JSON line's ``kernels`` names the instances that ran.
 
 Counterpart of ``tools/bench_attention.py`` for ``flexdm_tpu_torch``.  At
 each ``(b, h, s, dh)`` (q, k, v drawn from seed 0 in ``--dtype``, every
@@ -42,6 +47,7 @@ if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
+from tools.torch_kernel_repeats import shape_arg  # noqa: E402
 
 IMPLS = ("pallas", "xla", "library")
 
@@ -113,13 +119,11 @@ def measure(b, h, s, dh, dtype="float32", causal=False, iters=20,
                 lambda: call(impl, q, k, v), samples=windows, inner=iters)
         out[f"{impl}_fwd_bwd_ms"] = chip_smoke.time_ms(
             lambda: fwd_bwd(impl), samples=windows, inner=iters)
-    out["launches"] = {
-        "fwd": attn.BF16_FWD_LAUNCHES if dtype == "bfloat16"
-        else attn.KERNEL_LAUNCHES,
-        "dq": attn.BF16_DQ_LAUNCHES if dtype == "bfloat16"
-        else attn.BWD_DQ_LAUNCHES,
-        "dkv": attn.BF16_DKV_LAUNCHES if dtype == "bfloat16"
-        else attn.BWD_DKV_LAUNCHES}
+    names = attn.instance_names(getattr(torch, dtype), dh)
+    counts = attn.launch_counts()
+    out["kernels"] = list(names)
+    out["launches"] = {kernel: counts[name] for kernel, name in
+                       zip(("fwd", "dq", "dkv"), names)}
     for part, bd in bounds(b, h, s, dh, dtype, causal).items():
         out[f"{part}_bound_ms"] = bd["bound_ms"]
         out[f"{part}_bound_by"] = bd["bound_by"]
@@ -127,12 +131,14 @@ def measure(b, h, s, dh, dtype="float32", causal=False, iters=20,
     return out
 
 
-def main(argv=None):
+def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--b", type=int, default=8)
     p.add_argument("--h", type=int, default=8)
     p.add_argument("--s", type=int, default=512)
     p.add_argument("--dh", type=int, default=64)
+    p.add_argument("--shape", type=shape_arg, default=None,
+                   help="B,H,S,DH: --b, --h, --s and --dh at once")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--windows", type=int, default=10)
     p.add_argument("--causal", action="store_true")
@@ -142,6 +148,13 @@ def main(argv=None):
                    help="comma-separated S values; overrides --s")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    if args.shape:
+        args.b, args.h, args.s, args.dh = args.shape
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     import torch
 

@@ -371,8 +371,9 @@ def bench_eval(builds, card):
     try:
         for name, fn, _, _ in [builds[0], *builds[1:], *builds[1:],
                                builds[0]]:
-            attn._kernel = (lambda dt=torch.float32, fn=fn:
-                            fn if dt == torch.float32 else own(dt))
+            attn._kernel = (lambda dt=torch.float32, wide=False, fn=fn:
+                            fn if dt == torch.float32 and not wide
+                            else own(dt, wide))
             with torch.no_grad():
                 step(batch, replicas, weight)
                 by_name, kernels = chip_smoke.profile_by_name(

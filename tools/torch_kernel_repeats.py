@@ -6,7 +6,8 @@ that are not bitwise equal to the first.
 
 At each shape (default ``SHAPES``: the two-stream (33, 8, 70, Dh) at Dh
 32, 48 and 25 (25 through the padded copy), the one-stream (8, 8, 70, 32)
-and (17, 16, 130, 64)), causal and not, the last fifth of the keys masked:
+and (17, 16, 130, 64); a head dim above 128, e.g. ``--shape 8,8,50,256``,
+runs the wide kernels), causal and not, the last fifth of the keys masked:
 
 * the port's forward, dq and dk/dv kernels, called in autograd's order
   (forward, dq, dk/dv) ``--repeats`` times, each output compared bitwise
@@ -72,7 +73,8 @@ def inputs(shape, causal, g):
 
 
 def repeat_kernels(shape, causal, n, g):
-    """The port's three kernels in autograd's order, ``n`` times."""
+    """The port's three kernels in autograd's order, ``n`` times (those
+    that run ``shape``'s head dim: ``attention.instance_names``)."""
     import torch
 
     from flexdm_tpu_torch.ops import attention as attn
@@ -176,6 +178,7 @@ def main(argv=None):
     args = parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this tool needs one GPU")
+    from flexdm_tpu_torch.ops import attention as attn
     from tools.torch_bwd_bf16_bench import build
 
     card = chip_smoke.card_line()
@@ -187,8 +190,10 @@ def main(argv=None):
         for causal in (False, True):
             got = repeat_kernels(shape, causal, args.repeats, g)
             out["kernels"][f"{shape} causal={causal}"] = got
+            names = attn.instance_names(torch.float32, shape[3])
             chip_smoke.log(
-                f"[repeats] {shape} causal={causal}: not bitwise in "
+                f"[repeats] {shape} causal={causal} ({', '.join(names)}): "
+                "not bitwise in "
                 + ", ".join(f"{k} {v['differ']} of {args.repeats}"
                             for k, v in got.items())
                 + "".join(f"; {k} {c}" for k, v in got.items()

@@ -3,7 +3,7 @@
     python tools/torch_sass_hazards.py [--other NAME=PATH.cu ...]
         [--sass NAME=DUMP ...] [--ptxas NAME=REPORT ...]
 
-With no ``--sass``, builds the port's four kernel libraries
+With no ``--sass``, builds the port's kernel libraries
 (``ops/attention.py`` ``LIBRARIES``) as the port builds them, and every
 ``--other`` source with ``-I flexdm_tpu_torch/csrc`` (e.g. the parent
 commit's ``csrc/`` unpacked with ``git archive`` under ``build/``), one
