@@ -14,7 +14,7 @@ Phases, each of which must pass (any failure exits non-zero):
    and C7520 lines); fails if
    the native decoder is not in use (14(a)); (b) the static hazard check
    of ``tools/torch_sass_hazards.py`` over every kernel instance of the
-   five libraries (the wide kernels' too; ``cuobjdump -sass``: an HGMMA's
+   six libraries (the wide kernels' too; ``cuobjdump -sass``: an HGMMA's
    register operands or
    accumulators touched before their wait, a TMA copy over shared loads
    still in flight): each instance's registers, spills and hazards; fails
@@ -29,8 +29,9 @@ Phases, each of which must pass (any failure exits non-zero):
    (Dh 8, 16, 20, 25, 48, 96, 120 at (8, 8, 50, Dh) and (2, 4, 500, Dh),
    causal and not, the last fifth of the keys masked; the two-stream
    (33, 8, 70, 25) and (33, 8, 70, 48)), the head dims above 128 on the
-   wide kernels (``csrc/flash_attention_wide.cu``: Dh 129, 136, 160, 256,
-   264, 512 at the same shapes), each call launching one kernel of its
+   wide kernels (``csrc/flash_attention_wide.cu``, the float32 backward
+   ``csrc/flash_attention_bwd_wide.cu``: Dh 129, 136, 160, 256, 264, 512 at
+   the same shapes), each call launching one kernel of its
    instance, and a second call bitwise equal
    to the first; the forward from a thread with no CUDA context; then kernel,
    plain version and one library call (``scaled_dot_product_attention``, a
@@ -52,8 +53,9 @@ Phases, each of which must pass (any failure exits non-zero):
    call, and a second call bitwise equal to the first; (b) the float32
    forward, dq
    and dk/dv kernels in autograd's order ``REPEATS`` times at
-   (33, 8, 70, 32), causal and not (the two-stream instances at Dh 32),
-   every output bitwise against the first call's; then the kernels, the
+   (33, 8, 70, 32) (the two-stream instances at Dh 32) and (33, 8, 70, 256)
+   (the wide kernels, more items than SMs), causal and not, every output
+   bitwise against the first call's; then the kernels, the
    plain autograd backward and the library call's backward timed at
    (256, 8, 50, 32), (1, 2, 4096, 64), (64, 8, 500, 32), (256, 8, 50, 16)
    and (256, 8, 50, 48) and phase 3's wide shapes, beside their bounds;
@@ -84,7 +86,7 @@ Phases, each of which must pass (any failure exits non-zero):
     16 documents (the CPU's plain attention at S=500 is slow), 8(ii), and
     the trained weights served over HTTP;
 11. eval: ``python -m flexdm_tpu_torch.evaluation``'s ``main()`` on the
-    card at batch 256 over a synthetic 2048-document test split (8 full
+    card at batch 256 over a synthetic 1024-document test split (4 full
     batches): the job of 8(iii) with ``all_feat``, ``elem``, ``random`` and
     ``pos --num_iter 3``, the rico job of 9 with ``pos`` (sorted) and the
     crello_flat job of 10 with ``elem`` (forwards at (256, 8, 500, 32)).
@@ -117,7 +119,7 @@ Phases, each of which must pass (any failure exits non-zero):
     its float32 ones, 30 fixed-batch steps that
     track phase 8's float32 losses within 5%, a 2-epoch CLI run with
     ``--dtype bfloat16`` whose ``best`` is served over HTTP and evaluated
-    with ``all_feat`` on phase 11's 2048-document split (card against CPU:
+    with ``all_feat`` on phase 11's 1024-document split (card against CPU:
     numerical Σnum within one bf16 ulp relative, categorical Σnum equal
     apart from fields whose top two logits lie within four bf16 ulps);
     (c) crello_flat at batch 64 in bf16: (b)'s parity on 16 documents and
@@ -148,8 +150,8 @@ Phases, each of which must pass (any failure exits non-zero):
     mode without the prefetch thread (the parent's loop), host mode with
     it, and device mode, in turns.
 14. decode and demo: (a) in phase 2; (b) every record of the first of
-    the two shards of phase 11's 2048-document crello and rico test splits
-    (1024 records each) decoded by the native decoder equals its
+    the two shards of phase 11's 1024-document crello and rico test splits
+    (512 records each) decoded by the native decoder equals its
     pure-Python decode, column by column (same dtype and shape), and the
     native scan gives the Python scan's payloads with the CRCs verified
     (by the Python scan too on the rico shard);
@@ -208,9 +210,9 @@ Phases, each of which must pass (any failure exits non-zero):
     events, 20 steps), peak memory and one all-reduce's time; (d) a
     data-parallel job through ``train(..., devices=["cuda:0"] * 2,
     backend="gloo")``, scored with ``all_feat`` over phase 11's
-    2048-document split by ``python -m flexdm_tpu_torch.evaluation
+    1024-document split by ``python -m flexdm_tpu_torch.evaluation
     --num_devices 2`` and alone (timed), the 2 ranks' sums (each from a
-    cache of its own 1024 records, the only ones it decoded) against the
+    cache of its own 512 records, the only ones it decoded) against the
     sums alone (near ties counted), its ``best`` served alone; (e) on a
     machine with 2 cards, data parallelism under NCCL held to (b), else a
     line saying why not; (f) each baseline (CanvasVAE, LayoutVAE, AutoReg,
@@ -255,9 +257,9 @@ Phases, each of which must pass (any failure exits non-zero):
     ``torch_profile_demo`` on 8(iii)'s job, ``torch_train_baselines``
     for CanvasVAE, AutoReg and BART (1 epoch on 512 documents; LayoutVAE
     runs in 15).
-18. raw crello ingestion to jobs (10000 raw templates from
-    ``tools/torch_scale_drill.make_raw_dump``, half the release scale,
-    cut for the time limit): (a)
+18. raw crello ingestion to jobs (3000 raw templates from
+    ``tools/torch_scale_drill.make_raw_dump``, an eighth of the release
+    scale, cut for the time limit): (a)
     ``tools/torch_build_crello_dataset.py`` builds them: every template
     kept and counted in ``count.json``, each split non-empty,
     ``vocabulary.json`` naming every element type of the dump, a batch of
@@ -361,7 +363,7 @@ NEAR_TIE = 1e-5
 FLAT_SHAPE = (64, 8, 500, 32)
 EVAL_BATCH = 256  # the eval CLI's default batch
 EVAL_FLAT_SHAPE = (EVAL_BATCH, 8, 500, 32)  # a crello_flat ``elem`` chunk
-EVAL_DOCS = 2048  # the timed eval split: 8 full batches of EVAL_BATCH
+EVAL_DOCS = 1024  # the timed eval split: 4 full batches of EVAL_BATCH
 EVAL_RTOL = 1e-4  # card vs CPU: Σden and numerical Σnum of the eval sums
 PATHS_RTOL = 2e-5  # resident vs streaming sums (JAX's bar for its paths)
 ELEM_CHUNK = 256  # the harness's default replicas an ``elem`` forward
@@ -382,15 +384,19 @@ F32_KERNELS = ("fwd", "dq", "dkv")
 HEAD_DIMS = (8, 16, 20, 25, 48, 96, 120)
 HEAD_DIM_SHAPES = ((8, 8, 50), (2, 4, 500))
 HEAD_DIM_STREAMS = ((33, 8, 70, 25), (33, 8, 70, 48))
-# 4(b): the kernels repeated at the two-stream Dh 32 shape.
+# 4(b): the kernels repeated at the two-stream Dh 32 shape, and at a wide
+# one whose items outnumber the SMs (Dh 256: csrc/flash_attention_bwd_wide.cu
+# in float32).
 REPEAT_SHAPE = (33, 8, 70, 32)
+WIDE_REPEAT_SHAPE = (33, 8, 70, 256)
 REPEATS = 10000
 # The head dims of crello Ours-EXP at --latent_dim 128 and 384 (8 heads),
 # timed at the training batch.
 HEAD_DIM_TIMED = ((TRAIN_BATCH, 8, 50, 16), (TRAIN_BATCH, 8, 50, 48))
 HEAD_DIM_LATENTS = (128, 384)
-# Head dims above 128, on the wide kernels (csrc/flash_attention_wide.cu):
-# 129 through a padded copy, 136, 160 and 264 a column block partly past
+# Head dims above 128, on the wide kernels (csrc/flash_attention_wide.cu;
+# the float32 backward csrc/flash_attention_bwd_wide.cu): 129 through a
+# padded copy, 136, 160 and 264 a column block partly past
 # the row, 256 and 512 whole column blocks.  Checked as HEAD_DIMS are, and
 # the backward at S = 4096 at Dh 256.
 WIDE_HEAD_DIMS = (129, 136, 160, 256, 264, 512)
@@ -524,7 +530,8 @@ def phase_build():
                        ("bf16 backward", attn.BWD_BF16_LIBRARY),
                        ("float32 forward", attn.FWD_LIBRARY),
                        ("float32 backward", attn.BWD_LIBRARY),
-                       ("wide", attn.WIDE_LIBRARY)):
+                       ("wide", attn.WIDE_LIBRARY),
+                       ("wide float32 backward", attn.BWD_WIDE_LIBRARY)):
         log(f"[build] {label} kernels (ptxas): " + "; ".join(
             ptxas_summary(_build.BUILD_LOGS.get(lib[0], ""))))
     sass_hazards()
@@ -1074,8 +1081,11 @@ def phase_backward(card):
               for s in (16, 17, 32, 33, 64, 65, 128, 129)
               for dh in (32, 64, 128) for causal in (False, True)]
     # Two streams a block (at least two items per SM) of uneven counts and,
-    # causal, uneven lengths.
-    cases += [((33, 8, 70, 32), True, True), ((17, 16, 130, 64), True, True)]
+    # causal, uneven lengths; the wide float32 backward's persistent blocks
+    # over more items than SMs (528 dq, 1056 dk/dv items).
+    cases += [((33, 8, 70, 32), True, True), ((17, 16, 130, 64), True, True),
+              (WIDE_REPEAT_SHAPE, False, False),
+              (WIDE_REPEAT_SHAPE, True, True)]
     # The worst error of each gradient, by instance width (``_wide``: the
     # wide kernels above Dh 128).
     worst = {f"{n}{w}": 0.0 for w in ("", "_wide") for n in ("dq", "dk", "dv")}
@@ -1127,27 +1137,29 @@ def phase_backward(card):
 
 def backward_repeats():
     """4(b): the float32 forward, dq and dk/dv kernels in autograd's order
-    ``REPEATS`` times at ``REPEAT_SHAPE``, causal and not, every output
-    bitwise against the first call's (``tools/torch_kernel_repeats.py``):
-    without the proxy fence of ``load_own_frags`` (csrc/wgmma_tf32.cuh) the
-    two-stream dq instances at Dh 32 wrote wrong rows in 22 of 120000
-    calls."""
+    ``REPEATS`` times at ``REPEAT_SHAPE`` and ``WIDE_REPEAT_SHAPE``, causal
+    and not, every output bitwise against the first call's
+    (``tools/torch_kernel_repeats.py``): without the proxy fence of
+    ``load_own_frags`` (csrc/wgmma_tf32.cuh) the two-stream dq instances at
+    Dh 32 wrote wrong rows in 22 of 120000 calls; the wide backward's
+    stages go back to TMA behind the same fence."""
     import torch
 
     from tools.torch_kernel_repeats import repeat_kernels
 
     g = torch.Generator().manual_seed(11)
     t0 = time.perf_counter()
-    for causal in (False, True):
-        got = repeat_kernels(REPEAT_SHAPE, causal, REPEATS, g)
-        log(f"[backward] {REPEAT_SHAPE} causal={causal}: {REPEATS} calls "
-            "of the forward, dq and dk/dv each bitwise against the first: "
-            + ", ".join(f"{k} {v['differ']} differ" for k, v in got.items())
-            + "".join(f"; {k} {c}" for k, v in got.items()
-                      for c in v["cases"]))
-        check(all(v["differ"] == 0 for v in got.values()),
-              f"repeated kernel calls differ at {REPEAT_SHAPE} "
-              f"causal={causal}")
+    for shape in (REPEAT_SHAPE, WIDE_REPEAT_SHAPE):
+        for causal in (False, True):
+            got = repeat_kernels(shape, causal, REPEATS, g)
+            log(f"[backward] {shape} causal={causal}: {REPEATS} calls of "
+                "the forward, dq and dk/dv each bitwise against the first: "
+                + ", ".join(f"{k} {v['differ']} differ"
+                            for k, v in got.items())
+                + "".join(f"; {k} {c}" for k, v in got.items()
+                          for c in v["cases"]))
+            check(all(v["differ"] == 0 for v in got.values()),
+                  f"repeated kernel calls differ at {shape} causal={causal}")
     log(f"[time] repeats {time.perf_counter() - t0:.1f} s")
 
 
@@ -2036,7 +2048,7 @@ def eval_run(card, root, label, job, mode, timed_dir, num_iter=1,
 
 def phase_eval(card, root, data):
     """``python -m flexdm_tpu_torch.evaluation`` on the card at batch 256
-    over the 2048-document test splits of ``data`` (:func:`eval_data`):
+    over the 1024-document test splits of ``data`` (:func:`eval_data`):
     crello Ours-EXP (the CLI-trained job) ``all_feat``, ``elem``, ``random``
     and ``pos --num_iter 3``; rico Ours-EXP ``pos`` (the sort live);
     crello_flat ``elem`` (forwards at (256, 8, 500, 32)), then a
@@ -2494,7 +2506,7 @@ def flat_bf16_elem(card, root, args, model, data):
 # --enable_profile, remat and the CLI's documents per second.
 # ---------------------------------------------------------------------------
 
-TIMED_EPOCHS = 8  # 2 steps an epoch on the 512-record split
+TIMED_EPOCHS = 5  # 2 steps an epoch on the 512-record split
 
 
 def _step_model(args, remat=False, dropout=None):
@@ -2853,7 +2865,7 @@ def _records_equal(got, want):
 
 def decode_parity(data):
     """14(b): every record of the first of the two shards of phase 11's
-    test splits (1024 records each) decoded natively equals its
+    test splits (512 records each) decoded natively equals its
     pure-Python decode, column by column (dtype and shape included); the
     native scan gives the Python scan's payloads, with the CRCs verified
     by the native scan, and by the Python one on the rico shard (on a
@@ -3003,7 +3015,8 @@ def decode_times(card, root, train_dir, data):
                   ("Python", harness_random(False))])
     times["random"] = t
     log(f"[time] eval harness crello Ours-EXP random, {EVAL_DOCS} documents "
-        f"at batch {EVAL_BATCH} (a fresh loader, decode and 8 forwards), in "
+        f"at batch {EVAL_BATCH} (a fresh loader, decode and "
+        f"{EVAL_DOCS // EVAL_BATCH} forwards), in "
         f"turns A B B A: {fmt(t)} [{card}]")
     phase11 = "; ".join(
         f"{label} {mode}{f' --num_iter {n}' if n > 1 else ''} harness "
@@ -5372,10 +5385,10 @@ def phase_entry_points(card, root, data_dir, batch, data):
 
 # --- 18. Raw crello ingestion to jobs ---------------------------------------
 
-# Half the release scale (~23k templates; the JAX drill's default 20000):
-# cut for the script's time limit.
-RAW_DOCS = 10000
-DRILL_EPOCHS = 1  # 70 steps of 256
+# An eighth of the release scale (~23k templates; the JAX drill's default
+# 20000): cut for the script's time limit.
+RAW_DOCS = 3000
+DRILL_EPOCHS = 1  # ~9 steps of 256
 CAPSTONE_EPOCHS = 1  # the last validates, so ``best`` exists
 CAPSTONE_ITERS = 4
 NOTEBOOK_DIRS = {"demo_crello_torch.ipynb": ("FLEXDM_JOB_DIR",
@@ -5793,6 +5806,7 @@ def main():
     # training shape, with their times at WIDE_TIMED; launches from phase
     # 20's CLI run (float32) and bf16 step.
     wide = "flash_attention_wide.cu"
+    wide_bwd = "flash_attention_bwd_wide.cu"  # the float32 dq and dk/dv
     at = WIDE_TRAIN_SHAPE
     wide_cli = wide_counts[f"head_dim_{WIDE_LATENT}_float32_cli"]
     wide_bf16 = wide_counts[f"head_dim_{WIDE_LATENT}_pallas_bf16_step"]
@@ -5800,10 +5814,10 @@ def main():
         entry("flash_attention_fwd_wide", "float32", wide, f"{tpu}:77",
               "fwd_wide", wide_cli, kernel_err["fwd_wide"],
               fwd_times(timings[at], at)),
-        entry("flash_attention_bwd_dq_wide", "float32", wide, dq_tpu,
+        entry("flash_attention_bwd_dq_wide", "float32", wide_bwd, dq_tpu,
               "dq_wide", wide_cli, backward_err["dq_wide"],
               bwd_times(backward_timings[at], "dq", at)),
-        entry("flash_attention_bwd_dkv_wide", "float32", wide, dkv_tpu,
+        entry("flash_attention_bwd_dkv_wide", "float32", wide_bwd, dkv_tpu,
               "dkv_wide", wide_cli,
               max(backward_err["dk_wide"], backward_err["dv_wide"]),
               bwd_times(backward_timings[at], "dkv", at)),

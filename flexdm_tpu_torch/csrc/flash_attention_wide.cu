@@ -1,16 +1,19 @@
-// Flash attention for head dims above 128 on Hopper (sm_90a): the forward,
-// the dq (with delta) and the dk/dv kernels, float32 and bf16 instances,
-// every product on the tensor cores (mma.sync), over tiles that cp.async
-// brings in.
+// Flash attention for head dims above 128 on Hopper (sm_90a): the forward
+// (float32 and bf16 instances) and the bf16 dq (with delta) and dk/dv
+// kernels, every product on the tensor cores (mma.sync), over tiles that
+// cp.async brings in.  The float32 dq and dk/dv kernels above 128 are
+// csrc/flash_attention_bwd_wide.cu's (wgmma on TMA-fed chunks).
 //
 // Replaces, at Dh > 128, the TPU kernels of flexdm_tpu/ops/attention.py:
 //   * _flash_fwd_kernel (:77-113, launched at :329) -> flash_fwd_wide_kernel;
-//   * _flash_bwd_dq_kernel (:116-153, :383) and its S >= 4096 stream variant
-//     _flash_bwd_dq_stream_kernel (:217-251, :451) -> flash_bwd_dq_wide_kernel,
-//     which also computes delta = rowsum(dO * O) (the XLA glue of
-//     _attention_pallas_bwd) and writes it for the dk/dv kernel;
-//   * _flash_bwd_dkv_kernel (:156-206, :407) and _flash_bwd_dkv_stream_kernel
-//     (:254-293, :475) -> flash_bwd_dkv_wide_kernel.
+//   * in bf16, _flash_bwd_dq_kernel (:116-153, :383) and its S >= 4096
+//     stream variant _flash_bwd_dq_stream_kernel (:217-251, :451) ->
+//     flash_bwd_dq_wide_kernel<true>, which also computes delta =
+//     rowsum(dO * O) (the XLA glue of _attention_pallas_bwd) and writes it
+//     for the dk/dv kernel;
+//   * in bf16, _flash_bwd_dkv_kernel (:156-206, :407) and
+//     _flash_bwd_dkv_stream_kernel (:254-293, :475) ->
+//     flash_bwd_dkv_wide_kernel<true>.
 // The TPU kernels take the whole Dh as one block (_full_spec / _row_spec).
 // The port's other instances (flash_attention_{fwd,bwd}{,_bf16}.cu) hold a
 // row of up to 128 columns in their tiles and accumulators; these take
@@ -58,16 +61,17 @@
 //     order, so m and l are the same floats in each; the block of column
 //     block 0 writes m, l and lse (and delta in dq), computed over the full
 //     row before use.
-//   * Products.  float32: mma.sync.m16n8k8 with TF32 operands, each split
-//     as it enters registers into hi = tf32(x) and lo = tf32(x - hi), three
-//     products (lo hi' + hi lo' + hi hi') summed from zero on the tensor
-//     core and added to the float32 sum a k-step (mma3): float32-level
-//     accuracy (~1e-6); one TF32 pass misses the card's 2e-5 and 1e-4 bars.
-//     bf16: mma.sync.m16n8k16 (bf16 products are exact in float32), with
-//     ldmatrix fragment loads.  p and ds go from the score accumulators
-//     into the A operand of their product with no data movement (float32:
-//     a lane's columns 2t, 2t + 1 serve as k = t, t + 4, with the B operand
-//     loaded in that order; bf16: two n8 tiles make one k16 A fragment).
+//   * Products.  float32 (the forward): mma.sync.m16n8k8 with TF32
+//     operands, each split as it enters registers into hi = tf32(x) and
+//     lo = tf32(x - hi), three products (lo hi' + hi lo' + hi hi') summed
+//     from zero on the tensor core and added to the float32 sum a k-step
+//     (mma3): float32-level accuracy (~1e-6); one TF32 pass misses the
+//     card's 2e-5 bar.  bf16: mma.sync.m16n8k16 (bf16 products are exact in
+//     float32), with ldmatrix fragment loads.  p and ds go from the score
+//     accumulators into the A operand of their product with no data
+//     movement (float32: a lane's columns 2t, 2t + 1 serve as k = t, t + 4,
+//     with the B operand loaded in that order; bf16: two n8 tiles make one
+//     k16 A fragment).
 //   * Shared rows are padded (4 floats, 8 bf16) so that every fragment
 //     load is free of bank conflicts and rows stay 16-byte aligned.  No
 //     TMA and no wgmma: the async proxy is not used, so the hazards that
@@ -78,8 +82,8 @@
 // must move 419 MB in float32 (0.125 ms) against 5.2 GFLOP of products
 // (0.011 ms at the TF32 peak): bytes.  The kernel reads q and k once per
 // column block (twice at Dh 256, the second through L2) and waits for each
-// chunk in turn; the backward kernels likewise, with 1.5x (dq) and 2x (dk/dv
-// at four column blocks) the reads.  At S = 500 and above the split's
+// chunk in turn; the bf16 backward kernels likewise, with 1.5x (dq) and 2x
+// (dk/dv at four column blocks) the reads.  At S = 500 and above the split's
 // tensor work and its instructions come first, as in the earlier mma.sync
 // kernels of this repository (~100 TFLOP/s of MMA work).
 
@@ -423,23 +427,9 @@ __device__ __forceinline__ void store2(bf16* p, float x, float y) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(x, y);
 }
 
-// dO . O over a row of ld elements: lane t of the quad takes 16 bytes at a
-// time, every fourth; the quad's sums are added by shuffles.  The order is
-// fixed, so every block of a row gets the same float.
-__device__ __forceinline__ float row_dot(const float* x, const float* y,
-                                         int ld, int t) {
-  float sum = 0.f;
-  for (int c = 4 * t; c < ld; c += 16) {
-    const float4 a = *reinterpret_cast<const float4*>(x + c);
-    const float4 b = *reinterpret_cast<const float4*>(y + c);
-    sum = fmaf(a.x, b.x, sum);
-    sum = fmaf(a.y, b.y, sum);
-    sum = fmaf(a.z, b.z, sum);
-    sum = fmaf(a.w, b.w, sum);
-  }
-  return sum;
-}
-
+// dO . O over a row of ld bf16 elements: lane t of the quad takes 16 bytes
+// at a time, every fourth; the quad's sums are added by shuffles.  The
+// order is fixed, so every block of a row gets the same float.
 __device__ __forceinline__ float row_dot(const bf16* x, const bf16* y,
                                          int ld, int t) {
   float sum = 0.f;
@@ -1062,11 +1052,12 @@ int launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// The C entry points, one per kernel and dtype, with the other instances'
-// arguments.  q, k, v, o, dout, dq, dk, dv: (B, H, S, ld) float32 (the
-// plain names) or bf16 (``_bf16``), contiguous, 16-byte aligned, ld = Dh
-// rounded up to 16 bytes with columns Dh .. ld - 1 of q, k, v, o and dout
-// zero; any Dh >= 1 (ops/attention.py sends Dh > 128).  key_mask: (B, S)
+// The C entry points, the forward's per dtype and the bf16 backward's, with
+// the other instances' arguments (the float32 backward's entries are
+// flash_attention_bwd_wide.cu's).  q, k, v, o, dout, dq, dk, dv: (B, H, S,
+// ld) float32 (the plain names) or bf16 (``_bf16``), contiguous, 16-byte
+// aligned, ld = Dh rounded up to 16 bytes with columns Dh .. ld - 1 of q,
+// k, v, o and dout zero; any Dh >= 1 (ops/attention.py sends Dh > 128).  key_mask: (B, S)
 // bool (nonzero = attend) or null.  lse, row_max, row_sum, delta: (B, H,
 // S) float32.  Each returns the cudaError_t of its launch.  The dq entry
 // writes delta = rowsum(dout * o); run it before the dkv entry on the
@@ -1088,15 +1079,6 @@ extern "C" int flexdm_flash_attention_fwd_wide_bf16(
                           S, Dh, causal, stream);
 }
 
-extern "C" int flexdm_flash_attention_bwd_dq_wide(
-    const void* q, const void* k, const void* v, const void* key_mask,
-    const void* o, const void* dout, const void* row_max, const void* row_sum,
-    void* delta, void* dq, int B, int H, int S, int Dh, int causal,
-    void* stream) {
-  return launch_dq<false>(q, k, v, key_mask, o, dout, row_max, row_sum, delta,
-                          dq, B, H, S, Dh, causal, stream);
-}
-
 extern "C" int flexdm_flash_attention_bwd_dq_wide_bf16(
     const void* q, const void* k, const void* v, const void* key_mask,
     const void* o, const void* dout, const void* row_max, const void* row_sum,
@@ -1104,15 +1086,6 @@ extern "C" int flexdm_flash_attention_bwd_dq_wide_bf16(
     void* stream) {
   return launch_dq<true>(q, k, v, key_mask, o, dout, row_max, row_sum, delta,
                          dq, B, H, S, Dh, causal, stream);
-}
-
-extern "C" int flexdm_flash_attention_bwd_dkv_wide(
-    const void* q, const void* k, const void* v, const void* key_mask,
-    const void* dout, const void* row_max, const void* row_sum,
-    const void* delta, void* dk, void* dv, int B, int H, int S, int Dh,
-    int causal, void* stream) {
-  return launch_dkv<false>(q, k, v, key_mask, dout, row_max, row_sum, delta,
-                           dk, dv, B, H, S, Dh, causal, stream);
 }
 
 extern "C" int flexdm_flash_attention_bwd_dkv_wide_bf16(

@@ -145,6 +145,12 @@ struct F32Tile {
   static __host__ __device__ constexpr uint32_t k_step(int ks) {
     return (ks / 4 * kBlockBytes + ks % 4 * 32) >> 4;
   }
+  // Rows n0 .. (a multiple of 8) of the k8 step ``ks``, as step() of a
+  // TransposedTile: a tile written transposed in this layout is read so by
+  // second_product.
+  static __host__ __device__ constexpr uint32_t step(int n0, int ks) {
+    return ((n0 * 128) >> 4) + k_step(ks);
+  }
 };
 
 // An (N, K) float32 tile, K-major, in the interleaved (unswizzled) layout.
@@ -446,15 +452,15 @@ __device__ __forceinline__ void score_product(
 
 // acc += P T, P the (64, K) accumulators split into A fragments (hi, lo),
 // T the (DH, K) transposed tile ``t`` / ``t_lo`` (k8 steps j0 .. of a
-// TransposedTile<DH, KT>): in chunks of kChunkCols columns, each summed from
-// zero in ``tmp`` and added in float32.  Every product has completed on
-// return.
-template <int DH, int K, int KT = K>
+// TransposedTile<DH, KT>, or of another tile type Tt read K-major with the
+// same k_major / step: the wide backward's F32Tile<KT, DH>): in chunks of
+// kChunkCols columns, each summed from zero in ``tmp`` and added in
+// float32.  Every product has completed on return.
+template <int DH, int K, int KT = K, class Tt = TransposedTile<DH, KT>>
 __device__ __forceinline__ void second_product(
     float (&acc)[DH / 2], const uint32_t (&p_hi)[K / 8][4],
     const uint32_t (&p_lo)[K / 8][4], uint32_t t, uint32_t t_lo,
     int j0 = 0) {
-  using Tt = TransposedTile<DH, KT>;
   constexpr int C = kChunkCols;
   const uint64_t th = Tt::k_major(t), tl = Tt::k_major(t_lo);
 #pragma unroll
@@ -477,6 +483,39 @@ __device__ __forceinline__ void second_product(
 #pragma unroll
     for (int r = 0; r < C / 2; ++r) acc[c * C / 2 + r] += tmp[r];
   }
+}
+
+// A score product over one 32-column chunk of a row that streams in chunk
+// by chunk (the wide backward, flash_attention_bwd_wide.cu): A the (64, 32)
+// F32Tile ``a`` / ``a_lo``, B the (N, 32) F32Tile ``b`` / ``b_lo``.  The
+// small terms (lo hi' + hi lo') go to ``small`` and the large ones (hi hi')
+// to ``large``, each chained over every k8 step of every chunk (from zero
+// at the row's first chunk, ``first``) and added in float32 once the row
+// is done: the small-first order of score_product, whose large terms' cuts
+// are the only ones at the sum's full size, with a row too long for shared
+// memory.  Issued, not waited.
+template <int N>
+__device__ __forceinline__ void chunk_score_product(float (&small)[N / 2],
+                                                    float (&large)[N / 2],
+                                                    uint32_t a, uint32_t a_lo,
+                                                    uint32_t b, uint32_t b_lo,
+                                                    int first) {
+  using A = F32Tile<32, kTile>;
+  using B = F32Tile<32, N>;
+  const uint64_t ah = A::k_major(a), al = A::k_major(a_lo);
+  const uint64_t bh = B::k_major(b), bl = B::k_major(b_lo);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const int acc = ks > 0 || !first;
+    wgmma_tf32_ss(small, desc_add(al, A::k_step(ks)),
+                  desc_add(bh, B::k_step(ks)), acc);
+    wgmma_tf32_ss(small, desc_add(ah, A::k_step(ks)),
+                  desc_add(bl, B::k_step(ks)), 1);
+  }
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_tf32_ss(large, desc_add(ah, A::k_step(ks)),
+                  desc_add(bh, B::k_step(ks)), ks > 0 || !first);
 }
 
 // The split A fragments of the K / 8 k8 steps of an accumulator set from

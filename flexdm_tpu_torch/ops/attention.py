@@ -28,15 +28,19 @@ the JAX layout: ``q, k, v`` are ``(B, H, S, Dh)`` and ``key_mask`` is a
   128 columns; a call takes the smallest W that holds its rows, and TMA
   fills the columns past Dh with zeros, which change no score, no output
   and no gradient column below Dh (the scale stays 1/sqrt(Dh)).  Every Dh
-  above 128 runs through the wide kernels ``csrc/flash_attention_wide.cu``
-  (forward, dq with delta, dk/dv; float32 and bf16 instances): a block owns
-  one column block of its outputs (128 columns of O or dq, 64 of dk and
-  dv) and computes the scores over the full row in chunks, so no tile or
-  accumulator grows with Dh and there is no upper limit.  A row must be a
-  multiple of 16 bytes (TMA, 16-byte copies): where Dh is not (Dh % 4 in
-  float32, Dh % 8 in bf16), q, k, v (and O, dO) are copied once into a
-  zero-padded buffer of the next such width, and the outputs are sliced
-  back.  The copy is plain PyTorch around the kernels; each kernel still
+  above 128 runs through the wide kernels, which compute the scores over
+  the full row in chunks, so no tile or accumulator grows with Dh and there
+  is no upper limit: ``csrc/flash_attention_wide.cu`` (the forward in both
+  dtypes and the bf16 dq and dk/dv on ``mma.sync``; a block owns one column
+  block of its outputs, 128 columns of O or dq, 64 of dk and dv) and
+  ``csrc/flash_attention_bwd_wide.cu`` (the float32 dq with delta and
+  dk/dv: split-TF32 ``wgmma`` on 32-column chunks that TMA brings in and a
+  splitter warpgroup splits once, persistent blocks over items of 64 rows
+  and a column block of 256 columns of dq or 128 of dk and dv).  A row
+  must be a multiple of 16 bytes (TMA, 16-byte copies): where Dh is not
+  (Dh % 4 in float32, Dh % 8 in bf16), q, k, v (and O, dO) are copied once
+  into a zero-padded buffer of the next such width, and the outputs are
+  sliced back.  The copy is plain PyTorch around the kernels; each kernel still
   launches once.  The plain version takes every Dh.
 * Both take float32 or bfloat16 (q, k and v of one dtype).  bfloat16
   launches the bf16 instances ``csrc/flash_attention_fwd_bf16.cu`` and
@@ -94,8 +98,9 @@ import torch.nn.functional as F
 NEG_INF = -1e9
 # The kernels take head dims from 1 to 128 on tile layouts KERNEL_WIDTHS
 # columns wide (csrc/hopper.cuh, "Head dims"), and every wider one through
-# the wide kernels, whose blocks span WIDE_COLUMNS columns of the row at a
-# time (csrc/flash_attention_wide.cu).
+# the wide kernels, whose forward blocks span WIDE_COLUMNS columns of the
+# row at a time (csrc/flash_attention_wide.cu; the float32 backward,
+# csrc/flash_attention_bwd_wide.cu, 256 columns of dq, 128 of dk and dv).
 KERNEL_WIDTHS = (32, 64, 128)
 WIDE_COLUMNS = 128
 
@@ -144,8 +149,10 @@ FWD_BF16_LIBRARY = ("flexdm_attention_bf16", ("flash_attention_fwd_bf16.cu",))
 BWD_BF16_LIBRARY = ("flexdm_attention_bwd_bf16",
                     ("flash_attention_bwd_bf16.cu",))
 WIDE_LIBRARY = ("flexdm_attention_wide", ("flash_attention_wide.cu",))
+BWD_WIDE_LIBRARY = ("flexdm_attention_bwd_wide",
+                    ("flash_attention_bwd_wide.cu",))
 LIBRARIES = (FWD_LIBRARY, BWD_LIBRARY, FWD_BF16_LIBRARY, BWD_BF16_LIBRARY,
-             WIDE_LIBRARY)
+             WIDE_LIBRARY, BWD_WIDE_LIBRARY)
 
 
 def key_bias(key_mask: Optional[torch.Tensor], b: int, s: int,
@@ -278,10 +285,13 @@ def _kernel(dtype=torch.float32, wide=False):
 @functools.lru_cache(maxsize=None)
 def _bwd_kernels(dtype=torch.float32, wide=False):
     """The backward's bound C entry points ``(dq, dkv)`` for ``dtype`` (the
-    wide kernels' with ``wide``)."""
+    wide kernels' with ``wide``: float32 in their own library, bf16 beside
+    the wide forward)."""
     bf16 = dtype == torch.bfloat16
-    library = (WIDE_LIBRARY if wide else BWD_BF16_LIBRARY if bf16
-               else BWD_LIBRARY)
+    if wide:
+        library = WIDE_LIBRARY if bf16 else BWD_WIDE_LIBRARY
+    else:
+        library = BWD_BF16_LIBRARY if bf16 else BWD_LIBRARY
     return tuple(_bind(*library, _symbol(kernel, bf16, wide), 10)
                  for kernel in ("dq", "dkv"))
 

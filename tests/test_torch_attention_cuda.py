@@ -298,7 +298,8 @@ def test_f32_backward_streams_at_head_dims_on_card(dh):
     _check_backward((33, 8, 70, dh), False, dh)
 
 
-# Head dims above 128: the wide kernels (csrc/flash_attention_wide.cu).
+# Head dims above 128: the wide kernels (csrc/flash_attention_wide.cu; the
+# float32 backward csrc/flash_attention_bwd_wide.cu).
 # 129 through a copy padded to 132, 136, 160 and 264 a column block partly
 # past the row, 256 and 512 whole column blocks.
 WIDE_HEAD_DIMS = (129, 136, 160, 256, 264, 512)
@@ -372,3 +373,59 @@ def test_f32_wide_kernels_at_s_4096_on_card(causal):
     one wide dk/dv kernel cover it."""
     _need_card()
     check_wide((1, 2, 4096, 256), causal, torch.float32, 4096, _f32_close)
+
+
+# The float32 wide backward (csrc/flash_attention_bwd_wide.cu): persistent
+# blocks, one an SM, each taking items (64 rows and a column block of the
+# outputs) in turn.  (33, 8, 70): 528 dq items and 1056 (Dh 256) dk/dv
+# items, more than the SMs; (2, 2, 70): 8 and 16, fewer.  Dh 136 and 264
+# end in a chunk partly past the row (and 264 in a column block of 8).
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(33, 8, 70), (2, 2, 70)])
+@pytest.mark.parametrize("dh", [136, 256, 264])
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_wide_backward_items_and_sms_on_card(shape, dh, causal):
+    """dq, dk and dv within 1e-4 of the plain backward, each kernel
+    launched once a call, a second call bitwise equal, whether the items
+    outnumber the SMs or not."""
+    _need_card()
+    check_wide(shape + (dh,), causal, torch.float32, dh + shape[0],
+               _f32_close)
+
+
+@pytest.mark.cuda
+def test_f32_wide_backward_launches_from_a_thread_without_a_context_on_card():
+    """The wide backward's tensor maps need a current context too: from a
+    new thread (its outputs from the caching allocator) it equals the
+    calling thread's, bitwise."""
+    _need_card()
+    q, k, v, do, mask = _card_inputs((2, 2, 130, 256), 13)
+    o, _, m, l = port_attn._forward(q, k, v, mask, False)
+
+    def backward():
+        return port_attn.flash_attention_backward(q, k, v, mask, o, m, l, do)
+
+    before = port_attn.launch_counts()
+    want = backward()
+    after = port_attn.launch_counts()
+    assert (after["dq_wide"] - before["dq_wide"],
+            after["dkv_wide"] - before["dkv_wide"]) == (1, 1)
+    del_me = backward()  # freed: the thread's outputs reuse its blocks
+    del del_me
+    torch.cuda.synchronize()
+    out = {}
+
+    def run():
+        try:
+            out["got"] = backward()
+            torch.cuda.synchronize()
+        except Exception as e:  # re-raised below, in the test's thread
+            out["err"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=120)
+    assert not thread.is_alive()
+    assert "err" not in out, out.get("err")
+    for x, y in zip(out["got"], want):
+        assert torch.equal(x, y)

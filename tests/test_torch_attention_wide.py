@@ -1,30 +1,51 @@
-"""The wide attention kernels' algorithm (``csrc/flash_attention_wide.cu``,
-every head dim above 128) emulated on the CPU and held to the JAX
-package's Pallas kernels in interpret mode.
+"""The wide attention kernels' algorithm (every head dim above 128)
+emulated on the CPU and held to the JAX package's Pallas kernels in
+interpret mode.
 
-The emulation follows the kernels' order of work: each output column block
-(128 columns of O and dq, 64 of dk and dv) on its own, the scores (q k^T,
-and the backward's dO v^T) summed over the full row in chunks (32 float32
-or 64 bf16 columns, the last zero past the row), tiles of 64 keys (or
-query rows for dk/dv) in turn, an online softmax in the forward whose m and
-l every column block computes alike (the block of column block 0 writes
-them), and delta = rowsum(dO O) over the full row.  Products are the
-kernels' arithmetic: float32 as k8 steps of three TF32 products (lo hi' +
-hi lo' + hi hi', summed from zero and added to the running sum in
+The forward (``csrc/flash_attention_wide.cu``, both dtypes) and the bf16
+backward (same file) are emulated in their order of work: each output
+column block (128 columns of O and dq, 64 of dk and dv) on its own, the
+scores (q k^T, and the backward's dO v^T) summed over the full row in
+chunks (32 float32 or 64 bf16 columns, the last zero past the row), tiles of
+64 keys (or query rows for dk/dv) in turn, an online softmax in the forward
+whose m and l every column block computes alike (the block of column block
+0 writes them), and delta = rowsum(dO O) over the full row.  Products are
+the kernels' arithmetic: float32 as k8 steps of three TF32 products (lo hi'
++ hi lo' + hi hi', summed from zero and added to the running sum in
 float32); bf16 with bf16 operands (p and ds rounded to bf16) and float32
-sums, the outputs rounded to bf16 once.  Rows whose Dh is not a multiple
-of 16 bytes run on zero-padded copies (Dh 129: 132 float32, 136 bf16), as
-``ops/attention.py`` hands them to the kernels; the scale is 1/sqrt(Dh).
+sums, the outputs rounded to bf16 once.
 
-Held to JAX's ``_flash_forward`` and its Pallas backward (interpret mode,
-any Dh as one block) on the same seeded numpy inputs: O and lse within
-2e-5, dq, dk and dv within 1e-4 (bf16: one bf16 ulp + 2^-8 of the largest
-reference entry).  A fully masked row (the last batch element, every key
-masked) is held to JAX's XLA path, which the port follows there (JAX's
-padded Pallas path rebuilds p from lse and adds its causal -1e9 to the key
-bias).  With the scale of the chunk width the emulation misses the bars.
+The float32 backward (``csrc/flash_attention_bwd_wide.cu``, warpgroup
+``wgmma`` on TMA-fed chunks) is emulated in its own order
+(:func:`emulate_backward_wgmma`): items of 64 rows (query rows for dq, keys
+for dk/dv) and one column block of the outputs (256 columns of dq, 128 of
+dk and dv); tiles of 32 keys (or query rows) of the other axis; the score
+products over the row's 32-column chunks with their small terms (lo hi' +
+hi lo') and large terms (hi hi') in two sums chained over every k8 step of
+every chunk, added in float32 once the row is done; p and ds in log2 units
+from the forward's m and l; then each tile's second product (ds k, p^T dO,
+ds^T q) from the score accumulators as the A operand (``a_from_acc_columns``)
+times the transposed tile, rows at ``acc_order`` in the 128-byte swizzled
+K-major layout the kernel's splitters write and ``wgmma`` reads
+(:func:`transposed_product`), 32 columns at a time, each summed from zero
+(small terms first) and added in float32.  ``TileLayout``, the split (lo
+read to 19 bits), ``a_from_acc_columns`` and ``products`` are those of
+``tests/test_torch_attention_tf32_wgmma.py``.  With the transposed tiles'
+rows in their own order the emulation misses the bars.
+
+Rows whose Dh is not a multiple of 16 bytes run on zero-padded copies (Dh
+129: 132 float32, 136 bf16), as ``ops/attention.py`` hands them to the
+kernels; the scale is 1/sqrt(Dh).  Held to JAX's ``_flash_forward`` and its
+Pallas backward (interpret mode, any Dh as one block) on the same seeded
+numpy inputs: O and lse within 2e-5, dq, dk and dv within 1e-4 (bf16: one
+bf16 ulp + 2^-8 of the largest reference entry).  A fully masked row (the
+last batch element, every key masked) is held to JAX's XLA path, which the
+port follows there (JAX's padded Pallas path rebuilds p from lse and adds
+its causal -1e9 to the key bias).  With the scale of the chunk width or of
+a column block the emulation misses the bars.
 """
 
+import functools
 import math
 
 import jax
@@ -35,6 +56,9 @@ import torch
 
 from flexdm_tpu.ops import attention as jax_attn
 from flexdm_tpu_torch.ops import attention as port_attn
+from tests.test_torch_attention_tf32_wgmma import (  # noqa: E402
+    TileLayout, a_from_acc_columns, acc_order, products)
+from tests.test_torch_attention_tf32_wgmma import split as split_read
 
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 CARD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -44,6 +68,15 @@ ROWS = 64  # a block's rows, and the other axis's tile
 OUT_COLS = 128  # column block of O and dq
 KV_COLS = 64  # column block of dk and dv
 CHUNK = {torch.float32: 32, torch.bfloat16: 64}
+
+# The float32 backward's items, column blocks, other-axis tiles and chunks
+# (csrc/flash_attention_bwd_wide.cu).
+DQ_COLS = 256
+DKV_COLS = 128
+OTHER = 32
+F32_CHUNK = 32
+LOG2E = np.float32(1.4426950408889634)
+MASKED2 = np.float32(np.float32(-1e9) * LOG2E)  # kMaskedLog2
 
 WIDE_HEAD_DIMS = (129, 136, 192, 256, 264, 512)
 SHAPES = ((2, 2, 50), (1, 2, 130))
@@ -132,13 +165,15 @@ def emulate_forward(q, k, v, mask, causal, dh, bf16=False, scale_dim=None):
     return o, m + torch.log(l), m, l
 
 
-def emulate_backward(q, k, v, mask, o, do, m, l, causal, dh, bf16=False,
+def emulate_backward(q, k, v, mask, o, do, m, l, causal, dh,
                      scale_dim=None):
-    """dq, dk, dv of the wide dq and dk/dv kernels (rows as
-    :func:`emulate_forward`'s)."""
+    """dq, dk, dv of the bf16 wide dq and dk/dv kernels of
+    ``flash_attention_wide.cu`` (rows as :func:`emulate_forward`'s, their
+    values bf16)."""
+    bf16 = True
     b, h, s, ld = q.shape
     scale = 1.0 / math.sqrt(scale_dim or dh)
-    chunk = CHUNK[torch.bfloat16 if bf16 else torch.float32]
+    chunk = CHUNK[torch.bfloat16]
     bias = port_attn.key_bias(mask, b, s, "cpu")
     idx = torch.arange(s)
     delta = (do * o).sum(-1)  # over the full row, before any use
@@ -178,8 +213,145 @@ def emulate_backward(q, k, v, mask, o, do, m, l, causal, dh, bf16=False,
             acc_dk = mma_sum(acc_dk, ds, q[..., rws, cols], bf16)
         dk[..., cols] = acc_dk * scale
         dv[..., cols] = acc_dv
-    out = (dq, dk, dv)
-    return tuple(x.bfloat16().float() for x in out) if bf16 else out
+    return tuple(x.bfloat16().float() for x in (dq, dk, dv))
+
+
+def two_set_scores(a, b):
+    """``a b^T`` over the full row as the float32 backward sums it: a
+    (..., M, ld) and b (..., N, ld), ld a multiple of the chunk; chunk by
+    chunk, every k8 step split (lo read to 19 bits), its small terms
+    (lo hi' + hi lo') chained into one sum and its large term (hi hi') into
+    another across every chunk, the two added in float32 at the end."""
+    small = large = 0
+    for c0 in range(0, a.shape[-1], F32_CHUNK):
+        for k0 in range(c0, c0 + F32_CHUNK, 8):
+            ah, al = split_read(a[..., k0:k0 + 8])
+            bh, bl = split_read(b[..., k0:k0 + 8].transpose(-1, -2))
+            small = small + al @ bh + ah @ bl
+            large = large + ah @ bh
+    return large + small
+
+
+@functools.lru_cache(maxsize=None)
+def _transposed_layout(dc):
+    """The 128-byte swizzled layout of a (dc, 32) transposed tile (rows the
+    output columns, the 32 k positions one 128-byte row): an F32Tile."""
+    return TileLayout(dc, OTHER, 128)
+
+
+def transposed_product(acc, p, x, order=acc_order):
+    """``acc + p x`` as the float32 backward's second products run it: p
+    (..., 64, 32) the score accumulators, taken as the A operand in place
+    (``a_from_acc_columns``: accumulator column 2t at k = t, 2t + 1 at
+    k = t + 4), x (..., 32, dc) the other axis's tile, which the splitters
+    write transposed into a swizzled K-major tile, row r of x at k position
+    ``order(r)`` (acc_order; another order is the mutation case), read k8
+    step by k8 step as wgmma reads it, 32 output columns at a time, each
+    summed from zero (small terms first, ``products``) and added in
+    float32."""
+    dc = x.shape[-1]
+    layout = _transposed_layout(dc)
+    xt = torch.empty(x.shape[:-2] + (dc, OTHER))
+    xt[..., torch.tensor([order(r) for r in range(OTHER)])] = \
+        x.transpose(-1, -2)
+    buf = layout.landed(xt)
+    out = acc.clone()
+    for c0 in range(0, dc, 32):
+        out[..., c0:c0 + 32] += products(
+            [(p[..., torch.from_numpy(a_from_acc_columns(j))],
+              layout.k_major(buf, j)[..., c0:c0 + 32])
+             for j in range(OTHER // 8)])
+    return out
+
+
+def _pad_to(x, rows, cols):
+    """``x`` (..., S, ld) zero-padded to ``rows`` rows and ``cols``
+    columns (TMA's fill past S and past ld)."""
+    return torch.nn.functional.pad(
+        x, (0, cols - x.shape[-1], 0, rows - x.shape[-2]))
+
+
+def emulate_backward_wgmma(q, k, v, mask, o, do, m, l, causal, dh,
+                           order=acc_order, scale_dim=None):
+    """dq, dk, dv of ``csrc/flash_attention_bwd_wide.cu`` on rows of ``ld``
+    >= Dh (float32 tensors), from the forward's m and l.  ``order``: the k
+    position of a source row in the transposed tiles (another order is the
+    mutation case); ``scale_dim``: the dim of the softmax scale (default
+    Dh).  Every column block computes the same scores in the same order,
+    so they are computed once a tile here; causal dq's key tiles past an
+    item's last row add exact zeros (the kernel skips them)."""
+    b, h, s, ld = q.shape
+    scale = np.float32(1.0) / np.sqrt(np.float32(scale_dim or dh))
+    c1 = float(np.float32(scale * LOG2E))
+    sp = -(-s // ROWS) * ROWS  # whole items (and whole tiles of 32)
+    n_items = sp // ROWS
+    n_dq, n_kv = -(-ld // DQ_COLS), -(-ld // DKV_COLS)
+    lc = max(n_dq * DQ_COLS, n_kv * DKV_COLS)
+    qp, kp, vp, op, dop = (_pad_to(x, sp, lc) for x in (q, k, v, o, do))
+    valid = torch.arange(sp) < s
+    bias2 = torch.full((b, sp), float(MASKED2))
+    bias2[:, :s] = torch.where(mask, 0.0, float(MASKED2))
+    m2 = torch.zeros(b, h, sp)
+    m2[..., :s] = m * float(LOG2E)
+    inv_l = torch.zeros(b, h, sp)
+    inv_l[..., :s] = 1.0 / l
+    delta = (dop * op).sum(-1)
+    idx = torch.arange(sp).reshape(n_items, ROWS, 1)  # own rows, by item
+
+    def items(x):
+        return x.reshape(b, h, n_items, ROWS, lc)
+
+    def tile(x, j):  # the other axis's tile j, beside every item
+        return x[:, :, None, j * OTHER:(j + 1) * OTHER]
+
+    # dq: per item, per key tile.
+    dq = torch.zeros(b, h, n_items, ROWS, lc)
+    qi, doi = items(qp), items(dop)
+    mi = m2.reshape(b, h, n_items, ROWS, 1)
+    li = inv_l.reshape(b, h, n_items, ROWS, 1)
+    di = delta.reshape(b, h, n_items, ROWS, 1)
+    for j in range(sp // OTHER):
+        keys = torch.arange(j * OTHER, (j + 1) * OTHER)
+        kt, vt = tile(kp, j), tile(vp, j)
+        sc = two_set_scores(qi, kt)
+        dp = two_set_scores(doi, vt)
+        replaced = causal & (keys > idx)
+        x = torch.where(replaced, float(MASKED2),
+                        sc * c1 + bias2[:, None, None, None, keys])
+        p = torch.exp2(x - mi) * li
+        ds = torch.where(valid[keys] & ~replaced, p * (dp - di), 0.0)
+        for c0 in range(0, n_dq * DQ_COLS, DQ_COLS):
+            cols = slice(c0, c0 + DQ_COLS)
+            dq[..., cols] = transposed_product(dq[..., cols], ds,
+                                               kt[..., cols], order)
+    dq = (dq * float(scale)).reshape(b, h, sp, lc)
+
+    # dk, dv: per item (64 keys), per tile of 32 query rows.
+    dk = torch.zeros(b, h, n_items, ROWS, lc)
+    dv = torch.zeros_like(dk)
+    ki, vi = items(kp), items(vp)
+    kbias = bias2.reshape(b, 1, n_items, ROWS, 1)
+    for j in range(sp // OTHER):
+        r = torch.arange(j * OTHER, (j + 1) * OTHER)
+        qt, dot = tile(qp, j), tile(dop, j)
+        sc = two_set_scores(ki, qt)  # s^T
+        dp = two_set_scores(vi, dot)  # dp^T
+        replaced = causal & (idx > r)
+        x = torch.where(replaced, float(MASKED2), sc * c1 + kbias)
+        p = torch.exp2(x - m2[:, :, None, None, r]) \
+            * inv_l[:, :, None, None, r]
+        p = torch.where(valid[r] & valid.reshape(n_items, ROWS, 1), p, 0.0)
+        ds = torch.where(replaced, 0.0,
+                         p * (dp - delta[:, :, None, None, r]))
+        for c0 in range(0, n_kv * DKV_COLS, DKV_COLS):
+            cols = slice(c0, c0 + DKV_COLS)
+            dv[..., cols] = transposed_product(dv[..., cols], p,
+                                               dot[..., cols], order)
+            dk[..., cols] = transposed_product(dk[..., cols], ds,
+                                               qt[..., cols], order)
+    dk = (dk * float(scale)).reshape(b, h, sp, lc)
+    dv = dv.reshape(b, h, sp, lc)
+    return tuple(x[..., :s, :ld] for x in (dq, dk, dv))
 
 
 # ---------------------------------------------------------------------------
@@ -207,16 +379,22 @@ def _rows(dh, dtype, *tensors):
     return port_attn._padded(dh, dtype, *tensors)
 
 
-def _emulate(q, k, v, do, mask, causal, dtype, scale_dim=None):
+def _emulate(q, k, v, do, mask, causal, dtype, scale_dim=None,
+             order=acc_order):
     """The emulated forward and backward on the kernels' rows, sliced back
-    to Dh: (O, lse, dq, dk, dv)."""
+    to Dh: (O, lse, dq, dk, dv); float32's backward in the order of
+    ``flash_attention_bwd_wide.cu`` (``order``: its transposed tiles')."""
     dh = q.shape[-1]
     bf16 = dtype == torch.bfloat16
     rows = _rows(dh, dtype, q, k, v, do)
     o, lse, m, l = emulate_forward(*rows[:3], mask, causal, dh, bf16,
                                    scale_dim)
-    grads = emulate_backward(*rows[:3], mask, o, rows[3], m, l, causal, dh,
-                             bf16, scale_dim)
+    if bf16:
+        grads = emulate_backward(*rows[:3], mask, o, rows[3], m, l, causal,
+                                 dh, scale_dim)
+    else:
+        grads = emulate_backward_wgmma(*rows[:3], mask, o, rows[3], m, l,
+                                       causal, dh, order, scale_dim)
     return (o[..., :dh], lse) + tuple(g[..., :dh] for g in grads)
 
 
@@ -313,9 +491,78 @@ def test_emulation_with_the_scale_of_the_chunk_width_fails():
             assert not np.allclose(g.numpy()[:-1], w[:-1], **CARD_TOL)
 
 
+def test_emulated_float32_backward_fails_with_rows_in_their_own_order():
+    """The float32 backward's transposed tiles (K^T for ds k; Q^T and dO^T
+    for ds^T q and p^T dO) must hold row r at acc_order(r): in the rows'
+    own order the products pair accumulator column 2t + 1 with row t + 4,
+    and dq, dk and dv miss the bar against JAX's Pallas backward."""
+    shape = (2, 2, 50, 256)
+    q, k, v, do, mask = _inputs(shape, 9, torch.float32)
+    want = _jax(q, k, v, do, mask, False, torch.float32, "pallas")
+    right = _emulate(q, k, v, do, mask, False, torch.float32)
+    wrong = _emulate(q, k, v, do, mask, False, torch.float32,
+                     order=lambda r: r)
+    for g, bad, w, name in zip(right[2:], wrong[2:], want[2:],
+                               ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy()[:-1], w[:-1], err_msg=name,
+                                   **CARD_TOL)
+        assert not np.allclose(bad.numpy()[:-1], w[:-1], **CARD_TOL), name
+
+
+def other_units():
+    """(cq, rg) of the 64 threads that split an other-axis chunk
+    (``OtherUnit``, flash_attention_bwd_wide.cu): columns 4 cq .. 4 cq + 3
+    of the rows 8 (rg / 2) + rg % 2 + 2m, the row groups 0, 6, 1, 7, 4, 2,
+    5, 3 by cq, xor idx / 8."""
+    return [(idx % 8, ((0x35247160 >> (4 * (idx % 8))) & 7) ^ (idx // 8))
+            for idx in range(64)]
+
+
+def test_other_units_cover_the_chunk_without_bank_conflicts():
+    """The 64 units cover the (32, 32) chunk once; each quarter warp's
+    16-byte loads and stores (in place: the chunk's swizzle slot
+    (c / 4) ^ (row % 8); transposed: the slot (k / 4) ^ (n % 8) of the
+    swizzled (n, k) tile) fall in 8 different slots; the transposed rows
+    sit at acc_order, 4 of them in one 16-byte chunk."""
+    seen = set()
+    units = other_units()
+    for cq, rg in units:
+        r0 = 8 * (rg // 2) + rg % 2
+        assert [acc_order(r0 + 2 * m) for m in range(4)] == \
+            [4 * rg + m for m in range(4)]
+        for m in range(4):
+            for e in range(4):
+                seen.add((r0 + 2 * m, 4 * cq + e))
+    assert len(seen) == 32 * 32
+    for q in range(0, 64, 8):
+        quarter = units[q:q + 8]
+        for m in range(4):
+            slots = {cq ^ ((8 * (rg // 2) + rg % 2 + 2 * m) % 8)
+                     for cq, rg in quarter}
+            assert len(slots) == 8
+        for e in range(4):
+            slots = {rg ^ ((4 * cq + e) % 8) for cq, rg in quarter}
+            assert len(slots) == 8
+
+
+def test_transposed_product_is_the_plain_product():
+    """The score accumulators as the A operand in place, times the
+    transposed tile at acc_order read K-major from its swizzled layout: the
+    plain product, exactly (integers), at both column blocks' widths."""
+    rng = np.random.default_rng(4)
+    for dc in (DQ_COLS, DKV_COLS):
+        p = torch.from_numpy(rng.integers(-8, 8, (64, OTHER))
+                             .astype(np.float32))
+        x = torch.from_numpy(rng.integers(-8, 8, (OTHER, dc))
+                             .astype(np.float32))
+        got = transposed_product(torch.zeros(64, dc), p, x)
+        assert torch.equal(got, p @ x)
+
+
 def test_emulation_matches_the_plain_version_at_dh_1024():
-    """Dh 1024 (eight column blocks of O, sixteen of dk and dv): the
-    emulation against the port's plain versions, which take every Dh."""
+    """Dh 1024 (eight column blocks of O, four of dq and eight of dk and dv
+    in the float32 backward): the emulation against the port's plain
+    versions, which take every Dh."""
     shape = (1, 1, 70, 1024)
     q, k, v, do, mask = _inputs(shape, 11, torch.float32)
     got = _emulate(q, k, v, do, mask, True, torch.float32)

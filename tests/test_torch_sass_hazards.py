@@ -68,6 +68,10 @@ LINES = {
     "bar_sync_fenced": ("BAR.SYNC.DEFER_BLOCKING R0, 0x80",
                         "0x000200000000751d", "0x0205e80000010000"),
     "exit": ("EXIT", "0x000000000000794d", "0x000fea0003800000"),
+    # The trap a wait that never ends runs (mbar_wait, csrc/hopper.cuh), as
+    # ptxas places it after the function's last EXIT (this PR's build of
+    # flash_bwd_dq_wide_kernel<0>, /*dc50*/).
+    "trap": ("BPT.TRAP 0x1", "0x000000040000795c", "0x000fea0003800000"),
 }
 
 
@@ -158,6 +162,23 @@ def test_a_hazard_across_a_loop_back_edge_is_flagged():
     got = hazards(listing("arrive", "dp_first", "dp_last", ("BRA", 0, "@P0"),
                           "wait0", "exit"))
     assert [g[0] for g in got] == ["undecided"]
+
+
+def test_a_trap_ends_its_path():
+    # A wait with products in flight may branch to its trap; the trap sits
+    # after the last EXIT, and the code that follows it (here an
+    # accumulator write, as another warpgroup's code is there) is not on
+    # that path.
+    trap_at = len(SCORES) + 4
+    got = hazards(listing(*SCORES, ("BRA", trap_at, "@!P0"), "wait1",
+                          "wait0", "exit", "trap", "fadd_acc", "exit"))
+    assert got == []
+    # Without the trap the same branch lands on the write with dp in
+    # flight.
+    got = hazards(listing(*SCORES, ("BRA", trap_at, "@!P0"), "wait1",
+                          "wait0", "exit", "fadd_acc", "exit"))
+    assert [g[:3] for g in got] == [("operand", LINES["fadd_acc"][0],
+                                     LINES["dp_first"][0])]
 
 
 def test_an_hgmma_chain_is_not_a_hazard_but_an_overlap_is():

@@ -171,6 +171,110 @@ def test_bwd_bench_parses_its_arguments():
             bench.parse_args(bad)
 
 
+def test_bwd_bench_takes_the_wide_kernels():
+    """``--wide``: the backward of head dims above 128, float32's in
+    ``flash_attention_bwd_wide.cu``, bf16's beside the wide forward; the
+    same entry points in the parent's ``flash_attention_wide.cu``; timed at
+    the ``--latent_dim 2048`` training and serving shapes, one 512-wide
+    head, S = 4096 and S = 500 at Dh 256, each a wide head dim."""
+    from flexdm_tpu_torch.ops import attention as attn
+    from tools import torch_bwd_bf16_bench as bench
+
+    parent = "parent=build/parent/flexdm_tpu_torch/csrc/flash_attention_wide.cu"
+    args = bench.parse_args(["--dtype", "float32", "--wide", "--other",
+                             parent, "--steps", "--turns", "4"])
+    assert (args.dtype, args.wide, args.other, args.steps, args.turns) == (
+        "float32", True, [parent], True, 4)
+    assert not bench.parse_args([]).wide
+    assert bench.library("float32", wide=True) == attn.BWD_WIDE_LIBRARY
+    assert attn.BWD_WIDE_LIBRARY == ("flexdm_attention_bwd_wide",
+                                     ("flash_attention_bwd_wide.cu",))
+    assert bench.library("bfloat16", wide=True) == attn.WIDE_LIBRARY
+    assert bench.entries("float32") == bench.ENTRIES["float32"]
+    assert bench.entries("float32", wide=True) == (
+        "flexdm_flash_attention_bwd_dq_wide",
+        "flexdm_flash_attention_bwd_dkv_wide")
+    assert bench.entries("bfloat16", wide=True) == (
+        "flexdm_flash_attention_bwd_dq_wide_bf16",
+        "flexdm_flash_attention_bwd_dkv_wide_bf16")
+    assert bench.WIDE_SHAPES == ((256, 8, 50, 256), (256, 1, 50, 512),
+                                 (8, 8, 50, 256), (1, 2, 4096, 256),
+                                 (64, 8, 500, 256))
+    assert all(attn.head_dim_plan(s[3]).wide for s in bench.WIDE_SHAPES)
+    assert bench.WIDE_LATENT // 8 == 256
+
+
+def test_bwd_bench_split_floors_are_a_hand_count():
+    """The split-TF32 floors at (256, 8, 50, 256): a product is
+    2 x 2048 x 50^2 x 256 = 2.62144 GFLOP, dq 3 of them and dk/dv 4, each
+    three TF32 products: 23.59 and 31.46 GFLOP, 0.0477 and 0.0636 ms at 495
+    TFLOP/s; with S padded to 64 (64^2 / 50^2 = 1.6384x) 0.0781 and 0.1041
+    ms."""
+    from tools import torch_bwd_bf16_bench as bench
+
+    product = 2 * 2048 * 50 ** 2 * 256
+    assert product == 2_621_440_000
+    got = bench.split_floors((256, 8, 50, 256))
+    for part, n in (("dq", 3), ("dkv", 4)):
+        assert got[part]["split_floor_ms"] == pytest.approx(
+            3 * n * product / 495e12 * 1e3, rel=1e-12)
+        assert got[part]["split_floor_padded_ms"] == pytest.approx(
+            3 * n * product * 64 ** 2 / 50 ** 2 / 495e12 * 1e3, rel=1e-12)
+    assert got["dq"]["split_floor_ms"] == pytest.approx(0.0477, abs=1e-4)
+    assert got["dkv"]["split_floor_ms"] == pytest.approx(0.0636, abs=1e-4)
+    assert got["dq"]["split_floor_padded_ms"] == pytest.approx(0.0781,
+                                                               abs=1e-4)
+    assert got["dkv"]["split_floor_padded_ms"] == pytest.approx(0.1041,
+                                                                abs=1e-4)
+    # A whole number of items pads nothing.
+    whole = bench.split_floors((1, 2, 4096, 256))
+    assert whole["dq"]["split_floor_ms"] == \
+        whole["dq"]["split_floor_padded_ms"]
+
+
+def test_wide_bwd_phases_instruments_the_current_source():
+    """``tools/torch_wide_bwd_phases.py``: every probe finds its place in
+    ``csrc/flash_attention_bwd_wide.cu`` (a probe whose place is gone
+    raises), the shapes parse (Dh above 128 only), and each warpgroup's
+    shares of its cycles add up to 1."""
+    from flexdm_tpu_torch.ops import _build
+    from tools import torch_wide_bwd_phases as tool
+
+    source = (_build.CSRC_DIR / "flash_attention_bwd_wide.cu").read_text()
+    out = tool.instrumented_source(source)
+    # The probes (and the two macros' definitions).
+    assert out.count("PHASE_T0(") == 19 and out.count("PHASE_ADD(") == 21
+    assert out.count("PHASE_WRITE();") == 4  # 2 kernels x 2 warpgroups
+    assert 'extern "C" int wide_phase_cycles' in out
+    with pytest.raises(ValueError):
+        tool.instrumented_source(source.replace("mbar_arrive(&bar.full[r])",
+                                                "mbar_arrive(bar.full + r)"))
+    assert tool.parse_args([]).shape == tool.SHAPES
+    assert tool.parse_args(["--shape", "8,8,50,256"]).shape == (
+        (8, 8, 50, 256),)
+    for bad in (["--shape", "8,8,50,128"], ["--shape", "8,8,50"]):
+        with pytest.raises(SystemExit):
+            tool.parse_args(bad)
+    cycles = [0.0] * 32
+    for slot, value in ((0, 10), (1, 30), (2, 5), (3, 15), (4, 4), (5, 20),
+                        (6, 1), (7, 100), (16, 10), (17, 5), (18, 5),
+                        (19, 50)):
+        cycles[slot] = float(value)
+    got = tool.shares(cycles)
+    assert got["issue"] == pytest.approx(0.2)  # 30 - 10 of 100
+    assert got["consumer_rest"] == pytest.approx(0.25)
+    assert got["split_rest"] == pytest.approx(0.6)
+    assert sum(v for k, v in got.items() if k in (
+        "wait_full", "issue", "wgmma_wait", "release", "ds", "second",
+        "tile_end", "consumer_rest")) == pytest.approx(1.0)
+
+
+def test_wide_bwd_phases_refuses_to_run_without_a_card():
+    proc = run_tool("torch_wide_bwd_phases.py")
+    assert proc.returncode != 0
+    assert "this tool needs one GPU" in proc.stderr
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_bench_refuses_to_run_without_a_card(dtype):
     proc = run_tool("torch_bwd_bf16_bench.py", "--dtype", dtype)

@@ -96,6 +96,13 @@ def repeat_kernels(shape, causal, n, g):
     out = {name: {"differ": 0, "cases": []} for name in first}
     for i in range(n):
         again = run()
+        # One host sync a call: every output's equality at once, the
+        # details only where one differs.
+        same = torch.stack([torch.eq(x, y).all()
+                            for name, (_, got) in again.items()
+                            for x, y in zip(got, first[name][1])]).cpu()
+        if bool(same.all()):
+            continue
         for name, (names, got) in again.items():
             want = first[name][1]
             if all(torch.equal(x, y) for x, y in zip(got, want)):

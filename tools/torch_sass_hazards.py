@@ -13,8 +13,8 @@ dump instead (any machine; ``--ptxas NAME=REPORT`` adds its ptxas ``-v``
 report for the registers and spills).
 
 Per kernel instance (``kernel<template args>``) it follows every path of
-the SASS, loop back-edges and calls included, tracking which warpgroup
-products are in flight, and reports:
+the SASS, loop back-edges and calls included (a trap, ``BPT.TRAP``, ends
+its path), tracking which warpgroup products are in flight, and reports:
 
 * ``operand``: an instruction other than the product chain itself that
   writes a register an issued HGMMA reads as its A operand, or writes or
@@ -277,6 +277,11 @@ def _successors(rows: List[Instr], i: int) -> List[int]:
     base = ins.op.split(".")[0]
     conditional = ins.pred not in ("", "@PT")
     out = []
+    if base == "BPT" and ".TRAP" in ins.op and not conditional:
+        # A trap ends the kernel: nothing runs after it on its path (ptxas
+        # places the traps of a function's waits, mbar_wait's, after its
+        # last EXIT, where the next instruction belongs to another path).
+        return []
     if base in ("EXIT", "RET", "BRX", "JMX"):
         return [i + 1] if conditional and i + 1 < len(rows) else []
     if base in ("BRA", "CALL"):
