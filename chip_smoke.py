@@ -10,11 +10,11 @@ Phases, each of which must pass (any failure exits non-zero):
    nvcc for sm_90a, one nvcc per source, and the host record decoder
    (``csrc/tfrecord_io.cc``) with g++ at its first use, all at once
    (seconds, printed with the ptxas report and g++'s version, and the bf16
-   forward's and backward's and the float32 backward's registers, spills
-   and C7520 lines); fails if
+   forward's and backward's, the float32 ones', the wide forward's and the
+   wide backwards' registers, spills and C7520 lines); fails if
    the native decoder is not in use (14(a)); (b) the static hazard check
    of ``tools/torch_sass_hazards.py`` over every kernel instance of the
-   six libraries (the wide kernels' too; ``cuobjdump -sass``: an HGMMA's
+   seven libraries (the wide kernels' too; ``cuobjdump -sass``: an HGMMA's
    register operands or
    accumulators touched before their wait, a TMA copy over shared loads
    still in flight): each instance's registers, spills and hazards; fails
@@ -29,8 +29,9 @@ Phases, each of which must pass (any failure exits non-zero):
    (Dh 8, 16, 20, 25, 48, 96, 120 at (8, 8, 50, Dh) and (2, 4, 500, Dh),
    causal and not, the last fifth of the keys masked; the two-stream
    (33, 8, 70, 25) and (33, 8, 70, 48)), the head dims above 128 on the
-   wide kernels (``csrc/flash_attention_wide.cu``, the float32 backward
-   ``csrc/flash_attention_bwd_wide.cu``: Dh 129, 136, 160, 256, 264, 512 at
+   wide kernels (the forward ``csrc/flash_attention_fwd_wide.cu``, the
+   float32 backward ``csrc/flash_attention_bwd_wide.cu``, the bf16 one
+   ``csrc/flash_attention_wide.cu``: Dh 129, 136, 160, 256, 264, 512 at
    the same shapes), each call launching one kernel of its
    instance, and a second call bitwise equal
    to the first; the forward from a thread with no CUDA context; then kernel,
@@ -40,7 +41,8 @@ Phases, each of which must pass (any failure exits non-zero):
    (256, 8, 500, 32) and the head dims of ``--latent_dim`` 128 and 384,
    (256, 8, 50, 16) and (256, 8, 50, 48), and the wide kernels at
    (8, 8, 50, 256), (256, 8, 50, 256) (``--latent_dim 2048``) and
-   (256, 1, 50, 512), beside the bound computed from the shapes (at the
+   (256, 1, 50, 512), the forward also at (1, 2, 4096, 256) and
+   (64, 8, 500, 256), beside the bound computed from the shapes (at the
    true Dh);
 4. backward: the backward kernels (dq with delta, dk/dv; split-TF32
    products on warpgroup wgmma over TMA-fed tiles) through autograd
@@ -54,7 +56,8 @@ Phases, each of which must pass (any failure exits non-zero):
    forward, dq
    and dk/dv kernels in autograd's order ``REPEATS`` times at
    (33, 8, 70, 32) (the two-stream instances at Dh 32) and (33, 8, 70, 256)
-   (the wide kernels, more items than SMs), causal and not, every output
+   (the wide kernels, more items than SMs; there the bf16 wide forward
+   too), causal and not, every output
    bitwise against the first call's; then the kernels, the
    plain autograd backward and the library call's backward timed at
    (256, 8, 50, 32), (1, 2, 4096, 64), (64, 8, 500, 32), (256, 8, 50, 16)
@@ -130,8 +133,8 @@ Phases, each of which must pass (any failure exits non-zero):
     path launches only bf16 kernels, every float32 path only float32 ones.
     12(a)'s times: at (8, 8, 50, 32), (256, 8, 50, 32), (64, 8, 500, 32),
     (256, 8, 500, 32), crello_scaled's (2048, 8, 50, 64), (256, 8, 50, 16),
-    (256, 8, 50, 48) and phase 3's wide shapes, each with the
-    last fifth of the keys masked and with every key attended (the
+    (256, 8, 50, 48) and phase 3's wide shapes (the forward's five), each
+    with the last fifth of the keys masked and with every key attended (the
     library with no mask then), beside the exponential floor.
 13. trainer (crello Ours-EXP, batch 256, the 512/64/64 split of 8): (a)
     the ``Prefetcher`` with the trainer's ``PinnedCopy`` (pinned host
@@ -322,9 +325,12 @@ steps, CLI run and evaluation of phase 15 and one rank's step of phase
 kernel's ``multi_device`` times at phase 16's per-rank shapes, the
 baselines' causal one too; the launches of phase 17's, 18's and 19's
 paths too; each kernel's ``head_dims`` times at (256, 8, 50, 16) and
-(256, 8, 50, 48)); then the six wide kernels (float32 and bf16 forward,
-dq and dk/dv of ``csrc/flash_attention_wide.cu``), timed at
-(256, 8, 50, 256) with their ``wide_times`` at the three wide shapes,
+(256, 8, 50, 48)); then the six wide kernels (the float32 and bf16
+forward of ``csrc/flash_attention_fwd_wide.cu``, dq and dk/dv of
+``csrc/flash_attention_bwd_wide.cu`` and, bf16, of
+``csrc/flash_attention_wide.cu``), timed at (256, 8, 50, 256) with their
+``wide_times`` at the three wide shapes (the forward's also at
+(1, 2, 4096, 256) and (64, 8, 500, 256)),
 ``launches`` from phase 20's CLI run (float32) and bf16 step; the card's
 name and power limit from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.
@@ -385,8 +391,8 @@ HEAD_DIMS = (8, 16, 20, 25, 48, 96, 120)
 HEAD_DIM_SHAPES = ((8, 8, 50), (2, 4, 500))
 HEAD_DIM_STREAMS = ((33, 8, 70, 25), (33, 8, 70, 48))
 # 4(b): the kernels repeated at the two-stream Dh 32 shape, and at a wide
-# one whose items outnumber the SMs (Dh 256: csrc/flash_attention_bwd_wide.cu
-# in float32).
+# one whose items outnumber the SMs (Dh 256: csrc/flash_attention_fwd_wide.cu
+# in both dtypes, csrc/flash_attention_bwd_wide.cu in float32).
 REPEAT_SHAPE = (33, 8, 70, 32)
 WIDE_REPEAT_SHAPE = (33, 8, 70, 256)
 REPEATS = 10000
@@ -394,8 +400,10 @@ REPEATS = 10000
 # timed at the training batch.
 HEAD_DIM_TIMED = ((TRAIN_BATCH, 8, 50, 16), (TRAIN_BATCH, 8, 50, 48))
 HEAD_DIM_LATENTS = (128, 384)
-# Head dims above 128, on the wide kernels (csrc/flash_attention_wide.cu;
-# the float32 backward csrc/flash_attention_bwd_wide.cu): 129 through a
+# Head dims above 128, on the wide kernels (the forward
+# csrc/flash_attention_fwd_wide.cu; the float32 backward
+# csrc/flash_attention_bwd_wide.cu, the bf16 one
+# csrc/flash_attention_wide.cu): 129 through a
 # padded copy, 136, 160 and 264 a column block partly past
 # the row, 256 and 512 whole column blocks.  Checked as HEAD_DIMS are, and
 # the backward at S = 4096 at Dh 256.
@@ -408,6 +416,8 @@ WIDE_LATENT = 2048
 WIDE_TIMED = ((BATCH, 8, 50, 256), (TRAIN_BATCH, 8, 50, 256),
               (TRAIN_BATCH, 1, 50, 512))
 WIDE_TRAIN_SHAPE = (TRAIN_BATCH, 8, 50, 256)
+# The wide forward is also timed at Dh 256 with S = 4096 and S = 500.
+WIDE_FWD_TIMED = (WIDE_STREAM_SHAPE, (64, 8, 500, 256))
 # CUDA-graph windows a timing takes at the wide shapes (50 elsewhere): their
 # calls take up to milliseconds, and the script has its time limit.
 WIDE_SAMPLES = 10
@@ -416,7 +426,7 @@ WIDE_SAMPLES = 10
 def timing_samples(shape):
     """Windows of :func:`device_ms` (and calls of :func:`time_ms`) a timing
     at ``shape`` takes."""
-    return WIDE_SAMPLES if shape in WIDE_TIMED else 50
+    return WIDE_SAMPLES if shape in WIDE_TIMED + WIDE_FWD_TIMED else 50
 
 
 class SmokeFailure(RuntimeError):
@@ -530,8 +540,9 @@ def phase_build():
                        ("bf16 backward", attn.BWD_BF16_LIBRARY),
                        ("float32 forward", attn.FWD_LIBRARY),
                        ("float32 backward", attn.BWD_LIBRARY),
-                       ("wide", attn.WIDE_LIBRARY),
-                       ("wide float32 backward", attn.BWD_WIDE_LIBRARY)):
+                       ("wide forward", attn.FWD_WIDE_LIBRARY),
+                       ("wide float32 backward", attn.BWD_WIDE_LIBRARY),
+                       ("wide bf16 backward", attn.WIDE_LIBRARY)):
         log(f"[build] {label} kernels (ptxas): " + "; ".join(
             ptxas_summary(_build.BUILD_LOGS.get(lib[0], ""))))
     sass_hazards()
@@ -653,7 +664,7 @@ def phase_kernel(card):
     timings = {shape: forward_times(shape, g, card)
                for shape in ((8, 8, 50, 32), (256, 8, 50, 32), (8, 8, 650, 32),
                              FLAT_SHAPE, EVAL_FLAT_SHAPE) + HEAD_DIM_TIMED
-               + WIDE_TIMED}
+               + WIDE_TIMED + WIDE_FWD_TIMED}
     return worst, timings
 
 
@@ -1137,29 +1148,37 @@ def phase_backward(card):
 
 def backward_repeats():
     """4(b): the float32 forward, dq and dk/dv kernels in autograd's order
-    ``REPEATS`` times at ``REPEAT_SHAPE`` and ``WIDE_REPEAT_SHAPE``, causal
-    and not, every output bitwise against the first call's
-    (``tools/torch_kernel_repeats.py``): without the proxy fence of
-    ``load_own_frags`` (csrc/wgmma_tf32.cuh) the two-stream dq instances at
-    Dh 32 wrote wrong rows in 22 of 120000 calls; the wide backward's
-    stages go back to TMA behind the same fence."""
+    ``REPEATS`` times at ``REPEAT_SHAPE`` and ``WIDE_REPEAT_SHAPE``, and
+    there the bf16 wide forward too, causal and not, every output bitwise
+    against the first call's (``tools/torch_kernel_repeats.py``): without
+    the proxy fence of ``load_own_frags`` (csrc/wgmma_tf32.cuh) the
+    two-stream dq instances at Dh 32 wrote wrong rows in 22 of 120000
+    calls; the wide float32 kernels' stages go back to TMA behind the same
+    fence, the bf16 wide forward's behind its consumers' arrivals."""
     import torch
 
     from tools.torch_kernel_repeats import repeat_kernels
 
     g = torch.Generator().manual_seed(11)
     t0 = time.perf_counter()
-    for shape in (REPEAT_SHAPE, WIDE_REPEAT_SHAPE):
+    for shape, dtype, kernels in (
+            (REPEAT_SHAPE, torch.float32, F32_KERNELS),
+            (WIDE_REPEAT_SHAPE, torch.float32, F32_KERNELS),
+            (WIDE_REPEAT_SHAPE, torch.bfloat16, ("fwd",))):
         for causal in (False, True):
-            got = repeat_kernels(shape, causal, REPEATS, g)
-            log(f"[backward] {shape} causal={causal}: {REPEATS} calls of "
-                "the forward, dq and dk/dv each bitwise against the first: "
+            got = repeat_kernels(shape, causal, REPEATS, g, dtype, kernels)
+            log(f"[backward] {shape} {str(dtype)[6:]} causal={causal}: "
+                f"{REPEATS} calls of the "
+                + (", ".join(kernels) if kernels != F32_KERNELS
+                   else "forward, dq and dk/dv")
+                + " each bitwise against the first: "
                 + ", ".join(f"{k} {v['differ']} differ"
                             for k, v in got.items())
                 + "".join(f"; {k} {c}" for k, v in got.items()
                           for c in v["cases"]))
             check(all(v["differ"] == 0 for v in got.values()),
-                  f"repeated kernel calls differ at {shape} causal={causal}")
+                  f"repeated kernel calls differ at {shape} {dtype} "
+                  f"causal={causal}")
     log(f"[time] repeats {time.perf_counter() - t0:.1f} s")
 
 
@@ -2206,7 +2225,7 @@ def phase_bf16_kernel(card):
     # crello_scaled's width (D=512 over 8 heads of 64) beside the paths'.
     for shape in ((8, 8, 50, 32), (256, 8, 50, 32), FLAT_SHAPE,
                   EVAL_FLAT_SHAPE, (2048, 8, 50, 64)) + HEAD_DIM_TIMED \
-            + WIDE_TIMED:
+            + WIDE_TIMED + WIDE_FWD_TIMED:
         b, h, s, dh = shape
         q, k, v = (torch.randn(shape, generator=g).to("cuda", bf16)
                    for _ in range(3))
@@ -5805,13 +5824,14 @@ def main():
     # The wide kernels (every Dh above 128), timed at the latent-2048
     # training shape, with their times at WIDE_TIMED; launches from phase
     # 20's CLI run (float32) and bf16 step.
-    wide = "flash_attention_wide.cu"
+    wide_fwd = "flash_attention_fwd_wide.cu"  # the forward, both dtypes
+    wide = "flash_attention_wide.cu"  # the bf16 dq and dk/dv
     wide_bwd = "flash_attention_bwd_wide.cu"  # the float32 dq and dk/dv
     at = WIDE_TRAIN_SHAPE
     wide_cli = wide_counts[f"head_dim_{WIDE_LATENT}_float32_cli"]
     wide_bf16 = wide_counts[f"head_dim_{WIDE_LATENT}_pallas_bf16_step"]
     wide_kernels = [
-        entry("flash_attention_fwd_wide", "float32", wide, f"{tpu}:77",
+        entry("flash_attention_fwd_wide", "float32", wide_fwd, f"{tpu}:77",
               "fwd_wide", wide_cli, kernel_err["fwd_wide"],
               fwd_times(timings[at], at)),
         entry("flash_attention_bwd_dq_wide", "float32", wide_bwd, dq_tpu,
@@ -5821,7 +5841,7 @@ def main():
               "dkv_wide", wide_cli,
               max(backward_err["dk_wide"], backward_err["dv_wide"]),
               bwd_times(backward_timings[at], "dkv", at)),
-        entry("flash_attention_fwd_wide_bf16", BF16, wide, f"{tpu}:77",
+        entry("flash_attention_fwd_wide_bf16", BF16, wide_fwd, f"{tpu}:77",
               "fwd_wide_bf16", wide_bf16, bf16_err["O_wide"],
               fwd_times(bf16_fwd[at], at)),
         entry("flash_attention_bwd_dq_wide_bf16", BF16, wide, dq_tpu,
@@ -5838,7 +5858,7 @@ def main():
         out["wide_times"] = {
             str(s): dict(fwd_times(table[s], s) if part is None
                          else bwd_times(table[s], part, s))
-            for s in WIDE_TIMED}
+            for s in WIDE_TIMED + (WIDE_FWD_TIMED if part is None else ())}
     kernels += wide_kernels
     log(json.dumps({"kernels": kernels}))
     log(card)

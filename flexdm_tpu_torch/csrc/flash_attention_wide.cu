@@ -1,19 +1,20 @@
-// Flash attention for head dims above 128 on Hopper (sm_90a): the forward
-// (float32 and bf16 instances) and the bf16 dq (with delta) and dk/dv
-// kernels, every product on the tensor cores (mma.sync), over tiles that
-// cp.async brings in.  The float32 dq and dk/dv kernels above 128 are
+// Flash-attention backward for head dims above 128 on Hopper (sm_90a), the
+// bf16 instances: the dq kernel (with delta) and the dk/dv kernel, every
+// product on the bf16 tensor cores (mma.sync), over tiles that cp.async
+// brings in.  The wide forward of both dtypes is
+// csrc/flash_attention_fwd_wide.cu's and the float32 dq and dk/dv
 // csrc/flash_attention_bwd_wide.cu's (wgmma on TMA-fed chunks).
 //
-// Replaces, at Dh > 128, the TPU kernels of flexdm_tpu/ops/attention.py:
-//   * _flash_fwd_kernel (:77-113, launched at :329) -> flash_fwd_wide_kernel;
-//   * in bf16, _flash_bwd_dq_kernel (:116-153, :383) and its S >= 4096
-//     stream variant _flash_bwd_dq_stream_kernel (:217-251, :451) ->
-//     flash_bwd_dq_wide_kernel<true>, which also computes delta =
-//     rowsum(dO * O) (the XLA glue of _attention_pallas_bwd) and writes it
-//     for the dk/dv kernel;
-//   * in bf16, _flash_bwd_dkv_kernel (:156-206, :407) and
+// Replaces, at Dh > 128 in bf16, the TPU kernels of
+// flexdm_tpu/ops/attention.py:
+//   * _flash_bwd_dq_kernel (:116-153, :383) and its S >= 4096 stream
+//     variant _flash_bwd_dq_stream_kernel (:217-251, :451) ->
+//     flash_bwd_dq_wide_kernel, which also computes delta = rowsum(dO * O)
+//     (the XLA glue of _attention_pallas_bwd) and writes it for the dk/dv
+//     kernel;
+//   * _flash_bwd_dkv_kernel (:156-206, :407) and
 //     _flash_bwd_dkv_stream_kernel (:254-293, :475) ->
-//     flash_bwd_dkv_wide_kernel<true>.
+//     flash_bwd_dkv_wide_kernel.
 // The TPU kernels take the whole Dh as one block (_full_spec / _row_spec).
 // The port's other instances (flash_attention_{fwd,bwd}{,_bf16}.cu) hold a
 // row of up to 128 columns in their tiles and accumulators; these take
@@ -22,80 +23,61 @@
 //
 // Contract: the other instances', unchanged.  p = softmax(s), s = q k^T /
 // sqrt(Dh) + bias; a masked key gets the FINITE bias -1e9, so a fully
-// masked row averages V over its S keys (every score rounds to -1e9: p = 1
-// for each key in the forward, l = S, and p = 1/S in the backward); with
-// `causal` a key after its query row (absolute positions) gets the score
-// -1e9 (replaced: no gradient), and the forward and dk/dv still visit the
-// tiles above the diagonal, where such a row puts weight; keys at index
-// >= S are excluded outright.  The backward rebuilds p = exp(s - m) / l
+// masked row averages V over its S keys (every score rounds to -1e9: l = S
+// in the forward, p = 1/S here); with `causal` a key after its query row
+// (absolute positions) gets the score -1e9 (replaced: no gradient), and
+// dk/dv still visits the tiles above the diagonal, where such a row puts
+// weight; keys at index >= S are excluded outright.  p = exp(s - m) / l
 // from the forward's row max m and row sum l (flash_attention_bwd.cu says
 // why not from lse); delta = rowsum(dO * O), ds = p (dO v^T - delta) (0
 // where the band replaced s), dq = scale ds k, dk = scale ds^T q,
 // dv = p^T dO.  The scale is 1/sqrt(Dh), never taken from a chunk or block
-// width.  Sums are float32.  bf16: p and ds enter their products as bf16
-// operands, and O, dq, dk and dv are rounded to bf16 once; lse, m, l and
-// delta stay float32.
+// width.  Sums are float32; p and ds enter their products as bf16
+// operands, and dq, dk and dv are rounded to bf16 once; delta stays
+// float32.
 //
-// Rows.  A tensor's rows are ld = Dh rounded up to 16 bytes (4 float32, 8
-// bf16 elements), columns Dh .. ld - 1 zero (a padded copy made by
+// Rows.  A tensor's rows are ld = Dh rounded up to 8 bf16 elements (16
+// bytes), columns Dh .. ld - 1 zero (a padded copy made by
 // ops/attention.py where ld > Dh), so every copy is 16 bytes; a copy past
-// ld or past S lands as zeros, which change no score, no output and no
-// gradient column below Dh.
+// ld or past S lands as zeros, which change no score and no gradient
+// column below Dh.
 //
 // Design (a simple kernel that is right first; see PERF.md for its times).
 //   * Output column blocks.  A block of 4 warps owns 64 rows of one head
-//     (query rows in the forward and dq, keys in dk/dv), 16 a warp, and
-//     one column block of its outputs: 128 columns of O or dq, 64 of dk
-//     and dv (two accumulators).  The grid is heads x row tiles x column
-//     blocks, the column block fastest, so the blocks that share a head's
-//     rows run side by side and read them through L2.  Every output element
-//     is written by one thread of one block: no atomics, so a second call
-//     is bitwise equal to the first.
+//     (query rows in dq, keys in dk/dv), 16 a warp, and one column block of
+//     its outputs: 128 columns of dq, 64 of dk and dv (two accumulators).
+//     The grid is heads x row tiles x column blocks, the column block
+//     fastest, so the blocks that share a head's rows run side by side and
+//     read them through L2.  Every output element is written by one thread
+//     of one block: no atomics, so a second call is bitwise equal.
 //   * Scores over the full Dh.  Each block computes its 16 x 64 score
-//     tiles (q k^T, and the backward's dO v^T) over every column of the
-//     row, in chunks of 32 float32 or 64 bf16 columns that cp.async brings
-//     into a two-stage ring (chunk c + 1 lands while chunk c is multiplied),
-//     with the other axis's tile of 64 keys (or rows).  So each column
-//     block recomputes the scores: at Dh = 256, 2x in the forward and dq,
-//     4x in dk/dv.  Every block of a row computes its scores in the same
-//     order, so m and l are the same floats in each; the block of column
-//     block 0 writes m, l and lse (and delta in dq), computed over the full
-//     row before use.
-//   * Products.  float32 (the forward): mma.sync.m16n8k8 with TF32
-//     operands, each split as it enters registers into hi = tf32(x) and
-//     lo = tf32(x - hi), three products (lo hi' + hi lo' + hi hi') summed
-//     from zero on the tensor core and added to the float32 sum a k-step
-//     (mma3): float32-level accuracy (~1e-6); one TF32 pass misses the
-//     card's 2e-5 bar.  bf16: mma.sync.m16n8k16 (bf16 products are exact in
-//     float32), with ldmatrix fragment loads.  p and ds go from the score
+//     tiles (q k^T and dO v^T) over every column of the row, in chunks of
+//     64 columns that cp.async brings into a two-stage ring (chunk c + 1
+//     lands while chunk c is multiplied), with the other axis's tile of 64
+//     keys (or rows).  So each column block recomputes the scores: at
+//     Dh = 256, 2x in dq, 4x in dk/dv.
+//   * Products: mma.sync.m16n8k16 (bf16 products are exact in float32),
+//     with ldmatrix fragment loads.  p and ds go from the score
 //     accumulators into the A operand of their product with no data
-//     movement (float32: a lane's columns 2t, 2t + 1 serve as k = t, t + 4,
-//     with the B operand loaded in that order; bf16: two n8 tiles make one
-//     k16 A fragment).
-//   * Shared rows are padded (4 floats, 8 bf16) so that every fragment
-//     load is free of bank conflicts and rows stay 16-byte aligned.  No
-//     TMA and no wgmma: the async proxy is not used, so the hazards that
+//     movement (two n8 tiles make one k16 A fragment).
+//   * Shared rows are padded (8 bf16) so that every fragment load is free
+//     of bank conflicts and rows stay 16-byte aligned.  No TMA and no
+//     wgmma: the async proxy is not used, so the hazards that
 //     tools/torch_sass_hazards.py looks for cannot arise.
 //
-// What bounds it on an H100 (132 SMs, 3.35 TB/s, 495 TFLOP/s TF32, 989
-// bf16).  At the latent-2048 training shape (256, 8, 50, 256) the forward
-// must move 419 MB in float32 (0.125 ms) against 5.2 GFLOP of products
-// (0.011 ms at the TF32 peak): bytes.  The kernel reads q and k once per
-// column block (twice at Dh 256, the second through L2) and waits for each
-// chunk in turn; the bf16 backward kernels likewise, with 1.5x (dq) and 2x
-// (dk/dv at four column blocks) the reads.  At S = 500 and above the split's
-// tensor work and its instructions come first, as in the earlier mma.sync
-// kernels of this repository (~100 TFLOP/s of MMA work).
+// What bounds it on an H100 (132 SMs, 3.35 TB/s, 989 TFLOP/s bf16).  At the
+// latent-2048 training shape (256, 8, 50, 256) each kernel must move 315 MB
+// (0.094 ms) against 3.9 (dq) and 5.2 (dk/dv) GFLOP of products: bytes.
+// The kernels read their inputs 1.5x (dq) and 2x (dk/dv at four column
+// blocks) and wait for each chunk in turn.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
 #include <climits>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
-#include <type_traits>
 
 #include "attention_mask.cuh"
 
@@ -108,18 +90,16 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;  // a block's rows (queries, or keys)
 constexpr int kTile = 64;           // keys (or rows) a tile of the other axis
 constexpr int kNT = kTile / 8;      // score n-tiles of a warp
-constexpr int kOutCols = 128;       // column block of O and dq
+constexpr int kOutCols = 128;       // column block of dq
 constexpr int kKvCols = 64;         // column block of dk and dv
 
-// Element type, chunk width and padding of the float32 (false) and bf16
-// (true) instances.
-template <bool kBf16>
+// Element type, chunk width and padding.
 struct Wide {
-  using T = std::conditional_t<kBf16, bf16, float>;
+  using T = bf16;
   static constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));
-  static constexpr int kChunk = kBf16 ? 64 : 32;  // Dh columns a chunk
-  static constexpr int kPad = kPer16;             // elements a shared row
-  static constexpr int kLdc = kChunk + kPad;      // chunk tile row stride
+  static constexpr int kChunk = 64;           // Dh columns a chunk
+  static constexpr int kPad = kPer16;         // elements a shared row
+  static constexpr int kLdc = kChunk + kPad;  // chunk tile row stride
   static constexpr int kChunkElems = kRows * kLdc;
 };
 
@@ -193,97 +173,13 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src,
 // Tensor-core products
 // ---------------------------------------------------------------------------
 
-// float32: an operand fragment as hi + lo, each TF32 (round to nearest on
-// the low 13 bits; hi is masked, so x - hi is exact).
-template <int N>
-struct Split {
-  uint32_t hi[N], lo[N];
-  __device__ __forceinline__ void set(int i, float x) {
-    hi[i] = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-    lo[i] = __float_as_uint(x - __uint_as_float(hi[i])) + 0x1000u;
-  }
-};
-using FragA = Split<4>;
-using FragB = Split<2>;
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in three TF32 products, summed from zero and added in float32.
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
-                                     const FragB& b) {
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(c, a.lo, b.hi);
-  mma_tf32(c, a.hi, b.lo);
-  mma_tf32(c, a.hi, b.hi);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += c[e];
-}
-
-// Fragment layout of m16n8k8 (tf32), lane = 4 g + t:
-//   A (16 x 8): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-//   B (8 x 8):  b0 (k = t, n = g), b1 (k = t + 4, n = g)
-//   C (16 x 8): c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
-
-// A = tile[r0 .. r0+16)[c0 .. c0+8) of a row-major tile.
-template <int LD>
-__device__ __forceinline__ FragA load_a(const float* tile, int r0, int c0,
-                                        int g, int t) {
-  const float* p = tile + (r0 + g) * LD + c0 + t;
-  FragA f;
-  f.set(0, p[0]);
-  f.set(1, p[8 * LD]);
-  f.set(2, p[4]);
-  f.set(3, p[8 * LD + 4]);
-  return f;
-}
-
-// B = (tile[n0 .. n0+8)[k0 .. k0+8))^T: column n of B is row n0 + n.
-template <int LD>
-__device__ __forceinline__ FragB load_bt(const float* tile, int n0, int k0,
-                                         int g, int t) {
-  const float* p = tile + (n0 + g) * LD + k0 + t;
-  FragB f;
-  f.set(0, p[0]);
-  f.set(1, p[4]);
-  return f;
-}
-
-// B = tile[k0 .. k0+8)[n0 .. n0+8) in the k order of from_acc: a lane's
-// b0, b1 are rows k0 + 2t, k0 + 2t + 1.
-template <int LD>
-__device__ __forceinline__ FragB load_b_paired(const float* tile, int k0,
-                                               int n0, int g, int t) {
-  const float* p = tile + (k0 + 2 * t) * LD + n0 + g;
-  FragB f;
-  f.set(0, p[0]);
-  f.set(1, p[LD]);
-  return f;
-}
-
-// An accumulator n-tile (16 x 8) as the A operand of the next product: the
-// lane's columns 2t and 2t + 1 serve as k = t and k = t + 4 (B loaded with
-// load_b_paired).
-__device__ __forceinline__ FragA from_acc(const float (&c)[4]) {
-  FragA f;
-  f.set(0, c[0]);
-  f.set(1, c[2]);
-  f.set(2, c[1]);
-  f.set(3, c[3]);
-  return f;
-}
-
-// bf16, m16n8k16 (each 32-bit register two bf16, the lower k in the low
-// half):
+// Fragment layouts of m16n8k16, lane = 4 g + t (each 32-bit register two
+// bf16, the lower k in the low half):
 //   A (16 x 16): a0 (g, 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t + 8..),
 //                a3 (g + 8, 2t + 8..)
 //   B (16 x 8):  b0 (k = 2t..2t+1, n = g), b1 (k = 2t + 8.., n = g)
-//   C as tf32's.  So the C tiles of two adjacent n8 tiles are, rounded to
+//   C (16 x 8):  c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+//   So the C tiles of two adjacent n8 tiles are, rounded to
 //   bf16 and packed in pairs, the A operand of one k16 step (acc_to_a).
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile(
@@ -359,70 +255,44 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
 
 // sc[j] += A[r0 .. r0+16)[0 .. kChunk) B[8j .. 8j+8)[0 .. kChunk)^T for the
 // warp's kNT score tiles; A and B are chunk tiles (row stride kLdc).
-template <bool kBf16>
-__device__ __forceinline__ void chunk_scores(
-    float (&sc)[kNT][4], const typename Wide<kBf16>::T* a,
-    const typename Wide<kBf16>::T* b, int r0, int g, int t, int lane) {
-  using W = Wide<kBf16>;
-  if constexpr (kBf16) {
+__device__ __forceinline__ void chunk_scores(float (&sc)[kNT][4],
+                                             const bf16* a, const bf16* b,
+                                             int r0, int lane) {
 #pragma unroll
-    for (int ks = 0; ks < W::kChunk / 16; ++ks) {
-      uint32_t fa[4];
-      frag_a<W::kLdc>(fa, a, r0, 16 * ks, lane);
+  for (int ks = 0; ks < Wide::kChunk / 16; ++ks) {
+    uint32_t fa[4];
+    frag_a<Wide::kLdc>(fa, a, r0, 16 * ks, lane);
 #pragma unroll
-      for (int j = 0; j < kNT; j += 2) {
-        uint32_t fb[4];
-        frag_bt<W::kLdc>(fb, b, 8 * j, 16 * ks, lane);
-        mma_bf16(sc[j], fa, fb[0], fb[1]);
-        mma_bf16(sc[j + 1], fa, fb[2], fb[3]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int ks = 0; ks < W::kChunk / 8; ++ks) {
-      const FragA fa = load_a<W::kLdc>(a, r0, 8 * ks, g, t);
-#pragma unroll
-      for (int j = 0; j < kNT; ++j)
-        mma3(sc[j], fa, load_bt<W::kLdc>(b, 8 * j, 8 * ks, g, t));
+    for (int j = 0; j < kNT; j += 2) {
+      uint32_t fb[4];
+      frag_bt<Wide::kLdc>(fb, b, 8 * j, 16 * ks, lane);
+      mma_bf16(sc[j], fa, fb[0], fb[1]);
+      mma_bf16(sc[j + 1], fa, fb[2], fb[3]);
     }
   }
 }
 
 // acc[n] += P B[0 .. kTile)[8n .. 8n+8) for n < NC: P the warp's score
 // tiles (16 x kTile, as from chunk_scores), B a [kTile][LD] tile.
-template <bool kBf16, int LD, int NC>
-__device__ __forceinline__ void tile_product(
-    float (&acc)[NC][4], const float (&p)[kNT][4],
-    const typename Wide<kBf16>::T* b, int g, int t, int lane) {
-  if constexpr (kBf16) {
+template <int LD, int NC>
+__device__ __forceinline__ void tile_product(float (&acc)[NC][4],
+                                             const float (&p)[kNT][4],
+                                             const bf16* b, int lane) {
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(pa, p[2 * kk], p[2 * kk + 1]);
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    uint32_t pa[4];
+    acc_to_a(pa, p[2 * kk], p[2 * kk + 1]);
 #pragma unroll
-      for (int n = 0; n < NC; n += 2) {
-        uint32_t fb[4];
-        frag_b_trans<LD>(fb, b, 16 * kk, 8 * n, lane);
-        mma_bf16(acc[n], pa, fb[0], fb[1]);
-        mma_bf16(acc[n + 1], pa, fb[2], fb[3]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const FragA pa = from_acc(p[j]);
-#pragma unroll
-      for (int n = 0; n < NC; ++n)
-        mma3(acc[n], pa, load_b_paired<LD>(b, 8 * j, 8 * n, g, t));
+    for (int n = 0; n < NC; n += 2) {
+      uint32_t fb[4];
+      frag_b_trans<LD>(fb, b, 16 * kk, 8 * n, lane);
+      mma_bf16(acc[n], pa, fb[0], fb[1]);
+      mma_bf16(acc[n + 1], pa, fb[2], fb[3]);
     }
   }
 }
 
 // Two adjacent output elements (col even, ld a multiple of 16 bytes).
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-
 __device__ __forceinline__ void store2(bf16* p, float x, float y) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(x, y);
 }
@@ -466,185 +336,12 @@ struct Place {
 };
 
 // ---------------------------------------------------------------------------
-// Forward: O[:, cb], and m, l, lse from column block 0.
-// ---------------------------------------------------------------------------
-
-template <bool kBf16>
-struct FwdSmem {
-  using W = Wide<kBf16>;
-  static constexpr int kLdv = kOutCols + W::kPad;
-  // Two stages of {Q, K} chunks, the V column block, the key bias.
-  static constexpr int kBytes =
-      (4 * W::kChunkElems + kTile * kLdv) *
-          static_cast<int>(sizeof(typename W::T)) +
-      kTile * 4;
-};
-
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_wide_kernel(const typename Wide<kBf16>::T* __restrict__ q,
-                      const typename Wide<kBf16>::T* __restrict__ k,
-                      const typename Wide<kBf16>::T* __restrict__ v,
-                      const uint8_t* __restrict__ key_mask,
-                      typename Wide<kBf16>::T* __restrict__ o,
-                      float* __restrict__ lse, float* __restrict__ row_max,
-                      float* __restrict__ row_sum, int H, int S, int ld,
-                      int n_cb, int causal, float scale) {
-  using W = Wide<kBf16>;
-  using T = typename W::T;
-  constexpr int LDC = W::kLdc;
-  constexpr int LDV = FwdSmem<kBf16>::kLdv;
-  constexpr int NC = kOutCols / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* chunks = reinterpret_cast<T*>(smem);  // stage s: Q, K [kRows][LDC]
-  T* v_s = chunks + 4 * W::kChunkElems;    // [kTile][LDV]
-  float* bias_s = reinterpret_cast<float*>(v_s + kTile * LDV);  // [kTile]
-
-  const int n_qt = (S + kRows - 1) / kRows;
-  const Place at(n_cb, n_qt);
-  const int q0 = at.row0;
-  const int c0 = at.cb * kOutCols;
-  const int b = static_cast<int>(at.bh / H);
-  const size_t head = at.bh * S;  // row of (b, h, 0)
-  const T* qh = q + head * ld;
-  const T* kh = k + head * ld;
-  const T* vh = v + head * ld;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int r0 = tid / 32 * 16;  // the warp's first row in the block
-  const bool active = q0 + r0 < S;
-
-  const int n_chunks = (ld + W::kChunk - 1) / W::kChunk;
-  const int n_tiles = (S + kTile - 1) / kTile;
-  auto load_chunk = [&](int c, int k0) {
-    T* st = chunks + (c & 1) * 2 * W::kChunkElems;
-    load_tile<T, kRows, W::kChunk, LDC>(st, qh, ld, q0, S, c * W::kChunk,
-                                         tid);
-    load_tile<T, kTile, W::kChunk, LDC>(st + W::kChunkElems, kh, ld, k0, S,
-                                         c * W::kChunk, tid);
-  };
-
-  // The lane's rows are g (index 0) and g + 8 (index 1) of the warp's 16.
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l[2] = {0.f, 0.f};
-  float acc[NC][4] = {};
-  for (int i = 0; i < n_tiles; ++i) {
-    const int k0 = i * kTile;
-    load_chunk(0, k0);
-    load_tile<T, kTile, kOutCols, LDV>(v_s, vh, ld, k0, S, c0, tid);
-    cp_async_commit();
-    if (tid < kTile) bias_s[tid] = key_bias(key_mask, b, S, k0 + tid);
-    float sc[kNT][4] = {};
-    for (int c = 0; c < n_chunks; ++c) {
-      if (c + 1 < n_chunks) {
-        load_chunk(c + 1, k0);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();  // chunk c (and V, the bias) landed for every thread
-      if (active) {
-        const T* st = chunks + (c & 1) * 2 * W::kChunkElems;
-        chunk_scores<kBf16>(sc, st, st + W::kChunkElems, r0, g, t, lane);
-      }
-      __syncthreads();  // chunk c consumed before chunk c + 2 overwrites it
-    }
-    if (active) {
-      // Scale, bias and masks; the tile's row max.  sc[j][e] is row
-      // g + 8 * (e >> 1), key 8 j + 2 t + (e & 1) of the tile.
-      const int n_keys = min(kTile, S - k0);
-      float tile_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kj = 8 * j + 2 * t + (e & 1);
-          const int row = q0 + r0 + g + 8 * (e >> 1);
-          float s;
-          if (kj >= n_keys) {
-            s = -CUDART_INF_F;
-          } else if (causal && k0 + kj > row) {
-            s = kMaskedScore;
-          } else {
-            s = sc[j][e] * scale + bias_s[kj];
-          }
-          sc[j][e] = s;
-          tile_max[e >> 1] = fmaxf(tile_max[e >> 1], s);
-        }
-      }
-      // Online softmax.  The tile's first key exists, so every row's max
-      // is finite after the first tile; alpha is 0 on the first tile.
-      float alpha[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float x = tile_max[hh];
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-        const float m_new = fmaxf(m[hh], x);
-        alpha[hh] = expf(m[hh] - m_new);
-        m[hh] = m_new;
-      }
-      float p_sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = expf(sc[j][e] - m[e >> 1]);
-          sc[j][e] = p;
-          p_sum[e >> 1] += p;
-        }
-      }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float x = p_sum[hh];
-        x += __shfl_xor_sync(0xffffffffu, x, 1);
-        x += __shfl_xor_sync(0xffffffffu, x, 2);
-        l[hh] = l[hh] * alpha[hh] + x;
-      }
-#pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        acc[n][0] *= alpha[0];
-        acc[n][1] *= alpha[0];
-        acc[n][2] *= alpha[1];
-        acc[n][3] *= alpha[1];
-      }
-      tile_product<kBf16, LDV, NC>(acc, sc, v_s, g, t, lane);
-    }
-    __syncthreads();  // V and the bias consumed before the next tile's
-  }
-
-  if (!active) return;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = q0 + r0 + g + 8 * hh;
-    if (row >= S) continue;
-    T* o_row = o + (head + row) * ld;
-#pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      const int col = c0 + 8 * n + 2 * t;
-      if (col < ld)
-        store2(o_row + col, acc[n][2 * hh] / l[hh],
-               acc[n][2 * hh + 1] / l[hh]);
-    }
-    if (at.cb == 0 && t == 0) {
-      lse[head + row] = m[hh] + logf(l[hh]);
-      row_max[head + row] = m[hh];
-      row_sum[head + row] = l[hh];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // dq (and delta from column block 0): per key tile, s = q k^T and dO v^T
 // over the full row in chunks, then ds, then dq[:, cb] += ds k[:, cb].
 // ---------------------------------------------------------------------------
 
-template <bool kBf16>
 struct DqSmem {
-  using W = Wide<kBf16>;
+  using W = Wide;
   static constexpr int kLdk = kOutCols + W::kPad;
   // Two stages of {Q, dO, K, V} chunks, the K column block, the key bias.
   static constexpr int kBytes =
@@ -653,23 +350,22 @@ struct DqSmem {
       kTile * 4;
 };
 
-template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_wide_kernel(const typename Wide<kBf16>::T* __restrict__ q,
-                         const typename Wide<kBf16>::T* __restrict__ k,
-                         const typename Wide<kBf16>::T* __restrict__ v,
-                         const uint8_t* __restrict__ key_mask,
-                         const typename Wide<kBf16>::T* __restrict__ o,
-                         const typename Wide<kBf16>::T* __restrict__ dout,
-                         const float* __restrict__ row_max,
-                         const float* __restrict__ row_sum,
-                         float* __restrict__ delta,
-                         typename Wide<kBf16>::T* __restrict__ dq, int H,
-                         int S, int ld, int n_cb, int causal, float scale) {
-  using W = Wide<kBf16>;
+flash_bwd_dq_wide_bf16_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              const uint8_t* __restrict__ key_mask,
+                              const bf16* __restrict__ o,
+                              const bf16* __restrict__ dout,
+                              const float* __restrict__ row_max,
+                              const float* __restrict__ row_sum,
+                              float* __restrict__ delta,
+                              bf16* __restrict__ dq, int H,
+                              int S, int ld, int n_cb, int causal, float scale) {
+  using W = Wide;
   using T = typename W::T;
   constexpr int LDC = W::kLdc;
-  constexpr int LDK = DqSmem<kBf16>::kLdk;
+  constexpr int LDK = DqSmem::kLdk;
   constexpr int NC = kOutCols / 8;
   constexpr int E = W::kChunkElems;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -743,8 +439,8 @@ flash_bwd_dq_wide_kernel(const typename Wide<kBf16>::T* __restrict__ q,
       __syncthreads();
       if (active) {
         const T* st = chunks + (c & 1) * 4 * E;
-        chunk_scores<kBf16>(sc, st, st + 2 * E, r0, g, t, lane);
-        chunk_scores<kBf16>(dp, st + E, st + 3 * E, r0, g, t, lane);
+        chunk_scores(sc, st, st + 2 * E, r0, lane);
+        chunk_scores(dp, st + E, st + 3 * E, r0, lane);
       }
       __syncthreads();
     }
@@ -767,7 +463,7 @@ flash_bwd_dq_wide_kernel(const typename Wide<kBf16>::T* __restrict__ q,
           sc[j][e] = ds;
         }
       }
-      tile_product<kBf16, LDK, NC>(acc, sc, k_s, g, t, lane);
+      tile_product<LDK, NC>(acc, sc, k_s, lane);
     }
     __syncthreads();
   }
@@ -794,9 +490,8 @@ flash_bwd_dq_wide_kernel(const typename Wide<kBf16>::T* __restrict__ q,
 // dk[:, cb] += ds^T q[:, cb].
 // ---------------------------------------------------------------------------
 
-template <bool kBf16>
 struct DkvSmem {
-  using W = Wide<kBf16>;
+  using W = Wide;
   static constexpr int kLdb = kKvCols + W::kPad;
   // Two stages of {K, Q, V, dO} chunks, the Q and dO column blocks, the
   // rows' m, l and delta.
@@ -806,23 +501,22 @@ struct DkvSmem {
       3 * kTile * 4;
 };
 
-template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_wide_kernel(const typename Wide<kBf16>::T* __restrict__ q,
-                          const typename Wide<kBf16>::T* __restrict__ k,
-                          const typename Wide<kBf16>::T* __restrict__ v,
-                          const uint8_t* __restrict__ key_mask,
-                          const typename Wide<kBf16>::T* __restrict__ dout,
-                          const float* __restrict__ row_max,
-                          const float* __restrict__ row_sum,
-                          const float* __restrict__ delta,
-                          typename Wide<kBf16>::T* __restrict__ dk,
-                          typename Wide<kBf16>::T* __restrict__ dv, int H,
-                          int S, int ld, int n_cb, int causal, float scale) {
-  using W = Wide<kBf16>;
+flash_bwd_dkv_wide_bf16_kernel(const bf16* __restrict__ q,
+                               const bf16* __restrict__ k,
+                               const bf16* __restrict__ v,
+                               const uint8_t* __restrict__ key_mask,
+                               const bf16* __restrict__ dout,
+                               const float* __restrict__ row_max,
+                               const float* __restrict__ row_sum,
+                               const float* __restrict__ delta,
+                               bf16* __restrict__ dk,
+                               bf16* __restrict__ dv, int H,
+                               int S, int ld, int n_cb, int causal, float scale) {
+  using W = Wide;
   using T = typename W::T;
   constexpr int LDC = W::kLdc;
-  constexpr int LDB = DkvSmem<kBf16>::kLdb;
+  constexpr int LDB = DkvSmem::kLdb;
   constexpr int NC = kKvCols / 8;
   constexpr int E = W::kChunkElems;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -894,8 +588,8 @@ flash_bwd_dkv_wide_kernel(const typename Wide<kBf16>::T* __restrict__ q,
       __syncthreads();
       if (active) {
         const T* st = chunks + (c & 1) * 4 * E;
-        chunk_scores<kBf16>(sc, st, st + E, kr0, g, t, lane);
-        chunk_scores<kBf16>(dp, st + 2 * E, st + 3 * E, kr0, g, t, lane);
+        chunk_scores(sc, st, st + E, kr0, lane);
+        chunk_scores(dp, st + 2 * E, st + 3 * E, kr0, lane);
       }
       __syncthreads();
     }
@@ -923,8 +617,8 @@ flash_bwd_dkv_wide_kernel(const typename Wide<kBf16>::T* __restrict__ q,
           dp[j][e] = ds;
         }
       }
-      tile_product<kBf16, LDB, NC>(acc_dv, sc, do_s, g, t, lane);
-      tile_product<kBf16, LDB, NC>(acc_dk, dp, q_s, g, t, lane);
+      tile_product<LDB, NC>(acc_dv, sc, do_s, lane);
+      tile_product<LDB, NC>(acc_dk, dp, q_s, lane);
     }
     __syncthreads();
   }
@@ -970,49 +664,22 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <bool kBf16>
-int launch_fwd(const void* q, const void* k, const void* v,
-               const void* key_mask, void* o, void* lse, void* row_max,
-               void* row_sum, int B, int H, int S, int Dh, int causal,
-               void* stream) {
-  using W = Wide<kBf16>;
-  using T = typename W::T;
-  if (bad_call(B, H, S, Dh)) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kBytes = FwdSmem<kBf16>::kBytes;
-  static const cudaError_t attr =
-      set_smem(flash_fwd_wide_kernel<kBf16>, kBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int ld = (Dh + W::kPer16 - 1) / W::kPer16 * W::kPer16;
-  const int blocks = grid_blocks(B, H, S, ld, kOutCols);
-  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd_wide_kernel<kBf16><<<blocks, kThreads, kBytes,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(key_mask),
-      static_cast<T*>(o), static_cast<float*>(lse),
-      static_cast<float*>(row_max), static_cast<float*>(row_sum), H, S, ld,
-      (ld + kOutCols - 1) / kOutCols, causal,
-      1.0f / sqrtf(static_cast<float>(Dh)));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kBf16>
 int launch_dq(const void* q, const void* k, const void* v,
               const void* key_mask, const void* o, const void* dout,
               const void* row_max, const void* row_sum, void* delta, void* dq,
               int B, int H, int S, int Dh, int causal, void* stream) {
-  using W = Wide<kBf16>;
+  using W = Wide;
   using T = typename W::T;
   if (bad_call(B, H, S, Dh)) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kBytes = DqSmem<kBf16>::kBytes;
+  constexpr int kBytes = DqSmem::kBytes;
   static const cudaError_t attr =
-      set_smem(flash_bwd_dq_wide_kernel<kBf16>, kBytes);
+      set_smem(flash_bwd_dq_wide_bf16_kernel, kBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int ld = (Dh + W::kPer16 - 1) / W::kPer16 * W::kPer16;
   const int blocks = grid_blocks(B, H, S, ld, kOutCols);
   if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
-  flash_bwd_dq_wide_kernel<kBf16><<<blocks, kThreads, kBytes,
-                                    static_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_dq_wide_bf16_kernel<<<blocks, kThreads, kBytes,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(key_mask),
       static_cast<const T*>(o), static_cast<const T*>(dout),
@@ -1023,23 +690,22 @@ int launch_dq(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kBf16>
 int launch_dkv(const void* q, const void* k, const void* v,
                const void* key_mask, const void* dout, const void* row_max,
                const void* row_sum, const void* delta, void* dk, void* dv,
                int B, int H, int S, int Dh, int causal, void* stream) {
-  using W = Wide<kBf16>;
+  using W = Wide;
   using T = typename W::T;
   if (bad_call(B, H, S, Dh)) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kBytes = DkvSmem<kBf16>::kBytes;
+  constexpr int kBytes = DkvSmem::kBytes;
   static const cudaError_t attr =
-      set_smem(flash_bwd_dkv_wide_kernel<kBf16>, kBytes);
+      set_smem(flash_bwd_dkv_wide_bf16_kernel, kBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int ld = (Dh + W::kPer16 - 1) / W::kPer16 * W::kPer16;
   const int blocks = grid_blocks(B, H, S, ld, kKvCols);
   if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
-  flash_bwd_dkv_wide_kernel<kBf16><<<blocks, kThreads, kBytes,
-                                     static_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_dkv_wide_bf16_kernel<<<blocks, kThreads, kBytes,
+                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const uint8_t*>(key_mask),
       static_cast<const T*>(dout), static_cast<const float*>(row_max),
@@ -1052,40 +718,24 @@ int launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// The C entry points, the forward's per dtype and the bf16 backward's, with
-// the other instances' arguments (the float32 backward's entries are
-// flash_attention_bwd_wide.cu's).  q, k, v, o, dout, dq, dk, dv: (B, H, S,
-// ld) float32 (the plain names) or bf16 (``_bf16``), contiguous, 16-byte
-// aligned, ld = Dh rounded up to 16 bytes with columns Dh .. ld - 1 of q,
-// k, v, o and dout zero; any Dh >= 1 (ops/attention.py sends Dh > 128).  key_mask: (B, S)
-// bool (nonzero = attend) or null.  lse, row_max, row_sum, delta: (B, H,
-// S) float32.  Each returns the cudaError_t of its launch.  The dq entry
-// writes delta = rowsum(dout * o); run it before the dkv entry on the
-// same stream, which reads it.
-
-extern "C" int flexdm_flash_attention_fwd_wide(
-    const void* q, const void* k, const void* v, const void* key_mask,
-    void* o, void* lse, void* row_max, void* row_sum, int B, int H, int S,
-    int Dh, int causal, void* stream) {
-  return launch_fwd<false>(q, k, v, key_mask, o, lse, row_max, row_sum, B, H,
-                           S, Dh, causal, stream);
-}
-
-extern "C" int flexdm_flash_attention_fwd_wide_bf16(
-    const void* q, const void* k, const void* v, const void* key_mask,
-    void* o, void* lse, void* row_max, void* row_sum, int B, int H, int S,
-    int Dh, int causal, void* stream) {
-  return launch_fwd<true>(q, k, v, key_mask, o, lse, row_max, row_sum, B, H,
-                          S, Dh, causal, stream);
-}
+// The C entry points of the bf16 backward, with the other backward entries'
+// arguments (the float32 backward's are flash_attention_bwd_wide.cu's, the
+// wide forward's flash_attention_fwd_wide.cu's).  q, k, v, o, dout, dq, dk,
+// dv: (B, H, S, ld) bf16, contiguous, 16-byte aligned, ld = Dh rounded up
+// to 8 with columns Dh .. ld - 1 of q, k, v, o and dout zero; any Dh >= 1
+// (ops/attention.py sends Dh > 128).  key_mask: (B, S) bool (nonzero =
+// attend) or null.  row_max, row_sum, delta: (B, H, S) float32.  Each
+// returns the cudaError_t of its launch.  The dq entry writes delta =
+// rowsum(dout * o); run it before the dkv entry on the same stream, which
+// reads it.
 
 extern "C" int flexdm_flash_attention_bwd_dq_wide_bf16(
     const void* q, const void* k, const void* v, const void* key_mask,
     const void* o, const void* dout, const void* row_max, const void* row_sum,
     void* delta, void* dq, int B, int H, int S, int Dh, int causal,
     void* stream) {
-  return launch_dq<true>(q, k, v, key_mask, o, dout, row_max, row_sum, delta,
-                         dq, B, H, S, Dh, causal, stream);
+  return launch_dq(q, k, v, key_mask, o, dout, row_max, row_sum, delta, dq,
+                   B, H, S, Dh, causal, stream);
 }
 
 extern "C" int flexdm_flash_attention_bwd_dkv_wide_bf16(
@@ -1093,6 +743,6 @@ extern "C" int flexdm_flash_attention_bwd_dkv_wide_bf16(
     const void* dout, const void* row_max, const void* row_sum,
     const void* delta, void* dk, void* dv, int B, int H, int S, int Dh,
     int causal, void* stream) {
-  return launch_dkv<true>(q, k, v, key_mask, dout, row_max, row_sum, delta,
-                          dk, dv, B, H, S, Dh, causal, stream);
+  return launch_dkv(q, k, v, key_mask, dout, row_max, row_sum, delta, dk,
+                    dv, B, H, S, Dh, causal, stream);
 }

@@ -30,13 +30,18 @@ the JAX layout: ``q, k, v`` are ``(B, H, S, Dh)`` and ``key_mask`` is a
   and no gradient column below Dh (the scale stays 1/sqrt(Dh)).  Every Dh
   above 128 runs through the wide kernels, which compute the scores over
   the full row in chunks, so no tile or accumulator grows with Dh and there
-  is no upper limit: ``csrc/flash_attention_wide.cu`` (the forward in both
-  dtypes and the bf16 dq and dk/dv on ``mma.sync``; a block owns one column
-  block of its outputs, 128 columns of O or dq, 64 of dk and dv) and
+  is no upper limit: ``csrc/flash_attention_fwd_wide.cu`` (the forward in
+  both dtypes: persistent blocks over items of 64 query rows and a column
+  block of 256 columns of O, so the scores are computed once a row at
+  Dh <= 256; float32 on split-TF32 ``wgmma`` over 32-column chunks that
+  TMA brings in and a splitter warpgroup splits once, bf16 on ``wgmma``
+  over 64-column chunks that a producer warp keeps in flight),
   ``csrc/flash_attention_bwd_wide.cu`` (the float32 dq with delta and
-  dk/dv: split-TF32 ``wgmma`` on 32-column chunks that TMA brings in and a
-  splitter warpgroup splits once, persistent blocks over items of 64 rows
-  and a column block of 256 columns of dq or 128 of dk and dv).  A row
+  dk/dv on the same chunk pipeline, ``csrc/wide_tf32.cuh``, a column block
+  of 256 columns of dq or 128 of dk and dv) and
+  ``csrc/flash_attention_wide.cu`` (the bf16 dq and dk/dv on ``mma.sync``;
+  a block owns one column block of its outputs, 128 columns of dq, 64 of
+  dk and dv).  A row
   must be a multiple of 16 bytes (TMA, 16-byte copies): where Dh is not
   (Dh % 4 in float32, Dh % 8 in bf16), q, k, v (and O, dO) are copied once
   into a zero-padded buffer of the next such width, and the outputs are
@@ -98,11 +103,13 @@ import torch.nn.functional as F
 NEG_INF = -1e9
 # The kernels take head dims from 1 to 128 on tile layouts KERNEL_WIDTHS
 # columns wide (csrc/hopper.cuh, "Head dims"), and every wider one through
-# the wide kernels, whose forward blocks span WIDE_COLUMNS columns of the
-# row at a time (csrc/flash_attention_wide.cu; the float32 backward,
-# csrc/flash_attention_bwd_wide.cu, 256 columns of dq, 128 of dk and dv).
+# the wide kernels, whose forward items span WIDE_COLUMNS columns of the
+# row at a time (csrc/flash_attention_fwd_wide.cu; the float32 backward,
+# csrc/flash_attention_bwd_wide.cu, 256 columns of dq, 128 of dk and dv;
+# the bf16 backward, csrc/flash_attention_wide.cu, 128 of dq, 64 of dk and
+# dv).
 KERNEL_WIDTHS = (32, 64, 128)
-WIDE_COLUMNS = 128
+WIDE_COLUMNS = 256
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -151,8 +158,10 @@ BWD_BF16_LIBRARY = ("flexdm_attention_bwd_bf16",
 WIDE_LIBRARY = ("flexdm_attention_wide", ("flash_attention_wide.cu",))
 BWD_WIDE_LIBRARY = ("flexdm_attention_bwd_wide",
                     ("flash_attention_bwd_wide.cu",))
+FWD_WIDE_LIBRARY = ("flexdm_attention_fwd_wide",
+                    ("flash_attention_fwd_wide.cu",))
 LIBRARIES = (FWD_LIBRARY, BWD_LIBRARY, FWD_BF16_LIBRARY, BWD_BF16_LIBRARY,
-             WIDE_LIBRARY, BWD_WIDE_LIBRARY)
+             WIDE_LIBRARY, BWD_WIDE_LIBRARY, FWD_WIDE_LIBRARY)
 
 
 def key_bias(key_mask: Optional[torch.Tensor], b: int, s: int,
@@ -277,7 +286,7 @@ def _kernel(dtype=torch.float32, wide=False):
     """The forward's bound C entry point for ``dtype`` (the wide kernel's
     with ``wide``; built with nvcc on first use)."""
     bf16 = dtype == torch.bfloat16
-    library = (WIDE_LIBRARY if wide else FWD_BF16_LIBRARY if bf16
+    library = (FWD_WIDE_LIBRARY if wide else FWD_BF16_LIBRARY if bf16
                else FWD_LIBRARY)
     return _bind(*library, _symbol("fwd", bf16, wide), 8)
 
@@ -285,8 +294,8 @@ def _kernel(dtype=torch.float32, wide=False):
 @functools.lru_cache(maxsize=None)
 def _bwd_kernels(dtype=torch.float32, wide=False):
     """The backward's bound C entry points ``(dq, dkv)`` for ``dtype`` (the
-    wide kernels' with ``wide``: float32 in their own library, bf16 beside
-    the wide forward)."""
+    wide kernels' with ``wide``: float32 in their own library, bf16 in
+    ``csrc/flash_attention_wide.cu``)."""
     bf16 = dtype == torch.bfloat16
     if wide:
         library = WIDE_LIBRARY if bf16 else BWD_WIDE_LIBRARY

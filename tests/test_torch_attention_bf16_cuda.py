@@ -259,3 +259,18 @@ def test_bf16_wide_kernels_at_s_4096_on_card(causal):
     from test_torch_attention_cuda import check_wide
 
     check_wide((1, 2, 4096, 256), causal, torch.bfloat16, 4097, _bf16_close)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(33, 8, 70), (2, 2, 70)])
+@pytest.mark.parametrize("dh", [136, 256, 264])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_wide_forward_items_and_sms_on_card(shape, dh, causal):
+    """The bf16 wide forward (csrc/flash_attention_fwd_wide.cu) with more
+    items than SMs and fewer (as the float32 test): O within the bf16 bar,
+    lse within 2e-5, one launch a call, a second call bitwise equal."""
+    _need_card()
+    from test_torch_attention_cuda import check_wide_forward
+
+    check_wide_forward(shape + (dh,), causal, torch.bfloat16,
+                       dh + shape[0] + 1, _bf16_close)

@@ -393,6 +393,54 @@ def test_f32_wide_backward_items_and_sms_on_card(shape, dh, causal):
                _f32_close)
 
 
+def check_wide_forward(shape, causal, dtype, seed, close):
+    """The wide forward alone at ``shape`` in ``dtype``: launched once a
+    call and no other kernel, a second call bitwise equal, O held to the
+    plain version by ``close(got, want, "O")`` and lse within 2e-5.  The
+    key mask drops the last fifth of the keys and masks the whole last
+    batch row where B > 1.  (Shared with
+    tests/test_torch_attention_bf16_cuda.py.)"""
+    b, _, s, _ = shape
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g).to("cuda", dtype)
+               for _ in range(3))
+    mask = torch.ones(b, s, dtype=torch.bool)
+    mask[:, s - s // 5:] = False
+    if b > 1:
+        mask[-1] = False
+    mask = mask.cuda()
+    port_attn.reset_launch_counts()
+    got = port_attn._forward(q, k, v, mask, causal)
+    again = port_attn._forward(q, k, v, mask, causal)
+    counts = port_attn.launch_counts()
+    name = "fwd_wide" + "_bf16" * (dtype == torch.bfloat16)
+    assert counts == {n: 2 * (n == name) for n in counts}, counts
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    bias = port_attn.key_bias(mask, b, s, q.device)
+    close(got[0], port_attn.attention_reference(q, k, v, bias, causal), "O")
+    torch.testing.assert_close(
+        got[1], port_attn.attention_reference_lse(q, k, bias, causal),
+        **FWD_TOL)
+
+
+# The wide forward (csrc/flash_attention_fwd_wide.cu): persistent blocks,
+# one an SM, each taking items (64 query rows and a 256-column block of O)
+# in turn.  (33, 8, 70): 528 items at Dh 136 and 256, 1056 at 264 (two
+# column blocks), more than the SMs; (2, 2, 70): 8 and 16, fewer.  Dh 136
+# and 264 end in a chunk partly past the row, 264 in a column block of 8.
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(33, 8, 70), (2, 2, 70)])
+@pytest.mark.parametrize("dh", [136, 256, 264])
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_wide_forward_items_and_sms_on_card(shape, dh, causal):
+    """O and lse within 2e-5 of the plain versions, one launch a call, a
+    second call bitwise equal, whether the items outnumber the SMs or
+    not."""
+    _need_card()
+    check_wide_forward(shape + (dh,), causal, torch.float32, dh + shape[0],
+                       _f32_close)
+
+
 @pytest.mark.cuda
 def test_f32_wide_backward_launches_from_a_thread_without_a_context_on_card():
     """The wide backward's tensor maps need a current context too: from a

@@ -272,12 +272,12 @@ def test_head_dim_plan_for_every_head_dim(dtype):
 def test_head_dim_plan_above_128_takes_the_wide_kernels(dtype):
     """Dh 129 to 1024 run on the wide kernels: the row is Dh rounded up to
     16 bytes (a padded copy where that is not Dh), the width the row
-    rounded up to the wide kernels' 128-column blocks; no upper limit."""
+    rounded up to the wide forward's 256-column blocks; no upper limit."""
     per16 = 4 if dtype == torch.float32 else 8
     for dh in range(129, 1025):
         plan = port_attn.head_dim_plan(dh, dtype)
         row = per16 * math.ceil(dh / per16)
-        assert plan == (128 * math.ceil(row / 128), row, row != dh), dh
+        assert plan == (256 * math.ceil(row / 256), row, row != dh), dh
         assert plan.wide and plan.row <= plan.width
     for dh in range(1, 129):
         assert not port_attn.head_dim_plan(dh, dtype).wide, dh

@@ -2,36 +2,44 @@
 emulated on the CPU and held to the JAX package's Pallas kernels in
 interpret mode.
 
-The forward (``csrc/flash_attention_wide.cu``, both dtypes) and the bf16
-backward (same file) are emulated in their order of work: each output
-column block (128 columns of O and dq, 64 of dk and dv) on its own, the
-scores (q k^T, and the backward's dO v^T) summed over the full row in
-chunks (32 float32 or 64 bf16 columns, the last zero past the row), tiles of
-64 keys (or query rows for dk/dv) in turn, an online softmax in the forward
-whose m and l every column block computes alike (the block of column block
-0 writes them), and delta = rowsum(dO O) over the full row.  Products are
-the kernels' arithmetic: float32 as k8 steps of three TF32 products (lo hi'
-+ hi lo' + hi hi', summed from zero and added to the running sum in
-float32); bf16 with bf16 operands (p and ds rounded to bf16) and float32
-sums, the outputs rounded to bf16 once.
+The forward (``csrc/flash_attention_fwd_wide.cu``, both dtypes) is emulated
+in its order of work: items of 64 query rows and a column block of 256
+columns of O; key tiles of 32 keys (float32) or 64 (bf16); the scores
+q k^T over the row's chunks (32 float32 or 64 bf16 columns, the last zero
+past the row), float32's in two sums, the small terms (lo hi' + hi lo')
+and the large (hi hi') chained over every k8 step of every chunk
+(:func:`two_set_scores`); x = s scale log2 e + bias log2 e, the online
+softmax in log2 units, m = m2 ln 2 written; then each tile's O += P V, in
+float32 from the score accumulators as the A operand times the transposed
+V tile (:func:`transposed_product`, 32 columns at a time from zero, added
+in float32), in bf16 with P rounded to bf16 and float32 sums, O rounded to
+bf16 once (:func:`emulate_forward_wgmma`, :func:`emulate_forward_bf16`).
+Every column block computes the same scores in the same order, so m and l
+are computed once.
+
+The bf16 backward (``csrc/flash_attention_wide.cu``) is emulated in its
+order of work: each output column block (128 columns of dq, 64 of dk and
+dv) on its own, the scores (q k^T and dO v^T) summed over the full row in
+64-column chunks, tiles of 64 keys (or query rows for dk/dv) in turn, and
+delta = rowsum(dO O) over the full row; bf16 operands (p and ds rounded to
+bf16) and float32 sums, the outputs rounded to bf16 once.
 
 The float32 backward (``csrc/flash_attention_bwd_wide.cu``, warpgroup
 ``wgmma`` on TMA-fed chunks) is emulated in its own order
 (:func:`emulate_backward_wgmma`): items of 64 rows (query rows for dq, keys
 for dk/dv) and one column block of the outputs (256 columns of dq, 128 of
 dk and dv); tiles of 32 keys (or query rows) of the other axis; the score
-products over the row's 32-column chunks with their small terms (lo hi' +
-hi lo') and large terms (hi hi') in two sums chained over every k8 step of
-every chunk, added in float32 once the row is done; p and ds in log2 units
-from the forward's m and l; then each tile's second product (ds k, p^T dO,
-ds^T q) from the score accumulators as the A operand (``a_from_acc_columns``)
-times the transposed tile, rows at ``acc_order`` in the 128-byte swizzled
-K-major layout the kernel's splitters write and ``wgmma`` reads
+products as the forward's; p and ds in log2 units from the forward's m and
+l; then each tile's second product (ds k, p^T dO, ds^T q) from the score
+accumulators as the A operand (``a_from_acc_columns``) times the
+transposed tile, rows at ``acc_order`` in the 128-byte swizzled K-major
+layout the kernels' splitters write and ``wgmma`` reads
 (:func:`transposed_product`), 32 columns at a time, each summed from zero
 (small terms first) and added in float32.  ``TileLayout``, the split (lo
 read to 19 bits), ``a_from_acc_columns`` and ``products`` are those of
 ``tests/test_torch_attention_tf32_wgmma.py``.  With the transposed tiles'
-rows in their own order the emulation misses the bars.
+rows in their own order (V^T in the forward; K^T, Q^T, dO^T in the
+backward) the emulation misses the bars.
 
 Rows whose Dh is not a multiple of 16 bytes run on zero-padded copies (Dh
 129: 132 float32, 136 bf16), as ``ops/attention.py`` hands them to the
@@ -65,9 +73,11 @@ CARD_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_ULP = 2.0 ** -7
 
 ROWS = 64  # a block's rows, and the other axis's tile
-OUT_COLS = 128  # column block of O and dq
-KV_COLS = 64  # column block of dk and dv
+OUT_COLS = 128  # the bf16 backward's column block of dq
+KV_COLS = 64  # the bf16 backward's column block of dk and dv
 CHUNK = {torch.float32: 32, torch.bfloat16: 64}
+# The forward's column block of O (csrc/flash_attention_fwd_wide.cu).
+FWD_COLS = 256
 
 # The float32 backward's items, column blocks, other-axis tiles and chunks
 # (csrc/flash_attention_bwd_wide.cu).
@@ -76,6 +86,7 @@ DKV_COLS = 128
 OTHER = 32
 F32_CHUNK = 32
 LOG2E = np.float32(1.4426950408889634)
+LN2 = np.float32(0.6931471805599453)
 MASKED2 = np.float32(np.float32(-1e9) * LOG2E)  # kMaskedLog2
 
 WIDE_HEAD_DIMS = (129, 136, 192, 256, 264, 512)
@@ -126,50 +137,11 @@ def _band(rows, keys):
     return keys[None, :] > rows[:, None]
 
 
-def emulate_forward(q, k, v, mask, causal, dh, bf16=False, scale_dim=None):
-    """O, lse, m, l of the wide forward on rows of ``ld`` >= Dh (float32
-    tensors; bf16-valued for the bf16 instance)."""
-    b, h, s, ld = q.shape
-    scale = 1.0 / math.sqrt(scale_dim or dh)
-    chunk = CHUNK[torch.bfloat16 if bf16 else torch.float32]
-    bias = port_attn.key_bias(mask, b, s, "cpu")
-    rows = torch.arange(s)
-    o = torch.zeros_like(q)
-    stats = []
-    for c0 in range(0, ld, OUT_COLS):
-        cols = slice(c0, c0 + OUT_COLS)
-        m = torch.full((b, h, s), -math.inf)
-        l = torch.zeros((b, h, s))
-        acc = torch.zeros_like(q[..., cols])
-        for k0 in range(0, s, ROWS):
-            keys = slice(k0, k0 + ROWS)
-            sc = chunk_scores(q, k[..., keys, :], chunk, bf16) * scale \
-                + bias[:, None, None, keys]
-            if causal:
-                sc = sc.masked_fill(_band(rows, torch.arange(s)[keys]),
-                                    port_attn.NEG_INF)
-            m_new = torch.maximum(m, sc.amax(-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(sc - m_new[..., None])
-            l = l * alpha + p.sum(-1)
-            acc = mma_sum(acc * alpha[..., None], p, v[..., keys, cols], bf16)
-            m = m_new
-        o[..., cols] = acc / l[..., None]
-        stats.append((m, l))
-    # Every column block normalises by the same m and l, bitwise.
-    assert all(torch.equal(x, stats[0][0]) and torch.equal(y, stats[0][1])
-               for x, y in stats)
-    m, l = stats[0]
-    if bf16:
-        o = o.bfloat16().float()
-    return o, m + torch.log(l), m, l
-
-
 def emulate_backward(q, k, v, mask, o, do, m, l, causal, dh,
                      scale_dim=None):
     """dq, dk, dv of the bf16 wide dq and dk/dv kernels of
-    ``flash_attention_wide.cu`` (rows as :func:`emulate_forward`'s, their
-    values bf16)."""
+    ``flash_attention_wide.cu`` (rows as :func:`emulate_forward_bf16`'s,
+    their values bf16)."""
     bf16 = True
     b, h, s, ld = q.shape
     scale = 1.0 / math.sqrt(scale_dim or dh)
@@ -269,6 +241,114 @@ def _pad_to(x, rows, cols):
     columns (TMA's fill past S and past ld)."""
     return torch.nn.functional.pad(
         x, (0, cols - x.shape[-1], 0, rows - x.shape[-2]))
+
+
+def _softmax_scale_log2(dh):
+    """1/sqrt(Dh) log2 e in float32, as the launches compute it
+    (``softmax_scale(Dh, kLog2e)``)."""
+    return float(np.float32(np.float32(1.0) / np.sqrt(np.float32(dh)))
+                 * LOG2E)
+
+
+def _key_bias2(mask, s, keys):
+    """(B, keys) key biases in log2 units, -1e9 log2 e past S."""
+    bias2 = torch.full((mask.shape[0], keys), float(MASKED2))
+    bias2[:, :s] = torch.where(mask, 0.0, float(MASKED2))
+    return bias2
+
+
+def _online_step(x, m2, l, acc):
+    """One key tile of the online softmax in log2 units: the new row max,
+    p = 2^(x - m2), the rescaled sum and accumulator."""
+    m_new = torch.maximum(m2, x.amax(-1))
+    alpha = torch.exp2(m2 - m_new)
+    p = torch.exp2(x - m_new[..., None])
+    return m_new, p, l * alpha + p.sum(-1), acc * alpha[..., None]
+
+
+def _tile_x(sc, c1, bias2, keys, rows, s, causal):
+    """x = s scale log2 e + bias log2 e of a key tile, replaced scores
+    -1e9 log2 e, keys past S -inf."""
+    x = sc * c1 + bias2[:, None, None, None, keys]
+    if causal:
+        x = torch.where(keys > rows, float(MASKED2), x)
+    return torch.where(keys < s, x, -math.inf)
+
+
+def _forward_stats(acc, m2, l, b, h, sp, s, ld):
+    """O = acc / l sliced to (S, ld), and lse, m = m2 ln 2, l."""
+    o = (acc / l[..., None]).reshape(b, h, sp, -1)[..., :s, :ld]
+    m = (m2 * LN2).reshape(b, h, sp)[..., :s]
+    l = l.reshape(b, h, sp)[..., :s]
+    return o, m + torch.log(l), m, l
+
+
+def emulate_forward_wgmma(q, k, v, mask, causal, dh, order=acc_order,
+                          scale_dim=None):
+    """O, lse, m, l of the float32 forward of
+    ``csrc/flash_attention_fwd_wide.cu`` on rows of ``ld`` >= Dh (float32
+    tensors): per item (64 query rows) and key tile (32 keys), the scores
+    in two sums over the row's chunks (:func:`two_set_scores`), the online
+    softmax in log2 units, then O = O alpha + P V with each column block's
+    P V from the score accumulators on the transposed V tile, rows at
+    ``order`` (acc_order; another order is the mutation case), 32 columns
+    at a time from zero, added in float32 (:func:`transposed_product`).
+    ``scale_dim``: the dim of the softmax scale (default Dh)."""
+    b, h, s, ld = q.shape
+    c1 = _softmax_scale_log2(scale_dim or dh)
+    sp = -(-s // ROWS) * ROWS  # whole items
+    n_t = -(-s // OTHER)       # key tiles an item visits
+    lc = -(-ld // FWD_COLS) * FWD_COLS  # whole column blocks
+    qp = _pad_to(q, sp, lc)
+    kp, vp = (_pad_to(x, n_t * OTHER, lc) for x in (k, v))
+    bias2 = _key_bias2(mask, s, n_t * OTHER)
+    n_items = sp // ROWS
+    qi = qp.reshape(b, h, n_items, ROWS, lc)
+    rows = torch.arange(sp).reshape(n_items, ROWS, 1)
+    m2 = torch.full((b, h, n_items, ROWS), -math.inf)
+    l = torch.zeros(b, h, n_items, ROWS)
+    acc = torch.zeros(b, h, n_items, ROWS, lc)
+    for j in range(n_t):
+        keys = torch.arange(j * OTHER, (j + 1) * OTHER)
+        kt, vt = kp[:, :, None, keys], vp[:, :, None, keys]
+        x = _tile_x(two_set_scores(qi, kt), c1, bias2, keys, rows, s, causal)
+        m2, p, l, acc = _online_step(x, m2, l, acc)
+        for c0 in range(0, lc, FWD_COLS):
+            cols = slice(c0, c0 + FWD_COLS)
+            acc[..., cols] = transposed_product(acc[..., cols], p,
+                                                vt[..., cols], order)
+    return _forward_stats(acc, m2, l, b, h, sp, s, ld)
+
+
+def emulate_forward_bf16(q, k, v, mask, causal, dh, scale_dim=None):
+    """O, lse, m, l of the bf16 forward of
+    ``csrc/flash_attention_fwd_wide.cu`` on rows of ``ld`` >= Dh (float32
+    tensors of bf16 values): per item (64 query rows) and key tile (64
+    keys), the scores over the row's 64-column chunks (exact bf16 products,
+    float32 sums), the online softmax in log2 units (l sums the float32 p),
+    then O = O alpha + P V with P rounded to bf16, float32 sums; O rounded
+    to bf16 once."""
+    b, h, s, ld = q.shape
+    c1 = _softmax_scale_log2(scale_dim or dh)
+    bk = ROWS  # keys a tile
+    sp = -(-s // ROWS) * ROWS  # whole items, and whole key tiles
+    qp, kp, vp = (_pad_to(x, sp, ld) for x in (q, k, v))
+    bias2 = _key_bias2(mask, s, sp)
+    n_items = sp // ROWS
+    qi = qp.reshape(b, h, n_items, ROWS, ld)
+    rows = torch.arange(sp).reshape(n_items, ROWS, 1)
+    m2 = torch.full((b, h, n_items, ROWS), -math.inf)
+    l = torch.zeros(b, h, n_items, ROWS)
+    acc = torch.zeros(b, h, n_items, ROWS, ld)
+    for j in range(sp // bk):
+        keys = torch.arange(j * bk, (j + 1) * bk)
+        kt, vt = kp[:, :, None, keys], vp[:, :, None, keys]
+        sc = chunk_scores(qi, kt, CHUNK[torch.bfloat16], True)
+        x = _tile_x(sc, c1, bias2, keys, rows, s, causal)
+        m2, p, l, acc = _online_step(x, m2, l, acc)
+        acc = acc + p.bfloat16().float() @ vt
+    o, lse, m, l = _forward_stats(acc, m2, l, b, h, sp, s, ld)
+    return o.bfloat16().float(), lse, m, l
 
 
 def emulate_backward_wgmma(q, k, v, mask, o, do, m, l, causal, dh,
@@ -380,19 +460,23 @@ def _rows(dh, dtype, *tensors):
 
 
 def _emulate(q, k, v, do, mask, causal, dtype, scale_dim=None,
-             order=acc_order):
+             order=acc_order, fwd_order=acc_order):
     """The emulated forward and backward on the kernels' rows, sliced back
-    to Dh: (O, lse, dq, dk, dv); float32's backward in the order of
-    ``flash_attention_bwd_wide.cu`` (``order``: its transposed tiles')."""
+    to Dh: (O, lse, dq, dk, dv); float32's forward and backward in the
+    order of ``flash_attention_fwd_wide.cu`` and
+    ``flash_attention_bwd_wide.cu`` (``fwd_order``: the forward's V^T rows;
+    ``order``: the backward's transposed tiles')."""
     dh = q.shape[-1]
     bf16 = dtype == torch.bfloat16
     rows = _rows(dh, dtype, q, k, v, do)
-    o, lse, m, l = emulate_forward(*rows[:3], mask, causal, dh, bf16,
-                                   scale_dim)
     if bf16:
+        o, lse, m, l = emulate_forward_bf16(*rows[:3], mask, causal, dh,
+                                            scale_dim)
         grads = emulate_backward(*rows[:3], mask, o, rows[3], m, l, causal,
                                  dh, scale_dim)
     else:
+        o, lse, m, l = emulate_forward_wgmma(*rows[:3], mask, causal, dh,
+                                             fwd_order, scale_dim)
         grads = emulate_backward_wgmma(*rows[:3], mask, o, rows[3], m, l,
                                        causal, dh, order, scale_dim)
     return (o[..., :dh], lse) + tuple(g[..., :dh] for g in grads)
@@ -507,6 +591,24 @@ def test_emulated_float32_backward_fails_with_rows_in_their_own_order():
         np.testing.assert_allclose(g.numpy()[:-1], w[:-1], err_msg=name,
                                    **CARD_TOL)
         assert not np.allclose(bad.numpy()[:-1], w[:-1], **CARD_TOL), name
+
+
+def test_emulated_float32_forward_fails_with_v_rows_in_their_own_order():
+    """The float32 forward's V^T tile must hold V's row r at acc_order(r):
+    in the rows' own order P V pairs accumulator column 2t + 1 with key
+    t + 4, and O misses the bar against JAX's Pallas forward by far (lse,
+    from the scores alone, still meets it)."""
+    shape = (2, 2, 50, 256)
+    q, k, v, do, mask = _inputs(shape, 13, torch.float32)
+    want = _jax(q, k, v, do, mask, False, torch.float32, "pallas")
+    right = _emulate(q, k, v, do, mask, False, torch.float32)
+    wrong = _emulate(q, k, v, do, mask, False, torch.float32,
+                     fwd_order=lambda r: r)
+    np.testing.assert_allclose(right[0].numpy()[:-1], want[0][:-1],
+                               err_msg="O", **KERNEL_TOL)
+    np.testing.assert_allclose(wrong[1].numpy()[:-1], want[1][:-1],
+                               err_msg="lse", **KERNEL_TOL)
+    assert not np.allclose(wrong[0].numpy()[:-1], want[0][:-1], **CARD_TOL)
 
 
 def other_units():

@@ -173,8 +173,8 @@ def test_bwd_bench_parses_its_arguments():
 
 def test_bwd_bench_takes_the_wide_kernels():
     """``--wide``: the backward of head dims above 128, float32's in
-    ``flash_attention_bwd_wide.cu``, bf16's beside the wide forward; the
-    same entry points in the parent's ``flash_attention_wide.cu``; timed at
+    ``flash_attention_bwd_wide.cu``, bf16's in ``flash_attention_wide.cu``;
+    the same entry points in an earlier ``flash_attention_wide.cu``; timed at
     the ``--latent_dim 2048`` training and serving shapes, one 512-wide
     head, S = 4096 and S = 500 at Dh 256, each a wide head dim."""
     from flexdm_tpu_torch.ops import attention as attn
@@ -234,7 +234,8 @@ def test_bwd_bench_split_floors_are_a_hand_count():
 
 def test_wide_bwd_phases_instruments_the_current_source():
     """``tools/torch_wide_bwd_phases.py``: every probe finds its place in
-    ``csrc/flash_attention_bwd_wide.cu`` (a probe whose place is gone
+    ``csrc/flash_attention_bwd_wide.cu`` with its chunk pipeline
+    ``csrc/wide_tf32.cuh`` inlined (a probe whose place is gone, in either,
     raises), the shapes parse (Dh above 128 only), and each warpgroup's
     shares of its cycles add up to 1."""
     from flexdm_tpu_torch.ops import _build
@@ -246,9 +247,14 @@ def test_wide_bwd_phases_instruments_the_current_source():
     assert out.count("PHASE_T0(") == 19 and out.count("PHASE_ADD(") == 21
     assert out.count("PHASE_WRITE();") == 4  # 2 kernels x 2 warpgroups
     assert 'extern "C" int wide_phase_cycles' in out
+    header = (_build.CSRC_DIR / "wide_tf32.cuh").read_text()
+    assert tool.instrumented_source(source, header) == out
     with pytest.raises(ValueError):
-        tool.instrumented_source(source.replace("mbar_arrive(&bar.full[r])",
-                                                "mbar_arrive(bar.full + r)"))
+        tool.instrumented_source(source, header.replace(
+            "mbar_arrive(&bar.full[r])", "mbar_arrive(bar.full + r)"))
+    with pytest.raises(ValueError):
+        tool.instrumented_source(source.replace(
+            "blk.release(lt, free_tile, 0)", "blk.release(lt, free_tile, 1)"))
     assert tool.parse_args([]).shape == tool.SHAPES
     assert tool.parse_args(["--shape", "8,8,50,256"]).shape == (
         (8, 8, 50, 256),)
@@ -310,6 +316,43 @@ def test_fwd_bench_parses_its_arguments():
         ((32, 8, 500, 32), False), ((64, 4, 50, 32), False),
         ((64, 4, 50, 32), True), ((2048, 8, 50, 64), False))
     for bad in (["--dtype", "float16"], ["--other", "parent"]):
+        with pytest.raises(SystemExit):
+            bench.parse_args(bad)
+
+
+def test_fwd_bench_takes_the_wide_kernels():
+    """``--wide``: the forward of head dims above 128 in either dtype, both
+    in ``flash_attention_fwd_wide.cu`` under the entry points the parent's
+    ``flash_attention_wide.cu`` had; checked and timed at the backward
+    bench's ``WIDE_SHAPES``, none causal; ``--steps`` takes the wide flag to
+    the ``--latent_dim 2048`` step; ``--eval`` (the narrow float32 forward's
+    swap) is refused beside it; a thread forms 16 scores a float32 key tile
+    (32 keys) and 32 a bf16 one (64 keys)."""
+    from flexdm_tpu_torch.ops import attention as attn
+    from tools import torch_bwd_bf16_bench
+    from tools import torch_fwd_bench as bench
+
+    parent = "parent=build/parent/flexdm_tpu_torch/csrc/flash_attention_wide.cu"
+    for dtype in ("float32", "bfloat16"):
+        args = bench.parse_args(["--dtype", dtype, "--wide", "--other",
+                                 parent, "--steps", "--turns", "4"])
+        assert (args.dtype, args.wide, args.other, args.steps, args.turns,
+                args.eval) == (dtype, True, [parent], True, 4, False)
+        assert bench.cases(dtype, wide=True) == tuple(
+            (shape, False) for shape in torch_bwd_bf16_bench.WIDE_SHAPES)
+        assert bench.cases(dtype) == bench.CASES[dtype]
+        bf16 = dtype == "bfloat16"
+        assert bench.WIDE_ENTRIES[dtype] == attn._symbol("fwd", bf16, True)
+    assert not bench.parse_args([]).wide
+    assert bench.WIDE_SOURCE == "flash_attention_fwd_wide.cu"
+    assert attn.FWD_WIDE_LIBRARY == ("flexdm_attention_fwd_wide",
+                                     (bench.WIDE_SOURCE,))
+    assert attn.FWD_WIDE_LIBRARY in attn.LIBRARIES
+    assert len(attn.LIBRARIES) == 7
+    assert [bench.scores_per_pass(d, None, True)
+            for d in ("float32", "bfloat16")] == [16, 32]
+    for bad in (["--wide", "--eval"], ["--dtype", "bfloat16", "--wide",
+                                       "--eval"]):
         with pytest.raises(SystemExit):
             bench.parse_args(bad)
 

@@ -1,15 +1,18 @@
 """Compare builds of the port's flash-attention forward kernel on one GPU.
 
-    python tools/torch_fwd_bench.py [--dtype float32|bfloat16]
+    python tools/torch_fwd_bench.py [--dtype float32|bfloat16] [--wide]
         [--other NAME=PATH.cu ...] [--steps] [--eval] [--sass-out DIR]
         [--turns N]
 
 Builds the forward source of ``--dtype`` with the port's flags (``this``:
 ``flexdm_tpu_torch/csrc/flash_attention_fwd.cu`` for float32, the default,
-or ``flash_attention_fwd_bf16.cu`` for bfloat16) and every ``--other``
-source with the same C entry point (the parent commit's file, say, unpacked
-with ``git archive`` under ``build/`` so that its own headers sit beside
-it), one nvcc each, all at once, and prints each build's ptxas report
+or ``flash_attention_fwd_bf16.cu`` for bfloat16; with ``--wide``, the
+forward of head dims above 128 in the dtype,
+``flash_attention_fwd_wide.cu``) and every ``--other`` source with the same
+C entry point (the parent commit's file, say, unpacked with ``git archive``
+under ``build/`` so that its own headers sit beside it: with ``--wide``
+its ``flash_attention_wide.cu`` before the wide forward had a file of its
+own), one nvcc each, all at once, and prints each build's ptxas report
 (registers, spills, any C7520 line).  Then:
 
 * from ``cuobjdump -sass`` of each build: which of HGMMA, UTMALDG, HMMA and
@@ -27,7 +30,11 @@ it), one nvcc each, all at once, and prints each build's ptxas report
   (32, 8, 500, 32) and (64, 4, 50, 32), plain and causal, and
   crello_scaled's (2048, 8, 50, 64); bfloat16: (8, 8, 50, 32),
   (256, 8, 50, 32), (64, 8, 500, 32), (256, 8, 500, 32) and
-  (2048, 8, 50, 64)), each with every key attended and with the last fifth
+  (2048, 8, 50, 64); with ``--wide``, either dtype at
+  ``torch_bwd_bf16_bench.WIDE_SHAPES``: the ``--latent_dim 2048`` training
+  and serving shapes, one 512-wide head, S = 4096 and S = 500 at Dh 256,
+  timed on 10 graph replays, not 50), each with every key attended and
+  with the last fifth
   of the keys masked: checks every build against the plain version
   (float32: O and lse within 2e-5 abs + 2e-5 rel; bfloat16: O within one
   bf16 ulp + 2^-8 max|ref|, lse within 2e-5 abs + rel) and a second call
@@ -41,11 +48,13 @@ it), one nvcc each, all at once, and prints each build's ptxas report
   products), the exponential floor and, for float32, the split-TF32 tensor
   floor (:func:`split_floor_ms`);
 * with ``--steps``: the crello_flat training step of the dtype at batch 64
-  (random weights, seed 0; one synthetic batch) with each build swapped in
-  for the forward, in turns (A, B, B, A), as
+  (with ``--wide``: crello Ours-EXP at ``--latent_dim 2048``, Dh 256, batch
+  256) (random weights, seed 0; one synthetic batch) with each build
+  swapped in for the forward, in turns (A, B, B, A), as
   ``tools/torch_bwd_bf16_bench.py --steps`` times it: step time, device
   kernel time a step and the forward kernel's time a step;
-* with ``--eval`` (float32): the crello_flat ``elem`` eval chunk of
+* with ``--eval`` (float32, not with ``--wide``): the crello_flat ``elem``
+  eval chunk of
   ``chip_smoke.py`` phase 11 (256 replicas, 4 forwards at
   (256, 8, 500, 32); random weights) with each build swapped in, A B B A:
   device kernel time a chunk and the forward kernel's share.
@@ -93,13 +102,31 @@ ENTRIES = {"float32": "flexdm_flash_attention_fwd",
            "bfloat16": "flexdm_flash_attention_fwd_bf16"}
 SOURCES = {"float32": "flash_attention_fwd.cu",
            "bfloat16": "flash_attention_fwd_bf16.cu"}
+# The forward of head dims above 128: both dtypes in one source.
+WIDE_ENTRIES = {"float32": "flexdm_flash_attention_fwd_wide",
+                "bfloat16": "flexdm_flash_attention_fwd_wide_bf16"}
+WIDE_SOURCE = "flash_attention_fwd_wide.cu"
 
 
-def scores_per_pass(dtype, dh):
+def cases(dtype, wide=False):
+    """``(shape, causal)`` of the A/B: ``CASES[dtype]``, or with ``wide``
+    the backward bench's ``WIDE_SHAPES``, none causal."""
+    if not wide:
+        return CASES[dtype]
+    from tools.torch_bwd_bf16_bench import WIDE_SHAPES
+
+    return tuple((shape, False) for shape in WIDE_SHAPES)
+
+
+def scores_per_pass(dtype, dh, wide=False):
     """A thread's scores per pass of the key loop: 64 query rows by the keys
     of a tile over a warpgroup's 128 threads (bf16: 64 keys; float32: 64 at
-    Dh = 32, 32 at Dh = 64, 16 at Dh = 128)."""
-    keys = {32: 64, 64: 32, 128: 16}[dh] if dtype == "float32" else 64
+    Dh = 32, 32 at Dh = 64, 16 at Dh = 128; the wide kernels 32 in float32,
+    64 in bf16, at every Dh)."""
+    if wide:
+        keys = 32 if dtype == "float32" else 64
+    else:
+        keys = {32: 64, 64: 32, 128: 16}[dh] if dtype == "float32" else 64
     return 64 * keys // 128
 
 
@@ -199,9 +226,10 @@ def loop_counts(rows, scores_per_pass):
             "loop_opcodes": dict(ops(start, end).most_common())}
 
 
-def sass_report(name, path, dtype, sass_out=None):
+def sass_report(name, path, dtype, sass_out=None, wide=False):
     """Per forward instance of a library (``kernel<template args>``): the
-    opcodes the acceptance criteria name, and its key loop's counts;
+    opcodes the acceptance criteria name, and its key loop's counts (at the
+    dtype's scores per pass; with ``wide`` every instance's, both dtypes');
     logged."""
     report = {}
     for fname, rows in sass_functions(path).items():
@@ -214,8 +242,8 @@ def sass_report(name, path, dtype, sass_out=None):
         entry = {op: opcodes[op] for op in ("HGMMA", "UTMALDG", "HMMA",
                                             "LDSM", "MUFU")}
         entry["instructions"] = len(rows)
-        entry["loop"] = loop_counts(rows, scores_per_pass(dtype,
-                                                          int(args[0])))
+        entry["loop"] = loop_counts(rows, scores_per_pass(
+            dtype, None if wide else int(args[0]), wide))
         report[key] = entry
         if sass_out:
             os.makedirs(sass_out, exist_ok=True)
@@ -259,7 +287,7 @@ def close(dtype, got, want_o, want_lse):
     return ok, max(err, (got[1] - want_lse).abs().max().item())
 
 
-def bench(builds, card, dtype, turns=2):
+def bench(builds, card, dtype, turns=2, wide=False):
     import torch
     import torch.nn.functional as F
 
@@ -268,7 +296,8 @@ def bench(builds, card, dtype, turns=2):
     torch_dtype = getattr(torch, dtype)
     g = torch.Generator().manual_seed(18)
     results = {}
-    for shape, causal in CASES[dtype]:
+    samples = 10 if wide else 50  # graph replays a timing
+    for shape, causal in cases(dtype, wide):
         for masked in (False, True):
             b, h, s, dh = shape
             q, k, v, mask = inputs(shape, g, masked, torch_dtype)
@@ -290,10 +319,12 @@ def bench(builds, card, dtype, turns=2):
             del want_o, want_lse
             for name, fn, _, _ in (builds + builds[::-1]) * max(1, turns // 2):
                 run = (lambda fn=fn: call(fn, q, k, v, mask, causal))
-                row[name]["ms"].append(chip_smoke.device_ms(run))
-                row[name]["python_ms"].append(chip_smoke.time_ms(run))
+                row[name]["ms"].append(chip_smoke.device_ms(run, samples))
+                row[name]["python_ms"].append(chip_smoke.time_ms(run,
+                                                                 samples))
             plain_ms = chip_smoke.device_ms(
-                lambda: attn.attention_reference(q, k, v, bias, causal))
+                lambda: attn.attention_reference(q, k, v, bias, causal),
+                samples)
             sdpa_mask = None
             if masked or causal:
                 sdpa_mask = bias.to(torch_dtype)[:, None, None, :]
@@ -304,7 +335,7 @@ def bench(builds, card, dtype, turns=2):
                     band, attn.NEG_INF).contiguous()
             library = (lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=sdpa_mask))
-            lib = {"ms": chip_smoke.device_ms(library),
+            lib = {"ms": chip_smoke.device_ms(library, samples),
                    "kernels": chip_smoke.sdpa_kernels(library)}
             bd = case_bounds(shape, causal, dtype)
             for name, r in row.items():
@@ -400,6 +431,10 @@ def parse_args(argv=None):
     parser.add_argument("--other", action="append", default=[],
                         metavar="NAME=PATH.cu",
                         help="another build of the same entry point")
+    parser.add_argument("--wide", action="store_true",
+                        help="the forward of head dims above 128, at the "
+                        "backward bench's WIDE_SHAPES (--steps: "
+                        "--latent_dim 2048)")
     parser.add_argument("--steps", action="store_true",
                         help="also time the crello_flat step of the dtype")
     parser.add_argument("--eval", action="store_true",
@@ -414,6 +449,9 @@ def parse_args(argv=None):
     for other in args.other:
         if "=" not in other:
             parser.error(f"--other takes NAME=PATH.cu, got {other!r}")
+    if args.wide and args.eval:
+        parser.error("--eval swaps the narrow float32 forward: not with "
+                     "--wide")
     return args
 
 
@@ -427,24 +465,27 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     card = chip_smoke.card_line()
     source = os.path.join(REPO, "flexdm_tpu_torch", "csrc",
-                          SOURCES[args.dtype])
+                          WIDE_SOURCE if args.wide else SOURCES[args.dtype])
+    entry = (WIDE_ENTRIES if args.wide else ENTRIES)[args.dtype]
     jobs = [("this", source)] + [tuple(o.split("=", 1)) for o in args.other]
     with ThreadPoolExecutor(len(jobs)) as pool:
-        builds = list(pool.map(
-            lambda job: build(*job, ENTRIES[args.dtype]), jobs))
-    out = {"card": card, "dtype": args.dtype, "ptxas": {}, "sass": {}}
+        builds = list(pool.map(lambda job: build(*job, entry), jobs))
+    out = {"card": card, "dtype": args.dtype, "wide": args.wide,
+           "ptxas": {}, "sass": {}}
     for name, _, report, path in builds:
         summary = chip_smoke.ptxas_summary(report)
         chip_smoke.log(f"[build] {name}: " + "; ".join(summary))
         out["ptxas"][name] = summary
-        out["sass"][name] = sass_report(name, path, args.dtype, args.sass_out)
-    out["kernels"] = bench(builds, card, args.dtype, args.turns)
+        out["sass"][name] = sass_report(name, path, args.dtype, args.sass_out,
+                                        args.wide)
+    out["kernels"] = bench(builds, card, args.dtype, args.turns, args.wide)
     if args.steps:
         from tools import torch_bwd_bf16_bench
 
         out["steps"] = torch_bwd_bf16_bench.bench_steps(
             [b[:3] for b in builds], card, attr="_kernel",
-            tag=f"fwd {args.dtype} steps", dtype=args.dtype)
+            tag=f"fwd {args.dtype}{' wide' * args.wide} steps",
+            dtype=args.dtype, wide=args.wide)
     if args.eval and args.dtype == "float32":
         out["eval"] = bench_eval(builds, card)
     chip_smoke.log(json.dumps(out))

@@ -59,38 +59,46 @@ def where(x, y, shape):
             "max_abs": (x.float() - y.float()).abs().max().item()}
 
 
-def inputs(shape, causal, g):
+def inputs(shape, causal, g, dtype=None):
     import torch
 
     from flexdm_tpu_torch.ops import attention as attn
 
     b, h, s, dh = shape
-    q, k, v, do = (torch.randn(shape, generator=g).cuda() for _ in range(4))
+    q, k, v, do = (torch.randn(shape, generator=g).to("cuda", dtype)
+                   for _ in range(4))
     mask = chip_smoke.fifth_masked(b, s)
     o, _, m, l = attn._forward(q, k, v, mask, causal)
     rows = attn._padded(dh, q.dtype, q, k, v, o, do)
     return q, k, v, mask, m, l, rows
 
 
-def repeat_kernels(shape, causal, n, g):
-    """The port's three kernels in autograd's order, ``n`` times (those
-    that run ``shape``'s head dim: ``attention.instance_names``)."""
+def repeat_kernels(shape, causal, n, g, dtype=None,
+                   kernels=("fwd", "dq", "dkv")):
+    """The port's ``kernels`` (of the forward, dq and dk/dv) in autograd's
+    order, ``n`` times (those that run ``shape``'s head dim in ``dtype``,
+    float32 by default: ``attention.instance_names``)."""
     import torch
 
     from flexdm_tpu_torch.ops import attention as attn
 
-    q, k, v, mask, m, l, rows = inputs(shape, causal, g)
+    q, k, v, mask, m, l, rows = inputs(shape, causal, g, dtype)
     dh = shape[3]
 
     def run():
-        fwd = attn._forward(q, k, v, mask, causal)
-        dq, delta = attn._backward_dq(*rows[:3], mask, rows[3], m, l,
-                                      rows[4], causal, dh)
-        dkv = attn._backward_dkv(*rows[:3], mask, m, l, delta, rows[4],
-                                 causal, dh)
-        return {"fwd": (("O", "lse", "m", "l"), fwd),
-                "dq": (("dq", "delta"), (dq, delta)),
-                "dkv": (("dk", "dv"), dkv)}
+        out = {}
+        if "fwd" in kernels:
+            out["fwd"] = (("O", "lse", "m", "l"),
+                          attn._forward(q, k, v, mask, causal))
+        if "dq" in kernels or "dkv" in kernels:
+            dq, delta = attn._backward_dq(*rows[:3], mask, rows[3], m, l,
+                                          rows[4], causal, dh)
+            if "dq" in kernels:
+                out["dq"] = (("dq", "delta"), (dq, delta))
+        if "dkv" in kernels:
+            out["dkv"] = (("dk", "dv"), attn._backward_dkv(
+                *rows[:3], mask, m, l, delta, rows[4], causal, dh))
+        return out
 
     first = run()
     out = {name: {"differ": 0, "cases": []} for name in first}

@@ -2,10 +2,11 @@
 
     python tools/torch_wide_bwd_phases.py [--shape B,H,S,DH ...]
 
-Builds a copy of ``csrc/flash_attention_bwd_wide.cu`` with ``clock64()``
-probes (:func:`instrumented_source`: the port's source text with probe
-lines inserted at fixed places; it raises if the source no longer has one
-of them) and runs its dq and dk/dv kernels at each shape (default: the
+Builds a copy of ``csrc/flash_attention_bwd_wide.cu``, with its chunk
+pipeline ``csrc/wide_tf32.cuh`` inlined, with ``clock64()`` probes
+(:func:`instrumented_source`: the port's source text with probe lines
+inserted at fixed places; it raises if the source no longer has one of
+them) and runs its dq and dk/dv kernels at each shape (default: the
 ``--latent_dim 2048`` training shape, one 512-wide head, S = 4096 and
 S = 500 at Dh 256; the last fifth of the keys masked), after two warm
 calls.  Thread 0 of each warpgroup of every block adds up its cycles a
@@ -72,15 +73,15 @@ _PROBES = (
      "    PHASE_T0(wf0);\n"
      "    mbar_wait(&bar.full[r], s / P::kStages & 1);\n"
      "    PHASE_ADD(wf0, 0);\n", 1),
-    ("    issue_chunk(sc_small, sc_large, dp_small, dp_large, s++, 1);\n",
+    ("    issue_chunk(small, large, s++, 1);\n",
      "    {\n      PHASE_T0(is0);\n"
-     "      issue_chunk(sc_small, sc_large, dp_small, dp_large, s++, 1);\n"
+     "      issue_chunk(small, large, s++, 1);\n"
      "      PHASE_ADD(is0, 1);\n    }\n", 1),
-    ("      issue_chunk(sc_small, sc_large, dp_small, dp_large, s++, 0);\n"
+    ("      issue_chunk(small, large, s++, 0);\n"
      "      wgmma_wait<1>();\n"
      "      release(lt, refill, (s - 2) % P::kStages);\n",
      "      PHASE_T0(is1);\n"
-     "      issue_chunk(sc_small, sc_large, dp_small, dp_large, s++, 0);\n"
+     "      issue_chunk(small, large, s++, 0);\n"
      "      PHASE_ADD(is1, 1);\n"
      "      PHASE_T0(ww1);\n"
      "      wgmma_wait<1>();\n"
@@ -88,14 +89,14 @@ _PROBES = (
      "      PHASE_T0(rl1);\n"
      "      release(lt, refill, (s - 2) % P::kStages);\n"
      "      PHASE_ADD(rl1, 3);\n", 1),
-    ("    wgmma_wait<0>();\n    fence_regs(sc_small);\n",
+    ("    wgmma_wait<0>();\n#pragma unroll\n    for (int p = 0; p < NP; ++p) {\n",
      "    PHASE_T0(ww0);\n    wgmma_wait<0>();\n    PHASE_ADD(ww0, 2);\n"
-     "    fence_regs(sc_small);\n", 1),
+     "#pragma unroll\n    for (int p = 0; p < NP; ++p) {\n", 1),
     ("    release(lt, refill, (s - 1) % P::kStages);\n",
      "    PHASE_T0(rl0);\n    release(lt, refill, (s - 1) % P::kStages);\n"
      "    PHASE_ADD(rl0, 3);\n", 1),
-    ("      blk.scores(sc, dp, s, lt, refill);\n",
-     "      blk.scores(sc, dp, s, lt, refill);\n      PHASE_T0(ds0);\n", 2),
+    ("      blk.scores(sd, s, lt, refill);\n",
+     "      blk.scores(sd, s, lt, refill);\n      PHASE_T0(ds0);\n", 2),
     ("      // dq += ds k: ds from the accumulators, k transposed (K^T hi, lo).\n",
      "      PHASE_ADD(ds0, 4);\n      PHASE_T0(se0);\n", 1),
     ("      // dv += p^T dO and dk += ds^T q (dO and q transposed), one after the\n",
@@ -118,10 +119,10 @@ _PROBES = (
      "          PHASE_T0(wl0);\n"
      "          mbar_wait(&bar.loaded[r], s / P::kStages & 1);\n"
      "          PHASE_ADD(wl0, 16);\n", 1),
-    ("            if (g > 0) mbar_wait(bar.t_free, (g - 1) & 1);\n",
-     "            PHASE_T0(tf0);\n"
-     "            if (g > 0) mbar_wait(bar.t_free, (g - 1) & 1);\n"
-     "            PHASE_ADD(tf0, 17);\n", 1),
+    ("              if (g > 0) mbar_wait(bar.t_free, (g - 1) & 1);\n",
+     "              PHASE_T0(tf0);\n"
+     "              if (g > 0) mbar_wait(bar.t_free, (g - 1) & 1);\n"
+     "              PHASE_ADD(tf0, 17);\n", 1),
     ("          fence_proxy_async();\n          mbar_arrive(&bar.full[r]);\n",
      "          PHASE_T0(ar0);\n          fence_proxy_async();\n"
      "          mbar_arrive(&bar.full[r]);\n          PHASE_ADD(ar0, 18);\n",
@@ -131,11 +132,22 @@ _PROBES = (
 _KERNEL_END = "\n  }\n}\n\n// -----"
 
 
-def instrumented_source(source: str) -> str:
-    """``source`` (flash_attention_bwd_wide.cu) with the phase probes and
-    the reader entry point; raises ``ValueError`` where a probe's place is
-    not found as often as expected."""
-    out = source
+_HEADER = '#include "wide_tf32.cuh"\n'
+
+
+def instrumented_source(source: str, header: str = None) -> str:
+    """``source`` (flash_attention_bwd_wide.cu) with ``header`` (its chunk
+    pipeline, ``csrc/wide_tf32.cuh`` by default) inlined, the phase probes
+    and the reader entry point; raises ``ValueError`` where a probe's place
+    is not found as often as expected."""
+    if header is None:
+        from flexdm_tpu_torch.ops import _build
+
+        header = (_build.CSRC_DIR / "wide_tf32.cuh").read_text()
+    if source.count(_HEADER) != 1:
+        raise ValueError(f"{_HEADER.strip()} found {source.count(_HEADER)} "
+                         "times, not 1")
+    out = source.replace(_HEADER, header.replace("#pragma once\n", ""))
     for old, new, count in _PROBES:
         found = out.count(old)
         if found != count:
